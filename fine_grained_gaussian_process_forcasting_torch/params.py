@@ -1,0 +1,81 @@
+"""Parameters: Flax-compatible initialisation and Flax -> state-dict loading.
+
+The port's module attributes carry the Flax module names (``forecasting_model
+.encoder.layer0.self_attn.wqkv`` and so on), so a Flax parameter tree maps
+onto a state dict by flattening its path.  Dense ``kernel`` (in, out) becomes
+``Linear.weight`` (out, in); every other leaf keeps its name and shape.  The
+input is a nested dict of numpy arrays, so loading needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+# Flax's lecun_normal: truncated normal at +-2 std, rescaled so the
+# truncated distribution keeps variance 1/fan_in
+_TRUNC_STD_CORRECTION = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """In-place Flax ``lecun_normal`` on a (out, in) ``Linear.weight``.
+
+    Draws on the CPU from ``generator`` and copies, so a seed gives the same
+    weights on every device."""
+    fan_in = weight.shape[1]
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD_CORRECTION
+    cpu = torch.empty(weight.shape, dtype=weight.dtype)
+    nn.init.trunc_normal_(cpu, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+    with torch.no_grad():
+        weight.copy_(cpu)
+
+
+def normal_(param: torch.Tensor, std: float,
+            generator: torch.Generator) -> None:
+    """In-place N(0, std^2), drawn on the CPU from ``generator``."""
+    cpu = torch.empty(param.shape, dtype=param.dtype)
+    nn.init.normal_(cpu, 0.0, std, generator=generator)
+    with torch.no_grad():
+        param.copy_(cpu)
+
+
+def dense(in_features: int, out_features: int, *, bias: bool,
+          device: torch.device, generator: torch.Generator) -> nn.Linear:
+    """``nn.Linear`` initialised like Flax ``nn.Dense`` (lecun-normal kernel,
+    zero bias)."""
+    layer = nn.Linear(in_features, out_features, bias=bias, device=device)
+    lecun_normal_(layer.weight, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax parameter tree (nested dict of arrays) -> CPU state dict.
+
+    Accepts the tree ``ForecastDenoising.init(...)["params"]`` returns, or
+    the same tree still wrapped as ``{"params": ...}``.
+    """
+    if set(params) == {"params"}:
+        params = params["params"]
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{name}.")
+                continue
+            arr = np.array(value, dtype=np.float32)  # a writable copy
+            if name == "kernel":
+                if arr.ndim != 2:
+                    raise ValueError(f"{prefix}kernel has shape {arr.shape}; "
+                                     "only Dense kernels are mapped")
+                name, arr = "weight", np.ascontiguousarray(arr.T)
+            state[prefix + name] = torch.from_numpy(arr)
+
+    walk(params, "")
+    return state

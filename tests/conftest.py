@@ -39,6 +39,11 @@ def pytest_configure(config):
         "slow: end-to-end training / multi-minute tests, excluded from the "
         "fast contract tier (`make test-fast` / `-m 'not slow'`)",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one — run on the card with `-m gpu`",
+    )
 
 
 # Tests >=10s on the 1-CPU reference host (measured 2026-08-17,
