@@ -10,7 +10,7 @@ correlation.  Layout: (batch, heads, length, d) in and out.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,13 +36,19 @@ def _delay_aggregate(values: torch.Tensor, delays: torch.Tensor,
 
 
 def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     factor: int = 1, training: bool = True
+                     factor: int = 1, training: bool = True,
+                     delays: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """AutoCorrelation attention over (b, h, l, d) operands.
 
     training=True  -> delays shared across the batch (top-k of the
                       batch-mean correlation)
     training=False -> per-sample delays
+
+    ``delays`` ((top_k,) in training, (b, top_k) in eval) replaces the
+    top-k choice, the weights still coming from this call's correlation:
+    it replays another run's delays, so that two devices that break a
+    near-tie differently still compute the same function.
 
     Returns (context (b, h, L, d), mean correlation over heads/channels
     (b, L)).
@@ -70,10 +76,15 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     top_k = int(factor * math.log(L))
     if training:
-        index = torch.topk(mean_value.mean(dim=0), top_k).indices  # (k,)
+        index = (torch.topk(mean_value.mean(dim=0), top_k).indices  # (k,)
+                 if delays is None else delays)
         weights = mean_value[:, index]
         agg = _delay_aggregate(vt, index, torch.softmax(weights, dim=-1))
     else:
-        weights, delay = torch.topk(mean_value, top_k, dim=-1)  # (b, k)
+        if delays is None:
+            weights, delay = torch.topk(mean_value, top_k, dim=-1)  # (b, k)
+        else:
+            delay = delays
+            weights = torch.gather(mean_value, -1, delay)
         agg = _delay_aggregate(vt, delay, torch.softmax(weights, dim=-1))
     return agg.transpose(2, 3), mean_value

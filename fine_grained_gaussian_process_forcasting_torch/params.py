@@ -1,10 +1,11 @@
-"""Parameters: Flax-compatible initialisation and Flax -> state-dict loading.
+"""Parameters: Flax-compatible initialisation and Flax <-> state-dict maps.
 
 The port's module attributes carry the Flax module names (``forecasting_model
 .encoder.layer0.self_attn.wqkv`` and so on), so a Flax parameter tree maps
 onto a state dict by flattening its path.  Dense ``kernel`` (in, out) becomes
 ``Linear.weight`` (out, in); every other leaf keeps its name and shape.  The
-input is a nested dict of numpy arrays, so loading needs no JAX.
+input is a nested dict of numpy arrays, so loading needs no JAX;
+``to_flax`` is the inverse, for parameters and for their gradients.
 """
 
 from __future__ import annotations
@@ -79,3 +80,22 @@ def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """State dict (or a dict of gradients keyed like it) -> Flax-shaped
+    nested dict of float32 numpy arrays; the inverse of ``from_flax``.
+
+    Every 2-D ``weight`` of the port is an ``nn.Linear``'s, and becomes the
+    Dense ``kernel`` (in, out)."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, name = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if name == "weight" and arr.ndim == 2:
+            name, arr = "kernel", np.ascontiguousarray(arr.T)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = arr
+    return tree

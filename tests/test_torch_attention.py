@@ -66,6 +66,43 @@ def test_head_folded_plain_matches_jax_pallas(lq, lk):
                                atol=TOL)
 
 
+# gradients: the JAX package's kernel-gradient tolerances
+# (tests/test_pallas_kernels.py)
+RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("lq,lk", [(24, 24), (12, 24)], ids=["self",
+                                                              "cross"])
+def test_head_folded_bwd_plain_matches_jax_vjp(lq, lk):
+    q, k, v = _qkv(4, 4, lq, lk, 4, seed=3 * lq + lk)
+    do = np.random.default_rng(lq).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(jhfa.head_folded_attention,
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = thfa.head_folded_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, do)))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL_GRAD,
+                                   atol=ATOL_GRAD, err_msg=name)
+
+
+@pytest.mark.parametrize("lq,lk", [(24, 24), (12, 24)], ids=["self",
+                                                              "cross"])
+def test_head_folded_bwd_plain_matches_autograd(lq, lk):
+    arrays = _qkv(3, 2, lq, lk, 7, seed=lq + 2 * lk)
+    do = torch.from_numpy(np.random.default_rng(1).normal(
+        size=arrays[0].shape).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    thfa.head_folded_attention(*leaves).backward(do)  # CPU: plain
+    got = thfa.head_folded_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in arrays), do)
+    for g, leaf, name in zip(got, leaves, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(),
+                                   rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
 @pytest.mark.parametrize("lq,lk", [(24, 24), (12, 24), (24, 12)])
 def test_auto_correlation_matches_jax(training, lq, lk):
@@ -90,6 +127,38 @@ def test_auto_correlation_matches_jax(training, lq, lk):
     np.testing.assert_allclose(got_corr, want_corr, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got_ctx.numpy(), np.asarray(want_ctx),
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_auto_correlation_replays_given_delays(training):
+    b, h, L, d = 3, 2, 24, 4
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, h, L, L, d, seed=11))
+    ctx, corr = tac.auto_correlation(q, k, v, training=training)
+    top_k = int(math.log(L))
+    own = (torch.topk(corr.mean(0), top_k).indices if training
+           else torch.topk(corr, top_k, dim=-1).indices)
+    # its own choice, in another order: the same function
+    replayed, _ = tac.auto_correlation(q, k, v, training=training,
+                                       delays=own.flip(-1))
+    np.testing.assert_allclose(replayed.numpy(), ctx.numpy(), rtol=TOL,
+                               atol=TOL)
+    # other delays: the weighted sum of those rolls, by hand
+    rng = np.random.default_rng(12)
+    shape = (top_k,) if training else (b, top_k)
+    forced = np.stack([rng.choice(L, top_k, replace=False)
+                       for _ in range(int(np.prod(shape[:-1])))]
+                      ).reshape(shape)
+    got, _ = tac.auto_correlation(q, k, v, training=training,
+                                  delays=torch.from_numpy(forced))
+    per_sample = np.broadcast_to(forced, (b, top_k))
+    c, vn = corr.numpy(), v.numpy()
+    want = np.zeros_like(vn)
+    for i in range(b):
+        w = np.exp(c[i, per_sample[i]] - c[i, per_sample[i]].max())
+        w /= w.sum()
+        for wj, delay in zip(w, per_sample[i]):
+            want[i] += wj * np.roll(vn[i], -delay, axis=1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")

@@ -85,6 +85,49 @@ def test_fused_gp_plain_matches_jax_pallas(b, n):
                                    atol=TOL_GP)
 
 
+# gradients: the JAX package's fused-GP gradient tolerances
+# (tests/test_fused_gp.py)
+RTOL_GRAD, ATOL_GRAD = 3e-4, 3e-5
+GRAD_NAMES = ("x", "zs", "u", "w", "outputscale", "inv_ls", "mean_w",
+              "mean_b")
+
+
+def _cotangents(b, n, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(b, n)).astype(np.float32)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("b,n", [(4, 36), (3, 13)])
+def test_fused_gp_bwd_plain_matches_jax_vjp(b, n):
+    """Row counts 144 and 39: neither is a multiple of any tile."""
+    args = _fused_inputs(b, n, d=16, m=32, seed=n + 1)
+    dmean, dvar = _cotangents(b, n, seed=n)
+    _, vjp = jax.vjp(jfused.whitened_marginals_affine,
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dmean), jnp.asarray(dvar)))
+    got = tfused.whitened_marginals_affine_bwd_plain(
+        *(_t(a) for a in args), _t(dmean), _t(dvar))
+    for g, w_, name in zip(got, want, GRAD_NAMES):
+        assert tuple(g.shape) == np.shape(w_), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_),
+                                   rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                   err_msg=name)
+
+
+def test_fused_gp_bwd_plain_matches_autograd():
+    args = [_t(a) for a in _fused_inputs(3, 13, d=16, m=32, seed=2)]
+    dmean, dvar = (_t(c) for c in _cotangents(3, 13, seed=3))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    mean, var = tfused.whitened_marginals_affine(*leaves)  # CPU: plain
+    torch.autograd.backward((mean, var), (dmean, dvar))
+    got = tfused.whitened_marginals_affine_bwd_plain(*args, dmean, dvar)
+    for g, leaf, name in zip(got, leaves, GRAD_NAMES):
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(),
+                                   rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                   err_msg=name)
+
+
 def _gp_pair(use_fused, d=16, m=32, seed=0):
     x = np.random.default_rng(seed).normal(size=(4, 36, d)).astype(np.float32)
     jmod = jgp.DeepGP(input_dims=d, num_inducing=m, use_fused=use_fused,

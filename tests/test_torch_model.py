@@ -189,6 +189,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((root / "fine_grained_gaussian_process_forcasting_torch")
                    .rglob("*.py")) + [root / "chip_smoke.py"]
     assert len(files) > 10
+    port = root / "fine_grained_gaussian_process_forcasting_torch"
+    for module in ("train/trainer.py", "train/schedule.py",
+                   "train/checkpoint.py", "data/window.py", "params.py",
+                   "ops/cuda/fused_gp.py", "ops/cuda/head_folded_attention.py"):
+        assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
