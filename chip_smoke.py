@@ -6,27 +6,43 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Device: the card's name, count and power limit; builds the CUDA kernels
    from ``fine_grained_gaussian_process_forcasting_torch/csrc``.
 2. Kernels: each kernel, forward and backward, against its plain-PyTorch
-   version at the flagship AutoDG shapes (max-abs error against a stated
+   version at the shapes its path gives it (max-abs error against a stated
    tolerance), timed with CUDA events beside its plain version, its bound
    and, where one exists, the one PyTorch call that computes the same
-   function.
-3. Serving: the flagship AutoDG model (autoformer + GP + denoise, d_model 32,
-   8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
+   function: the fp32 fused GP and head-folded attention at the flagship
+   shapes (the fused GP also at the production width, d 512), the bf16 fused
+   GP and the flash attention (bf16, which the production-width paths take;
+   fp32 and the sm_bf16 variant of both, which no path of this script
+   takes) at the production-width shapes.  The library's backward is timed
+   on the device alone, from its kernels under ``torch.profiler``.
+3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
+   32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
    windows through ``InferenceSession.predict`` (two batches of 256 and a
    ragged 88).  Checks shapes, finiteness, the kernels' launch counts, and the
    first 16 windows against the port's own CPU run.
-4. Training: both configurations train from the weights of seed 0 through
-   ``Trainer.train_epoch`` (Noam-Adam, warmup 4000) on batches of 256
-   windows drawn from the seed: 3 warm-up steps, then 3 epochs of 20 steps,
-   each timed, whose launches are counted, then one profiled step.  Checks
-   finite losses, the launches per step (fused GP forward and backward once;
-   head-folded attention forward and backward six times in ``basic``), and
-   one step's loss and gradients on 16 windows against the port's CPU run.
+4. Training, flagship: both configurations train from the weights of seed 0
+   through ``Trainer.train_epoch`` (Noam-Adam, warmup 4000) on batches of
+   256 windows drawn from the seed: 3 warm-up steps, then 3 epochs of 20
+   steps, each timed, whose launches are counted, then one profiled step.
+   Checks finite losses, the launches per step (fused GP forward and backward
+   once; head-folded attention forward and backward six times in ``basic``),
+   and one step's loss and gradients on 16 windows against the port's CPU
+   run.
+5. Serving and training, production width: the ``basic`` + GP + denoise
+   model at d_model 512, 8 heads (d_k 64), 2 layers, 512 inducing points,
+   batch 64, enc 512, dec/pred 128, 8 features, ``compute_dtype`` and
+   ``gp_compute_dtype`` bfloat16, through the same two entry points: 216
+   windows served (three batches and a ragged 24), 3 warm-up steps and 3
+   epochs of 20 steps trained.  Per batch 8 flash-attention launches and one
+   bf16 fused GP; per step as many again backward; no head-folded launch.
+   The first 4 windows, and one step on 4 windows, against the port's CPU
+   run at a bf16 tolerance.
 
-The CPU runs of parts 3 and 4 take the AutoCorrelation delays that the card
-chose, so that a near-tie broken the other way on one device cannot make
-the two compute different functions; how many differed is printed.
+The CPU runs take the AutoCorrelation delays that the card chose and, in
+training, the card's side of every ReLU, so that a near-tie broken the other
+way on one device cannot make the two compute different functions; how many
+differed is printed.
 
 Prints the ``kernels`` JSON line (each kernel's launches summed over the
 serving and training runs, and by run), then the card's name and power
@@ -36,6 +52,7 @@ failure, without a result line.  Needs one card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -56,10 +73,18 @@ SEED = 0
 WARMUP_STEPS, LR_MUL = 4000, 2.0
 N_WARMUP, N_TRAIN_STEPS, N_EPOCHS = 3, 20, 3
 
-# published H100 SXM peaks (dense): fp32 outside the tensor cores, HBM3;
-# exponentials on the special-function units: 16 per SM per clock x 132 SMs
-# x 1.98 GHz boost clock
+# production-width configuration (bench.py bench_prod_step with
+# attn_type="basic"): d_model 512, 8 heads (d_k 64), 2 layers, bf16
+P_B, P_ENC_LEN, P_DEC_LEN, P_PRED, P_F = 64, 512, 128, 128, 8
+P_D_MODEL, P_LAYERS = 512, 2
+P_N_WINDOWS = 216  # three full batches + a ragged tail of 24
+P_N_CHECK = 4  # windows compared with the CPU run (slow at this width)
+
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16 on
+# them, HBM3; exponentials on the special-function units: 16 per SM per
+# clock x 132 SMs x 1.98 GHz boost clock
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
 
@@ -77,6 +102,30 @@ TOL_ATTENTION_BWD = 1e-5
 # one training step on the card against the CPU: the loss, and each
 # parameter's gradient relative to its largest magnitude
 TOL_TRAIN = 1e-3
+# bf16 kernels against their plain versions, which round the same operands
+# to bf16 at the same places: they differ by the order of the fp32 sums and
+# (flash) by rounding the unnormalised instead of the normalised
+# probabilities, so a value may land one bf16 step apart: 2^-7 of
+# max(1, the output's largest magnitude); the fused GP's mean stays fp32
+TOL_BF16 = 2.0 ** -7
+# the sm_bf16 softmax's probabilities are bf16 values that went through
+# three roundings; the card's expf and division put a few of them on the
+# neighbouring bf16 value: 2^-6
+TOL_SM16 = 2.0 ** -6
+# the fp32 flash kernels against their plain versions: (rtol, atol), the JAX
+# package's own tolerances for that kernel, forward and gradients
+TOL_FLASH_F32 = (1e-4, 1e-5)
+TOL_FLASH_F32_BWD = (2e-3, 1e-4)
+# the bf16 model on the card against the port's CPU run.  Both round at the
+# same places, but the card sums in another order and its flash kernel
+# rounds other values of P, and four transformer passes with their
+# LayerNorms carry a one-step difference on: the worst prediction within
+# 2^-5 of the largest magnitude (the mean difference is printed beside it),
+# the loss 2^-6 relative, each gradient within 2^-3 of its largest magnitude
+# (sums over all rows that nearly cancel carry the rounding of every term)
+TOL_SERVING_BF16 = 2.0 ** -5
+TOL_LOSS_BF16 = 2.0 ** -6
+TOL_TRAIN_BF16 = 2.0 ** -3
 
 # the flagship's three attention calls per forecaster pass: (Lq, Lk)
 ATTENTION_CALLS = {"enc_self": (ENC_LEN, ENC_LEN),
@@ -103,10 +152,46 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, exps: float, nbytes: float):
-    """(ms, what bounds it): the larger of the operations at peak and the
-    bytes (each input read once, each output written once) at peak."""
-    ops_ms = max(flops / PEAK_FP32, exps / PEAK_EXP) * 1e3
+def sdpa_bwd_ms(q, k, v, do, iters: int) -> float:
+    """Device time of ``scaled_dot_product_attention``'s backward alone: the
+    graph is built once and kept, ``torch.autograd.grad`` runs ``iters``
+    times under ``torch.profiler``, and the device time of the kernels it
+    launched is summed, so that autograd's host time is left out."""
+    from torch.autograd import DeviceType
+    from torch.nn.functional import scaled_dot_product_attention
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = scaled_dot_product_attention(*leaves)
+
+    def run():
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    if not busy_us > 0:
+        raise AssertionError("the profiler saw no device time in "
+                             "scaled_dot_product_attention's backward")
+    return busy_us / 1e3 / iters
+
+
+def bound(flops: float, exps: float, nbytes: float, bf16_flops: float = 0.0):
+    """(ms, what bounds it): the larger of the operations at the peak of
+    their type (fp32 on the CUDA cores, bf16 on the tensor cores,
+    exponentials on the special-function units: three units that can work at
+    once) and the bytes (each input read once, each output written once) at
+    peak."""
+    ops_ms = max(flops / PEAK_FP32, bf16_flops / PEAK_BF16,
+                 exps / PEAK_EXP) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                                "bytes")
@@ -132,10 +217,18 @@ def phase_device():
     return name, count, smi
 
 
-def _gp_inputs(gen):
-    """Inputs of the fused GP at the flagship shapes."""
+GP_SHAPES = {"flagship": (B, ENC_LEN + DEC_LEN, D_MODEL, INDUCING),
+             "production": (P_B, P_ENC_LEN + P_DEC_LEN, P_D_MODEL, INDUCING)}
+_FUSED_GP_SOURCE = ("fine_grained_gaussian_process_forcasting_torch/csrc/"
+                    "fused_gp.cu")
+_FUSED_GP_PALLAS = ("fine_grained_gaussian_process_forcasting_tpu/ops/pallas/"
+                    "fused_gp.py")
+
+
+def _gp_inputs(gen, shape):
+    """Inputs of the fused GP at (b, n, d, m)."""
     dev = "cuda"
-    b, n, d, m = B, ENC_LEN + DEC_LEN, D_MODEL, INDUCING
+    b, n, d, m = shape
     # inputs built by the GP layer's own host math, at lengthscale sqrt(2 d)
     # so that K is far from 0 (at the default init it underflows)
     x = torch.randn(b, n, d, device=dev, generator=gen)
@@ -156,34 +249,48 @@ def _gp_inputs(gen):
             torch.tensor(0.1, device=dev))
 
 
-def check_fused_gp(gen):
+def check_fused_gp(gen, shape, bf16=False):
+    """The forward kernel against its plain version at (b, n, d, m), and
+    its time beside the plain version's and its bound."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     dev = "cuda"
-    b, n, d, m = B, ENC_LEN + DEC_LEN, D_MODEL, INDUCING
-    args = _gp_inputs(gen)
+    b, n, d, m = shape
+    tag = f"fused_gp{'_bf16' if bf16 else ''} (rows {b * n}, d {d}, M {m})"
+    args = _gp_inputs(gen, shape)
     w = args[3]
     with torch.inference_mode():
-        got = fused_gp.whitened_marginals_affine(*args)
+        wrapper = (fused_gp.whitened_marginals_affine_bf16 if bf16
+                   else fused_gp.whitened_marginals_affine)
+        got = wrapper(*args)
         torch.cuda.synchronize()
-        want = fused_gp.whitened_marginals_affine_plain(*args)
+        want = fused_gp.whitened_marginals_affine_plain(*args, bf16=bf16)
         exact = fused_gp.whitened_marginals_affine_plain(
             *(a.double() for a in args))
-    err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+    errs = [(g - w_).abs().max().item() for g, w_ in zip(got, want)]
+    # the mean is fp32 in both variants; the bf16 variance within one bf16
+    # step of max(1, its largest magnitude)
+    tols = [TOL_FUSED_GP, TOL_BF16 * max(1.0, want[1].abs().max().item())
+            if bf16 else TOL_FUSED_GP]
     err64 = [max((t.double() - e).abs().max().item()
                  for t, e in zip(ts, exact)) for ts in (got, want)]
-    log(f"fused_gp: max|kernel - plain| {err:.3e} (tol {TOL_FUSED_GP}); "
-        f"vs float64: kernel {err64[0]:.3e}, plain {err64[1]:.3e}; "
+    log(f"{tag}: max|kernel - plain| mean {errs[0]:.3e} (tol {tols[0]:.3e}),"
+        f" var {errs[1]:.3e} (tol {tols[1]:.3e}); vs float64 fp32 function: "
+        f"kernel {err64[0]:.3e}, plain {err64[1]:.3e}; "
         f"max|W| {w.abs().max().item():.3e}")
-    if not err <= TOL_FUSED_GP:
-        raise AssertionError(f"fused_gp disagrees with its plain version: "
-                             f"{err} > {TOL_FUSED_GP}")
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(f"{tag} disagrees with its plain version: "
+                             f"{errs} > {tols}")
 
     mean = torch.empty(b, n, device=dev)
     var = torch.empty(b, n, device=dev)
-    launch = fused_gp.launcher()
+    launch = fused_gp.launcher(bf16)
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [a.data_ptr() for a in args] + [mean.data_ptr(), var.data_ptr()]
+    kernel_args = list(args)
+    if bf16:
+        kernel_args[3] = fused_gp.bf16_wt(w)
+    ptrs = [a.data_ptr() for a in kernel_args] + [mean.data_ptr(),
+                                                  var.data_ptr()]
 
     def run_kernel():
         if launch(*ptrs, b * n, d, m, stream):
@@ -192,20 +299,29 @@ def check_fused_gp(gen):
     with torch.inference_mode():
         ms = time_ms(run_kernel, 20)
         plain_ms = time_ms(
-            lambda: fused_gp.whitened_marginals_affine_plain(*args), 10)
+            lambda: fused_gp.whitened_marginals_affine_plain(*args,
+                                                             bf16=bf16), 10)
+        cast_ms = time_ms(lambda: fused_gp.bf16_wt(w), 10) if bf16 else 0.0
     r = b * n
-    flops = r * (2.0 * m * m + 3.0 * m * d + 4.0 * m + 2.0 * d)
+    kw_flops = r * 2.0 * m * m  # the K W product
+    # the rest: the distance as |x|^2 + |z|^2 - 2 x.z (one product, 2 M d a
+    # row, and 3 M for the norms and the add), K u and K.(K W) (4 M), the
+    # mean (2 d).  The kernel's own subtract-and-FMA difference costs 3 M d,
+    # which is its choice and not the function's work
+    rest = r * (2.0 * m * d + 7.0 * m + 2.0 * d)
     nbytes = 4.0 * (r * d + m * d + m + m * m + 2 * d + 2 + 2 * r)
-    bound_ms, bound_by = bound(flops, r * m, nbytes)
-    log(f"fused_gp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) at rows {r}, d {d}, M {m}")
-    return {"name": "fused_gp.whitened_marginals_affine (fwd, fp32)",
-            "route": "cuda",
-            "source": "fine_grained_gaussian_process_forcasting_torch/csrc/"
-                      "fused_gp.cu",
-            "replaces": "fine_grained_gaussian_process_forcasting_tpu/ops/"
-                        "pallas/fused_gp.py:222",
-            "max_abs_err": err, "tolerance": TOL_FUSED_GP, "ms": ms,
+    bound_ms, bound_by = (bound(rest, r * m, nbytes, kw_flops) if bf16
+                          else bound(kw_flops + rest, r * m, nbytes))
+    log(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); K W {kw_flops / 1e9:.1f} GFLOP, "
+        f"the fp32 rest {rest / 1e9:.1f} GFLOP"
+        + (f"; W cast and transpose {cast_ms:.4f} ms" if bf16 else ""))
+    return {"name": "fused_gp.whitened_marginals_affine"
+                    + ("_bf16 (fwd)" if bf16 else " (fwd, fp32)"),
+            "route": "cuda", "source": _FUSED_GP_SOURCE,
+            "replaces": _FUSED_GP_PALLAS + ":222",
+            "shape": {"rows": r, "d": d, "M": m},
+            "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -281,18 +397,21 @@ def check_head_folded(gen):
             "calls": rows}
 
 
-def check_fused_gp_bwd(gen):
+def check_fused_gp_bwd(gen, shape, bf16=False):
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     dev = "cuda"
-    b, n, d, m = B, ENC_LEN + DEC_LEN, D_MODEL, INDUCING
-    args = _gp_inputs(gen)
+    b, n, d, m = shape
+    tag = f"fused_gp{'_bf16' if bf16 else ''} bwd (rows {b * n}, d {d}, M {m})"
+    rel_tol = TOL_BF16 if bf16 else TOL_FUSED_GP_BWD
+    args = _gp_inputs(gen, shape)
     cot = (torch.randn(b, n, device=dev, generator=gen),
            torch.randn(b, n, device=dev, generator=gen))
     with torch.inference_mode():
-        got = fused_gp.backward_kernel(*args, *cot)
+        got = fused_gp.backward_kernel(*args, *cot, bf16=bf16)
         torch.cuda.synchronize()
-        want = fused_gp.whitened_marginals_affine_bwd_plain(*args, *cot)
+        want = fused_gp.whitened_marginals_affine_bwd_plain(*args, *cot,
+                                                            bf16=bf16)
         exact = fused_gp.whitened_marginals_affine_bwd_plain(
             *(a.double() for a in args + cot))
     names = ("dx", "dzs", "du", "dW", "dos", "dinv_ls", "dmean_w",
@@ -301,27 +420,30 @@ def check_fused_gp_bwd(gen):
     for name, g, w_, e in zip(names, got, want, exact):
         scale = w_.abs().max().item()
         err = (g - w_).abs().max().item()
-        tol = TOL_FUSED_GP_BWD * max(scale, 1.0)
-        log(f"fused_gp bwd {name}: max|kernel - plain| {err:.3e} (tol "
-            f"{tol:.3e} = {TOL_FUSED_GP_BWD} x max(1, max|plain| "
-            f"{scale:.3e})); vs float64: kernel "
+        tol = rel_tol * max(scale, 1.0)
+        log(f"{tag} {name}: max|kernel - plain| {err:.3e} (tol "
+            f"{tol:.3e} = {rel_tol:.3e} x max(1, max|plain| "
+            f"{scale:.3e})); vs float64 fp32 function: kernel "
             f"{(g.double() - e).abs().max().item():.3e}, plain "
             f"{(w_.double() - e).abs().max().item():.3e}")
         if not err <= tol:
-            raise AssertionError(f"fused_gp bwd {name} disagrees with its "
+            raise AssertionError(f"{tag} {name} disagrees with its "
                                  f"plain version: {err} > {tol}")
         worst = max(worst, err / max(scale, 1.0))
         worst_abs = max(worst_abs, err)
-    again = fused_gp.backward_kernel(*args, *cot)
+    again = fused_gp.backward_kernel(*args, *cot, bf16=bf16)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
-        raise AssertionError("fused_gp bwd differs between two runs")
+        raise AssertionError(f"{tag} differs between two runs")
 
-    launch = fused_gp.bwd_launcher()
+    launch = fused_gp.bwd_launcher(bf16)
     stream = torch.cuda.current_stream().cuda_stream
     outs = [torch.empty_like(t) for t in got]
-    scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m),
+    scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m, bf16),
                           device=dev)
-    ptrs = ([a.data_ptr() for a in args[:7]] + [c.data_ptr() for c in cot]
+    kernel_args = list(args[:7])
+    if bf16:
+        kernel_args[3] = fused_gp.bf16_wt(args[3])
+    ptrs = ([a.data_ptr() for a in kernel_args] + [c.data_ptr() for c in cot]
             + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
 
     def run_kernel():
@@ -331,37 +453,208 @@ def check_fused_gp_bwd(gen):
     with torch.inference_mode():
         ms = time_ms(run_kernel, 10)
         plain_ms = time_ms(
-            lambda: fused_gp.whitened_marginals_affine_bwd_plain(*args, *cot),
-            5)
+            lambda: fused_gp.whitened_marginals_affine_bwd_plain(
+                *args, *cot, bf16=bf16), 5)
     r = b * n
-    # the VJP's own work: K again (3d + 2 per element), K W (2 M^2 per
-    # row), dW = -K^T diag(dvar) K (symmetric: M (M + 1) per row), E zs and
-    # E^T xs (2 M d each), E and the row and column sums (~8 per element)
-    flops = r * (2.0 * m * m + m * (m + 1.0) + 4.0 * m * d
-                 + (3.0 * d + 10.0) * m)
+    # the VJP's own work: K W (2 M^2 per row) and dW = -K^T diag(dvar) K
+    # (fp32: symmetric, M (M + 1) per row; bf16: the rounded product is not,
+    # 2 M^2); then K again (its distance as one product, 2d per element,
+    # and 2 more), E zs and E^T xs (2 M d each), E and the row and column
+    # sums (~8 per element), all fp32
+    products = r * (2.0 * m * m + (2.0 * m * m if bf16 else m * (m + 1.0)))
+    rest = r * (4.0 * m * d + (2.0 * d + 10.0) * m)
     nbytes = 4.0 * (2 * r * d + 2 * r + 2 * m * d + 2 * m + 2 * m * m
                     + 3 * d + 4)
-    bound_ms, bound_by = bound(flops, r * m, nbytes)
-    log(f"fused_gp bwd: kernel {ms:.4f} ms (4 launches), plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{flops / 1e9:.1f} GFLOP) at rows {r}, d {d}, M {m}; library: none")
-    return {"name": "fused_gp.whitened_marginals_affine (bwd, fp32)",
-            "route": "cuda",
-            "source": "fine_grained_gaussian_process_forcasting_torch/csrc/"
-                      "fused_gp.cu",
-            "replaces": "fine_grained_gaussian_process_forcasting_tpu/ops/"
-                        "pallas/fused_gp.py:290",
+    bound_ms, bound_by = (bound(rest, r * m, nbytes, products) if bf16
+                          else bound(products + rest, r * m, nbytes))
+    log(f"{tag}: kernel {ms:.4f} ms (4 launches), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; K W and dW "
+        f"{products / 1e9:.1f} GFLOP, the fp32 rest {rest / 1e9:.1f} GFLOP); "
+        f"library: none")
+    return {"name": "fused_gp.whitened_marginals_affine"
+                    + ("_bf16 (bwd)" if bf16 else " (bwd, fp32)"),
+            "route": "cuda", "source": _FUSED_GP_SOURCE,
+            "replaces": _FUSED_GP_PALLAS + ":290",
+            "shape": {"rows": r, "d": d, "M": m},
             "max_abs_err": worst_abs, "max_rel_err": worst,
-            "tolerance": TOL_FUSED_GP_BWD,
+            "tolerance": rel_tol,
             "tolerance_is": "relative to max(1, max|plain|) per output",
             "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
-def check_head_folded_bwd(gen):
+FLASH_CALLS = {"enc_self": P_ENC_LEN, "dec_self": P_DEC_LEN}
+_FLASH_SOURCE = ("fine_grained_gaussian_process_forcasting_torch/csrc/"
+                 "flash_attention.cu")
+_FLASH_PALLAS = ("fine_grained_gaussian_process_forcasting_tpu/ops/pallas/"
+                 "flash_attention.py")
+
+
+def _flash_bound(row, bf16):
+    """The bound of a flash call: its products at the bf16 peak for bf16
+    operands, at the fp32 peak for fp32 ones."""
+    if bf16:
+        return bound(0.0, row["exps"], row["bytes"], row["flops"])
+    return bound(row["flops"], row["exps"], row["bytes"])
+
+
+def _sum_calls(rows, bf16):
+    """One forecaster pass's calls summed into one kernel entry."""
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "flops", "exps",
+                       "bytes")}
+    return (total, *_flash_bound(total, bf16))
+
+
+def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
+    """The flash-attention kernels of one operand dtype, forward and
+    backward, at the production-width self-attention shapes (b 64, h 8,
+    d 64; L 512 and 128) against their plain versions; two kernel entries.
+    The production-width paths take the bf16 kernels; an fp32 model at d_k 64
+    takes the fp32 ones, which no path of this script runs.  ``sm_bf16``: the
+    variant whose softmax runs on bf16 values, which nothing routes to."""
     from torch.nn.functional import scaled_dot_product_attention
 
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        flash_attention as fa,
+    )
+
+    dev = "cuda"
+    h, d = HEADS, P_D_MODEL // HEADS
+    bf16 = dtype == torch.bfloat16
+    dname = "bf16" if bf16 else "fp32"
+    stream = torch.cuda.current_stream().cuda_stream
+    tag = "flash_attention" + ("_bf16sm" if sm_bf16 else "") + f" {dname}"
+    # bf16 operands, and the sm_bf16 softmax with either: relative to
+    # max(1, max|plain|); fp32 with the fp32 softmax: |kernel - plain| over
+    # (atol + rtol |plain|), which must stay within 1
+    tol = TOL_SM16 if sm_bf16 else TOL_BF16
+    mixed = not bf16 and not sm_bf16
+    iters = 20 if bf16 else 5
+
+    def errs(g, w_, rtol_atol):  # (absolute, the measure held to the limit)
+        diff = (g.float() - w_.float()).abs()
+        if mixed:
+            rtol, atol = rtol_atol
+            return diff.max().item(), (
+                diff / (atol + rtol * w_.float().abs())).max().item()
+        return diff.max().item(), diff.max().item() / max(
+            1.0, w_.float().abs().max().item())
+
+    fwd_rows, bwd_rows = [], []
+    for call, length in FLASH_CALLS.items():
+        q, k, v, do = (torch.randn(P_B, h, length, d, device=dev,
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        pairs = float(P_B * h * length * length)
+        nbytes = float(q.element_size()) * P_B * h * length * d
+        with torch.inference_mode():
+            wrapper = (fa.fused_attention_bf16sm if sm_bf16
+                       else fa.fused_attention)
+            got = wrapper(q, k, v)
+            out, lse = fa.forward_kernel(q, k, v, True, sm_bf16)
+            grads = fa.backward_kernel(q, k, v, out, lse, do, sm_bf16)
+            torch.cuda.synchronize()
+            again = fa.backward_kernel(q, k, v, out, lse, do, sm_bf16)
+            want = fa.fused_attention_plain(q, k, v, sm_bf16)
+            want_grads = fa.fused_attention_bwd_plain(q, k, v, do, sm_bf16)
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                raise AssertionError(f"{tag} bwd {call} differs between "
+                                     f"two runs")
+            if not torch.equal(got, out):
+                raise AssertionError(f"{tag} {call}: the forward with and "
+                                     f"without its row statistics differ")
+            abs_err, err = errs(got, want, TOL_FLASH_F32)
+            bwd_abs_err, bwd_err = (max(e) for e in zip(
+                *(errs(g, w_, TOL_FLASH_F32_BWD)
+                  for g, w_ in zip(grads, want_grads))))
+            bufs = [torch.empty_like(t) for t in (q, k, v)] + [
+                torch.empty(P_B, h, length, device=dev)]
+            fwd_ptrs = [t.data_ptr() for t in (q, k, v, out)] + [None]
+            bwd_ptrs = [t.data_ptr() for t in (q, k, v, out, lse, do)] + [
+                t.data_ptr() for t in bufs]
+            fwd_launch, bwd_launch = fa.launcher(), fa.bwd_launcher()
+
+            def run_fwd():
+                if fwd_launch(*fwd_ptrs, P_B * h, length, length, d,
+                              int(bf16), int(sm_bf16), stream):
+                    raise RuntimeError("flash_attention_fwd launch failed")
+
+            def run_bwd():
+                if bwd_launch(*bwd_ptrs, P_B * h, length, length, d,
+                              int(bf16), int(sm_bf16), stream):
+                    raise RuntimeError("flash_attention_bwd launch failed")
+
+            ms = time_ms(run_fwd, iters)
+            bwd_ms = time_ms(run_bwd, max(iters // 2, 3))
+            plain_ms = time_ms(
+                lambda: fa.fused_attention_plain(q, k, v, sm_bf16), 5)
+            plain_bwd_ms = time_ms(
+                lambda: fa.fused_attention_bwd_plain(q, k, v, do, sm_bf16), 5)
+            sdpa_fwd = time_ms(
+                lambda: scaled_dot_product_attention(q, k, v), iters)
+        sdpa_bwd = sdpa_bwd_ms(q, k, v, do, 10)
+        fwd = {"call": call, "L": length, "max_abs_err": abs_err,
+               "measure": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": sdpa_fwd,
+               "flops": 4.0 * pairs * d, "exps": pairs, "bytes": 4 * nbytes}
+        bwd = {"call": call, "L": length, "max_abs_err": bwd_abs_err,
+               "measure": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+               "library_ms": sdpa_bwd,
+               "flops": 10.0 * pairs * d, "exps": pairs, "bytes": 7 * nbytes}
+        for name, row, rtol_atol in (
+                ("fwd", fwd, TOL_FLASH_F32),
+                ("bwd (2 launches)", bwd, TOL_FLASH_F32_BWD)):
+            row["bound_ms"], row["bound_by"] = _flash_bound(row, bf16)
+            limit = 1.0 if mixed else tol
+            what = (f"max|kernel - plain| / ({rtol_atol[1]} + {rtol_atol[0]} "
+                    f"|plain|)" if mixed
+                    else "max|kernel - plain| / max(1, max|plain|)")
+            log(f"{tag} {name} {call} (b {P_B}, h {h}, L {length},"
+                f" d {d}): {what} {row['measure']:.3e} (limit {limit:.3e}; "
+                f"max|kernel - plain| {row['max_abs_err']:.3e}); kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            if not row["measure"] <= limit:
+                raise AssertionError(
+                    f"{tag} {name} {call} disagrees with its plain "
+                    f"version: {row['measure']} > {limit}")
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+
+    entries = []
+    for rows, what, line, library, rtol_atol in (
+            (fwd_rows, "fwd", 126, "scaled_dot_product_attention",
+             TOL_FLASH_F32),
+            (bwd_rows, "bwd", 151,
+             "scaled_dot_product_attention's backward kernels, device time "
+             "under torch.profiler", TOL_FLASH_F32_BWD)):
+        total, bound_ms, bound_by = _sum_calls(rows, bf16)
+        # the two self-attention calls of one forecaster pass, summed
+        entries.append({
+            "name": "flash_attention.fused_attention"
+                    + ("_bf16sm" if sm_bf16 else "") + f" ({what}, {dname})",
+            "route": "cuda", "source": _FLASH_SOURCE,
+            "replaces": f"{_FLASH_PALLAS}:{line}",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "measure": max(r["measure"] for r in rows),
+            "tolerance": ({"rtol": rtol_atol[0], "atol": rtol_atol[1]}
+                          if mixed else tol),
+            "tolerance_is": ("measure = max|kernel - plain| / (atol + rtol "
+                             "|plain|) <= 1" if mixed else
+                             "measure = max|kernel - plain| / max(1, "
+                             "max|plain|) per output <= tolerance"),
+            "ms": total["ms"], "kernel_ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": total["library_ms"],
+            "library": library, "on_path": bf16 and not sm_bf16,
+            "calls": rows})
+    return entries
+
+
+def check_head_folded_bwd(gen):
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
         head_folded_attention as hfa,
     )
@@ -396,15 +689,7 @@ def check_head_folded_bwd(gen):
             ms = time_ms(run_kernel, 50)
             plain_ms = time_ms(
                 lambda: hfa.head_folded_attention_bwd_plain(q, k, v, do), 20)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-
-        def sdpa_fwd_bwd():
-            scaled_dot_product_attention(*leaves).backward(do)
-
-        with torch.inference_mode():
-            sdpa_fwd = time_ms(
-                lambda: scaled_dot_product_attention(q, k, v), 20)
-        library_ms = time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd
+        library_ms = sdpa_bwd_ms(q, k, v, do, 20)
         pairs = B * HEADS * lq * lk
         # the VJP's work per (query, key) pair: scores and P (2d + 1 exp),
         # dV, dP, dQ, dK (2d each), dS (3)
@@ -414,7 +699,7 @@ def check_head_folded_bwd(gen):
         log(f"head_folded_attention bwd {call} (b {B}, h {HEADS}, Lq {lq}, "
             f"Lk {lk}, d {d}): max|kernel - plain| {err:.3e} (tol "
             f"{TOL_ATTENTION_BWD}); kernel {ms:.4f} ms (2 launches), plain "
-            f"{plain_ms:.4f} ms, sdpa bwd (fwd+bwd minus fwd) "
+            f"{plain_ms:.4f} ms, sdpa bwd (its kernels' device time) "
             f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not err <= TOL_ATTENTION_BWD:
             raise AssertionError(
@@ -439,20 +724,97 @@ def check_head_folded_bwd(gen):
             "ms": total["ms"], "kernel_ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": total["library_ms"],
-            "library": "scaled_dot_product_attention fwd+bwd minus its fwd",
+            "library": "scaled_dot_product_attention's backward kernels, "
+                       "device time under torch.profiler",
             "calls": rows}
 
 
-def _flagship(attn_type: str, device: str):
-    from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
-        ForecastDenoising,
-    )
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """One model configuration and how deep this script drives it."""
 
-    return ForecastDenoising(
-        src_input_size=F, tgt_input_size=F, d_model=D_MODEL, n_heads=HEADS,
-        d_k=D_MODEL // HEADS, stack_size=LAYERS, pred_len=PRED,
-        attn_type=attn_type, gp=True, denoise=True, num_inducing=INDUCING,
-        device=device, generator=torch.Generator().manual_seed(SEED))
+    name: str
+    attn_type: str
+    batch: int
+    enc_len: int
+    dec_len: int
+    pred: int
+    features: int
+    d_model: int
+    layers: int
+    bf16: bool
+    n_windows: int  # served: full batches and a ragged tail
+    n_check: int  # windows compared with the CPU run
+    per_batch: dict  # kernel launches of one served batch
+    per_step: dict  # kernel launches of one training step
+
+    def model(self, device: str):
+        from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
+            ForecastDenoising,
+        )
+
+        # the production-width GP starts at lengthscale sqrt(2 d): at the
+        # default 0.69 every K[r, m] underflows to 0 in d 512 and the card's
+        # GP marginals could not be told from the CPU's
+        extra = dict(compute_dtype=torch.bfloat16,
+                     gp_compute_dtype=torch.bfloat16,
+                     gp_ls_init=-1.0) if self.bf16 else {}
+        return ForecastDenoising(
+            src_input_size=self.features, tgt_input_size=self.features,
+            d_model=self.d_model, n_heads=HEADS, d_k=self.d_model // HEADS,
+            stack_size=self.layers, pred_len=self.pred,
+            attn_type=self.attn_type, gp=True, denoise=True,
+            num_inducing=INDUCING, device=device,
+            generator=torch.Generator().manual_seed(SEED), **extra)
+
+    def windows(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        return (rng.normal(size=(n, self.enc_len, self.features)).astype(
+                    np.float32),
+                rng.normal(size=(n, self.dec_len, self.features)).astype(
+                    np.float32))
+
+    def training_data(self, n: int, seed: int):
+        """n batches drawn on the host from the seed, as windows would be,
+        on the card."""
+        rng = np.random.default_rng(seed)
+        shape = (n, self.batch)
+        enc = rng.normal(size=shape + (self.enc_len, self.features))
+        dec = rng.normal(size=shape + (self.dec_len, self.features))
+        y = (0.5 * dec[..., -self.pred:, :1]
+             + 0.1 * rng.normal(size=shape + (self.pred, 1)))
+        return tuple(torch.from_numpy(a.astype(np.float32)).to("cuda")
+                     for a in (enc, dec, y))
+
+
+_NONE = dict.fromkeys(
+    ("fused_gp", "fused_gp_bwd", "head_folded_attention",
+     "head_folded_attention_bwd", "fused_gp_bf16", "fused_gp_bf16_bwd",
+     "flash_attention", "flash_attention_bwd", "flash_attention_bf16sm",
+     "flash_attention_bf16sm_bwd"), 0)
+_FLAGSHIP = dict(batch=B, enc_len=ENC_LEN, dec_len=DEC_LEN, pred=PRED,
+                 features=F, d_model=D_MODEL, layers=LAYERS, bf16=False,
+                 n_windows=N_WINDOWS, n_check=N_CHECK)
+CONFIGS = (
+    Config("autoformer", "autoformer", **_FLAGSHIP,
+           per_batch=dict(_NONE, fused_gp=1),
+           per_step=dict(_NONE, fused_gp=1, fused_gp_bwd=1)),
+    # head-folded attention: enc-self, dec-self, dec-cross, in both passes
+    Config("basic", "basic", **_FLAGSHIP,
+           per_batch=dict(_NONE, fused_gp=1, head_folded_attention=6),
+           per_step=dict(_NONE, fused_gp=1, fused_gp_bwd=1,
+                         head_folded_attention=6,
+                         head_folded_attention_bwd=6)),
+    # flash attention: enc-self and dec-self of two layers, in both passes;
+    # cross-attention at d_k 64 is plain
+    Config("prod_basic", "basic", batch=P_B, enc_len=P_ENC_LEN,
+           dec_len=P_DEC_LEN, pred=P_PRED, features=P_F, d_model=P_D_MODEL,
+           layers=P_LAYERS, bf16=True, n_windows=P_N_WINDOWS,
+           n_check=P_N_CHECK,
+           per_batch=dict(_NONE, fused_gp_bf16=1, flash_attention=8),
+           per_step=dict(_NONE, fused_gp_bf16=1, fused_gp_bf16_bwd=1,
+                         flash_attention=8, flash_attention_bwd=8)),
+)
 
 
 class _DelayRecorder:
@@ -493,6 +855,45 @@ class _DelayRecorder:
 
     def __exit__(self, *exc):
         self.module.auto_correlation = self.original
+
+
+class _ReluRecorder:
+    """Keeps, per call, where each feed-forward layer's pre-activation is
+    positive.  Given ``replay`` (another run's ``masks``), a pre-activation
+    on the other side of zero (a value within rounding of it) is moved to
+    the replayed side, keeping its gradient, so that both runs differentiate
+    the same linear piece: one unit flipping for one token moves that unit's
+    weight gradients by the token's whole share.  ``flips`` counts them."""
+
+    def __init__(self, model, replay=None):
+        from fine_grained_gaussian_process_forcasting_torch.models.transformer import (
+            FeedForward,
+        )
+
+        self.layers = [m.w1 for m in model.modules()
+                       if isinstance(m, FeedForward)]
+        self.replay = replay
+        self.masks, self.flips, self.hooks = [], 0, []
+
+    def __enter__(self):
+        def hook(module, args, out):
+            mask = out > 0
+            if self.replay is not None:
+                want = self.replay[len(self.masks)].to(out.device)
+                self.flips += int((want != mask).sum())
+                side = torch.where(want, out.clamp_min(1e-30),
+                                   out.clamp_max(0.0))
+                out = side.detach() + (out - out.detach())  # side, exactly
+            self.masks.append(mask.cpu())
+            return out
+
+        self.hooks = [layer.register_forward_hook(hook)
+                      for layer in self.layers]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
 
 
 def _differing(chosen, replayed):
@@ -539,6 +940,7 @@ def profile_device(fn, label: str, wall_ms: float):
 def _counters():
     """The launch counters, by kernel: (wrapper module, counter name)."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        flash_attention,
         fused_gp,
         head_folded_attention,
     )
@@ -547,7 +949,14 @@ def _counters():
             "fused_gp_bwd": (fused_gp, "bwd_launches"),
             "head_folded_attention": (head_folded_attention, "launches"),
             "head_folded_attention_bwd": (head_folded_attention,
-                                          "bwd_launches")}
+                                          "bwd_launches"),
+            "fused_gp_bf16": (fused_gp, "bf16_launches"),
+            "fused_gp_bf16_bwd": (fused_gp, "bf16_bwd_launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches"),
+            "flash_attention_bf16sm": (flash_attention, "sm16_launches"),
+            "flash_attention_bf16sm_bwd": (flash_attention,
+                                           "sm16_bwd_launches")}
 
 
 def zero_counts():
@@ -560,15 +969,17 @@ def read_counts():
             for name, (module, attr) in _counters().items()}
 
 
-def serve(attn_type: str, enc, dec, expect, card: str):
+def serve(cfg: Config, card: str):
     from fine_grained_gaussian_process_forcasting_torch.train.predict import (
         InferenceSession,
     )
 
-    model = _flagship(attn_type, "cuda")
+    b = cfg.batch
+    enc, dec = cfg.windows(cfg.n_windows, SEED)
+    model = cfg.model("cuda")
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    session = InferenceSession(model, state, batch_size=B, device="cuda")
-    session.predict(enc[:B], dec[:B])  # warm-up: cuBLAS/cuFFT plans
+    session = InferenceSession(model, state, batch_size=b, device="cuda")
+    session.predict(enc[:b], dec[:b])  # warm-up: cuBLAS/cuFFT plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -580,99 +991,124 @@ def serve(attn_type: str, enc, dec, expect, card: str):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    if out.shape != (N_WINDOWS, PRED, 1):
-        raise AssertionError(f"{attn_type}: output shape {out.shape}")
+    n_batches = -(-cfg.n_windows // b)
+    expect = {k: n_batches * v for k, v in cfg.per_batch.items()}
+    if out.shape != (cfg.n_windows, cfg.pred, 1):
+        raise AssertionError(f"{cfg.name}: output shape {out.shape}")
     if not np.all(np.isfinite(out)):
-        raise AssertionError(f"{attn_type}: non-finite predictions")
+        raise AssertionError(f"{cfg.name}: non-finite predictions")
     if counts != expect:
-        raise AssertionError(f"{attn_type}: launches {counts}, expected "
+        raise AssertionError(f"{cfg.name}: launches {counts}, expected "
                              f"{expect}")
 
     batch_ms = []
     for _ in range(5):
         t1 = time.perf_counter()
-        session.predict(enc[:B], dec[:B])
+        session.predict(enc[:b], dec[:b])
         torch.cuda.synchronize()
         batch_ms.append((time.perf_counter() - t1) * 1e3)
-    log(f"serving {attn_type} on {card}: {N_WINDOWS} windows in "
-        f"{wall * 1e3:.2f} ms ({N_WINDOWS / wall:.1f} windows/s); per batch "
-        f"of {B}: median {float(np.median(batch_ms)):.3f} ms "
+    log(f"serving {cfg.name} on {card}: {cfg.n_windows} windows in "
+        f"{wall * 1e3:.2f} ms ({cfg.n_windows / wall:.1f} windows/s); per "
+        f"batch of {b}: median {float(np.median(batch_ms)):.3f} ms "
         f"(runs {', '.join(f'{t:.3f}' for t in batch_ms)}); peak memory "
         f"{peak / 2**20:.1f} MiB; launches {counts}")
-    profile_device(lambda: session.predict(enc[:B], dec[:B]),
-                   f"serving {attn_type}, one batch of {B}",
+    profile_device(lambda: session.predict(enc[:b], dec[:b]),
+                   f"serving {cfg.name}, one batch of {b}",
                    float(np.median(batch_ms)))
 
     # the first windows against the port's own CPU run, same weights and
     # the card's delays
-    cpu = InferenceSession(_flagship(attn_type, "cpu"), state,
-                           batch_size=N_CHECK, device="cpu")
+    n = cfg.n_check
+    cpu = InferenceSession(cfg.model("cpu"), state, batch_size=n,
+                           device="cpu")
     with _DelayRecorder() as rec_gpu:
-        gpu_first = session.predict(enc[:N_CHECK], dec[:N_CHECK])
+        gpu_first = session.predict(enc[:n], dec[:n])
     with _DelayRecorder(replay=rec_gpu.delays) as rec_cpu:
-        cpu_first = cpu.predict(enc[:N_CHECK], dec[:N_CHECK])
-    flipped = torch.zeros(N_CHECK, dtype=torch.bool)
+        cpu_first = cpu.predict(enc[:n], dec[:n])
+    flipped = torch.zeros(n, dtype=torch.bool)
     for differs in _differing(rec_cpu.delays, rec_gpu.delays):
         flipped |= differs
     max_diff = float(np.abs(gpu_first - cpu_first).max())
-    log(f"{attn_type}: max|cuda - cpu| over {N_CHECK} windows "
-        f"{max_diff:.3e} (tol {TOL_SERVING}); windows whose own delays "
+    tol = (TOL_SERVING_BF16 * float(np.abs(cpu_first).max()) if cfg.bf16
+           else TOL_SERVING)
+    log(f"{cfg.name}: max|cuda - cpu| over {n} windows "
+        f"{max_diff:.3e} (tol {tol:.3e}; mean|cuda - cpu| "
+        f"{float(np.abs(gpu_first - cpu_first).mean()):.3e}, max|cpu| "
+        f"{float(np.abs(cpu_first).max()):.3e}); windows whose own delays "
         f"differ on the cpu (replayed the card's): "
         f"{torch.nonzero(flipped).flatten().tolist()}")
-    if not max_diff <= TOL_SERVING:
-        raise AssertionError(f"{attn_type}: cuda and cpu disagree: "
-                             f"{max_diff} > {TOL_SERVING}")
-    return counts, {"windows_compared": N_CHECK, "max_abs_diff": max_diff,
+    if not max_diff <= tol:
+        raise AssertionError(f"{cfg.name}: cuda and cpu disagree: "
+                             f"{max_diff} > {tol}")
+    return counts, {"windows_compared": n, "max_abs_diff": max_diff,
+                    "tolerance": tol,
                     "delays_replayed_windows": int(flipped.sum())}
 
 
-def check_step_against_cpu(attn_type: str, params, batch):
+def check_step_against_cpu(cfg: Config, params, batch):
     """Loss and every parameter gradient of one training step on the card
     against the same step of the port's CPU run: same weights, the first
-    ``N_CHECK`` windows."""
-    results, replay = [], None
-    for device in ("cuda", "cpu"):  # the cpu takes the card's delays
-        model = _flagship(attn_type, device)
+    ``cfg.n_check`` windows."""
+    tol = TOL_TRAIN_BF16 if cfg.bf16 else TOL_TRAIN
+    tol_loss = TOL_LOSS_BF16 if cfg.bf16 else TOL_TRAIN
+    results, replay, masks = [], None, None
+    for device in ("cuda", "cpu"):  # the cpu takes the card's delays and
+        model = cfg.model(device)   # its side of every ReLU
         model.load_state_dict(params)
-        enc, dec, y = (t[:N_CHECK].to(device) for t in batch)
-        with _DelayRecorder(replay=replay) as rec:
+        enc, dec, y = (t[:cfg.n_check].to(device) for t in batch)
+        with _DelayRecorder(replay=replay) as rec, \
+                _ReluRecorder(model, replay=masks) as relu:
             out = model(enc, dec, y, training=True)
         out.loss.backward()
         results.append((out.loss.item(), {
             n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
         if replay is None:
-            replay = rec.delays
+            replay, masks = rec.delays, relu.masks
     (loss_g, grads_g), (loss_c, grads_c) = results
     flipped = [i for i, differs in
                enumerate(_differing(rec.delays, replay)) if differs]
     if replay:
-        log(f"train {attn_type}: shared top-k delays per call on the card "
+        log(f"train {cfg.name}: shared top-k delays per call on the card "
             f"{[d.sort().values.tolist() for d in replay]}; calls whose own "
             f"delays differ on the cpu (replayed the card's): {flipped}")
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     worst_name, worst = "", 0.0
+    # a gradient a million times smaller than the largest one (the inert
+    # GP's lengthscale and inducing points at the default init: ~1e-18) is
+    # rounding residue on both devices, so its error is held to that floor
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_c.values())
     for name, gc in grads_c.items():
-        scale = gc.abs().max().item()
+        if grads_g[name].dtype != torch.float32:
+            raise AssertionError(f"train {cfg.name}: gradient of {name} is "
+                                 f"{grads_g[name].dtype}")
+        scale = max(gc.abs().max().item(), floor)
         err = (grads_g[name] - gc).abs().max().item()
         rel = err / scale if scale > 0 else err
         if rel > worst:
             worst_name, worst = name, rel
-    log(f"train {attn_type}: one step on {N_CHECK} windows, cuda vs cpu: "
-        f"loss {loss_g:.7f} vs {loss_c:.7f} (rel diff {loss_err:.3e}); "
-        f"worst gradient {worst_name}: max|cuda - cpu| / max|cpu| "
-        f"{worst:.3e} over {len(grads_c)} parameters (tol {TOL_TRAIN})")
-    if not (loss_err <= TOL_TRAIN and worst <= TOL_TRAIN):
-        raise AssertionError(f"train {attn_type}: cuda and cpu disagree: "
+    log(f"train {cfg.name}: one step on {cfg.n_check} windows, cuda vs cpu: "
+        f"loss {loss_g:.7f} vs {loss_c:.7f} (rel diff {loss_err:.3e}, tol "
+        f"{tol_loss:.3e}); worst gradient {worst_name}: max|cuda - cpu| / "
+        f"max(max|cpu|, floor {floor:.1e}) {worst:.3e} over {len(grads_c)} parameters (tol "
+        f"{tol:.3e}); feed-forward pre-activations moved to the card's side "
+        f"of zero on the cpu: {relu.flips} of "
+        f"{sum(m.numel() for m in masks)}")
+    if not (loss_err <= tol_loss and worst <= tol):
+        raise AssertionError(f"train {cfg.name}: cuda and cpu disagree: "
                              f"loss {loss_err}, {worst_name} {worst}")
-    return {"windows_compared": N_CHECK, "max_rel_diff": max(loss_err, worst),
-            "delays_replayed_calls": len(flipped)}
+    return {"windows_compared": cfg.n_check,
+            "max_rel_diff": max(loss_err, worst), "tolerance": tol,
+            "delays_replayed_calls": len(flipped),
+            "relu_sides_replayed": relu.flips}
 
 
-def train(attn_type: str, data, per_step, card: str):
+def train(cfg: Config, card: str):
     from fine_grained_gaussian_process_forcasting_torch.train import Trainer
 
-    model = _flagship(attn_type, "cuda")
-    trainer = Trainer(model, D_MODEL, warmup_steps=WARMUP_STEPS,
+    data = cfg.training_data(N_WARMUP + N_EPOCHS * N_TRAIN_STEPS + 2,
+                             SEED + 1)
+    model = cfg.model("cuda")
+    trainer = Trainer(model, cfg.d_model, warmup_steps=WARMUP_STEPS,
                       lr_mul=LR_MUL, device="cuda")
     state = trainer.init_state()  # the weights of seed 0
 
@@ -693,18 +1129,22 @@ def train(attn_type: str, data, per_step, card: str):
         loss_sums.append(loss_sum)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expect = {k: N_EPOCHS * N_TRAIN_STEPS * v for k, v in per_step.items()}
+    expect = {k: N_EPOCHS * N_TRAIN_STEPS * v
+              for k, v in cfg.per_step.items()}
     if counts != expect:
-        raise AssertionError(f"train {attn_type}: launches {counts}, "
+        raise AssertionError(f"train {cfg.name}: launches {counts}, "
                              f"expected {expect}")
     # a non-finite loss in a step makes its epoch's sum non-finite
     if not all(math.isfinite(v) for v in loss_sums):
-        raise AssertionError(f"train {attn_type}: non-finite loss sums "
+        raise AssertionError(f"train {cfg.name}: non-finite loss sums "
                              f"{loss_sums}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError(f"train {cfg.name}: a parameter left fp32")
     step_ms = [t / N_TRAIN_STEPS for t in epoch_ms]
     median = float(np.median(step_ms))
-    log(f"train {attn_type} on {card}: {N_EPOCHS} epochs of {N_TRAIN_STEPS} "
-        f"steps of {B} windows: {', '.join(f'{t:.2f}' for t in epoch_ms)} "
+    log(f"train {cfg.name} on {card}: {N_EPOCHS} epochs of {N_TRAIN_STEPS} "
+        f"steps of {cfg.batch} windows: "
+        f"{', '.join(f'{t:.2f}' for t in epoch_ms)} "
         f"ms; per step: median {median:.3f} ms ({1e3 / median:.2f} "
         f"steps/s); mean loss per epoch "
         f"{', '.join(f'{v / N_TRAIN_STEPS:.6f}' for v in loss_sums)}; "
@@ -715,9 +1155,9 @@ def train(attn_type: str, data, per_step, card: str):
     def one_step():
         after["state"], _, _ = trainer.train_epoch(state, batches(first, 1))
 
-    prof = profile_device(one_step, f"train {attn_type}, one step of {B} "
-                          f"windows", median)
-    cpu_check = check_step_against_cpu(attn_type, after["state"].params,
+    profile_device(one_step, f"train {cfg.name}, one step of {cfg.batch} "
+                   f"windows", median)
+    cpu_check = check_step_against_cpu(cfg, after["state"].params,
                                        tuple(t[first + 1] for t in data))
     return counts, cpu_check
 
@@ -726,51 +1166,53 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, count, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = {"fused_gp": check_fused_gp(gen),
-               "fused_gp_bwd": check_fused_gp_bwd(gen),
+    flagship, production = GP_SHAPES["flagship"], GP_SHAPES["production"]
+    kernels = {"fused_gp": check_fused_gp(gen, flagship),
+               "fused_gp_bwd": check_fused_gp_bwd(gen, flagship),
                "head_folded_attention": check_head_folded(gen),
-               "head_folded_attention_bwd": check_head_folded_bwd(gen)}
+               "head_folded_attention_bwd": check_head_folded_bwd(gen),
+               "fused_gp_bf16": check_fused_gp(gen, production, bf16=True),
+               "fused_gp_bf16_bwd": check_fused_gp_bwd(gen, production,
+                                                       bf16=True)}
+    kernels["flash_attention"], kernels["flash_attention_bwd"] = check_flash(
+        gen)
+    # held and timed, on no path of this script: the sm_bf16 variant, to
+    # which nothing routes, and the fp32 kernels, which an fp32 model at
+    # d_k 64 takes
+    (kernels["flash_attention_bf16sm"],
+     kernels["flash_attention_bf16sm_bwd"]) = check_flash(gen, sm_bf16=True)
+    for sm_bf16, key in ((False, "flash_attention_fp32"),
+                         (True, "flash_attention_fp32sm")):
+        kernels[key], kernels[key + "_bwd"] = check_flash(
+            gen, torch.float32, sm_bf16)
+    # the fp32 fused GP at the production width too (no path of this script
+    # runs it there; it is the width the kernel could not take before)
+    kernels["fused_gp"]["at_production_width"] = check_fused_gp(gen,
+                                                                production)
+    kernels["fused_gp_bwd"]["at_production_width"] = check_fused_gp_bwd(
+        gen, production)
+    log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
-    rng = np.random.default_rng(SEED)
-    enc = rng.normal(size=(N_WINDOWS, ENC_LEN, F)).astype(np.float32)
-    dec = rng.normal(size=(N_WINDOWS, DEC_LEN, F)).astype(np.float32)
-    n_batches = -(-N_WINDOWS // B)
+    # the fp32 flash entries share the bf16 kernels' counters and ran on no
+    # path: their launches stay 0
     by_path, cpu_checks = {k: {} for k in kernels}, {}
-    gp_only = {"fused_gp": 1, "fused_gp_bwd": 0, "head_folded_attention": 0,
-               "head_folded_attention_bwd": 0}
-    with_attention = dict(gp_only, head_folded_attention=6)
-    for attn_type, per_batch in (("autoformer", gp_only),
-                                 ("basic", with_attention)):
-        expect = {k: n_batches * v for k, v in per_batch.items()}
-        counts, cpu_checks[f"serve_{attn_type}"] = serve(
-            attn_type, enc, dec, expect, smi)
-        for k, v in counts.items():
-            by_path[k][f"serve_{attn_type}"] = v
-
-    # training batches, drawn on the host from the seed as windows would be
-    n = N_WARMUP + N_EPOCHS * N_TRAIN_STEPS + 2
-    rng = np.random.default_rng(SEED + 1)
-    t_enc = rng.normal(size=(n, B, ENC_LEN, F)).astype(np.float32)
-    t_dec = rng.normal(size=(n, B, DEC_LEN, F)).astype(np.float32)
-    t_y = (0.5 * t_dec[..., -PRED:, :1]
-           + 0.1 * rng.normal(size=(n, B, PRED, 1))).astype(np.float32)
-    data = tuple(torch.from_numpy(a).to("cuda") for a in (t_enc, t_dec, t_y))
-    for attn_type, per_step in (
-            ("autoformer", dict(gp_only, fused_gp_bwd=1)),
-            ("basic", dict(with_attention, fused_gp_bwd=1,
-                           head_folded_attention_bwd=6))):
-        counts, cpu_checks[f"train_{attn_type}"] = train(
-            attn_type, data, per_step, smi)
-        for k, v in counts.items():
-            by_path[k][f"train_{attn_type}"] = v
+    for phase, drive in (("serve", serve), ("train", train)):
+        for cfg in CONFIGS:
+            counts, cpu_checks[f"{phase}_{cfg.name}"] = drive(cfg, smi)
+            for k in kernels:
+                by_path[k][f"{phase}_{cfg.name}"] = counts.get(k, 0)
+            log(f"{phase} {cfg.name} done at "
+                f"{time.perf_counter() - t_start:.1f} s")
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())
         entry["launches_by_path"] = by_path[k]
         entry["cpu_checks"] = cpu_checks  # each path's run against the cpu
-    if not all(k["launches"] > 0 for k in kernels.values()):
+    if not all(k["launches"] > 0 for k in kernels.values()
+               if k.get("on_path", True)):
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{by_path}")
 

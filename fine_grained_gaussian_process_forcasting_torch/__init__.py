@@ -11,9 +11,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 import torch
 
-# Full fp32 everywhere: the inducing-point Gram matrix feeds a Cholesky, and
-# a TF32 product (about three decimal digits) makes it indefinite once the
-# lengthscales shrink.  PyTorch's matmul default is already fp32, cuDNN's is
+# No TF32 anywhere: an fp32 product stays fp32 (a 16-bit ``compute_dtype`` is
+# asked for explicitly and casts by hand).  The inducing-point Gram matrix
+# feeds a Cholesky, and a TF32 product (about three decimal digits) makes it
+# indefinite once the lengthscales shrink.  PyTorch's matmul default is already fp32, cuDNN's is
 # TF32; pin both so the port never depends on the defaults.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -1,9 +1,10 @@
-// Fused whitened-GP marginals, forward and backward, affine, fp32 -- for
-// sm_90a.
+// Fused whitened-GP marginals, forward and backward, affine, fp32 and bf16
+// -- for sm_90a.
 //
 // Replaces: fine_grained_gaussian_process_forcasting_tpu/ops/pallas/fused_gp.py
 //   `_fwd_kernel` and `_bwd_kernel` with affine=True, bf16=False (reached
-//   through `whitened_marginals_affine`, `_forward` and `_bwd_rule`).
+//   through `whitened_marginals_affine`, `_forward` and `_bwd_rule`) and
+//   bf16=True (`whitened_marginals_affine_bf16`).
 //
 // Per row r of the flattened (B*N, d) raw input x:
 //   xs      = x[r] * inv_ls
@@ -19,30 +20,43 @@
 //   dW   = -K^T diag(dvar) K,        dos = sum(E) / os + sum(dvar),
 //   dinv_ls = sum_r dxs o x,  dmean_w = sum_r dmean o x,  dmean_b = sum dmean
 //                                                        summed over rows.
+// The bf16 variant means what the Pallas body means by it: only the two
+// products K W and K^T (dvar o K) take inputs rounded to bf16, summed in
+// fp32; the distance, the exponential, E, E zs, E^T x, every sum and every
+// output stay fp32.
 //
-// What bounds it on an H100: arithmetic.  The (K W) product is 2*M*M flops
-// per row (at the flagship 73,728 rows x M=512 about 39 GFLOP), all fp32:
-// the parity tolerance (2e-5) rules out TF32, so it runs on the CUDA cores
-// (67 TFLOP/s peak) -- about 0.6 ms -- while the bytes (x in, two vectors
-// out, W once) take a few microseconds.  The backward does (K W) again and a
-// second product of the same size, dW = K^T diag(dvar) K, so about twice
-// the forward's arithmetic (~1.26 ms at peak).
+// What bounds it on an H100: arithmetic.  In fp32 the (K W) product is
+// 2*M*M flops per row and the distance 3*M*d, all on the CUDA cores
+// (67 TFLOP/s peak; the 2e-5 parity rules out TF32).  At the flagship (73,728
+// rows, d 32, M 512) K W is 39 GFLOP, ~0.6 ms; at the production width
+// (40,960 rows, d 512, M 512) the distance (32 GFLOP) outweighs it.  In bf16
+// the two products move to the tensor cores (`mma.sync.m16n8k16`, 989 TFLOP/s
+// peak) and the fp32 distance is what remains.  The bytes (x in, two vectors
+// out, W once) take microseconds.
 //
 // Forward design: one block of 256 threads per tile of 64 rows.  The TPU
-// kernel held a 2048-row tile, all of W and the (tile, M) K in VMEM; here W
-// alone (1 MiB at M=512) exceeds a block's shared memory, so
+// kernel held a 2048-row tile, all of W and the (tile, M) K in VMEM and
+// shrank the row tile for wide d; here W alone (1 MiB at M=512) exceeds a
+// block's shared memory, so
 //   1. the tile's K is computed once into shared memory, transposed
 //      (K^T, M x 64, 136 KB at M=512), with the direct difference
-//      |xs - zs|^2 (no cancellation, never negative);
-//   2. W streams through shared memory in 16 x 256 chunks, double-buffered
-//      through registers, and each thread accumulates an 8 x 8 register tile
-//      of K W (warp w owns rows 8w..8w+7, lane c owns columns 4c..4c+3 and
-//      128+4c..128+4c+3 of each 256-column panel);
-//   3. at the end of each panel the register tile is multiplied by K and
-//      summed into per-row partial variances; a warp shuffle finishes the
-//      row sums.  K and K W never reach device memory.
+//      |xs - zs|^2 (no cancellation, never negative).  x and zs stream
+//      through shared memory 16 columns of d at a time while each thread
+//      keeps the 64 partial distances of its inducing point in registers,
+//      so the shared memory a block needs does not grow with d;
+//   2. fp32: W streams through shared memory in 16 x 256 chunks,
+//      double-buffered through registers, and each thread accumulates an
+//      8 x 8 register tile of K W (warp w owns rows 8w..8w+7, lane c owns
+//      columns 4c..4c+3 and 128+4c..128+4c+3 of each 256-column panel);
+//      bf16: each warp owns the 64 rows x 32 columns of a panel as 4 x 4
+//      `mma` tiles, K rounded to bf16 as it leaves shared memory, W^T read
+//      as bf16 pairs from device memory (cast and transposed once per call
+//      by the wrapper; 512 KB, resident in L2);
+//   3. at the end of each panel the accumulators are multiplied by K and
+//      summed into per-row partial variances.  K and K W never reach device
+//      memory.
 // Rows past the end are zero inputs whose results are never stored (no
-// padding in device memory).  fp32 FMA throughout.
+// padding in device memory).
 //
 // Backward design.  The Pallas backward sums the parameter cotangents across
 // its grid with init-at-step-0-then-add, which is right only on the TPU's
@@ -53,17 +67,22 @@
 //   1. rows (as the forward, one block per 64-row tile): recompute K^T into
 //      shared memory and (K W) panel by panel; at each panel's end form E in
 //      registers.  Per row: rowsum(E), then dxs = E zs - rowsum(E) xs from an
-//      E^T tile re-read into the K^T buffer, and dx.  Per tile: partial
-//      du = K^T dmean and colsum(E) (M each) and the partial scalar sums.
-//      K and E are written to device memory (R x M each, 151 MB at the
-//      flagship) for the two column products: those bytes take ~0.1 ms at
-//      3.35 TB/s against ~1.3 ms of arithmetic, where recomputing K inside a
-//      tiled product would cost one exponential and 2d flops per element for
-//      every output tile that reads it.
+//      E^T tile re-read into the K^T buffer (d <= 64: a row and 8 columns
+//      per thread; wider: the product is as large as K W and runs through
+//      the same register-tiled panels, zs streamed like W), x re-read from
+//      device memory, and dx.  Per tile: partial du = K^T dmean and colsum(E) (M each) and the
+//      partial scalar sums.  K and E are written to device memory for the
+//      two column products (fp32: K as R x M floats; bf16: K and dvar o K
+//      rounded to bf16 and transposed, M x R, so that the product reads both
+//      operands as pairs along the summed index): those bytes take ~0.1 ms
+//      at 3.35 TB/s, where recomputing K inside a tiled product would cost
+//      one exponential and 2d flops per element for every output tile.
 //   2. dW partials: (K^T diag(dvar) K) over S contiguous row ranges, one
-//      (S, M, M) slab, a 128 x 128 output tile per block with an 8 x 8
-//      register tile per thread; dW is symmetric, so only the tiles on and
-//      above the diagonal are computed (10 of 16 at M = 512);
+//      (S, M, M) slab.  fp32: a 128 x 128 output tile per block with an
+//      8 x 8 register tile per thread; dW is symmetric, so only the tiles on
+//      and above the diagonal are computed (10 of 16 at M = 512).  bf16:
+//      `mma` tiles, every output tile (rounding dvar o K makes the product
+//      asymmetric in the last bits, as the Pallas product is);
 //   3. dzs partials: E^T x over row ranges the same way, (S', M, d);
 //   4. a reduction that sums the partials in a fixed order and applies the
 //      column terms: dW, du, dzs = inv_ls o (E^T x) - colsum(E) o zs, and
@@ -71,8 +90,12 @@
 // Tail rows are masked as in the forward: their cotangents count as zero and
 // nothing is written for them.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -82,12 +105,22 @@ constexpr int PANEL = 256;         // W columns per panel
 constexpr int BK = 16;             // W rows per shared-memory chunk
 constexpr int KT_STRIDE = TR + 4;  // padded K^T row, keeps float4 alignment
 constexpr int PREFETCH = BK * PANEL / THREADS;  // 16 W values per thread
+constexpr int WBUF = 2 * BK * PANEL;            // floats of the W buffers
+
+// distance staging (aliases the W buffers, which are idle until K is done)
+constexpr int DC = 16;             // columns of d per chunk
+constexpr int XC_STRIDE = TR + 4;  // x chunk [DC][XC_STRIDE]
+constexpr int ZC_STRIDE = DC + 1;  // zs chunk [THREADS][ZC_STRIDE]
+static_assert(DC * XC_STRIDE + THREADS * ZC_STRIDE <= WBUF, "staging fits");
 
 // column products (launches 2 and 3)
 constexpr int CK = 8;              // rows per shared-memory chunk
 constexpr int CBM = 128;           // output rows (m) per block
 constexpr int DW_TILE = 128;       // dW output tile: 16 x 8 per side
 constexpr int TARGET_BLOCKS = 264; // two blocks per SM on 132 SMs
+constexpr int SMALL_D = 64;        // up to here dxs is taken row by row
+constexpr int GK = 32;             // bf16 dW product: summed rows per stage
+constexpr int GS = GK + 8;         // its padded shared-memory row (bf16)
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -109,67 +142,85 @@ __device__ float block_sum(float v, float* red) {
 }
 
 // chunk c = (panel p, row chunk kc); element (i, tid) = W[k0 + i, n0 + tid]
+// of the (M, ncols) row-major W
 __device__ __forceinline__ void load_w_chunk(const float* __restrict__ w, int M,
-                                             int n_chunks, int c, int tid,
-                                             float (&regs)[PREFETCH]) {
+                                             int ncols, int n_chunks, int c,
+                                             int tid, float (&regs)[PREFETCH]) {
   const int p = c / n_chunks;
   const int k0 = (c - p * n_chunks) * BK;
   const int n = p * PANEL + tid;
 #pragma unroll
   for (int i = 0; i < PREFETCH; ++i) {
     const int k = k0 + i;
-    regs[i] = (k < M && n < M) ? __ldg(w + (size_t)k * M + n) : 0.f;
+    regs[i] = (k < M && n < ncols) ? __ldg(w + (size_t)k * ncols + n) : 0.f;
   }
 }
 
-// scaled x^T of the tile into xt [d][TR] (rows past R are zeros), then K^T
-// of the tile into kt [m_pad][KT_STRIDE] (columns m >= M are zeros)
+// K^T of the tile into kt [m_pad][KT_STRIDE] (columns m >= M are zeros, rows
+// past R are those of a zero x).  `stage` is WBUF floats of scratch: chunks
+// of DC columns of the scaled x^T and of zs pass through it.
 __device__ __forceinline__ void tile_kt(const float* __restrict__ x,
                                         const float* __restrict__ zs,
                                         const float* __restrict__ inv_ls,
-                                        float os, float* kt, float* xt,
+                                        float os, float* kt, float* stage,
                                         int row0, int R, int d, int M,
                                         int m_pad) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < TR * d; i += THREADS) {
-    const int r = i / d;
-    const int k = i - r * d;
-    const int row = row0 + r;
-    xt[k * TR + r] = row < R ? x[(size_t)row * d + k] * inv_ls[k] : 0.f;
-  }
-  __syncthreads();
+  float* xc = stage;                   // [DC][XC_STRIDE]
+  float* zc = stage + DC * XC_STRIDE;  // [THREADS][ZC_STRIDE]
 
   // thread owns whole columns m, rows accumulate in registers
-  for (int m = tid; m < m_pad; m += THREADS) {
-    float4* ktm = reinterpret_cast<float4*>(kt + m * KT_STRIDE);
-    if (m >= M) {
-#pragma unroll
-      for (int r4 = 0; r4 < TR / 4; ++r4) ktm[r4] = make_float4(0.f, 0.f, 0.f, 0.f);
-      continue;
-    }
+  for (int mb = 0; mb < m_pad; mb += THREADS) {
+    const int m = mb + tid;
     float d2[TR];
 #pragma unroll
     for (int r = 0; r < TR; ++r) d2[r] = 0.f;
-    const float* zm = zs + (size_t)m * d;
-    for (int k = 0; k < d; ++k) {
-      const float z = __ldg(zm + k);
-      const float4* xk = reinterpret_cast<const float4*>(xt + k * TR);
+    for (int k0 = 0; k0 < d; k0 += DC) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = tid; i < TR * DC; i += THREADS) {
+        const int r = i / DC;
+        const int k = i - r * DC;
+        const int row = row0 + r;
+        const int kk = k0 + k;
+        xc[k * XC_STRIDE + r] =
+            (row < R && kk < d) ? x[(size_t)row * d + kk] * inv_ls[kk] : 0.f;
+      }
+      for (int i = tid; i < THREADS * DC; i += THREADS) {
+        const int mm = i / DC;
+        const int k = i - mm * DC;
+        const int kk = k0 + k;
+        zc[mm * ZC_STRIDE + k] =
+            (mb + mm < M && kk < d) ? __ldg(zs + (size_t)(mb + mm) * d + kk) : 0.f;
+      }
+      __syncthreads();
+      if (m < M) {
+        const float* zr = zc + tid * ZC_STRIDE;
 #pragma unroll
-      for (int r4 = 0; r4 < TR / 4; ++r4) {
-        const float4 xv = xk[r4];
-        float a;
-        a = xv.x - z; d2[4 * r4 + 0] = fmaf(a, a, d2[4 * r4 + 0]);
-        a = xv.y - z; d2[4 * r4 + 1] = fmaf(a, a, d2[4 * r4 + 1]);
-        a = xv.z - z; d2[4 * r4 + 2] = fmaf(a, a, d2[4 * r4 + 2]);
-        a = xv.w - z; d2[4 * r4 + 3] = fmaf(a, a, d2[4 * r4 + 3]);
+        for (int k = 0; k < DC; ++k) {  // columns past d hold zeros in both
+          const float z = zr[k];
+          const float4* xk = reinterpret_cast<const float4*>(xc + k * XC_STRIDE);
+#pragma unroll
+          for (int r4 = 0; r4 < TR / 4; ++r4) {
+            const float4 xv = xk[r4];
+            float a;
+            a = xv.x - z; d2[4 * r4 + 0] = fmaf(a, a, d2[4 * r4 + 0]);
+            a = xv.y - z; d2[4 * r4 + 1] = fmaf(a, a, d2[4 * r4 + 1]);
+            a = xv.z - z; d2[4 * r4 + 2] = fmaf(a, a, d2[4 * r4 + 2]);
+            a = xv.w - z; d2[4 * r4 + 3] = fmaf(a, a, d2[4 * r4 + 3]);
+          }
+        }
       }
     }
+    if (m < m_pad) {
+      float4* ktm = reinterpret_cast<float4*>(kt + m * KT_STRIDE);
 #pragma unroll
-    for (int r4 = 0; r4 < TR / 4; ++r4) {
-      ktm[r4] = make_float4(os * expf(-0.5f * d2[4 * r4 + 0]),
-                            os * expf(-0.5f * d2[4 * r4 + 1]),
-                            os * expf(-0.5f * d2[4 * r4 + 2]),
-                            os * expf(-0.5f * d2[4 * r4 + 3]));
+      for (int r4 = 0; r4 < TR / 4; ++r4) {
+        ktm[r4] = m < M ? make_float4(os * expf(-0.5f * d2[4 * r4 + 0]),
+                                      os * expf(-0.5f * d2[4 * r4 + 1]),
+                                      os * expf(-0.5f * d2[4 * r4 + 2]),
+                                      os * expf(-0.5f * d2[4 * r4 + 3]))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
   __syncthreads();
@@ -180,17 +231,18 @@ __device__ __forceinline__ int panel_col(int p, int lane, int j) {
   return p * PANEL + (j < 4 ? 4 * lane + j : PANEL / 2 + 4 * lane + (j - 4));
 }
 
-// (K W) of the tile, panel by panel, W streamed through shared memory;
-// at the end of panel p calls epi(p, g) with the thread's 8 x 8 tile g of
+// fp32 (K W) of the tile, panel by panel, for the (M, ncols) row-major W
+// streamed through shared memory and K^T in kt; at the end of panel p calls
+// epi(p, g) with the thread's 8 x 8 tile g of
 // (K W)[8 warp + i, panel_col(p, lane, j)], then zeroes g.
 template <class Epilogue>
 __device__ __forceinline__ void kw_panels(const float* __restrict__ w,
                                           const float* kt, float* wbuf, int M,
-                                          int m_pad, Epilogue& epi) {
+                                          int m_pad, int ncols, Epilogue& epi) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_panels = (M + PANEL - 1) / PANEL;
+  const int n_panels = (ncols + PANEL - 1) / PANEL;
   const int n_chunks = m_pad / BK;
   const int total = n_panels * n_chunks;
 
@@ -201,7 +253,7 @@ __device__ __forceinline__ void kw_panels(const float* __restrict__ w,
     for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
 
   float pre[PREFETCH];
-  load_w_chunk(w, M, n_chunks, 0, tid, pre);
+  load_w_chunk(w, M, ncols, n_chunks, 0, tid, pre);
 #pragma unroll
   for (int i = 0; i < PREFETCH; ++i) wbuf[i * PANEL + tid] = pre[i];
   __syncthreads();
@@ -209,7 +261,7 @@ __device__ __forceinline__ void kw_panels(const float* __restrict__ w,
   for (int c = 0; c < total; ++c) {
     const int p = c / n_chunks;
     const int kc = c - p * n_chunks;
-    if (c + 1 < total) load_w_chunk(w, M, n_chunks, c + 1, tid, pre);
+    if (c + 1 < total) load_w_chunk(w, M, ncols, n_chunks, c + 1, tid, pre);
 
     const float* wb = wbuf + (c & 1) * (BK * PANEL);
     const float* ktk = kt + kc * BK * KT_STRIDE + warp * 8;
@@ -244,6 +296,59 @@ __device__ __forceinline__ void kw_panels(const float* __restrict__ w,
   }
 }
 
+// bf16 (K W) of the tile on the tensor cores.  wt is W^T in bf16,
+// (n_panels * PANEL) x m_pad, zero-padded: wt[n][k] = bf16(W[k][n]).  Warp w
+// owns the 64 rows x 32 columns [32 w, 32 w + 32) of each panel as 4 x 4
+// `mma` tiles; K leaves shared memory as fp32 and is rounded to bf16 on the
+// way into the A fragments.  At the end of each panel calls
+// epi(n0, c) with c[mt][nt] the tile of rows 16 mt.. and columns
+// n0 + 8 nt.. (the `mma` accumulator layout).
+template <class Epilogue>
+__device__ __forceinline__ void kw_panels_mma(const __nv_bfloat16* __restrict__ wt,
+                                              const float* kt, int M, int m_pad,
+                                              Epilogue& epi) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_panels = (M + PANEL - 1) / PANEL;
+
+  for (int p = 0; p < n_panels; ++p) {
+    const int n0 = p * PANEL + warp * 32;
+    if (n0 >= M) continue;  // the whole warp: no column of its own here
+    float c[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+
+    for (int k0 = 0; k0 < m_pad; k0 += 16) {
+      const float* kk = kt + (k0 + 2 * t) * KT_STRIDE + g;
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* km = kk + mt * 16;
+        a[mt][0] = pack_bf16(km[0], km[KT_STRIDE]);
+        a[mt][1] = pack_bf16(km[8], km[KT_STRIDE + 8]);
+        a[mt][2] = pack_bf16(km[8 * KT_STRIDE], km[9 * KT_STRIDE]);
+        a[mt][3] = pack_bf16(km[8 * KT_STRIDE + 8], km[9 * KT_STRIDE + 8]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+            wt + (size_t)(n0 + nt * 8 + g) * m_pad + k0 + 2 * t);
+        const uint32_t b0 = __ldg(wr);
+        const uint32_t b1 = __ldg(wr + 4);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
+      }
+    }
+    epi(n0, c);
+  }
+}
+
 // forward epilogue: var_part[i] += sum_j (K W)[r_i, n_j] * K[r_i, n_j]
 struct VarEpilogue {
   const float* kt;
@@ -262,6 +367,30 @@ struct VarEpilogue {
         for (int i = 0; i < 8; ++i) var_part[i] = fmaf(g[i][j], kv[i], var_part[i]);
       }
     }
+  }
+};
+
+// the same for the `mma` layout: part[2 mt + h] belongs to row 16 mt + 8 h + g
+struct VarEpilogueMma {
+  const float* kt;
+  int M, g, t;
+  float part[8];
+
+  __device__ __forceinline__ void operator()(int n0, float (&c)[4][4][4]) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + nt * 8 + 2 * t + e;
+        if (n < M) {
+          const float* kn = kt + n * KT_STRIDE + g;
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            part[2 * mt] = fmaf(c[mt][nt][e], kn[mt * 16], part[2 * mt]);
+            part[2 * mt + 1] = fmaf(c[mt][nt][2 + e], kn[mt * 16 + 8], part[2 * mt + 1]);
+          }
+        }
+      }
   }
 };
 
@@ -295,9 +424,109 @@ struct EEpilogue {
   }
 };
 
+// the same for the `mma` layout: dm, dv, part[2 mt + h] of row 16 mt + 8 h + g
+struct EEpilogueMma {
+  const float* kt;
+  const float* __restrict__ u;
+  float* emat;
+  int M, R, g, t, row0;
+  float dm[8], dv[8], part[8];
+
+  __device__ __forceinline__ void operator()(int n0, float (&c)[4][4][4]) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + nt * 8 + 2 * t + e;
+        if (n < M) {
+          const float* kn = kt + n * KT_STRIDE + g;
+          const float un = __ldg(u + n);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 2 * mt + h;
+              const int r = mt * 16 + 8 * h + g;
+              const float ev = (dm[i] * un - 2.f * dv[i] * c[mt][nt][2 * h + e]) * kn[mt * 16 + 8 * h];
+              part[i] += ev;
+              if (row0 + r < R) emat[(size_t)(row0 + r) * M + n] = ev;
+            }
+        }
+      }
+  }
+};
+
+// epilogue of the wide-d (E zs) product: g is E zs of rows 8 warp + i and
+// columns panel_col(p, lane, j) of d.  Writes dx and, per warp, the sums over
+// its 8 rows of dxs o x and dmean o x: part[warp][n] and part[warp][d + n].
+struct DxEpilogue {
+  const float* __restrict__ x;
+  const float* __restrict__ inv_ls;
+  const float* __restrict__ mean_w;
+  float* __restrict__ dx;
+  float* __restrict__ part;  // the tile's [8][2 d]
+  const float* rse_s;
+  const float* dm_s;
+  int R, d, lane, warp, row0;
+
+  __device__ __forceinline__ void operator()(int p, float (&g)[8][8]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = panel_col(p, lane, j);
+      if (n < d) {
+        const float il = inv_ls[n];
+        const float mw = mean_w[n];
+        float s_dx = 0.f, s_dm = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = warp * 8 + i;
+          const int row = row0 + r;
+          if (row < R) {
+            const float xv = x[(size_t)row * d + n];
+            const float dxs = g[i][j] - rse_s[r] * (xv * il);
+            dx[(size_t)row * d + n] = fmaf(dxs, il, dm_s[r] * mw);
+            s_dx = fmaf(dxs, xv, s_dx);
+            s_dm = fmaf(dm_s[r], xv, s_dm);
+          }
+        }
+        part[(size_t)warp * 2 * d + n] = s_dx;
+        part[(size_t)warp * 2 * d + d + n] = s_dm;
+      }
+    }
+  }
+};
+
+// per-row sums of the `mma` epilogues' partials: over the four lanes that
+// share a row, then over the warps in a fixed order; out[r] for r < TR.
+// red is 8 x TR floats of shared memory.  Ends with a barrier.
+__device__ __forceinline__ void row_sums_mma(float (&part)[8], float* red,
+                                             float* out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v = part[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (t == 0) red[warp * TR + (i >> 1) * 16 + (i & 1) * 8 + g] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < TR) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) s += red[w * TR + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// BF16: w is W^T in bf16 (see kw_panels_mma), else W in fp32, M x M.
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
-                    const float* __restrict__ u, const float* __restrict__ w,
+                    const float* __restrict__ u, const void* __restrict__ w,
                     const float* __restrict__ os_ptr,
                     const float* __restrict__ inv_ls,
                     const float* __restrict__ mean_w,
@@ -306,8 +535,7 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
                     int R, int d, int M, int m_pad) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                     // [m_pad][KT_STRIDE]  K^T of the tile
-  float* xt = kt + m_pad * KT_STRIDE;   // [d][TR]             scaled x^T
-  float* wbuf = xt + d * TR;            // [2][BK][PANEL]      W chunks
+  float* wbuf = kt + m_pad * KT_STRIDE; // [2][BK][PANEL] W chunks; staging
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -316,7 +544,7 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
   const float os = *os_ptr;
 
   // 1. K^T of the tile
-  tile_kt(x, zs, inv_ls, os, kt, xt, row0, R, d, M, m_pad);
+  tile_kt(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, m_pad);
 
   // mean: warp w sums K[r, :] u over its 8 rows, lanes stride over m
   {
@@ -332,6 +560,15 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
       acc[4] = fmaf(b.x, um, acc[4]); acc[5] = fmaf(b.y, um, acc[5]);
       acc[6] = fmaf(b.z, um, acc[6]); acc[7] = fmaf(b.w, um, acc[7]);
     }
+    // x . mean_w of the warp's rows, lanes stride over d
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + warp * 8 + i;
+      if (row < R) {
+        const float* xr = x + (size_t)row * d;
+        for (int k = lane; k < d; k += 32) acc[i] = fmaf(xr[k], mean_w[k], acc[i]);
+      }
+    }
     float mine = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -339,37 +576,46 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
       if (lane == i) mine = s;
     }
     const int row = row0 + warp * 8 + lane;
-    if (lane < 8 && row < R) {
-      float mx = *mean_b_ptr;
-      const float* xr = x + (size_t)row * d;
-      for (int k = 0; k < d; ++k) mx = fmaf(xr[k], mean_w[k], mx);
-      mean_out[row] = mx + mine;
-    }
+    if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
   }
 
   // 2.-3. var: (K W) panel by panel, each panel's tile met with K
-  VarEpilogue epi{kt, M, lane, warp, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-  kw_panels(w, kt, wbuf, M, m_pad, epi);
+  if constexpr (BF16) {
+    VarEpilogueMma epi{kt, M, lane >> 2, lane & 3,
+                       {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+    kw_panels_mma(static_cast<const __nv_bfloat16*>(w), kt, M, m_pad, epi);
+    float* red = wbuf;             // [8][TR]
+    float* sums = wbuf + 8 * TR;   // [TR]
+    row_sums_mma(epi.part, red, sums);
+    if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
+  } else {
+    VarEpilogue epi{kt, M, lane, warp, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+    kw_panels(static_cast<const float*>(w), kt, wbuf, M, m_pad, M, epi);
 
-  float mine = 0.f;
+    float mine = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float s = warp_sum(epi.var_part[i]);
-    if (lane == i) mine = s;
+    for (int i = 0; i < 8; ++i) {
+      const float s = warp_sum(epi.var_part[i]);
+      if (lane == i) mine = s;
+    }
+    const int row = row0 + warp * 8 + lane;
+    if (lane < 8 && row < R) var_out[row] = os - mine;
   }
-  const int row = row0 + warp * 8 + lane;
-  if (lane < 8 && row < R) var_out[row] = os - mine;
 }
 
 // Backward launch 1: per-row cotangents, per-tile partial sums, K and E.
 // part_m: [tile][2][M] = (K^T dmean, colsum E) of the tile;
-// part_s: [tile][2d + 3] = (sum dxs o x, sum dmean o x, sum E, sum dvar,
-//                           sum dmean) of the tile.
+// part_s: [tile][slots * 2d + 3]: per slot (a group of the tile's rows: 2
+//         at d <= SMALL_D, else 8) (sum dxs o x, sum dmean o x), then
+//         (sum E, sum dvar, sum dmean) of the tile.
+// kmat: fp32, K as (R, M) floats; BF16, two (M, Rp) bf16 matrices, K^T and
+// (dvar o K)^T, Rp = 64 * tiles (tail rows carry dvar = 0).
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gp_bwd_rows_kernel(const float* __restrict__ x,
                          const float* __restrict__ zs,
                          const float* __restrict__ u,
-                         const float* __restrict__ w,
+                         const void* __restrict__ w,
                          const float* __restrict__ os_ptr,
                          const float* __restrict__ inv_ls,
                          const float* __restrict__ mean_w,
@@ -381,10 +627,8 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
                          int m_pad) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                     // [m_pad][KT_STRIDE]  K^T, then E^T
-  float* xt = kt + m_pad * KT_STRIDE;   // [d][TR]             scaled x^T
-  float* wbuf = xt + d * TR;            // [2][BK][PANEL]      W chunks
-  float* sd = wbuf + 2 * BK * PANEL;    // [TR][d]             dxs of the tile
-  float* dm_s = sd + TR * d;            // [TR]
+  float* wbuf = kt + m_pad * KT_STRIDE; // [2][BK][PANEL] W chunks; staging
+  float* dm_s = wbuf + WBUF;            // [TR]
   float* dv_s = dm_s + TR;              // [TR]
   float* rse_s = dv_s + TR;             // [TR]                rowsum(E)
 
@@ -400,33 +644,69 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
     dm_s[tid] = row < R ? dmean[row] : 0.f;  // tail rows: zero cotangents
     dv_s[tid] = row < R ? dvar[row] : 0.f;
   }
-  tile_kt(x, zs, inv_ls, os, kt, xt, row0, R, d, M, m_pad);
+  tile_kt(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, m_pad);
 
   // K to device memory, and the tile's K^T dmean
   for (int m = tid; m < M; m += THREADS) {
     const float* ktm = kt + m * KT_STRIDE;
     float acc = 0.f;
+    if constexpr (BF16) {
+      const size_t rp = (size_t)gridDim.x * TR;
+      uint4* k16 = reinterpret_cast<uint4*>(
+          reinterpret_cast<__nv_bfloat16*>(kmat) + (size_t)m * rp + row0);
+      uint4* dvk16 = reinterpret_cast<uint4*>(
+          reinterpret_cast<__nv_bfloat16*>(kmat) + ((size_t)M + m) * rp + row0);
+#pragma unroll
+      for (int r8 = 0; r8 < TR / 8; ++r8) {
+        uint32_t a[4], b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = 8 * r8 + 2 * j;
+          const float k0v = ktm[r], k1v = ktm[r + 1];
+          acc = fmaf(k0v, dm_s[r], acc);
+          acc = fmaf(k1v, dm_s[r + 1], acc);
+          a[j] = pack_bf16(k0v, k1v);
+          b[j] = pack_bf16(dv_s[r] * k0v, dv_s[r + 1] * k1v);
+        }
+        k16[r8] = make_uint4(a[0], a[1], a[2], a[3]);
+        dvk16[r8] = make_uint4(b[0], b[1], b[2], b[3]);
+      }
+    } else {
 #pragma unroll 16
-    for (int r = 0; r < TR; ++r) {
-      acc = fmaf(ktm[r], dm_s[r], acc);
-      const int row = row0 + r;
-      if (row < R) kmat[(size_t)row * M + m] = ktm[r];
+      for (int r = 0; r < TR; ++r) {
+        acc = fmaf(ktm[r], dm_s[r], acc);
+        const int row = row0 + r;
+        if (row < R) kmat[(size_t)row * M + m] = ktm[r];
+      }
     }
     part_m[((size_t)tile * 2 + 0) * M + m] = acc;
   }
 
   // E panel by panel
-  EEpilogue epi;
-  epi.kt = kt; epi.u = u; epi.emat = emat;
-  epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
+  if constexpr (BF16) {
+    EEpilogueMma epi;
+    epi.kt = kt; epi.u = u; epi.emat = emat;
+    epi.M = M; epi.R = R; epi.g = lane >> 2; epi.t = lane & 3; epi.row0 = row0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    epi.dm[i] = dm_s[warp * 8 + i];
-    epi.dv[i] = dv_s[warp * 8 + i];
-    epi.rowsum[i] = 0.f;
-  }
-  kw_panels(w, kt, wbuf, M, m_pad, epi);  // ends with __syncthreads()
-  {
+    for (int i = 0; i < 8; ++i) {
+      const int r = (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+      epi.dm[i] = dm_s[r];
+      epi.dv[i] = dv_s[r];
+      epi.part[i] = 0.f;
+    }
+    kw_panels_mma(static_cast<const __nv_bfloat16*>(w), kt, M, m_pad, epi);
+    row_sums_mma(epi.part, wbuf, rse_s);
+  } else {
+    EEpilogue epi;
+    epi.kt = kt; epi.u = u; epi.emat = emat;
+    epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      epi.dm[i] = dm_s[warp * 8 + i];
+      epi.dv[i] = dv_s[warp * 8 + i];
+      epi.rowsum[i] = 0.f;
+    }
+    kw_panels(static_cast<const float*>(w), kt, wbuf, M, m_pad, M, epi);  // ends with a barrier
     float mine = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -453,18 +733,31 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  // dxs[r, k] = sum_m E[r, m] zs[m, k] - rowsum(E)[r] xs[r, k]; thread
-  // (r, g) takes row r and columns g*8.. of each 32-column group
-  {
+  // dxs[r, k] = sum_m E[r, m] zs[m, k] - rowsum(E)[r] xs[r, k], dx, and per
+  // slot (a group of the tile's rows) the sums of dxs o x and dmean o x
+  const int slots = d > SMALL_D ? 8 : 2;
+  float* part_t = part_s + (size_t)tile * (slots * 2 * d + 3);
+  if (d > SMALL_D) {
+    // wide d: the product is as large as K W; the same register-tiled
+    // panels, E^T in the place of K^T and zs (M, d) in the place of W
+    DxEpilogue epi{x, inv_ls, mean_w, dx, part_t, rse_s, dm_s, R, d, lane,
+                   warp, row0};
+    kw_panels(zs, kt, wbuf, M, m_pad, d, epi);
+  } else {
+    // narrow d: thread (r, grp) takes row r and 8 columns of each
+    // 32-column pass; a warp's 32 rows are one slot
     const int r = tid & (TR - 1);
     const int grp = tid >> 6;  // 0..3
     const int row = row0 + r;
-    for (int k0 = grp * 8; k0 < d; k0 += 32) {
-      const int nk = min(8, d - k0);
+    const bool vec = (d & 3) == 0 && ((size_t)zs & 15) == 0;
+    for (int kb = 0; kb < d; kb += 32) {
+      const int k0 = kb + grp * 8;
+      const int nk = min(8, d - k0);  // <= 0: no column of its own
       float acc[8];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) acc[jj] = 0.f;
-      if (nk == 8 && (d & 3) == 0 && ((size_t)zs & 15) == 0) {  // float4
+      if (nk == 8 && vec) {
+#pragma unroll 4
         for (int m = 0; m < M; ++m) {
           const float e = kt[m * KT_STRIDE + r];
           const float4* zm = reinterpret_cast<const float4*>(zs + (size_t)m * d + k0);
@@ -474,7 +767,7 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
           acc[4] = fmaf(e, zb.x, acc[4]); acc[5] = fmaf(e, zb.y, acc[5]);
           acc[6] = fmaf(e, zb.z, acc[6]); acc[7] = fmaf(e, zb.w, acc[7]);
         }
-      } else {
+      } else if (nk > 0) {
         for (int m = 0; m < M; ++m) {
           const float e = kt[m * KT_STRIDE + r];
           const float* zm = zs + (size_t)m * d + k0;
@@ -485,36 +778,31 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
       }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        if (jj < nk) {
+        float s_dx = 0.f, s_dm = 0.f;
+        if (jj < nk && row < R) {
           const int k = k0 + jj;
-          const float dxs = acc[jj] - rse_s[r] * xt[k * TR + r];
-          sd[r * d + k] = dxs;
-          if (row < R) dx[(size_t)row * d + k] = fmaf(dxs, inv_ls[k], dm_s[r] * mean_w[k]);
+          const float xv = x[(size_t)row * d + k];
+          const float il = inv_ls[k];
+          const float dxs = acc[jj] - rse_s[r] * (xv * il);
+          dx[(size_t)row * d + k] = fmaf(dxs, il, dm_s[r] * mean_w[k]);
+          s_dx = dxs * xv;
+          s_dm = dm_s[r] * xv;
+        }
+        s_dx = warp_sum(s_dx);
+        s_dm = warp_sum(s_dm);
+        if (lane == 0 && jj < nk) {
+          part_t[(size_t)(warp & 1) * 2 * d + k0 + jj] = s_dx;
+          part_t[(size_t)(warp & 1) * 2 * d + d + k0 + jj] = s_dm;
         }
       }
     }
   }
-  __syncthreads();
-
   // the tile's scalar sums
-  const int ns = 2 * d + 3;
-  for (int q = tid; q < ns; q += THREADS) {
+  if (tid < 3) {
+    const float* src = tid == 0 ? rse_s : (tid == 1 ? dv_s : dm_s);
     float acc = 0.f;
-    if (q < 2 * d) {
-      const int k = q < d ? q : q - d;
-#pragma unroll 16
-      for (int r = 0; r < TR; ++r) {
-        const int row = row0 + r;
-        if (row < R) {
-          const float xv = x[(size_t)row * d + k];
-          acc = fmaf(q < d ? sd[r * d + k] : dm_s[r], xv, acc);
-        }
-      }
-    } else {
-      const float* src = q == 2 * d ? rse_s : (q == 2 * d + 1 ? dv_s : dm_s);
-      for (int r = 0; r < TR; ++r) acc += src[r];
-    }
-    part_s[(size_t)tile * ns + q] = acc;
+    for (int r = 0; r < TR; ++r) acc += src[r];
+    part_t[slots * 2 * d + tid] = acc;
   }
 }
 
@@ -529,7 +817,7 @@ __device__ __forceinline__ void frag(const float* p, float (&out)[N]) {
   }
 }
 
-// Backward launches 2 and 3: for row range s of `rows_per` rows,
+// Backward launches 2 and 3 in fp32: for row range s of `rows_per` rows,
 //   part[s, m, n] = sum_r A[r, m] * (rw ? rw[r] : 1) * B[r, n]
 // with A (R, Mdim) and B (R, Ndim) row-major.  256 threads as 16 x 16; a
 // block owns a (16 TM) x (16 TN) output tile and a thread a TM x TN register
@@ -655,9 +943,120 @@ fused_gp_bwd_cols_kernel(const float* A, const float* B,
   }
 }
 
+// Backward launch 2 in bf16: for row range s of `rows_per` rows (a multiple
+// of GK),  part[s, m, n] = sum_r A[m, r] * B[n, r]  with A = K^T and
+// B = (dvar o K)^T, both (M, Rp) bf16, so both operands are read as pairs
+// along r.  A 128 x 128 output tile per block of 8 warps (2 x 4), a
+// 64 x 32 tile of 4 x 4 `mma` tiles per warp; chunks of GK rows pass through
+// two shared-memory buffers, the next one's loads in flight in registers.
+__global__ void __launch_bounds__(THREADS)
+fused_gp_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ A,
+                           const __nv_bfloat16* __restrict__ B,
+                           float* __restrict__ part, int M, int Rp,
+                           int rows_per) {
+  __shared__ __align__(16) __nv_bfloat16 as[2][DW_TILE][GS];
+  __shared__ __align__(16) __nv_bfloat16 bs[2][DW_TILE][GS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp >> 2) * 64;
+  const int wn = (warp & 3) * 32;
+  const int m0 = blockIdx.y * DW_TILE;
+  const int n0 = blockIdx.x * DW_TILE;
+  const int s = blockIdx.z;
+  const int r0 = s * rows_per;
+  const int r1 = min(Rp, r0 + rows_per);
+
+  // a stage is 128 rows x 32 bf16 = 512 x 16 bytes per operand: two a thread
+  uint4 pa[2], pb[2];
+  auto fetch = [&](int rc) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i >> 2;
+      const int seg = (i & 3) * 8;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      pa[c] = m0 + row < M ? __ldg(reinterpret_cast<const uint4*>(
+                                 A + (size_t)(m0 + row) * Rp + rc + seg))
+                           : zero;
+      pb[c] = n0 + row < M ? __ldg(reinterpret_cast<const uint4*>(
+                                 B + (size_t)(n0 + row) * Rp + rc + seg))
+                           : zero;
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i >> 2;
+      const int seg = (i & 3) * 8;
+      *reinterpret_cast<uint4*>(&as[buf][row][seg]) = pa[c];
+      *reinterpret_cast<uint4*>(&bs[buf][row][seg]) = pb[c];
+    }
+  };
+
+  float c[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+
+  if (r0 < r1) {
+    fetch(r0);
+    stash(0);
+  }
+  __syncthreads();
+  int buf = 0;
+  for (int rc = r0; rc < r1; rc += GK) {
+    const bool more = rc + GK < r1;
+    if (more) fetch(rc + GK);
+#pragma unroll
+    for (int ks = 0; ks < GK; ks += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const __nv_bfloat16* ap = &as[buf][wm + mt * 16 + g][ks + 2 * t];
+        a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+        a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * GS);
+        a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+        a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * GS + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const __nv_bfloat16* bp = &bs[buf][wn + nt * 8 + g][ks + 2 * t];
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
+      }
+    }
+    if (more) stash(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+
+  float* out = part + (size_t)s * M * M;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + mt * 16 + g + (e >> 1) * 8;
+        const int n = n0 + wn + nt * 8 + 2 * t + (e & 1);
+        if (m < M && n < M) out[(size_t)m * M + n] = c[mt][nt][e];
+      }
+}
+
 // Backward launch 4: fixed-order sums of every partial.  Blocks 0..M-1 own
 // inducing point m (du, dzs row, dW row); blocks M.. own one scalar output
-// each: dinv_ls[k], dmean_w[k], dos, dmean_b.
+// each: dinv_ls[k], dmean_w[k], dos, dmean_b.  sym: only the dW tiles on and
+// above the diagonal were computed.
 __global__ void __launch_bounds__(THREADS)
 fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
                            const float* __restrict__ part_s,
@@ -671,7 +1070,7 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
                            float* __restrict__ dinv_ls,
                            float* __restrict__ dmean_w,
                            float* __restrict__ dmean_b, int n_tiles, int d,
-                           int M, int s_w, int s_z) {
+                           int M, int s_w, int s_z, int sym) {
   __shared__ float red[THREADS / 32];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -690,10 +1089,9 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
       for (int s = 0; s < s_z; ++s) e += pz[((size_t)s * M + m) * d + k];
       dzs[(size_t)m * d + k] = e * inv_ls[k] - c * zs[(size_t)m * d + k];
     }
-    // dW is symmetric and only the tiles on and above the diagonal were
-    // computed: below it, read the mirror element
+    // below the diagonal of a symmetric product, read the mirror element
     for (int n = tid; n < M; n += THREADS) {
-      const bool upper = m / DW_TILE <= n / DW_TILE;
+      const bool upper = !sym || m / DW_TILE <= n / DW_TILE;
       const size_t at = upper ? (size_t)m * M + n : (size_t)n * M + m;
       float e = 0.f;
       for (int s = 0; s < s_w; ++s) e += pw[(size_t)s * M * M + at];
@@ -702,12 +1100,18 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
     return;
   }
   const int q = b - M;
-  const int ns = 2 * d + 3;
+  const int slots = d > SMALL_D ? 8 : 2;
+  const int ns = slots * 2 * d + 3;
   float a = 0.f, c = 0.f;
-  const int qa = q < 2 * d ? q : (q == 2 * d ? 2 * d : 2 * d + 2);
-  for (int t = tid; t < n_tiles; t += THREADS) {
-    a += part_s[(size_t)t * ns + qa];
-    if (q == 2 * d) c += part_s[(size_t)t * ns + 2 * d + 1];
+  if (q < 2 * d) {
+    for (int t = tid; t < n_tiles * slots; t += THREADS)
+      a += part_s[(size_t)(t / slots) * ns + (size_t)(t % slots) * 2 * d + q];
+  } else {
+    const int qa = q == 2 * d ? 0 : 2;
+    for (int t = tid; t < n_tiles; t += THREADS) {
+      a += part_s[(size_t)t * ns + slots * 2 * d + qa];
+      if (q == 2 * d) c += part_s[(size_t)t * ns + slots * 2 * d + 1];
+    }
   }
   a = block_sum(a, red);
   if (q == 2 * d) c = block_sum(c, red);
@@ -719,39 +1123,117 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
 }
 
 struct BwdPlan {
-  int n_tiles, m_pad, s_w, rows_w, s_z, rows_z;
+  int n_tiles, m_pad, s_w, rows_w, s_z, rows_z, z_tile;
   long long kmat, emat, part_m, part_s, pw, pz, total;  // scratch offsets
 };
 
 // splits over rows so that each column product fills one wave of at most
-// TARGET_BLOCKS blocks (rounding up would start a second, nearly empty wave)
-__host__ void split_rows(int R, int tiles, int& s, int& rows_per) {
+// TARGET_BLOCKS blocks (rounding up would start a second, nearly empty wave);
+// rows_per is a multiple of `chunk`
+__host__ void split_rows(int R, int tiles, int chunk, int& s, int& rows_per) {
   s = TARGET_BLOCKS / tiles;
-  const int max_s = (R + CK - 1) / CK;
+  const int max_s = (R + chunk - 1) / chunk;
   if (s > max_s) s = max_s;
   if (s < 1) s = 1;
   rows_per = (R + s - 1) / s;
-  rows_per = (rows_per + CK - 1) / CK * CK;
+  rows_per = (rows_per + chunk - 1) / chunk * chunk;
   s = (R + rows_per - 1) / rows_per;
 }
 
-__host__ BwdPlan plan(int R, int d, int M) {
+__host__ BwdPlan plan(int R, int d, int M, bool bf16) {
   BwdPlan p;
   p.n_tiles = (R + TR - 1) / TR;
   p.m_pad = (M + BK - 1) / BK * BK;
+  const int rp = p.n_tiles * TR;
   const int mt = (M + CBM - 1) / CBM;
   const int nt = (M + DW_TILE - 1) / DW_TILE;
-  split_rows(R, nt * (nt + 1) / 2, p.s_w, p.rows_w);
-  split_rows(R, mt * ((d + 31) / 32), p.s_z, p.rows_z);
+  if (bf16) split_rows(rp, nt * nt, GK, p.s_w, p.rows_w);
+  else split_rows(R, nt * (nt + 1) / 2, CK, p.s_w, p.rows_w);
+  p.z_tile = d > 64 ? 128 : 32;  // columns of d per E^T x block
+  split_rows(R, mt * ((d + p.z_tile - 1) / p.z_tile), CK, p.s_z, p.rows_z);
   long long o = 0;
-  p.kmat = o; o += (long long)R * M;
+  p.kmat = o; o += (long long)rp * M;  // fp32 K, or two bf16 (M, rp)
   p.emat = o; o += (long long)R * M;
   p.part_m = o; o += (long long)p.n_tiles * 2 * M;
-  p.part_s = o; o += (long long)p.n_tiles * (2 * d + 3);
+  p.part_s = o; o += (long long)p.n_tiles * ((d > SMALL_D ? 8 : 2) * 2 * d + 3);
   p.pw = o; o += (long long)p.s_w * M * M;
   p.pz = o; o += (long long)p.s_z * M * d;
   p.total = o;
   return p;
+}
+
+int smem_fwd(int M) {
+  const long long m_pad = (M + BK - 1) / BK * BK;
+  return (int)((m_pad * KT_STRIDE + WBUF) * (long long)sizeof(float));
+}
+
+int smem_bwd(int M) { return smem_fwd(M) + 3 * TR * (int)sizeof(float); }
+
+template <bool BF16>
+int launch_fwd(const float* x, const float* zs, const float* u, const void* w,
+               const float* os, const float* inv_ls, const float* mean_w,
+               const float* mean_b, float* mean, float* var, int R, int d,
+               int M, cudaStream_t stream) {
+  const int m_pad = (M + BK - 1) / BK * BK;
+  const int smem = smem_fwd(M);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_gp_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (R + TR - 1) / TR;
+  fused_gp_fwd_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
+      x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16>
+int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
+               const float* os, const float* inv_ls, const float* mean_w,
+               const float* dmean, const float* dvar, float* dx, float* dzs,
+               float* du, float* dw, float* dos, float* dinv_ls,
+               float* dmean_w, float* dmean_b, float* scratch, int R, int d,
+               int M, cudaStream_t st) {
+  const BwdPlan p = plan(R, d, M, BF16);
+  float* kmat = scratch + p.kmat;
+  float* emat = scratch + p.emat;
+  float* part_m = scratch + p.part_m;
+  float* part_s = scratch + p.part_s;
+  float* pw = scratch + p.pw;
+  float* pz = scratch + p.pz;
+
+  const int smem = smem_bwd(M);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_gp_bwd_rows_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_gp_bwd_rows_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
+      x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
+      part_s, R, d, M, p.m_pad);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int mt = (M + CBM - 1) / CBM;
+  const int nt = (M + DW_TILE - 1) / DW_TILE;
+  if (BF16) {
+    const int rp = p.n_tiles * TR;
+    const __nv_bfloat16* k16 = reinterpret_cast<const __nv_bfloat16*>(kmat);
+    fused_gp_bwd_dw_mma_kernel<<<dim3(nt, nt, p.s_w), THREADS, 0, st>>>(
+        k16, k16 + (size_t)M * rp, pw, M, rp, p.rows_w);
+  } else {
+    fused_gp_bwd_cols_kernel<8, 8, true><<<dim3(nt * (nt + 1) / 2, 1, p.s_w), THREADS, 0, st>>>(
+        kmat, kmat, dvar, pw, R, M, M, p.rows_w);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 zgrid((d + p.z_tile - 1) / p.z_tile, mt, p.s_z);
+  if (p.z_tile == 128)
+    fused_gp_bwd_cols_kernel<8, 8, false><<<zgrid, THREADS, 0, st>>>(
+        emat, x, nullptr, pz, R, M, d, p.rows_z);
+  else
+    fused_gp_bwd_cols_kernel<8, 2, false><<<zgrid, THREADS, 0, st>>>(
+        emat, x, nullptr, pz, R, M, d, p.rows_z);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  fused_gp_bwd_reduce_kernel<<<M + 2 * d + 2, THREADS, 0, st>>>(
+      part_m, part_s, pw, pz, zs, inv_ls, os, dzs, du, dw, dos, dinv_ls,
+      dmean_w, dmean_b, p.n_tiles, d, M, p.s_w, p.s_z, BF16 ? 0 : 1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -759,21 +1241,32 @@ __host__ BwdPlan plan(int R, int d, int M) {
 extern "C" {
 
 // Shared memory the forward launch needs, in bytes (the wrapper checks it
-// against the card's per-block limit before launching).
+// against the card's per-block limit before launching).  It grows with M
+// only: d streams through a fixed staging buffer.
 long long fused_gp_fwd_smem_bytes(int d, int M) {
-  const long long m_pad = (M + BK - 1) / BK * BK;
-  return (m_pad * KT_STRIDE + (long long)d * TR + 2LL * BK * PANEL) * (long long)sizeof(float);
+  (void)d;
+  return smem_fwd(M);
 }
 
 // Shared memory of the backward's row launch, in bytes.
 long long fused_gp_bwd_smem_bytes(int d, int M) {
-  return fused_gp_fwd_smem_bytes(d, M) + ((long long)TR * d + 3LL * TR) * (long long)sizeof(float);
+  (void)d;
+  return smem_bwd(M);
 }
 
 // Floats of device scratch the backward needs (the wrapper allocates it).
 long long fused_gp_bwd_scratch_floats(int R, int d, int M) {
-  return plan(R, d, M).total;
+  return plan(R, d, M, false).total;
 }
+
+long long fused_gp_bf16_bwd_scratch_floats(int R, int d, int M) {
+  return plan(R, d, M, true).total;
+}
+
+// Rows and columns of the bf16 W^T the bf16 launchers take: wt[n][k] =
+// bf16(W[k][n]), zero beyond M.
+int fused_gp_bf16_wt_rows(int M) { return (M + PANEL - 1) / PANEL * PANEL; }
+int fused_gp_bf16_wt_cols(int M) { return (M + BK - 1) / BK * BK; }
 
 // x (R, d) raw rows; zs (M, d) = Z / lengthscale; u (M,); w (M, M) row-major;
 // os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs.
@@ -782,15 +1275,18 @@ int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w
                  const float* os, const float* inv_ls, const float* mean_w,
                  const float* mean_b, float* mean, float* var, int R, int d,
                  int M, void* stream) {
-  const int m_pad = (M + BK - 1) / BK * BK;
-  const int smem = (int)fused_gp_fwd_smem_bytes(d, M);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + TR - 1) / TR;
-  fused_gp_fwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
+                           R, d, M, (cudaStream_t)stream);
+}
+
+// The same with the K W product in bf16 on the tensor cores; wt is the bf16
+// W^T described at fused_gp_bf16_wt_rows.
+int fused_gp_bf16_fwd(const float* x, const float* zs, const float* u,
+                      const void* wt, const float* os, const float* inv_ls,
+                      const float* mean_w, const float* mean_b, float* mean,
+                      float* var, int R, int d, int M, void* stream) {
+  return launch_fwd<true>(x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var,
+                          R, d, M, (cudaStream_t)stream);
 }
 
 // The VJP.  Inputs as the forward's, plus dmean, dvar (R,); outputs dx
@@ -804,37 +1300,23 @@ int fused_gp_bwd(const float* x, const float* zs, const float* u, const float* w
                  float* du, float* dw, float* dos, float* dinv_ls,
                  float* dmean_w, float* dmean_b, float* scratch, int R, int d,
                  int M, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const BwdPlan p = plan(R, d, M);
-  float* kmat = scratch + p.kmat;
-  float* emat = scratch + p.emat;
-  float* part_m = scratch + p.part_m;
-  float* part_s = scratch + p.part_s;
-  float* pw = scratch + p.pw;
-  float* pz = scratch + p.pz;
+  return launch_bwd<false>(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
+                           dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
+                           scratch, R, d, M, (cudaStream_t)stream);
+}
 
-  const int smem = (int)fused_gp_bwd_smem_bytes(d, M);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_gp_bwd_rows_kernel<<<p.n_tiles, THREADS, smem, st>>>(
-      x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
-      part_s, R, d, M, p.m_pad);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int mt = (M + CBM - 1) / CBM;
-  const int nt = (M + DW_TILE - 1) / DW_TILE;
-  fused_gp_bwd_cols_kernel<8, 8, true><<<dim3(nt * (nt + 1) / 2, 1, p.s_w), THREADS, 0, st>>>(
-      kmat, kmat, dvar, pw, R, M, M, p.rows_w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fused_gp_bwd_cols_kernel<8, 2, false><<<dim3((d + 31) / 32, mt, p.s_z), THREADS, 0, st>>>(
-      emat, x, nullptr, pz, R, M, d, p.rows_z);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  fused_gp_bwd_reduce_kernel<<<M + 2 * d + 2, THREADS, 0, st>>>(
-      part_m, part_s, pw, pz, zs, inv_ls, os, dzs, du, dw, dos, dinv_ls,
-      dmean_w, dmean_b, p.n_tiles, d, M, p.s_w, p.s_z);
-  return (int)cudaGetLastError();
+// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores; wt as
+// the bf16 forward's; scratch of fused_gp_bf16_bwd_scratch_floats floats.
+int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
+                      const void* wt, const float* os, const float* inv_ls,
+                      const float* mean_w, const float* dmean,
+                      const float* dvar, float* dx, float* dzs, float* du,
+                      float* dw, float* dos, float* dinv_ls, float* dmean_w,
+                      float* dmean_b, float* scratch, int R, int d, int M,
+                      void* stream) {
+  return launch_bwd<true>(x, zs, u, wt, os, inv_ls, mean_w, dmean, dvar, dx,
+                          dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
+                          scratch, R, d, M, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,12 @@ Only the marginal (diagonal) posterior is formed.  With ``use_fused`` the
 through ``ops/cuda/fused_gp.py`` (the CUDA kernel on the card, its plain
 version on the CPU).  The Cholesky, L^-1, u and W are small host-side
 library calls, as in the JAX package.
+
+``compute_dtype``: a 16-bit dtype runs the two heavy products on inputs
+rounded to it, summed in fp32 -- the fused path through the bf16 fused
+kernel (K W and, in the backward, K^T (dvar o K)), the unfused path through
+the cross-covariance's inner product and the whitened solve.  Parameters,
+the Cholesky, L^-1, u, W, the exponential and the KL stay fp32.
 """
 
 from __future__ import annotations
@@ -57,12 +63,14 @@ class _VariationalLayer(nn.Module):
     """
 
     def __init__(self, input_dims: int, num_inducing: int = 256,
-                 use_fused: bool = False, ls_init: float = 0.0, *,
+                 use_fused: bool = False, ls_init: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None, *,
                  device: torch.device, generator: torch.Generator):
         super().__init__()
         d, m = input_dims, num_inducing
         self.input_dims, self.num_inducing = d, m
         self.use_fused = use_fused
+        self.compute_dtype = compute_dtype
 
         def param(*shape):
             return nn.Parameter(torch.zeros(shape, device=device))
@@ -104,7 +112,12 @@ class _VariationalLayer(nn.Module):
             u = chol_inv.T @ var_mean
             w_mat = chol_inv.T @ (chol_inv * (1.0 - s2)[:, None])
             xr = x[None] if x.dim() == 2 else x
-            mean, var = fused_gp.whitened_marginals_affine(
+            # the bf16 kernel only for an explicit 16-bit compute dtype
+            use_bf16 = (self.compute_dtype is not None
+                        and self.compute_dtype.itemsize == 2)
+            marginals = (fused_gp.whitened_marginals_affine_bf16 if use_bf16
+                         else fused_gp.whitened_marginals_affine)
+            mean, var = marginals(
                 xr.contiguous(), (z / lengthscale).contiguous(),
                 u.contiguous(), w_mat.contiguous(), outputscale,
                 (1.0 / lengthscale).contiguous(), self.mean_weight,
@@ -113,8 +126,13 @@ class _VariationalLayer(nn.Module):
                 mean, var = mean[0], var[0]
             return mean, torch.clamp(var, min=1e-8), kl
 
-        kzx = rbf_ard(x, z, lengthscale, outputscale)  # (..., N, M)
-        a = torch.einsum("mk,...nk->...nm", chol_inv, kzx)
+        dt = self.compute_dtype
+        kzx = rbf_ard(x, z, lengthscale, outputscale, dt)  # (..., N, M)
+        if dt is not None:  # rounded inputs, exact products, fp32 sums
+            a = torch.einsum("mk,...nk->...nm", chol_inv.to(dt).float(),
+                             kzx.to(dt).float())
+        else:
+            a = torch.einsum("mk,...nk->...nm", chol_inv, kzx)
         mean = (torch.einsum("...nd,d->...n", x, self.mean_weight)
                 + self.mean_bias + a @ var_mean)
         s = torch.exp(log_std)
@@ -141,18 +159,14 @@ class DeepGP(nn.Module):
         if use_pallas:
             raise NotImplementedError(
                 "use_pallas (rbf_cross_kernel) is not ported yet "
-                "(ROADMAP.md TPU kernels to port, rbf)")
-        if compute_dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype}: the bf16 GP path is not "
-                "ported yet (ROADMAP.md modules to port, item 14)")
+                "(ROADMAP.md TPU kernels to port, #9 rbf)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.raw_noise = nn.Parameter(torch.zeros((), device=device))
         self.output_layer = _VariationalLayer(
-            input_dims, num_inducing, use_fused, ls_init, device=device,
-            generator=generator)
+            input_dims, num_inducing, use_fused, ls_init, compute_dtype,
+            device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> GPPosterior:
         """x: (..., N, d) -> marginal q(f) over the N points."""

@@ -14,14 +14,21 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x)
 
 
-def sq_dist(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def sq_dist(x: torch.Tensor, z: torch.Tensor,
+            compute_dtype=None) -> torch.Tensor:
     """Pairwise squared Euclidean distance, clamped at 0.
 
     x: (..., N, d), z: (M, d) -> (..., N, M), as |x|^2 + |z|^2 - 2 x.z.  The
     cross term runs in full fp32 (the package turns TF32 off), so the three
     terms stay a consistent decomposition and the Gram matrix it feeds
-    remains positive definite.
+    remains positive definite.  With a ``compute_dtype`` (bfloat16) the
+    points are cast to it first: the norms are fp32 sums over the cast
+    values and the cross term is exact products of them summed in fp32, so
+    the decomposition is that of the cast points and stays consistent.
     """
+    if compute_dtype is not None:
+        x = x.to(compute_dtype).float()
+        z = z.to(compute_dtype).float()
     x2 = (x * x).sum(-1, keepdim=True)
     z2 = (z * z).sum(-1)
     xz = torch.matmul(x, z.transpose(-1, -2))
@@ -29,10 +36,10 @@ def sq_dist(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def rbf_ard(x: torch.Tensor, z: torch.Tensor, lengthscale: torch.Tensor,
-            outputscale: torch.Tensor) -> torch.Tensor:
+            outputscale: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Scaled RBF-ARD cross covariance: outputscale * exp(-0.5 * d^2).
 
     x: (..., N, d), z: (M, d), lengthscale: (d,), outputscale: scalar.
     """
     return outputscale * torch.exp(
-        -0.5 * sq_dist(x / lengthscale, z / lengthscale))
+        -0.5 * sq_dist(x / lengthscale, z / lengthscale, compute_dtype))

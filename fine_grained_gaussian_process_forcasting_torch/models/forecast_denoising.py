@@ -10,7 +10,11 @@ transformer backbone and the variational GP:
   names; the ELBO uses the decoder-stream marginals;
 - isotropic mode adds 0.05 * N(0, 1) noise in train and eval; the draws come
   from an explicit generator or are passed in;
-- the residual branch re-runs the forecaster on its own outputs.
+- the residual branch re-runs the forecaster on its own outputs;
+- ``compute_dtype`` (e.g. bfloat16) is the forecaster's and
+  ``gp_compute_dtype`` the GP's two heavy products'; the embeddings, the
+  projections, the GP's input (the forecaster hands back fp32), the ELBO and
+  the loss stay fp32.
 """
 
 from __future__ import annotations

@@ -5,6 +5,15 @@ without affine parameters (eps 1e-5), ReLU feed-forward d -> 4d -> d, and
 multi-head attention over the ``basic`` and ``autoformer`` ops.  Module
 attribute names follow the Flax module names, so ``params.from_flax`` maps a
 Flax tree onto ``state_dict`` keys directly.
+
+``compute_dtype`` (e.g. ``torch.bfloat16``) mirrors Flax's ``dtype=`` by
+explicit casts, not ``torch.autocast`` (which picks a precision op by op and
+would be another function): parameters stay fp32; every dense layer
+(``params.Dense``) casts its input, weight and bias to the compute dtype;
+the streams and the
+positional encoding are cast on entry; LayerNorm takes its statistics in
+fp32 and returns the compute dtype; both outputs are cast back to the input
+dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
 from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (
     auto_correlation,
 )
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention import (
+    fused_attention,
+)
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
     head_folded_attention,
 )
@@ -32,9 +44,9 @@ ATTENTION_TYPES = ("basic", "ATA", "ACAT", "conv_attn", "autoformer",
 PORTED_ATTENTION_TYPES = ("basic", "autoformer")
 
 
-def positional_encoding(length: int, d_model: int,
-                        device=None) -> torch.Tensor:
-    """Sinusoidal table (1, length, d_model)."""
+def positional_encoding(length: int, d_model: int, device=None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """Sinusoidal table (1, length, d_model), computed in fp32."""
     pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
     div = torch.pow(10000.0, torch.arange(0, d_model, 2, dtype=torch.float32,
                                           device=device) / d_model)
@@ -42,19 +54,20 @@ def positional_encoding(length: int, d_model: int,
     pe = torch.zeros((length, d_model), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(x)
     pe[:, 1::2] = torch.cos(x[:, : d_model // 2])
-    return pe[None]
+    return pe[None].to(dtype)
 
 
 def basic_attention_route(device: torch.device, d_k: int, is_self: bool,
                           use_pallas_attention: Optional[bool] = None) -> str:
-    """Which implementation a ``basic`` attention call takes: "plain" or
-    "head_folded".
+    """Which implementation a ``basic`` attention call takes: "plain",
+    "head_folded" or "flash".
 
     Resolved on the tensor's device.  The CPU always takes the plain path.
     On CUDA, auto (None) takes the head-folded kernel at d_k < 64, self- and
-    cross-attention; self-attention at 64 <= d_k < 128 is the flash kernel,
-    not ported yet, and raises; everything else is plain.  An explicit True
-    or False forces the kernel or the plain path.
+    cross-attention, and the flash kernel for self-attention at
+    64 <= d_k < 128; cross-attention at d_k >= 64 and everything at
+    d_k >= 128 are plain.  An explicit True or False forces a kernel (the one
+    of that d_k) or the plain path.
     """
     if torch.device(device).type == "cpu":
         return "plain"
@@ -64,23 +77,18 @@ def basic_attention_route(device: torch.device, d_k: int, is_self: bool,
         use_kernel = use_pallas_attention
     if not use_kernel:
         return "plain"
-    if d_k >= 64:
-        raise NotImplementedError(
-            f"basic attention at d_k={d_k} routes to flash_attention, which "
-            "is not ported yet (ROADMAP.md TPU kernels to port, "
-            "flash_attention)")
-    return "head_folded"
+    return "flash" if d_k >= 64 else "head_folded"
 
 
 class FeedForward(nn.Module):
     """ReLU MLP d_model -> d_ff -> d_model."""
 
-    def __init__(self, d_model: int, d_ff: int, *, device, generator):
+    def __init__(self, d_model: int, d_ff: int, dtype=None, *, device,
+                 generator):
         super().__init__()
-        self.w1 = dense(d_model, d_ff, bias=True, device=device,
-                        generator=generator)
-        self.w2 = dense(d_ff, d_model, bias=True, device=device,
-                        generator=generator)
+        kw = dict(bias=True, device=device, generator=generator, dtype=dtype)
+        self.w1 = dense(d_model, d_ff, **kw)
+        self.w2 = dense(d_ff, d_model, **kw)
 
     def forward(self, x):
         return self.w2(F.relu(self.w1(x)))
@@ -97,7 +105,7 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, d_k: int, d_v: int, n_heads: int,
                  attn_type: str = "basic",
-                 use_pallas_attention: Optional[bool] = None, *,
+                 use_pallas_attention: Optional[bool] = None, dtype=None, *,
                  is_self: bool, device, generator):
         super().__init__()
         if attn_type not in ATTENTION_TYPES:
@@ -110,7 +118,8 @@ class MultiHeadAttention(nn.Module):
         self.attn_type = attn_type
         self.use_pallas_attention = use_pallas_attention
         h = n_heads
-        kw = dict(bias=False, device=device, generator=generator)
+        kw = dict(bias=False, device=device, generator=generator,
+                  dtype=dtype)
         if is_self:
             self.wqkv = dense(d_model, 2 * d_k * h + d_v * h, **kw)
         else:
@@ -141,7 +150,10 @@ class MultiHeadAttention(nn.Module):
         else:
             route = basic_attention_route(q.device, d_k, is_self,
                                           self.use_pallas_attention)
-            if route == "head_folded":
+            if route == "flash":
+                context = fused_attention(
+                    q.contiguous(), k.contiguous(), v.contiguous())
+            elif route == "head_folded":
                 context = head_folded_attention(
                     q.contiguous(), k.contiguous(), v.contiguous())
             else:
@@ -151,19 +163,21 @@ class MultiHeadAttention(nn.Module):
 
 
 def _layer_norm(x):
-    return F.layer_norm(x, x.shape[-1:], eps=1e-5)
+    """LayerNorm without affine parameters; the statistics in fp32, the
+    result in x's dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
     """Self-attn -> LN -> FFN -> LN, post-norm without affine."""
 
     def __init__(self, d_model, d_ff, d_k, d_v, n_heads, attn_type,
-                 use_pallas_attention=None, *, device, generator):
+                 use_pallas_attention=None, dtype=None, *, device, generator):
         super().__init__()
         self.self_attn = MultiHeadAttention(
             d_model, d_k, d_v, n_heads, attn_type, use_pallas_attention,
-            is_self=True, device=device, generator=generator)
-        self.ffn = FeedForward(d_model, d_ff, device=device,
+            dtype, is_self=True, device=device, generator=generator)
+        self.ffn = FeedForward(d_model, d_ff, dtype, device=device,
                                generator=generator)
 
     def forward(self, x, training: bool = False):
@@ -175,16 +189,16 @@ class DecoderLayer(nn.Module):
     """Self-attn, cross-attn, FFN, each followed by a post-LN."""
 
     def __init__(self, d_model, d_ff, d_k, d_v, n_heads, attn_type,
-                 use_pallas_attention=None, *, device, generator):
+                 use_pallas_attention=None, dtype=None, *, device, generator):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.self_attn = MultiHeadAttention(
             d_model, d_k, d_v, n_heads, attn_type, use_pallas_attention,
-            is_self=True, **kw)
+            dtype, is_self=True, **kw)
         self.cross_attn = MultiHeadAttention(
             d_model, d_k, d_v, n_heads, attn_type, use_pallas_attention,
-            is_self=False, **kw)
-        self.ffn = FeedForward(d_model, d_ff, **kw)
+            dtype, is_self=False, **kw)
+        self.ffn = FeedForward(d_model, d_ff, dtype, **kw)
 
     def forward(self, x, enc_out, training: bool = False):
         out = _layer_norm(x + self.self_attn(x, x, x, training=training))
@@ -195,17 +209,22 @@ class DecoderLayer(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, d_model, d_ff, d_k, d_v, n_heads, n_layers, attn_type,
-                 use_pallas_attention=None, *, device, generator):
+                 use_pallas_attention=None, dtype=None, *, device, generator):
         super().__init__()
         self.d_model = d_model
         self.n_layers = n_layers
+        self.dtype = dtype
         for i in range(n_layers):
             self.add_module(f"layer{i}", EncoderLayer(
                 d_model, d_ff, d_k, d_v, n_heads, attn_type,
-                use_pallas_attention, device=device, generator=generator))
+                use_pallas_attention, dtype, device=device,
+                generator=generator))
 
     def forward(self, x, training: bool = False):
-        x = x + positional_encoding(x.shape[1], self.d_model, x.device)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = x + positional_encoding(x.shape[1], self.d_model, x.device,
+                                    x.dtype)
         for i in range(self.n_layers):
             x = getattr(self, f"layer{i}")(x, training=training)
         return x
@@ -213,17 +232,22 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, d_model, d_ff, d_k, d_v, n_heads, n_layers, attn_type,
-                 use_pallas_attention=None, *, device, generator):
+                 use_pallas_attention=None, dtype=None, *, device, generator):
         super().__init__()
         self.d_model = d_model
         self.n_layers = n_layers
+        self.dtype = dtype
         for i in range(n_layers):
             self.add_module(f"layer{i}", DecoderLayer(
                 d_model, d_ff, d_k, d_v, n_heads, attn_type,
-                use_pallas_attention, device=device, generator=generator))
+                use_pallas_attention, dtype, device=device,
+                generator=generator))
 
     def forward(self, x, enc_out, training: bool = False):
-        x = x + positional_encoding(x.shape[1], self.d_model, x.device)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = x + positional_encoding(x.shape[1], self.d_model, x.device,
+                                    x.dtype)
         for i in range(self.n_layers):
             x = getattr(self, f"layer{i}")(x, enc_out, training=training)
         return x
@@ -239,20 +263,24 @@ class Transformer(nn.Module):
                  use_pallas_attention: Optional[bool] = None, *,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        if compute_dtype not in (None, torch.float32):
+        if (attn_type == "autoformer" and compute_dtype is not None
+                and compute_dtype.itemsize == 2):
             raise NotImplementedError(
-                f"compute_dtype={compute_dtype}: the bf16 forecaster is not "
-                "ported yet (ROADMAP.md modules to port, item 14)")
+                f"attn_type='autoformer' with compute_dtype={compute_dtype} "
+                "is not ported yet: the reference rounds its DFT matrices "
+                "and spectra to that dtype (ROADMAP.md modules to port, "
+                "item 14)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         args = (d_model, d_ff, d_k, d_v, n_heads, n_layers, attn_type,
-                use_pallas_attention)
+                use_pallas_attention, compute_dtype)
         self.encoder = Encoder(*args, device=device, generator=generator)
         self.decoder = Decoder(*args, device=device, generator=generator)
 
     def forward(self, enc_inputs, dec_inputs, training: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        in_dtype = enc_inputs.dtype
         enc_out = self.encoder(enc_inputs, training=training)
         dec_out = self.decoder(dec_inputs, enc_out, training=training)
-        return enc_out, dec_out
+        return enc_out.to(in_dtype), dec_out.to(in_dtype)

@@ -11,11 +11,32 @@ import math
 import torch
 
 
+def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 16-bit operands: exact products summed in fp32, rounded
+    once to the operands' dtype.  Every GEMM here does that, each in its own
+    order of summation, and a sum that lands between two 16-bit values
+    rounds one way or the other with the order.  On the CPU the operands are
+    widened and the product taken by the fp32 GEMM, the order in which the
+    JAX package's CPU runs sum: the 16-bit model's GP-parameter gradients
+    (sums that nearly cancel) follow those few roundings, and the port could
+    not be held against the JAX package on the CPU otherwise."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a, b)
+
+
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Softmax attention over (batch, heads, length, d_k) operands.
 
-    Returns ``(context, attn)``.
+    Returns ``(context, attn)``.  With 16-bit operands the scores are exact
+    products summed in fp32 and the softmax is fp32; the probabilities are
+    cast to ``v``'s dtype for the second product and the context comes back
+    in that dtype.
     """
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    attn = torch.softmax(scores, dim=-1)
-    return torch.matmul(attn, v), attn
+    if q.dtype == torch.float32:
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        attn = torch.softmax(scores / math.sqrt(q.shape[-1]), dim=-1)
+        return torch.matmul(attn, v), attn
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    attn = torch.softmax(scores / math.sqrt(q.shape[-1]), dim=-1)
+    return matmul16(attn.to(v.dtype), v), attn

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers that return
 the launch's ``cudaError_t``.  It is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/<name>-<source hash>.so`` at the root of the checkout,
-once per source hash; ``ptxas -v`` (registers, shared memory, spills) goes to
+once per hash of the source and the shared ``csrc/*.cuh``; ``ptxas -v`` (registers, shared memory, spills) goes to
 the ``.log`` beside it.  Nothing here includes PyTorch's headers, so a build
 takes seconds.
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("fused_gp", "head_folded_attention")
+SOURCES = ("fused_gp", "head_folded_attention", "flash_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
@@ -38,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

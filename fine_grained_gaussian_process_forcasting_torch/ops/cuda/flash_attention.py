@@ -1,0 +1,234 @@
+"""Fused softmax attention for head dims 64..127 (bf16 and fp32): CUDA
+kernels + plain.
+
+Counterpart of the JAX package's ``ops/pallas/flash_attention.py``
+``fused_attention`` and ``fused_attention_bf16sm``: softmax(q k^T / sqrt(d)) v
+over (b, h, L, d) operands with Lq and Lk free, and its VJP.  The operands'
+dtype sets the arithmetic, as in the Pallas kernel: bf16 operands run the two
+forward and five backward products on bf16 inputs summed in fp32, with P and
+dS rounded to bf16 before their products; fp32 operands run everything in
+fp32.  The softmax and dS are fp32 either way, and the outputs come back in
+the operands' dtype.
+``fused_attention_bf16sm`` subtracts the row's max in fp32 and then runs the
+exponential, the sum and the division on bf16 values (the sum itself in
+fp32); nothing routes to it.
+
+``fused_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors and
+runs the plain version for CPU tensors; it never falls back from one to the
+other.  It is a ``torch.autograd.Function`` on both: the VJP is the Pallas
+kernel's own rule (which rounds P and dS), not the derivative of the rounded
+forward.  On the card the forward kernel also writes each row's log-sum-exp
+(``sm_bf16``: its max and rounded sum) when a gradient is wanted, and the
+backward kernels recompute the probabilities from it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
+
+#: forward kernel launches since the counter was last set to 0
+launches = 0
+#: backward launches (one per backward call, two kernels) since last set to 0
+bwd_launches = 0
+#: the same two counts for the sm_bf16 variant
+sm16_launches = 0
+sm16_bwd_launches = 0
+
+MIN_HEAD_DIM, MAX_HEAD_DIM = 64, 127
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _dot(a, b):
+    """Product of the operands as the kernels take it: exact products of
+    the (bf16 or fp32) values, summed in fp32."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _softmax(s, sm_bf16):
+    """Row softmax of fp32 scores.  ``sm_bf16``: the max subtracted in fp32,
+    then exp, sum and divide on bf16 values, the sum itself in fp32; bf16
+    probabilities."""
+    if not sm_bf16:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp((s - s.max(-1, keepdim=True).values).bfloat16())
+    return e / e.float().sum(-1, keepdim=True).bfloat16()
+
+
+def fused_attention_plain(q, k, v, sm_bf16=False):
+    """The same function in plain PyTorch: fp32 scores, the softmax, the
+    probabilities rounded to the operands' dtype before P v."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _softmax(_dot(q, k.transpose(-1, -2)) * scale, sm_bf16)
+    return _dot(p.to(q.dtype), v).to(q.dtype)
+
+
+def fused_attention_bwd_plain(q, k, v, do, sm_bf16=False):
+    """(dq, dk, dv) of ``fused_attention`` for the cotangent ``do``, term
+    for term as the Pallas ``_bwd_kernel`` writes them."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    do = do.to(q.dtype)
+    p = _softmax(_dot(q, k.transpose(-1, -2)) * scale, sm_bf16)
+    dv = _dot(p.to(q.dtype).transpose(-1, -2), do)
+    dp = _dot(do, v.transpose(-1, -2))
+    p = p.float()
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(q.dtype)
+    dq = _dot(ds, k) * scale
+    dk = _dot(ds.transpose(-1, -2), q) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def launcher():
+    """The C forward launcher: (q, k, v, out, stats-or-null pointers, b*h,
+    Lq, Lk, d, bf16, sm_bf16, stream) -> cudaError_t."""
+    return _build.function(
+        "flash_attention", "flash_attention_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def bwd_launcher():
+    """The C backward launcher: (q, k, v, o, stats, dout, dq, dk, dv, delta
+    pointers, b*h, Lq, Lk, d, bf16, sm_bf16, stream) -> cudaError_t."""
+    return _build.function(
+        "flash_attention", "flash_attention_bwd",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (b, h, L, d)")
+    b, h, _, d = q.shape
+    lk = k.shape[2]
+    if tuple(k.shape) != (b, h, lk, d) or tuple(v.shape) != (b, h, lk, d):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    step = 16 if q.dtype == torch.bfloat16 else 8
+    if not MIN_HEAD_DIM <= d <= MAX_HEAD_DIM or d % step:
+        raise ValueError(
+            f"head dim {d} is not a multiple of {step} in the kernel's "
+            f"{MIN_HEAD_DIM}..{MAX_HEAD_DIM} for {q.dtype}")
+    if lk == 0:
+        raise ValueError("no keys")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def forward_kernel(q, k, v, with_stats: bool, sm_bf16=False):
+    """Launch the forward kernel: (out, stats or None).  stats, for the
+    backward: each row's log-sum-exp, (b, h, lq); with ``sm_bf16`` each row's
+    max and rounded sum, (2, b, h, lq).  The inputs are checked by the
+    caller."""
+    global launches, sm16_launches
+    b, h, lq, d = q.shape
+    out = torch.empty_like(q)
+    shape = (2, b, h, lq) if sm_bf16 else (b, h, lq)
+    stats = (torch.empty(shape, device=q.device, dtype=torch.float32)
+             if with_stats else None)
+    if out.numel() == 0:
+        return out, stats
+    err = launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     stats.data_ptr() if with_stats else None, b * h, lq,
+                     k.shape[2], d, int(q.dtype == torch.bfloat16),
+                     int(sm_bf16), _stream(q))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_fwd launch failed: cudaError {err}")
+    if sm_bf16:
+        sm16_launches += 1
+    else:
+        launches += 1
+    return out, stats
+
+
+def backward_kernel(q, k, v, out, stats, do, sm_bf16=False):
+    """Launch the backward kernels: (dq, dk, dv); ``do`` contiguous, in the
+    operands' dtype."""
+    global bwd_launches, sm16_bwd_launches
+    b, h, lq, d = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    err = bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b * h, lq, k.shape[2], d,
+        int(q.dtype == torch.bfloat16), int(sm_bf16), _stream(q))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: cudaError {err}")
+    if sm_bf16:
+        sm16_bwd_launches += 1
+    else:
+        bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The kernels on the card; the plain forward and the plain VJP on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, sm_bf16, q, k, v):
+        ctx.sm_bf16 = sm_bf16
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
+            return fused_attention_plain(q, k, v, sm_bf16)
+        out, stats = forward_kernel(q, k, v, True, sm_bf16)
+        ctx.save_for_backward(q, k, v, out, stats)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, *saved = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return (None, *fused_attention_bwd_plain(q, k, v, do,
+                                                     ctx.sm_bf16))
+        return (None, *backward_kernel(q, k, v, *saved,
+                                       do.to(q.dtype).contiguous(),
+                                       ctx.sm_bf16))
+
+
+def _attention(q, k, v, sm_bf16):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if q.device.type == "cuda":
+        _check(q, k, v)
+        if not needs_grad:
+            return forward_kernel(q, k, v, False, sm_bf16)[0]
+    elif not needs_grad:
+        return fused_attention_plain(q, k, v, sm_bf16)
+    return _FusedAttention.apply(sm_bf16, q, k, v)
+
+
+def fused_attention(q, k, v):
+    """Context (b, h, Lq, d) of softmax attention, in the operands' dtype;
+    q (b, h, Lq, d), k and v (b, h, Lk, d), all bfloat16 or all float32."""
+    return _attention(q, k, v, False)
+
+
+def fused_attention_bf16sm(q, k, v):
+    """The same with the softmax's exponential, sum and division on bf16
+    values after an fp32 max-subtract."""
+    return _attention(q, k, v, True)

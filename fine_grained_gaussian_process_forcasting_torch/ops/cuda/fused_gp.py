@@ -1,7 +1,7 @@
-"""Fused whitened-GP marginals (affine, fp32): CUDA kernels + plain.
+"""Fused whitened-GP marginals (affine; fp32 and bf16): CUDA kernels + plain.
 
 Counterpart of the JAX package's ``ops/pallas/fused_gp.py``
-``whitened_marginals_affine``.  With W = L^-T diag(1 - s^2) L^-1 and
+``whitened_marginals_affine`` and ``whitened_marginals_affine_bf16``.  With W = L^-T diag(1 - s^2) L^-1 and
 u = L^-T m, the whitened variational marginals at RAW inputs x are
 
     K[r, m] = os * exp(-0.5 * |x[r] * inv_ls - zs[m]|^2)
@@ -14,6 +14,14 @@ the other.  On the card it is a ``torch.autograd.Function`` whose backward
 launches the backward kernels of the same source and returns a gradient for
 each of the eight inputs; on the CPU, torch's autograd differentiates the
 plain forward.
+
+``whitened_marginals_affine_bf16`` takes and returns the same fp32 tensors;
+only the two products K W and K^T (dvar o K) round their inputs to bf16 and
+sum in fp32, everything else stays fp32.  Its VJP is the Pallas kernel's own
+rule (``E`` from the bf16 ``K W``, ``dW`` from rounded ``K`` and
+``dvar o K``), not the derivative of the rounded forward, so on the CPU too
+it is a ``torch.autograd.Function``, over the plain forward and the plain
+backward.
 """
 
 from __future__ import annotations
@@ -29,35 +37,59 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
 launches = 0
 #: backward launches (one per backward call, four kernels) since last set to 0
 bwd_launches = 0
+#: the same two counts for the bf16 variant
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block can use
 
 
+def _round_bf16(t):
+    """``t`` rounded to bf16, kept as fp32, so that a product of two such
+    tensors is exact products summed in fp32, as the tensor cores do; the
+    gradient passes through as if nothing was rounded."""
+    return t + (t.bfloat16().float() - t).detach()
+
+
+def _dot16(a, b, bf16):
+    if bf16:
+        a, b = _round_bf16(a), _round_bf16(b)
+    return torch.matmul(a, b)
+
+
 def whitened_marginals_affine_plain(x, zs, u, w, outputscale, inv_ls,
-                                    mean_w, mean_b):
+                                    mean_w, mean_b, bf16=False):
     """The same function in plain PyTorch, with the Pallas kernel's
-    |xs|^2 + |zs|^2 - 2 xs.zs distance (no clamp)."""
+    |xs|^2 + |zs|^2 - 2 xs.zs distance (no clamp).  ``bf16``: K and W are
+    rounded to bf16 where they enter the K W product."""
     xs = x * inv_ls
     d2 = ((xs * xs).sum(-1, keepdim=True) + (zs * zs).sum(-1)
           - 2.0 * torch.matmul(xs, zs.T))
     k = outputscale * torch.exp(-0.5 * d2)
     mean = torch.matmul(x, mean_w) + mean_b + torch.matmul(k, u)
-    var = outputscale - (torch.matmul(k, w) * k).sum(-1)
+    var = outputscale - (_dot16(k, w, bf16) * k).sum(-1)
     return mean, var
 
 
+def whitened_marginals_affine_bf16_plain(*args):
+    """The bf16 variant in plain PyTorch."""
+    return whitened_marginals_affine_plain(*args, bf16=True)
+
+
 def whitened_marginals_affine_bwd_plain(x, zs, u, w, outputscale, inv_ls,
-                                        mean_w, mean_b, dmean, dvar):
+                                        mean_w, mean_b, dmean, dvar,
+                                        bf16=False):
     """The VJP in plain PyTorch, term for term as the Pallas ``_bwd_kernel``
     (affine) writes it, W taken as symmetric.  Returns the gradients of
-    (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)."""
+    (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b).  ``bf16``: the K W
+    and K^T (dvar o K) products round their inputs to bf16."""
     b, n, d = x.shape
     xr = x.reshape(b * n, d)
     xs = xr * inv_ls
     d2 = ((xs * xs).sum(-1, keepdim=True) + (zs * zs).sum(-1)
           - 2.0 * torch.matmul(xs, zs.T))
     k = outputscale * torch.exp(-0.5 * d2)
-    g = torch.matmul(k, w)
+    g = _dot16(k, w, bf16)
     dm = dmean.reshape(-1, 1)
     dv = dvar.reshape(-1, 1)
     e = (dm * u - 2.0 * dv * g) * k
@@ -65,7 +97,7 @@ def whitened_marginals_affine_bwd_plain(x, zs, u, w, outputscale, inv_ls,
     dx = dxsc * inv_ls + dm * mean_w
     dzs = torch.matmul(e.T, xs) - e.sum(0)[:, None] * zs
     du = (k * dm).sum(0)
-    dw = -torch.matmul(k.T, dv * k)
+    dw = -_dot16(k.T, dv * k, bf16)
     dos = e.sum() / outputscale + dv.sum()
     dinv_ls = (dxsc * xr).sum(0)
     dmean_w = (dm * xr).sum(0)
@@ -74,21 +106,39 @@ def whitened_marginals_affine_bwd_plain(x, zs, u, w, outputscale, inv_ls,
             dmean_b)
 
 
-def launcher():
+def whitened_marginals_affine_bf16_bwd_plain(*args):
+    """The bf16 variant's VJP in plain PyTorch."""
+    return whitened_marginals_affine_bwd_plain(*args, bf16=True)
+
+
+def launcher(bf16=False):
     """The C launcher: (x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var
-    pointers, R, d, M, stream) -> cudaError_t."""
+    pointers, R, d, M, stream) -> cudaError_t.  ``bf16``: the bf16 variant's,
+    which takes ``bf16_wt(w)`` in the place of w."""
     return _build.function(
-        "fused_gp", "fused_gp_fwd",
+        "fused_gp", "fused_gp_bf16_fwd" if bf16 else "fused_gp_fwd",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def bwd_launcher():
+def bwd_launcher(bf16=False):
     """The C backward launcher: (x, zs, u, w, os, inv_ls, mean_w, dmean,
     dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch
-    pointers, R, d, M, stream) -> cudaError_t."""
+    pointers, R, d, M, stream) -> cudaError_t.  ``bf16`` as ``launcher``."""
     return _build.function(
-        "fused_gp", "fused_gp_bwd",
+        "fused_gp", "fused_gp_bf16_bwd" if bf16 else "fused_gp_bwd",
         [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def bf16_wt(w):
+    """W^T in bf16, zero-padded to the shape the bf16 kernels read: the
+    cast that the bf16 variant makes once per call."""
+    m = w.shape[0]
+    rows, cols = (_build.function("fused_gp", name, [ctypes.c_int])(m)
+                  for name in ("fused_gp_bf16_wt_rows",
+                               "fused_gp_bf16_wt_cols"))
+    wt = torch.zeros((rows, cols), device=w.device, dtype=torch.bfloat16)
+    wt[:m, :m] = w.T
+    return wt
 
 
 def _smem_bytes(d: int, m: int, symbol="fused_gp_fwd_smem_bytes") -> int:
@@ -96,10 +146,12 @@ def _smem_bytes(d: int, m: int, symbol="fused_gp_fwd_smem_bytes") -> int:
                            ctypes.c_longlong)(d, m)
 
 
-def bwd_scratch_floats(r: int, d: int, m: int) -> int:
+def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
     """Floats of device scratch one backward call needs at R rows."""
-    return _build.function("fused_gp", "fused_gp_bwd_scratch_floats",
-                           [ctypes.c_int] * 3, ctypes.c_longlong)(r, d, m)
+    symbol = ("fused_gp_bf16_bwd_scratch_floats" if bf16
+              else "fused_gp_bwd_scratch_floats")
+    return _build.function("fused_gp", symbol, [ctypes.c_int] * 3,
+                           ctypes.c_longlong)(r, d, m)
 
 
 def _check_smem(d: int, m: int, symbol: str):
@@ -141,41 +193,64 @@ def whitened_marginals_affine(x, zs, u, w, outputscale, inv_ls, mean_w,
     w: (M, M) = L^-T diag(1 - s^2) L^-1; outputscale: 0-d;
     inv_ls: (d,) = 1 / lengthscale; mean_w: (d,); mean_b: 0-d.
     """
+    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
     if x.device.type == "cpu":
-        return whitened_marginals_affine_plain(x, zs, u, w, outputscale,
-                                               inv_ls, mean_w, mean_b)
+        return whitened_marginals_affine_plain(*args)
+    return _on_card(args, bf16=False)
+
+
+def whitened_marginals_affine_bf16(x, zs, u, w, outputscale, inv_ls, mean_w,
+                                   mean_b):
+    """The same with the K W product (and, in the VJP, K^T (dvar o K)) on
+    bf16-rounded inputs summed in fp32; fp32 tensors in and out."""
+    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
+    if x.device.type == "cpu":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return _WhitenedMarginalsAffine.apply(True, *args)
+        return whitened_marginals_affine_bf16_plain(*args)
+    return _on_card(args, bf16=True)
+
+
+def _on_card(args, bf16):
+    x = args[0]
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
     _check(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _WhitenedMarginalsAffine.apply(*args)
-    return forward_kernel(*args)
+        return _WhitenedMarginalsAffine.apply(bf16, *args)
+    return forward_kernel(*args, bf16=bf16)
 
 
-def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b):
+def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
+                   bf16=False):
     """Launch the forward kernel on checked inputs: (mean, var)."""
+    global launches, bf16_launches
     b, n, d = x.shape
     m = zs.shape[0]
     _check_smem(d, m, "fused_gp_fwd_smem_bytes")
     mean = torch.empty((b, n), device=x.device, dtype=torch.float32)
     var = torch.empty((b, n), device=x.device, dtype=torch.float32)
+    w_in = bf16_wt(w) if bf16 else w
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launcher()(x.data_ptr(), zs.data_ptr(), u.data_ptr(), w.data_ptr(),
-                outputscale.data_ptr(), inv_ls.data_ptr(), mean_w.data_ptr(),
-                mean_b.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                b * n, d, m, stream)
+    err = launcher(bf16)(
+        x.data_ptr(), zs.data_ptr(), u.data_ptr(), w_in.data_ptr(),
+        outputscale.data_ptr(), inv_ls.data_ptr(), mean_w.data_ptr(),
+        mean_b.data_ptr(), mean.data_ptr(), var.data_ptr(), b * n, d, m,
+        stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_fwd launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return mean, var
 
 
 def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
-                    dvar):
+                    dvar, bf16=False):
     """Launch the backward kernels on checked inputs and contiguous (B, N)
     cotangents: the gradients of the eight inputs."""
+    global bwd_launches, bf16_bwd_launches
     b, n, d = x.shape
     m = zs.shape[0]
     _check_smem(d, m, "fused_gp_bwd_smem_bytes")
@@ -185,29 +260,41 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
 
     grads = (new(b, n, d), new(m, d), new(m), new(m, m), new(), new(d),
              new(d), new())
-    scratch = new(bwd_scratch_floats(b * n, d, m))
+    scratch = new(bwd_scratch_floats(b * n, d, m, bf16))
+    w_in = bf16_wt(w) if bf16 else w
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = bwd_launcher()(
-        *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
+    err = bwd_launcher(bf16)(
+        *(t.data_ptr() for t in (x, zs, u, w_in, outputscale, inv_ls, mean_w,
                                  dmean, dvar)),
         *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m,
         stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_bwd launch failed: cudaError {err}")
-    global bwd_launches
-    bwd_launches += 1
+    if bf16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return grads
 
 
 class _WhitenedMarginalsAffine(torch.autograd.Function):
+    """The kernels on the card; on the CPU (the bf16 variant only) the plain
+    forward and the plain VJP."""
+
     @staticmethod
-    def forward(ctx, *args):
+    def forward(ctx, bf16, *args):
+        ctx.bf16 = bf16
         ctx.save_for_backward(*args)
-        return forward_kernel(*args)
+        if args[0].device.type == "cpu":
+            return whitened_marginals_affine_plain(*args, bf16=bf16)
+        return forward_kernel(*args, bf16=bf16)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dmean, dvar):
         # autograd materialises an unused output's cotangent as zeros
-        return backward_kernel(*ctx.saved_tensors, dmean.contiguous(),
-                               dvar.contiguous())
+        args = (*ctx.saved_tensors, dmean.contiguous(), dvar.contiguous())
+        if dmean.device.type == "cpu":
+            return (None, *whitened_marginals_affine_bwd_plain(
+                *args, bf16=ctx.bf16))
+        return (None, *backward_kernel(*args, bf16=ctx.bf16))

@@ -10,11 +10,15 @@ input is a nested dict of numpy arrays, so loading needs no JAX;
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
+    matmul16,
+)
 
 # Flax's lecun_normal: truncated normal at +-2 std, rescaled so the
 # truncated distribution keeps variance 1/fan_in
@@ -44,11 +48,29 @@ def normal_(param: torch.Tensor, std: float,
         param.copy_(cpu)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with Flax's ``Dense(dtype=)``: with a ``compute_dtype``
+    the input, weight and bias are cast to it (the parameters themselves
+    stay fp32), the product is rounded to that dtype and the bias is added
+    in it."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dtype = self.compute_dtype
+        if dtype is None:
+            return super().forward(x)
+        out = matmul16(x.to(dtype), self.weight.to(dtype).T)
+        return out if self.bias is None else out + self.bias.to(dtype)
+
+
 def dense(in_features: int, out_features: int, *, bias: bool,
-          device: torch.device, generator: torch.Generator) -> nn.Linear:
-    """``nn.Linear`` initialised like Flax ``nn.Dense`` (lecun-normal kernel,
-    zero bias)."""
-    layer = nn.Linear(in_features, out_features, bias=bias, device=device)
+          device: torch.device, generator: torch.Generator,
+          dtype: Optional[torch.dtype] = None) -> Dense:
+    """A linear layer initialised like Flax ``nn.Dense`` (lecun-normal
+    kernel, zero bias) that computes in ``dtype`` (None: as it is given)."""
+    layer = Dense(in_features, out_features, bias=bias, device=device)
+    layer.compute_dtype = dtype
     lecun_normal_(layer.weight, generator)
     if bias:
         nn.init.zeros_(layer.bias)

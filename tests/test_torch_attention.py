@@ -42,6 +42,53 @@ def _qkv(b, h, lq, lk, d, seed):
             rng.normal(size=(b, h, lk, d)).astype(np.float32))
 
 
+def test_scaled_dot_attention_bf16_matches_jax():
+    """bf16 operands: fp32 scores and softmax, bf16 probabilities into the
+    second product, bf16 context; within one bf16 step (2^-7 of the largest
+    magnitude) where the two sum in another order."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(2, 2, 12, 24, 64, seed=4))
+    want_ctx, want_attn = jatt.scaled_dot_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)))
+    got_ctx, got_attn = tatt.scaled_dot_attention(q, k, v)
+    assert got_ctx.dtype == torch.bfloat16 and got_attn.dtype == torch.float32
+    np.testing.assert_allclose(got_attn.numpy(), np.asarray(want_attn),
+                               rtol=TOL, atol=TOL)
+    want = np.asarray(want_ctx.astype(jnp.float32))
+    assert (np.abs(got_ctx.float().numpy() - want).max()
+            <= 2.0 ** -7 * np.abs(want).max())
+
+
+def test_matmul16_rounds_once():
+    """``matmul16`` on bf16 operands: exact products summed in fp32 and
+    rounded once, so each element lies within half a bf16 step (2^-8
+    relative) of the float64 product, up to the fp32 sum's own error, and
+    within one bf16 step (2^-7 relative) of the JAX product of the same
+    operands.  On the CPU it sums in the fp32 GEMM's order, as the JAX
+    package's CPU runs do: with ``torch.matmul`` on the bf16 operands in its
+    place (as accurate, another order, a few sums in ten thousand rounded
+    the other way) ``test_first_step_gradients_match_jax[wide_basic_bf16]``
+    of ``tests/test_torch_train.py`` fails its tolerance on the GP's
+    parameters."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.normal(size=(48, 512)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(512, 40)).astype(np.float32))
+    a, b = a.bfloat16(), b.bfloat16()
+    got = tatt.matmul16(a, b)
+    assert got.dtype == torch.bfloat16
+    exact = a.double() @ b.double()
+    slack = 1e-6 * (a.double().abs() @ b.double().abs())
+    assert bool(((got.double() - exact).abs()
+                 <= 2.0 ** -8 * exact.abs() + slack).all())
+    want = np.asarray(jnp.matmul(
+        jnp.asarray(a.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(b.float().numpy()).astype(jnp.bfloat16)).astype(
+            jnp.float32))
+    assert bool((np.abs(got.float().numpy() - want)
+                 <= 2.0 ** -7 * np.abs(want) + 1e-6).all())
+
+
 def test_scaled_dot_attention_matches_jax():
     q, k, v = _qkv(2, 4, 12, 24, 4, seed=0)
     want_ctx, want_attn = jatt.scaled_dot_attention(
@@ -176,14 +223,15 @@ CPU, CUDA = torch.device("cpu"), torch.device("cuda")
     (CUDA, 4, True, False, "plain"),
     (CUDA, 128, True, False, "plain"),
     (CUDA, 16, False, True, "head_folded"),
+    (CUDA, 64, True, None, "flash"),
+    (CUDA, 127, True, None, "flash"),
+    (CUDA, 64, False, True, "flash"),
+    (CUDA, 128, True, True, "flash"),
+    (CUDA, 64, True, False, "plain"),
+    (CPU, 64, True, True, "plain"),
 ])
 def test_basic_route_resolves_per_device(device, d_k, is_self, flag, route):
+    """The JAX rule (``models/transformer.py``), with the CPU always plain:
+    auto takes a kernel below d_k 128 for self-attention and below 64 for
+    cross-attention; the kernel is the flash one from d_k 64 on."""
     assert basic_attention_route(device, d_k, is_self, flag) == route
-
-
-@pytest.mark.parametrize("d_k,is_self,flag", [
-    (64, True, None), (127, True, None), (64, False, True),
-    (128, True, True)])
-def test_basic_route_raises_where_flash_is_unported(d_k, is_self, flag):
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        basic_attention_route(CUDA, d_k, is_self, flag)

@@ -28,6 +28,11 @@ from fine_grained_gaussian_process_forcasting_torch.params import from_flax
 # own fused-GP tolerance, tests/test_fused_gp.py)
 TOL_KERNELS = 1e-6
 TOL_GP = 2e-5
+# bf16 products: both frameworks round the same operands (K, W, dvar o K; the
+# cast points; L^-1 and kzx) to bf16 and sum exact products in fp32, so they
+# differ only where the fp32 values being rounded differ in their last bit
+# and land one bf16 step apart: 2^-8 of the output's largest magnitude
+TOL_BF16 = 2.0 ** -8
 
 
 def _t(a):
@@ -85,6 +90,81 @@ def test_fused_gp_plain_matches_jax_pallas(b, n):
                                    atol=TOL_GP)
 
 
+def _assert_close_bf16(got, want, name=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, name
+    err = np.abs(got - want).max()
+    tol = TOL_BF16 * max(np.abs(want).max(), 1e-6)
+    assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("fn", ["sq_dist", "rbf_ard"])
+def test_gp_kernels_bf16_match_jax(fn):
+    x, z, ls, os_ = _kernel_inputs(seed=1)
+    if fn == "sq_dist":
+        want = jk.sq_dist(jnp.asarray(x), jnp.asarray(z), jnp.bfloat16)
+        got = tk.sq_dist(_t(x), _t(z), torch.bfloat16)
+    else:
+        want = jk.rbf_ard(jnp.asarray(x), jnp.asarray(z), jnp.asarray(ls),
+                          jnp.asarray(os_), jnp.bfloat16)
+        got = tk.rbf_ard(_t(x), _t(z), _t(ls), torch.tensor(os_),
+                         torch.bfloat16)
+    assert got.dtype == torch.float32
+    _assert_close_bf16(got.numpy(), want)
+    # and it is a different function from the fp32 one
+    exact = tk.sq_dist(_t(x), _t(z)) if fn == "sq_dist" else tk.rbf_ard(
+        _t(x), _t(z), _t(ls), torch.tensor(os_))
+    assert (got - exact).abs().max() > 1e-4
+
+
+@pytest.mark.parametrize("b,n,d", [(4, 36, 32), (3, 13, 96)])
+def test_fused_gp_bf16_plain_matches_jax_pallas(b, n, d):
+    args = _fused_inputs(b, n, d=d, m=32, seed=n + d)
+    want = jfused.whitened_marginals_affine_bf16(
+        *(jnp.asarray(a) for a in args))
+    got = tfused.whitened_marginals_affine_bf16(*(_t(a) for a in args))
+    for g, w_, name in zip(got, want, ("mean", "var")):
+        assert g.shape == (b, n) and g.dtype == torch.float32
+        _assert_close_bf16(g.numpy(), w_, name)
+    fp32 = tfused.whitened_marginals_affine(*(_t(a) for a in args))
+    assert (got[1] - fp32[1]).abs().max() > 1e-5  # the variance is rounded
+    torch.testing.assert_close(got[0], fp32[0], rtol=0, atol=0)  # not K u
+
+
+@pytest.mark.parametrize("b,n,d", [(4, 36, 32), (3, 13, 96)])
+def test_fused_gp_bf16_bwd_plain_matches_jax_vjp(b, n, d):
+    args = _fused_inputs(b, n, d=d, m=32, seed=n + d + 1)
+    dmean, dvar = _cotangents(b, n, seed=n)
+    _, vjp = jax.vjp(jfused.whitened_marginals_affine_bf16,
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dmean), jnp.asarray(dvar)))
+    got = tfused.whitened_marginals_affine_bf16_bwd_plain(
+        *(_t(a) for a in args), _t(dmean), _t(dvar))
+    for g, w_, name in zip(got, want, GRAD_NAMES):
+        _assert_close_bf16(g.numpy(), w_, name)
+
+
+def test_fused_gp_bf16_on_cpu_differentiates_by_its_own_rule():
+    """With inputs that require grad the CPU wrapper is an autograd Function
+    over the plain forward and the plain VJP, bit for bit; torch's autograd
+    through the rounded plain forward agrees with that rule to bf16."""
+    args = [_t(a) for a in _fused_inputs(3, 13, d=16, m=32, seed=2)]
+    dmean, dvar = (_t(c) for c in _cotangents(3, 13, seed=3))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    mean, var = tfused.whitened_marginals_affine_bf16(*leaves)
+    torch.autograd.backward((mean, var), (dmean, dvar))
+    rule = tfused.whitened_marginals_affine_bf16_bwd_plain(*args, dmean,
+                                                           dvar)
+    for g, leaf, name in zip(rule, leaves, GRAD_NAMES):
+        assert torch.equal(g, leaf.grad), name
+    plain = [a.clone().requires_grad_(True) for a in args]
+    torch.autograd.backward(
+        tfused.whitened_marginals_affine_bf16_plain(*plain), (dmean, dvar))
+    for g, leaf, name in zip(rule, plain, GRAD_NAMES):
+        _assert_close_bf16(g.numpy(), leaf.grad.numpy(), name)
+    assert tfused.bf16_launches == 0 and tfused.bf16_bwd_launches == 0
+
+
 # gradients: the JAX package's fused-GP gradient tolerances
 # (tests/test_fused_gp.py)
 RTOL_GRAD, ATOL_GRAD = 3e-4, 3e-5
@@ -128,13 +208,15 @@ def test_fused_gp_bwd_plain_matches_autograd():
                                    err_msg=name)
 
 
-def _gp_pair(use_fused, d=16, m=32, seed=0):
+def _gp_pair(use_fused, d=16, m=32, seed=0, bf16=False):
     x = np.random.default_rng(seed).normal(size=(4, 36, d)).astype(np.float32)
     jmod = jgp.DeepGP(input_dims=d, num_inducing=m, use_fused=use_fused,
-                      ls_init=-1.0)
+                      ls_init=-1.0,
+                      compute_dtype=jnp.bfloat16 if bf16 else None)
     params = jmod.init({"params": jax.random.PRNGKey(seed)},
                        jnp.asarray(x))["params"]
     tmod = tgp.DeepGP(input_dims=d, num_inducing=m, use_fused=use_fused,
+                      compute_dtype=torch.bfloat16 if bf16 else None,
                       device="cpu")
     tmod.load_state_dict(from_flax(jax.tree_util.tree_map(np.asarray,
                                                           params)))
@@ -163,6 +245,34 @@ def test_deep_gp_matches_jax(use_fused):
             rtol=TOL_GP, atol=TOL_GP, err_msg=field)
 
 
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_deep_gp_bf16_matches_jax(use_fused):
+    x, jmod, params, tmod = _gp_pair(use_fused, bf16=True)
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tmod(_t(x))
+    for field in ("mean", "var"):
+        _assert_close_bf16(getattr(got, field).numpy(),
+                           getattr(want, field), field)
+    for field in ("kl", "noise"):  # fp32 whatever the compute dtype
+        np.testing.assert_allclose(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            rtol=TOL_GP, atol=TOL_GP, err_msg=field)
+    fp32 = _gp_pair(use_fused)[3]
+    with torch.no_grad():
+        assert (fp32(_t(x)).var - got.var).abs().max() > 1e-5
+
+
+def test_deep_gp_float32_compute_dtype_stays_on_the_fp32_kernel():
+    x, _, _, tmod = _gp_pair(True)
+    tmod.output_layer.compute_dtype = torch.float32
+    with torch.no_grad():
+        got = tmod(_t(x))
+        tmod.output_layer.compute_dtype = None
+        want = tmod(_t(x))
+    torch.testing.assert_close(got.var, want.var, rtol=0, atol=0)
+
+
 def test_variational_elbo_matches_jax():
     x, jmod, params, tmod = _gp_pair(True, seed=3)
     y = np.random.default_rng(9).normal(size=x.shape[:2]).astype(np.float32)
@@ -178,7 +288,6 @@ def test_variational_elbo_matches_jax():
 @pytest.mark.parametrize("kwargs", [
     {"hidden_dims": (4,)},
     {"use_pallas": True},
-    {"compute_dtype": torch.bfloat16},
 ])
 def test_deep_gp_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -16,6 +16,7 @@ from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising im
     ForecastDenoising,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+    flash_attention as flash,
     fused_gp,
     head_folded_attention as hfa,
 )
@@ -35,6 +36,20 @@ TOL_MODEL = 1e-4
 # (tests/test_pallas_kernels.py)
 TOL_GRAD, ATOL_GRAD = 3e-4, 3e-5
 TOL_GRAD_ATT, ATOL_GRAD_ATT = 1e-4, 1e-5
+# flash attention, fp32: the JAX package's tolerances for that kernel
+# (tests/test_pallas_kernels.py).  bf16 kernels against their plain versions:
+# both round the same operands to bf16 but sum in another order (and the
+# flash kernel rounds the unnormalised probabilities, its plain version the
+# normalised ones), so values may land one bf16 step apart: 2^-7 of the
+# output's largest magnitude
+TOL_FLASH, ATOL_FLASH = 1e-4, 1e-5
+TOL_FLASH_GRAD, ATOL_FLASH_GRAD = 2e-3, 1e-4
+TOL_BF16 = 2.0 ** -7
+# the sm_bf16 softmax: every probability is a bf16 value that went through
+# three roundings, and the card's expf and division round a few of them to
+# the neighbouring bf16 value: 2^-6 of the largest magnitude, for fp32
+# operands too
+TOL_SM16 = 2.0 ** -6
 
 
 @pytest.fixture
@@ -58,9 +73,19 @@ def _fused_inputs(b, n, d, m, seed, device):
             for a in arrays]
 
 
+def _assert_close_bf16(got, want, name="", scale=None, rel=TOL_BF16):
+    """Within ``rel`` of ``scale``, by default ``want``'s largest
+    magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    if scale is None:
+        scale = want.float().abs().max().item()
+    assert err <= rel * max(scale, 1e-6), (name, err, scale)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
-                                     (2, 5, 7, 300)])
+                                     (2, 5, 7, 300), (3, 50, 96, 512),
+                                     (2, 101, 512, 512), (1, 70, 130, 40)])
 def test_fused_gp_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m, device=cuda)
     before = fused_gp.launches
@@ -92,7 +117,9 @@ GP_GRADS = ("x", "zs", "u", "w", "outputscale", "inv_ls", "mean_w", "mean_b")
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
-                                     (2, 5, 7, 300), (3, 13, 1, 16)])
+                                     (2, 5, 7, 300), (3, 13, 1, 16),
+                                     (3, 50, 96, 512), (2, 101, 512, 512),
+                                     (1, 70, 130, 40)])
 def test_fused_gp_bwd_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m + 1, device=cuda)
     rng = np.random.default_rng(d)
@@ -125,6 +152,64 @@ def test_fused_gp_kernel_takes_grad(cuda):
     (torch.sin(mean) * 1.7 + var ** 2 * 0.3).sum().backward()
     _assert_grads_close([t.grad for t in leaves], [t.grad for t in plain],
                         GP_GRADS)
+
+
+GP_SHAPES_BF16 = [(4, 36, 16, 32), (3, 77, 32, 512), (2, 5, 7, 300),
+                  (3, 50, 96, 512), (2, 101, 512, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,m", GP_SHAPES_BF16)
+def test_fused_gp_bf16_kernel_matches_plain(cuda, b, n, d, m):
+    args = _fused_inputs(b, n, d, m, seed=m + 2, device=cuda)
+    before = fused_gp.bf16_launches, fused_gp.launches
+    got = fused_gp.whitened_marginals_affine_bf16(*args)
+    torch.cuda.synchronize()
+    assert (fused_gp.bf16_launches, fused_gp.launches) == (before[0] + 1,
+                                                           before[1])
+    want = fused_gp.whitened_marginals_affine_bf16_plain(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=TOL_GP, atol=TOL_GP)
+    _assert_close_bf16(got[1], want[1], "var")
+    # closer to its own plain version than to the fp32 function
+    fp32 = fused_gp.whitened_marginals_affine_plain(*args)
+    assert ((got[1] - want[1]).abs().max()
+            < (got[1] - fp32[1]).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,m", GP_SHAPES_BF16)
+def test_fused_gp_bf16_bwd_kernel_matches_plain(cuda, b, n, d, m):
+    args = _fused_inputs(b, n, d, m, seed=m + 3, device=cuda)
+    rng = np.random.default_rng(d)
+    cot = [torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)).to(
+        cuda) for _ in range(2)]
+    before = fused_gp.bf16_bwd_launches
+    got = fused_gp.backward_kernel(*args, *cot, bf16=True)
+    torch.cuda.synchronize()
+    assert fused_gp.bf16_bwd_launches == before + 1
+    want = fused_gp.whitened_marginals_affine_bf16_bwd_plain(*args, *cot)
+    for g, w, name in zip(got, want, GP_GRADS):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        _assert_close_bf16(g, w, name)
+    again = fused_gp.backward_kernel(*args, *cot, bf16=True)
+    for g, a in zip(got, again):  # no atomics: equal bit for bit
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+def test_fused_gp_bf16_kernel_takes_grad(cuda):
+    args = _fused_inputs(3, 29, 64, 64, seed=5, device=cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    fwd, bwd = fused_gp.bf16_launches, fused_gp.bf16_bwd_launches
+    mean, var = fused_gp.whitened_marginals_affine_bf16(*leaves)
+    (torch.sin(mean) * 1.7 + var ** 2 * 0.3).sum().backward()
+    assert (fused_gp.bf16_launches, fused_gp.bf16_bwd_launches) == (
+        fwd + 1, bwd + 1)
+    cpu = [a.cpu().requires_grad_(True) for a in args]
+    mean, var = fused_gp.whitened_marginals_affine_bf16(*cpu)  # its own rule
+    (torch.sin(mean) * 1.7 + var ** 2 * 0.3).sum().backward()
+    for a, c, name in zip(leaves, cpu, GP_GRADS):
+        _assert_close_bf16(a.grad.cpu(), c.grad, name)
 
 
 def _qkv(b, h, lq, lk, d, seed, device):
@@ -198,6 +283,123 @@ def test_head_folded_kernel_takes_grad(cuda, lq, lk):
     for a, p, name in zip(leaves, plain, "qkv"):
         torch.testing.assert_close(a.grad, p.grad, rtol=TOL_GRAD_ATT,
                                    atol=ATOL_GRAD_ATT, msg=name)
+
+
+FLASH_SHAPES = [(64, 8, 512, 512, 64), (64, 8, 128, 128, 64),
+                (2, 3, 130, 77, 64), (1, 2, 50, 200, 96), (2, 1, 65, 64, 112),
+                (1, 1, 1, 1, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES + [(2, 2, 70, 33, 72)])
+def test_flash_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
+    q, k, v = (t.to(dtype) for t in _qkv(b, h, lq, lk, d, seed=d, device=cuda))
+    if dtype == torch.bfloat16 and d % 16:
+        with pytest.raises(ValueError, match="head dim"):
+            flash.fused_attention(q, k, v)
+        return
+    before = flash.launches
+    got = flash.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1 and got.dtype == dtype
+    want = flash.fused_attention_plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL_FLASH, atol=ATOL_FLASH)
+    else:
+        _assert_close_bf16(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
+    q, k, v = (t.to(dtype) for t in _qkv(b, h, lq, lk, d, seed=d + 1,
+                                         device=cuda))
+    do = torch.randn(b, h, lq, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(d)).to(dtype)
+    out, lse = flash.forward_kernel(q, k, v, with_stats=True)
+    want_lse = torch.logsumexp(
+        torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5,
+        dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=TOL_FLASH, atol=1e-4)
+    before = flash.bwd_launches
+    got = flash.backward_kernel(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert flash.bwd_launches == before + 1
+    want = flash.fused_attention_bwd_plain(q, k, v, do)
+    # bf16, relative to the largest of the three gradients: the kernel takes
+    # D = rowsum(dO o O) from the rounded O, so where the exact gradient is 0
+    # (a single key: dq = dk = 0) it leaves O's rounding error
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=TOL_FLASH_GRAD,
+                                       atol=ATOL_FLASH_GRAD, msg=name)
+        else:
+            _assert_close_bf16(g, w, name,
+                               scale if min(lq, lk) == 1 else None)
+    again = flash.backward_kernel(q, k, v, out, lse, do)
+    for g, a in zip(got, again):  # no atomics: equal bit for bit
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES[1:])
+def test_flash_bf16sm_kernels_match_plain(cuda, b, h, lq, lk, d, dtype):
+    """The sm_bf16 variant, forward and backward, and bit-equal reruns."""
+    q, k, v = (t.to(dtype) for t in _qkv(b, h, lq, lk, d, seed=d + 2,
+                                         device=cuda))
+    do = torch.randn(b, h, lq, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(d)).to(dtype)
+    before = (flash.sm16_launches, flash.sm16_bwd_launches, flash.launches)
+    got = flash.fused_attention_bf16sm(q, k, v)
+    out, stats = flash.forward_kernel(q, k, v, True, sm_bf16=True)
+    grads = flash.backward_kernel(q, k, v, out, stats, do, sm_bf16=True)
+    torch.cuda.synchronize()
+    assert (flash.sm16_launches, flash.sm16_bwd_launches, flash.launches) == (
+        before[0] + 2, before[1] + 1, before[2])
+    assert torch.equal(got, out) and stats.shape == (2, b, h, lq)
+    _assert_close_bf16(got, flash.fused_attention_plain(q, k, v, True),
+                       "out", rel=TOL_SM16)
+    want = flash.fused_attention_bwd_plain(q, k, v, do, True)
+    scale = max(w.float().abs().max().item() for w in want)
+    for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype, name
+        _assert_close_bf16(g, w, name, scale if min(lq, lk) == 1 else None,
+                           rel=TOL_SM16)
+    again = flash.backward_kernel(q, k, v, out, stats, do, sm_bf16=True)
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("lq,lk", [(70, 70), (24, 131)])
+def test_flash_kernel_takes_grad(cuda, lq, lk, dtype):
+    """With inputs that require grad the wrapper runs the autograd Function
+    (forward with lse, then the backward kernels); its gradients equal the
+    CPU Function's (plain forward, plain VJP)."""
+    qkv = [t.to(dtype) for t in _qkv(3, 4, lq, lk, 64, seed=lk, device=cuda)]
+    leaves = [t.clone().requires_grad_(True) for t in qkv]
+    fwd, bwd = flash.launches, flash.bwd_launches
+    torch.sin(flash.fused_attention(*leaves).float()).sum().backward()
+    assert (flash.launches, flash.bwd_launches) == (fwd + 1, bwd + 1)
+    cpu = [t.cpu().requires_grad_(True) for t in qkv]
+    torch.sin(flash.fused_attention(*cpu).float()).sum().backward()
+    for a, c, name in zip(leaves, cpu, "qkv"):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.grad.cpu(), c.grad,
+                                       rtol=TOL_FLASH_GRAD,
+                                       atol=ATOL_FLASH_GRAD, msg=name)
+        else:
+            _assert_close_bf16(a.grad.cpu(), c.grad, name)
 
 
 N, BATCH, ENC, DEC, F = 37, 16, 24, 12, 4
@@ -275,3 +477,110 @@ def test_training_step_on_card_matches_cpu(cuda, attn_type, per_step):
     for name, p in params_c.items():
         torch.testing.assert_close(params_g[name].cpu(), p, rtol=TOL_MODEL,
                                    atol=TOL_MODEL, msg=name)
+
+
+WIDE = dict(src_input_size=F, tgt_input_size=F, d_model=128, n_heads=2,
+            d_k=64, stack_size=2, pred_len=DEC, num_inducing=32,
+            gp_ls_init=-1.0, attn_type="basic")
+BF16 = dict(compute_dtype=torch.bfloat16, gp_compute_dtype=torch.bfloat16)
+# the bf16 model on the card against the port's CPU run: predictions and
+# loss within 2^-6 (of the largest magnitude; relative), each gradient
+# within 2^-3 of its largest magnitude, as tests/test_torch_train.py holds
+# the CPU run to the JAX package
+TOL_BF16_MODEL, TOL_BF16_GRAD = 2.0 ** -6, 2.0 ** -3
+
+
+def _flash_counts():
+    return {"flash": flash.launches, "flash_bwd": flash.bwd_launches,
+            "head_folded": hfa.launches,
+            "fused_gp": fused_gp.launches + fused_gp.bwd_launches,
+            "fused_gp_bf16": fused_gp.bf16_launches,
+            "fused_gp_bf16_bwd": fused_gp.bf16_bwd_launches}
+
+
+def _zero_counts():
+    flash.launches = flash.bwd_launches = hfa.launches = 0
+    fused_gp.launches = fused_gp.bwd_launches = 0
+    fused_gp.bf16_launches = fused_gp.bf16_bwd_launches = 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [{}, BF16], ids=["fp32", "bf16"])
+def test_wide_session_on_card_takes_the_flash_route(cuda, dtypes):
+    """d_k 64: self-attention through the flash kernel (two layers, two
+    passes: 8 a batch), cross-attention plain, no head-folded launch."""
+    rng = np.random.default_rng(3)
+    enc = rng.normal(size=(N, ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(N, DEC, F)).astype(np.float32)
+    cpu_model = ForecastDenoising(**WIDE, **dtypes, device="cpu")
+    state = cpu_model.state_dict()
+    want = InferenceSession(cpu_model, state, batch_size=BATCH,
+                            device="cpu").predict(enc, dec)
+    session = InferenceSession(
+        ForecastDenoising(**WIDE, **dtypes, device=cuda), state,
+        batch_size=BATCH, device=cuda)
+    _zero_counts()
+    got = session.predict(enc, dec)  # 37 windows: three batches of 16
+    gp = {"fused_gp_bf16": 3} if dtypes else {"fused_gp": 3}
+    assert _flash_counts() == {
+        "flash": 24, "flash_bwd": 0, "head_folded": 0, "fused_gp": 0,
+        "fused_gp_bf16": 0, "fused_gp_bf16_bwd": 0, **gp}
+    if dtypes:
+        assert np.abs(got - want).max() <= TOL_BF16_MODEL * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL_MODEL, atol=TOL_MODEL)
+
+
+def _step(model, batch):
+    out = model(*batch, training=True)
+    out.loss.backward()
+    return out.loss.item(), {n: p.grad.cpu()
+                             for n, p in model.named_parameters()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["wide_fp32", "wide_bf16", "production"])
+def test_wide_training_step_on_card_matches_cpu(cuda, config):
+    """One forward and backward on the card (flash and fused-GP kernels,
+    forward and backward) and on the CPU from the same weights and windows.
+    ``production``: the full width (d_model 512, 8 heads, d_k 64, 2 layers,
+    512 inducing points, enc 512, dec 128, bf16) on 2 windows."""
+    if config == "production":
+        kw = dict(WIDE, src_input_size=8, tgt_input_size=8, d_model=512,
+                  n_heads=8, pred_len=128, num_inducing=512, **BF16)
+        b, enc_len, dec_len, feats = 2, 512, 128, 8
+    else:
+        kw = dict(WIDE, **(BF16 if config == "wide_bf16" else {}))
+        b, enc_len, dec_len, feats = BATCH, ENC, DEC, F
+    bf16 = "compute_dtype" in kw
+    rng = np.random.default_rng(11)
+    batch = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             for shape in ((b, enc_len, feats), (b, dec_len, feats),
+                           (b, kw["pred_len"], 1))]
+    cpu_model = ForecastDenoising(**kw, device="cpu")
+    m = kw["num_inducing"]
+    with torch.no_grad():  # q(u) away from the prior: every GP gradient
+        layer = cpu_model.deep_gp.output_layer
+        layer.variational_mean.copy_(torch.from_numpy(
+            0.5 * rng.normal(size=m).astype(np.float32)))
+        layer.variational_log_stddev.copy_(torch.from_numpy(
+            0.3 * rng.normal(size=m).astype(np.float32)))
+        cpu_model.lam.fill_(0.003)  # the ELBO counts
+    gpu_model = ForecastDenoising(**kw, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    loss_c, grads_c = _step(cpu_model, batch)
+    _zero_counts()
+    loss_g, grads_g = _step(gpu_model, [t.to(cuda) for t in batch])
+    gp = ({"fused_gp_bf16": 1, "fused_gp_bf16_bwd": 1} if bf16
+          else {"fused_gp": 2})
+    assert _flash_counts() == {
+        "flash": 8, "flash_bwd": 8, "head_folded": 0, "fused_gp": 0,
+        "fused_gp_bf16": 0, "fused_gp_bf16_bwd": 0, **gp}
+    np.testing.assert_allclose(loss_g, loss_c,
+                               rtol=TOL_BF16_MODEL if bf16 else TOL_MODEL)
+    for name, gc in grads_c.items():
+        gg = grads_g[name]
+        assert gg.dtype == torch.float32, name
+        scale = gc.abs().max().item()
+        tol = TOL_BF16_GRAD if bf16 else 1e-3  # fp32: as the smoke run's
+        assert (gg - gc).abs().max().item() <= tol * scale, name

@@ -106,6 +106,119 @@ def test_forecast_denoising_matches_jax(case):
             rtol=TOL, atol=TOL, err_msg=field)
 
 
+# the production-width model cut to a test's size: d_k 64 (the width at
+# which ``basic`` self-attention leaves the head-folded route), two layers
+WIDE = dict(src_input_size=F, tgt_input_size=F, d_model=128, n_heads=2,
+            d_k=64, stack_size=2, pred_len=DEC, num_inducing=16,
+            gp_ls_init=-1.0, attn_type="basic")
+BF16 = dict(compute_dtype="bfloat16", gp_compute_dtype="bfloat16")
+# bf16 model against bf16 model: the two frameworks round at different
+# places (Flax rounds a dense layer's product and then its bias sum, torch
+# once; XLA and torch sum in other orders), and four transformer passes of
+# LayerNorms amplify a one-step difference: 2^-6 of the largest magnitude
+TOL_BF16_MODEL = 2.0 ** -6
+
+
+def _dtypes(kw, module):
+    return {k: getattr(module, v) if k.endswith("dtype") else v
+            for k, v in kw.items()}
+
+
+def _wide_pair(kw, seed=4):
+    rng = np.random.default_rng(seed)
+    enc = rng.normal(size=(B, ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(B, DEC, F)).astype(np.float32)
+    y = rng.normal(size=(B, DEC, 1)).astype(np.float32)
+    jmod = jfd.ForecastDenoising(**WIDE, **_dtypes(kw, jnp))
+    params = _np_tree(jmod.init({"params": jax.random.PRNGKey(seed)}, enc,
+                                dec)["params"])
+    params["lam"] = np.array([0.003], np.float32)
+    layer = params["deep_gp"]["output_layer"]  # q(u) away from the prior
+    for name, scale in (("variational_mean", 0.5),
+                        ("variational_log_stddev", 0.3)):
+        layer[name] = (scale * rng.normal(size=16)).astype(np.float32)
+    tmod = tfd.ForecastDenoising(**WIDE, **_dtypes(kw, torch), device="cpu")
+    tmod.load_state_dict(from_flax(params))
+    return jmod, params, tmod, (enc, dec, y)
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_wide_fp32_model_matches_jax(training):
+    """fp32 at d_k 64: JAX goes through its flash kernel (interpret mode),
+    the port through the plain route; the exact check of both."""
+    jmod, params, tmod, (enc, dec, y) = _wide_pair({})
+    want = jmod.apply({"params": params}, enc, dec, y, training=training)
+    with torch.no_grad():
+        got = tmod(*(torch.from_numpy(a) for a in (enc, dec, y)),
+                   training=training)
+    for field in ("predictions", "mse", "loss"):
+        np.testing.assert_allclose(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            rtol=TOL, atol=TOL, err_msg=field)
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_wide_bf16_model_matches_jax(training):
+    jmod, params, tmod, (enc, dec, y) = _wide_pair(BF16)
+    want = jmod.apply({"params": params}, enc, dec, y, training=training)
+    with torch.no_grad():
+        got = tmod(*(torch.from_numpy(a) for a in (enc, dec, y)),
+                   training=training)
+    assert got.predictions.dtype == torch.float32
+    wp = np.asarray(want.predictions)
+    assert (np.abs(got.predictions.numpy() - wp).max()
+            <= TOL_BF16_MODEL * np.abs(wp).max())
+    for field in ("mse", "loss"):
+        np.testing.assert_allclose(float(getattr(got, field)),
+                                   float(getattr(want, field)),
+                                   rtol=TOL_BF16_MODEL, err_msg=field)
+    # and bf16 is another function than fp32
+    fp32 = tfd.ForecastDenoising(**WIDE, device="cpu")
+    fp32.load_state_dict(from_flax(params))
+    with torch.no_grad():
+        exact = fp32(*(torch.from_numpy(a) for a in (enc, dec, y)),
+                     training=training)
+    assert (exact.predictions - got.predictions).abs().max() > 1e-4
+
+
+def test_wide_bf16_session_matches_jax():
+    jmod, params, tmod, (enc, dec, _) = _wide_pair(BF16, seed=6)
+    rng = np.random.default_rng(8)
+    enc = np.concatenate([enc, rng.normal(size=(3, ENC, F)).astype(
+        np.float32)])
+    dec = np.concatenate([dec, rng.normal(size=(3, DEC, F)).astype(
+        np.float32)])
+    want = np.asarray(jmod.apply({"params": params}, enc, dec).predictions)
+    session = InferenceSession(tmod, from_flax(params), batch_size=4,
+                               device="cpu")
+    got = session.predict(enc, dec)  # 7 windows: a batch and a ragged 3
+    assert got.shape == (7, DEC, 1) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= TOL_BF16_MODEL * np.abs(want).max()
+
+
+def test_transformer_bf16_matches_jax():
+    """The backbone alone: bf16 inside, both streams back in the input's
+    dtype."""
+    rng = np.random.default_rng(1)
+    enc = rng.normal(size=(B, ENC, 128)).astype(np.float32)
+    dec = rng.normal(size=(B, DEC, 128)).astype(np.float32)
+    kw = dict(d_model=128, d_ff=512, d_k=64, d_v=64, n_heads=2, n_layers=1,
+              attn_type="basic")
+    jmod = jtr.Transformer(**kw, dtype=jnp.bfloat16)
+    params = jmod.init(jax.random.PRNGKey(2), enc, dec)["params"]
+    want = jmod.apply({"params": params}, enc, dec)
+    tmod = ttr.Transformer(**kw, compute_dtype=torch.bfloat16, device="cpu")
+    tmod.load_state_dict(from_flax(_np_tree(params)))
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(enc), torch.from_numpy(dec))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= TOL_BF16_MODEL * np.abs(w).max()
+    for p in tmod.parameters():
+        assert p.dtype == torch.float32
+
+
 def test_from_flax_covers_every_parameter():
     rng = np.random.default_rng(0)
     enc = rng.normal(size=(2, ENC, F)).astype(np.float32)
@@ -157,8 +270,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     (dict(gp_kind="exact"), NotImplementedError),
     (dict(use_pallas_gp=True), NotImplementedError),
     (dict(gp_hidden_dims=(4,)), NotImplementedError),
-    (dict(compute_dtype=torch.bfloat16), NotImplementedError),
-    (dict(gp_compute_dtype=torch.bfloat16), NotImplementedError),
+    (dict(attn_type="autoformer", compute_dtype=torch.bfloat16),
+     NotImplementedError),
 ])
 def test_unported_options_raise(kwargs, error):
     with pytest.raises(error):
@@ -192,7 +305,8 @@ def test_port_imports_nothing_of_jax():
     port = root / "fine_grained_gaussian_process_forcasting_torch"
     for module in ("train/trainer.py", "train/schedule.py",
                    "train/checkpoint.py", "data/window.py", "params.py",
-                   "ops/cuda/fused_gp.py", "ops/cuda/head_folded_attention.py"):
+                   "ops/cuda/fused_gp.py", "ops/cuda/head_folded_attention.py",
+                   "ops/cuda/flash_attention.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -61,6 +61,20 @@ SMALL = dict(src_input_size=SRC, tgt_input_size=TGT, d_model=DM,
              n_heads=NH, d_k=DM // NH, stack_size=1, pred_len=PRED,
              num_inducing=16, gp_ls_init=-1.0)
 CONFIGS = {"autoformer_gp_denoise": "autoformer", "basic_gp_denoise": "basic"}
+# the production-width model cut to a test's size (d_k 64, two layers), in
+# fp32 (held to the fp32 tolerances above: JAX goes through its flash kernel
+# in interpret mode, the port through the plain route) and in bf16
+WIDE = dict(SMALL, d_model=128, n_heads=2, d_k=64, stack_size=2)
+WIDE_CONFIGS = {"wide_basic_fp32": {},
+                "wide_basic_bf16": dict(compute_dtype="bfloat16",
+                                        gp_compute_dtype="bfloat16")}
+# bf16: the frameworks round at different places.  A step's loss within 2^-5
+# relative over five updates; each gradient of step 1 within 2^-3 of its
+# largest magnitude: either framework's own bf16 gradient lies up to a
+# quarter of that magnitude from the fp32 gradient (the GP's scalar
+# parameters, whose gradients are sums over all rows that nearly cancel)
+TOL_LOSS_BF16 = 2.0 ** -5
+TOL_GRAD_BF16 = 2.0 ** -3
 
 
 def _batches(n_batches, seed=0):
@@ -72,13 +86,18 @@ def _batches(n_batches, seed=0):
     return enc, dec, y
 
 
-def _pair(attn_type, **kw):
-    """JAX trainer + state and the port's trainer + state, same params."""
-    flags = dict(SMALL, attn_type=attn_type, gp=True, denoise=True,
+def _pair(attn_type, base=SMALL, dtypes=None, **kw):
+    """JAX trainer + state and the port's trainer + state, same params.
+    ``dtypes``: the compute dtypes by name, e.g. "bfloat16"."""
+    flags = dict(base, attn_type=attn_type, gp=True, denoise=True,
                  use_fused_gp=True)
+    dtypes = dtypes or {}
     enc, dec, y = _batches(1, seed=9)
-    jtrainer = JTrainer(jfd.ForecastDenoising(**flags), d_model=DM,
-                        warmup_steps=100, **kw)
+    dm = flags["d_model"]
+    jtrainer = JTrainer(
+        jfd.ForecastDenoising(**flags, **{k: getattr(jnp, v)
+                                          for k, v in dtypes.items()}),
+        d_model=dm, warmup_steps=100, **kw)
     jstate = jtrainer.init_state(jax.random.PRNGKey(0), enc[0], dec[0], y[0])
     params = jax.tree_util.tree_map(np.asarray, jstate.params)
     params["lam"] = np.array([0.003], np.float32)  # the ELBO counts
@@ -93,15 +112,24 @@ def _pair(attn_type, **kw):
     jstate = JTrainState(params=jparams,
                          opt_state=jtrainer.optimizer.init(jparams),
                          rng=jstate.rng)
-    trainer = Trainer(tfd.ForecastDenoising(**flags, device="cpu"),
-                      d_model=DM, warmup_steps=100, device="cpu", **kw)
+    trainer = Trainer(
+        tfd.ForecastDenoising(**flags, **{k: getattr(torch, v)
+                                          for k, v in dtypes.items()},
+                              device="cpu"),
+        d_model=dm, warmup_steps=100, device="cpu", **kw)
     state = trainer.init_state(from_flax(params))
     return jtrainer, jstate, trainer, state, params
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("config", list(CONFIGS) + list(WIDE_CONFIGS))
 def test_trainer_matches_jax_per_step(config):
-    jtrainer, jstate, trainer, state, _ = _pair(CONFIGS[config])
+    if config in CONFIGS:
+        jtrainer, jstate, trainer, state, _ = _pair(CONFIGS[config])
+        tol = TOL_LOSS
+    else:
+        dtypes = WIDE_CONFIGS[config]
+        jtrainer, jstate, trainer, state, _ = _pair("basic", WIDE, dtypes)
+        tol = TOL_LOSS_BF16 if dtypes else TOL_LOSS
     enc, dec, y = _batches(STEPS)
     for i in range(STEPS):  # single-batch epochs: one loss per step
         batch = tuple(a[i: i + 1] for a in (enc, dec, y))
@@ -110,17 +138,24 @@ def test_trainer_matches_jax_per_step(config):
         state, loss, mse = trainer.train_epoch(
             state, tuple(torch.from_numpy(a) for a in batch))
         assert np.isfinite(loss) and np.isfinite(mse)
-        np.testing.assert_allclose(loss, jloss, rtol=TOL_LOSS,
+        np.testing.assert_allclose(loss, jloss, rtol=tol,
                                    err_msg=f"loss, step {i + 1}")
-        np.testing.assert_allclose(mse, jmse, rtol=TOL_LOSS,
+        np.testing.assert_allclose(mse, jmse, rtol=tol,
                                    err_msg=f"mse, step {i + 1}")
     assert state.step == STEPS
+    for p in trainer.model.parameters():  # weights stay fp32 in bf16 too
+        assert p.dtype == torch.float32
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("config", list(CONFIGS) + list(WIDE_CONFIGS))
 def test_first_step_gradients_match_jax(config):
-    attn_type = CONFIGS[config]
-    jtrainer, _, trainer, _, params = _pair(attn_type)
+    if config in CONFIGS:
+        jtrainer, _, trainer, _, params = _pair(CONFIGS[config])
+        bf16 = False
+    else:
+        dtypes = WIDE_CONFIGS[config]
+        jtrainer, _, trainer, _, params = _pair("basic", WIDE, dtypes)
+        bf16 = bool(dtypes)
     enc, dec, y = (a[0] for a in _batches(1))
 
     def loss_fn(p):
@@ -140,9 +175,16 @@ def test_first_step_gradients_match_jax(config):
     flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
     assert set(flat_got) == set(flat_want)
     for path, g in flat_got.items():
-        np.testing.assert_allclose(
-            g, np.asarray(flat_want[path]), rtol=RTOL_GRAD, atol=ATOL_GRAD,
-            err_msg=jax.tree_util.keystr(path))
+        w = np.asarray(flat_want[path])
+        assert g.dtype == np.float32 and w.dtype == np.float32
+        if bf16:
+            err, scale = np.abs(g - w).max(), np.abs(w).max()
+            assert err <= TOL_GRAD_BF16 * scale, (
+                jax.tree_util.keystr(path), err, scale)
+        else:
+            np.testing.assert_allclose(
+                g, w, rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                err_msg=jax.tree_util.keystr(path))
     # the GP's own parameters receive gradient through the fused kernel
     gp = got["deep_gp"]["output_layer"]
     for name in ("inducing_points", "variational_mean", "raw_lengthscale",
