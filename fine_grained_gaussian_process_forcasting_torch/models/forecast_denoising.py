@@ -7,7 +7,11 @@ transformer backbone and the variational GP:
 - the denoiser is the forecaster itself (shared weights, called twice);
 - one deep GP over the concatenated enc+dec hidden states adds its
   posterior mean, projected 1 -> d_model, to the streams ``gp_inject``
-  names; the ELBO uses the decoder-stream marginals;
+  names; the ELBO uses the decoder-stream marginals.  Its hidden layers
+  (``gp_hidden_dims``) draw their eps from the model's generator, or take
+  injected draws (``gp_eps``), or use 0 without either;
+- ``gp_kind="exact"``: an exact GP smooths each stream in place and its
+  exact marginal log likelihood on the decoder states replaces the ELBO;
 - isotropic mode adds 0.05 * N(0, 1) noise in train and eval; the draws come
   from an explicit generator or are passed in;
 - the residual branch re-runs the forecaster on its own outputs;
@@ -19,7 +23,7 @@ transformer backbone and the variational GP:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,6 +33,9 @@ from fine_grained_gaussian_process_forcasting_torch.gp.deep_gp import (
     DeepGP,
     GPPosterior,
     variational_elbo,
+)
+from fine_grained_gaussian_process_forcasting_torch.gp.exact_blur import (
+    ExactGPBlur,
 )
 from fine_grained_gaussian_process_forcasting_torch.models.transformer import (
     Transformer,
@@ -57,8 +64,9 @@ class ForecastDenoising(nn.Module):
                  use_pallas_attention: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  gp_compute_dtype: Optional[torch.dtype] = None,
-                 gp_ls_init: float = 0.0, lam_clip_max: float = 0.005,
-                 gp_inject: str = "joint", *, device="cuda",
+                 gp_ls_init: float = 0.0, exact_noise_init: float = 0.0,
+                 lam_clip_max: float = 0.005, gp_inject: str = "joint", *,
+                 device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if gp_inject not in ("joint", "enc", "dec", "none"):
@@ -73,12 +81,12 @@ class ForecastDenoising(nn.Module):
                 "port, item 11)")
         if backbone != "transformer":
             raise ValueError(f"unknown backbone {backbone!r}")
-        if gp_kind == "exact":
-            raise NotImplementedError(
-                "gp_kind='exact' is not ported yet (ROADMAP.md modules to "
-                "port, item 10)")
-        if gp_kind != "variational":
+        if gp_kind not in ("variational", "exact"):
             raise ValueError(f"unknown gp_kind {gp_kind!r}")
+        if gp_inject != "joint" and gp_kind == "exact":
+            raise ValueError(
+                "gp_inject applies to the variational path only; the exact "
+                "blur smooths each stream in place")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -86,6 +94,7 @@ class ForecastDenoising(nn.Module):
         self.gp, self.denoise, self.no_noise = gp, denoise, no_noise
         self.residual, self.input_corrupt = residual, input_corrupt
         self.lam_clip_max, self.gp_inject = lam_clip_max, gp_inject
+        self.gp_kind = gp_kind
 
         kw = dict(device=device, generator=generator)
         self.forecasting_model = Transformer(
@@ -98,23 +107,32 @@ class ForecastDenoising(nn.Module):
         self.final_projection = dense(d_model, 1, bias=True, **kw)
         if gp and (denoise or input_corrupt):
             # only then does the Flax module call (and so create) them
-            self.deep_gp = DeepGP(
-                input_dims=d_model, num_inducing=num_inducing,
-                use_pallas=use_pallas_gp, use_fused=use_fused_gp,
-                hidden_dims=tuple(gp_hidden_dims),
-                compute_dtype=gp_compute_dtype, ls_init=gp_ls_init, **kw)
+            if gp_kind == "exact":  # the library's factorization, as in JAX
+                self.deep_gp = ExactGPBlur(d_model, ls_init=gp_ls_init,
+                                           noise_init=exact_noise_init, **kw)
+            else:
+                self.deep_gp = DeepGP(
+                    input_dims=d_model, num_inducing=num_inducing,
+                    use_pallas=use_pallas_gp, use_fused=use_fused_gp,
+                    hidden_dims=tuple(gp_hidden_dims),
+                    compute_dtype=gp_compute_dtype, ls_init=gp_ls_init, **kw)
             self.proj_up = dense(1, d_model, bias=True, **kw)
         self.lam = nn.Parameter(torch.zeros(1, device=device))
         normal_(self.lam, 1.0, generator)
 
     def _denoise(self, enc_hidden, dec_hidden, training: bool, noise,
-                 generator) -> Tuple[torch.Tensor, Optional[GPPosterior]]:
+                 generator, gp_eps
+                 ) -> Tuple[torch.Tensor, Optional[GPPosterior]]:
         posterior = None
-        if self.gp:
+        if self.gp and self.gp_kind == "exact":  # each stream in place
+            enc_noisy, dec_noisy = (
+                t + self.proj_up(self.deep_gp.smooth(t)[..., None])
+                for t in (enc_hidden, dec_hidden))
+        elif self.gp:
             # one GP evaluation over the concatenated enc+dec points
             s_enc = enc_hidden.shape[1]
             joint = torch.cat([enc_hidden, dec_hidden], dim=1)
-            post = self.deep_gp(joint)  # marginals over (b, s)
+            post = self.deep_gp(joint, gp_eps, generator)  # over (b, s)
             eps = self.proj_up(post.mean[..., None])  # (b, s, d)
             enc_noisy = (enc_hidden + eps[:, :s_enc]
                          if self.gp_inject in ("joint", "enc") else enc_hidden)
@@ -144,11 +162,14 @@ class ForecastDenoising(nn.Module):
     def forward(self, enc_inputs: torch.Tensor, dec_inputs: torch.Tensor,
                 y_true: Optional[torch.Tensor] = None, training: bool = False,
                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                gp_eps: Optional[Sequence[torch.Tensor]] = None
                 ) -> ForecastOutput:
         """``noise``: the isotropic mode's N(0, 1) draws for the encoder and
-        decoder hidden states; else they are drawn from ``generator`` (a
-        generator on the inputs' device)."""
+        decoder hidden states; ``gp_eps``: the deep GP's N(0, 1) draws, one
+        (b, enc_len + dec_len, gp_hidden_dims[i]) per hidden layer; else
+        either is drawn from ``generator`` (a generator on the inputs'
+        device)."""
         dev = enc_inputs.device
         mll_error = torch.zeros((), device=dev)
         enc = self.enc_embedding(enc_inputs)
@@ -158,17 +179,23 @@ class ForecastDenoising(nn.Module):
 
         if self.denoise or (self.input_corrupt and training):
             de_out, posterior = self._denoise(enc_out, dec_out, training,
-                                              noise, generator)
+                                              noise, generator, gp_eps)
             final = self.final_projection(de_out[:, -self.pred_len:, :])
+            # lam_clip_max == 0 drops the term: skipped, so that a
+            # non-finite likelihood cannot reach the loss as 0 * inf
             if (self.gp and training and y_true is not None
-                    and self.lam_clip_max > 0.0 and posterior is not None):
+                    and self.lam_clip_max > 0.0):
                 target = y_true[..., 0]  # (b, pred_len)
                 n = target.shape[-1]
-                sliced = GPPosterior(mean=posterior.mean[..., -n:],
-                                     var=posterior.var[..., -n:],
-                                     kl=posterior.kl, noise=posterior.noise)
-                mll_error = -variational_elbo(target, sliced,
-                                              num_data=self.d_model)
+                if self.gp_kind == "exact":
+                    mll_error = -self.deep_gp.mll(dec_out[:, -n:], target)
+                elif posterior is not None:
+                    sliced = GPPosterior(
+                        mean=posterior.mean[..., -n:],
+                        var=posterior.var[..., -n:], kl=posterior.kl,
+                        noise=posterior.noise)
+                    mll_error = -variational_elbo(target, sliced,
+                                                  num_data=self.d_model)
             if self.residual:
                 _, dec_res = self.forecasting_model(enc_out, dec_out,
                                                     training=training)

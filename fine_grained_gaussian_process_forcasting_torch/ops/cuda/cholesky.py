@@ -1,0 +1,117 @@
+"""Batched lower Cholesky factorization (fp32): CUDA kernel + plain.
+
+Counterpart of the JAX package's ``ops/pallas/cholesky.py``
+``batched_cholesky``: the lower factor L of each SPD matrix of a (..., n, n)
+batch, zeros above the diagonal.  A matrix that is not positive definite
+gives NaN, never an exception (the Pallas recurrence takes the square root
+of a negative pivot; ``jnp.linalg.cholesky`` NaN-fills), which the exact
+blur's psd-safe jitter probe relies on.
+
+The JAX op's pullback is plain XLA (``cholesky.py:177-191``); here it is the
+same formula in plain PyTorch, P = phi(L^T dL) (lower triangle, halved
+diagonal), dA = 1/2 L^-T (P + P^T) L^-1, by two triangular solves.  So the
+op is a ``torch.autograd.Function`` on both devices: its forward launches
+``csrc/cholesky.cu`` for CUDA tensors and runs the plain forward for CPU
+tensors, never falling back from one to the other.  Only the symmetric part
+of dA is defined (A is read in its lower triangle).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
+
+#: kernel launches since the counter was last set to 0
+launches = 0
+
+_MAX_N = 46340  # the kernel indexes n^2 in 32 bits
+
+
+def batched_cholesky_plain(a):
+    """The library's factorization (LAPACK on the CPU, cuSOLVER on the
+    card), ``torch.linalg.cholesky_ex``, NaN-filled where it failed, as
+    ``jnp.linalg.cholesky`` returns; differentiable by torch's autograd."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol, float("nan"))
+
+
+def batched_cholesky_bwd_plain(chol, dchol):
+    """dA of ``batched_cholesky`` for the cotangent dL, as
+    ``cholesky.py:177-191`` computes it."""
+    p = torch.matmul(chol.transpose(-1, -2), dchol)
+    p = torch.tril(p) - 0.5 * torch.diag_embed(
+        torch.diagonal(p, dim1=-2, dim2=-1))
+    s = p + p.transpose(-1, -2)
+    tmp = torch.linalg.solve_triangular(chol.transpose(-1, -2), s,
+                                        upper=True)  # L^-T S
+    return 0.5 * torch.linalg.solve_triangular(chol, tmp, upper=False,
+                                               left=False)  # (L^-T S) L^-1
+
+
+def launcher():
+    """The C launcher: (a, out pointers, batch, n, stream) -> cudaError_t."""
+    return _build.function("cholesky", "batched_cholesky_fwd",
+                           [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+
+
+def _check(a):
+    if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"a must be (..., n, n), got {tuple(a.shape)}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"a must be float32, got {a.dtype}")
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    if not 1 <= a.shape[-1] <= _MAX_N:
+        raise ValueError(f"n = {a.shape[-1]} is outside the kernel's "
+                         f"1..{_MAX_N}")
+
+
+def forward_kernel(a):
+    """Launch the kernel on a checked input: L."""
+    global launches
+    n = a.shape[-1]
+    out = torch.empty_like(a)
+    batch = a.numel() // (n * n)
+    if batch == 0:
+        return out
+    err = launcher()(a.data_ptr(), out.data_ptr(), batch, n,
+                     torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"batched_cholesky_fwd launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+class _BatchedCholesky(torch.autograd.Function):
+    """The kernel (card) or the plain forward (CPU); the plain pullback."""
+
+    @staticmethod
+    def forward(ctx, a):
+        if a.device.type == "cpu":
+            chol = batched_cholesky_plain(a)
+        else:
+            chol = forward_kernel(a)
+        ctx.save_for_backward(chol)
+        return chol
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dchol):
+        (chol,) = ctx.saved_tensors
+        return batched_cholesky_bwd_plain(chol, dchol)
+
+
+def batched_cholesky(a):
+    """Lower Cholesky factors of (..., n, n) SPD matrices; NaN where a
+    matrix is not positive definite."""
+    if a.device.type == "cuda":
+        _check(a)
+    elif a.device.type != "cpu":
+        raise ValueError(f"unsupported device {a.device}")
+    return _BatchedCholesky.apply(a)

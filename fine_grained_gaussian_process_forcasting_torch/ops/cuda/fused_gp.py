@@ -15,6 +15,12 @@ launches the backward kernels of the same source and returns a gradient for
 each of the eight inputs; on the CPU, torch's autograd differentiates the
 plain forward.
 
+The non-affine ``whitened_marginals`` and ``whitened_marginals_bf16`` take
+pre-scaled xs = x / lengthscale and return (K u, var): the affine function
+at inv_ls = 1, mean_w = 0, mean_b = 0, so they run on the same kernels with
+those inputs, add to the same launch counters, and return the gradients of
+their five inputs.
+
 ``whitened_marginals_affine_bf16`` takes and returns the same fp32 tensors;
 only the two products K W and K^T (dvar o K) round their inputs to bf16 and
 sum in fp32, everything else stays fp32.  Its VJP is the Pallas kernel's own
@@ -111,6 +117,42 @@ def whitened_marginals_affine_bf16_bwd_plain(*args):
     return whitened_marginals_affine_bwd_plain(*args, bf16=True)
 
 
+def _affine_args(xs, zs, u, w, outputscale):
+    """The non-affine variants' inputs as the affine kernel's: inv_ls 1,
+    mean_w 0, mean_b 0."""
+    d = xs.shape[-1]
+    return (xs, zs, u, w, outputscale,
+            torch.ones(d, device=xs.device, dtype=xs.dtype),
+            torch.zeros(d, device=xs.device, dtype=xs.dtype),
+            torch.zeros((), device=xs.device, dtype=xs.dtype))
+
+
+def whitened_marginals_plain(xs, zs, u, w, outputscale, bf16=False):
+    """The non-affine function in plain PyTorch: (K u, var) at pre-scaled
+    xs."""
+    return whitened_marginals_affine_plain(
+        *_affine_args(xs, zs, u, w, outputscale), bf16=bf16)
+
+
+def whitened_marginals_bf16_plain(*args):
+    """The non-affine bf16 variant in plain PyTorch."""
+    return whitened_marginals_plain(*args, bf16=True)
+
+
+def whitened_marginals_bwd_plain(xs, zs, u, w, outputscale, dmean, dvar,
+                                 bf16=False):
+    """The non-affine VJP in plain PyTorch: the gradients of (xs, zs, u, w,
+    outputscale)."""
+    return whitened_marginals_affine_bwd_plain(
+        *_affine_args(xs, zs, u, w, outputscale), dmean, dvar,
+        bf16=bf16)[:5]
+
+
+def whitened_marginals_bf16_bwd_plain(*args):
+    """The non-affine bf16 variant's VJP in plain PyTorch."""
+    return whitened_marginals_bwd_plain(*args, bf16=True)
+
+
 def launcher(bf16=False):
     """The C launcher: (x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var
     pointers, R, d, M, stream) -> cudaError_t.  ``bf16``: the bf16 variant's,
@@ -193,32 +235,48 @@ def whitened_marginals_affine(x, zs, u, w, outputscale, inv_ls, mean_w,
     w: (M, M) = L^-T diag(1 - s^2) L^-1; outputscale: 0-d;
     inv_ls: (d,) = 1 / lengthscale; mean_w: (d,); mean_b: 0-d.
     """
-    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
-    if x.device.type == "cpu":
-        return whitened_marginals_affine_plain(*args)
-    return _on_card(args, bf16=False)
+    return _marginals((x, zs, u, w, outputscale, inv_ls, mean_w, mean_b),
+                      bf16=False)
 
 
 def whitened_marginals_affine_bf16(x, zs, u, w, outputscale, inv_ls, mean_w,
                                    mean_b):
     """The same with the K W product (and, in the VJP, K^T (dvar o K)) on
     bf16-rounded inputs summed in fp32; fp32 tensors in and out."""
-    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
-    if x.device.type == "cpu":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-            return _WhitenedMarginalsAffine.apply(True, *args)
-        return whitened_marginals_affine_bf16_plain(*args)
-    return _on_card(args, bf16=True)
+    return _marginals((x, zs, u, w, outputscale, inv_ls, mean_w, mean_b),
+                      bf16=True)
 
 
-def _on_card(args, bf16):
+def whitened_marginals(xs, zs, u, w, outputscale):
+    """(K u, var), each (B, N), at pre-scaled xs (B, N, d) = x / lengthscale;
+    zs, u, w and outputscale as for ``whitened_marginals_affine``."""
+    return _marginals((xs, zs, u, w, outputscale), bf16=False)
+
+
+def whitened_marginals_bf16(xs, zs, u, w, outputscale):
+    """The non-affine function with the bf16 variant's two products."""
+    return _marginals((xs, zs, u, w, outputscale), bf16=True)
+
+
+def _full(args):
+    """The affine kernel's eight inputs, from eight or from the non-affine
+    variants' five."""
+    return args if len(args) == 8 else _affine_args(*args)
+
+
+def _marginals(args, bf16):
     x = args[0]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    if x.device.type == "cpu":
+        if bf16 and grad:  # the bf16 VJP is the kernel's own rule
+            return _WhitenedMarginals.apply(bf16, *args)
+        return whitened_marginals_affine_plain(*_full(args), bf16=bf16)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(*args)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _WhitenedMarginalsAffine.apply(bf16, *args)
-    return forward_kernel(*args, bf16=bf16)
+    _check(*_full(args))
+    if grad:
+        return _WhitenedMarginals.apply(bf16, *args)
+    return forward_kernel(*_full(args), bf16=bf16)
 
 
 def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
@@ -277,24 +335,27 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     return grads
 
 
-class _WhitenedMarginalsAffine(torch.autograd.Function):
-    """The kernels on the card; on the CPU (the bf16 variant only) the plain
-    forward and the plain VJP."""
+class _WhitenedMarginals(torch.autograd.Function):
+    """The kernels on the card; on the CPU (the bf16 variants only) the plain
+    forward and the plain VJP.  Five inputs: the non-affine variant, run as
+    the affine function at inv_ls 1, mean_w 0, mean_b 0."""
 
     @staticmethod
     def forward(ctx, bf16, *args):
         ctx.bf16 = bf16
         ctx.save_for_backward(*args)
         if args[0].device.type == "cpu":
-            return whitened_marginals_affine_plain(*args, bf16=bf16)
-        return forward_kernel(*args, bf16=bf16)
+            return whitened_marginals_affine_plain(*_full(args), bf16=bf16)
+        return forward_kernel(*_full(args), bf16=bf16)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dmean, dvar):
+        args = ctx.saved_tensors
         # autograd materialises an unused output's cotangent as zeros
-        args = (*ctx.saved_tensors, dmean.contiguous(), dvar.contiguous())
+        full = (*_full(args), dmean.contiguous(), dvar.contiguous())
         if dmean.device.type == "cpu":
-            return (None, *whitened_marginals_affine_bwd_plain(
-                *args, bf16=ctx.bf16))
-        return (None, *backward_kernel(*args, bf16=ctx.bf16))
+            grads = whitened_marginals_affine_bwd_plain(*full, bf16=ctx.bf16)
+        else:
+            grads = backward_kernel(*full, bf16=ctx.bf16)
+        return (None, *grads[:len(args)])

@@ -16,10 +16,16 @@ from fine_grained_gaussian_process_forcasting_tpu.gp import kernels as jk
 from fine_grained_gaussian_process_forcasting_tpu.ops.pallas import (
     fused_gp as jfused,
 )
+from fine_grained_gaussian_process_forcasting_tpu.ops.pallas import (
+    rbf as jrbf,
+)
 from fine_grained_gaussian_process_forcasting_torch.gp import deep_gp as tgp
 from fine_grained_gaussian_process_forcasting_torch.gp import kernels as tk
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
     fused_gp as tfused,
+)
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+    rbf as trbf,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import from_flax
 
@@ -47,7 +53,8 @@ def _kernel_inputs(seed=0, n=23, m=11, d=6):
     return x, z, ls, np.float32(1.3)
 
 
-@pytest.mark.parametrize("fn", ["softplus", "sq_dist", "rbf_ard"])
+@pytest.mark.parametrize("fn", ["softplus", "sq_dist", "rbf_ard",
+                                "matern_ard"])
 def test_gp_kernels_match_jax(fn):
     x, z, ls, os_ = _kernel_inputs()
     if fn == "softplus":
@@ -56,6 +63,13 @@ def test_gp_kernels_match_jax(fn):
     elif fn == "sq_dist":
         want = jk.sq_dist(jnp.asarray(x), jnp.asarray(z))
         got = tk.sq_dist(_t(x), _t(z))
+    elif fn == "matern_ard":
+        want = np.stack([jk.matern_ard(jnp.asarray(x), jnp.asarray(z),
+                                       jnp.asarray(ls), jnp.asarray(os_), nu)
+                         for nu in (0.5, 1.5, 2.5)])
+        got = torch.stack([tk.matern_ard(_t(x), _t(z), _t(ls),
+                                         torch.tensor(os_), nu)
+                           for nu in (0.5, 1.5, 2.5)])
     else:
         want = jk.rbf_ard(jnp.asarray(x), jnp.asarray(z), jnp.asarray(ls),
                           jnp.asarray(os_))
@@ -285,10 +299,174 @@ def test_variational_elbo_matches_jax():
                                atol=TOL_GP)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"hidden_dims": (4,)},
-    {"use_pallas": True},
-])
-def test_deep_gp_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgp.DeepGP(input_dims=8, num_inducing=8, device="cpu", **kwargs)
+# the rbf kernel: the JAX package's own tolerances for it
+# (tests/test_pallas_kernels.py), forward and gradients
+RTOL_RBF, ATOL_RBF = 1e-4, 1e-5
+RTOL_RBF_GRAD, ATOL_RBF_GRAD = 2e-3, 1e-4
+
+
+@pytest.mark.parametrize("case", ["unbatched", "batched_x", "h_gps"])
+def test_rbf_cross_kernel_matches_jax(case):
+    """Values and the gradients of all four inputs against the Pallas op
+    (interpret mode); ``h_gps``: z (h, M, d), lengthscale (h, d),
+    outputscale (h,) over one x, as the hidden layer's vmap calls it."""
+    rng = np.random.default_rng(len(case))
+    batch, h = {"unbatched": ((), 0), "batched_x": ((3,), 0),
+                "h_gps": ((2,), 3)}[case]
+    n, m, d = 21, 12, 5
+    lead = (h,) if h else ()
+    x = rng.normal(size=batch + (n, d)).astype(np.float32)
+    z = rng.normal(size=lead + (m, d)).astype(np.float32)
+    ls = rng.uniform(0.5, 2.0, size=lead + (d,)).astype(np.float32)
+    os_ = rng.uniform(0.5, 1.5, size=lead).astype(np.float32)
+
+    def jop(x, z, ls, os_):
+        if h:
+            return jax.vmap(jrbf.rbf_cross_kernel,
+                            in_axes=(None, 0, 0, 0))(x, z, ls, os_)
+        return jrbf.rbf_cross_kernel(x, z, ls, os_)
+
+    def jloss(*args):
+        k = jop(*args)
+        return jnp.sum(jnp.sin(k) * k)
+
+    args = (x, z, ls, os_)
+    want = jop(*(jnp.asarray(a) for a in args))
+    want_grads = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in args))
+    leaves = [_t(a).requires_grad_(True) for a in args]
+    got = trbf.rbf_cross_kernel(*leaves)
+    assert tuple(got.shape) == lead + batch + (n, m)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL_RBF, atol=ATOL_RBF)
+    (torch.sin(got) * got).sum().backward()
+    for leaf, w, name in zip(leaves, want_grads, ("x", "z", "ls", "os")):
+        assert leaf.grad.shape == leaf.shape, name
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   rtol=RTOL_RBF_GRAD, atol=ATOL_RBF_GRAD,
+                                   err_msg=name)
+    # the plain forward and the closed-form backward are the wrapper's
+    plain = trbf.rbf_cross_kernel_plain(*(_t(a) for a in args))
+    torch.testing.assert_close(plain, got.detach(), rtol=0, atol=0)
+    assert trbf.launches == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_nonaffine_matches_jax(bf16):
+    """``whitened_marginals``(``_bf16``) at pre-scaled xs: (K u, var) and
+    the gradients of its five inputs, at the affine variants' tolerances."""
+    b, n = 3, 13
+    args = _fused_inputs(b, n, d=16, m=32, seed=4)
+    xs = (args[0] * args[5]).astype(np.float32)
+    args = (xs,) + args[1:5]
+    dmean, dvar = _cotangents(b, n, seed=6)
+    jfn = (jfused.whitened_marginals_bf16 if bf16
+           else jfused.whitened_marginals)
+    tfn = (tfused.whitened_marginals_bf16 if bf16
+           else tfused.whitened_marginals)
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want_grads = vjp((jnp.asarray(dmean), jnp.asarray(dvar)))
+    leaves = [_t(a).requires_grad_(True) for a in args]
+    got = tfn(*leaves)
+    torch.autograd.backward(got, (_t(dmean), _t(dvar)))
+    names = GRAD_NAMES[:5]
+    for g, w, name in zip(got, want, ("mean", "var")):
+        if bf16:
+            _assert_close_bf16(g.detach().numpy(), w, name)
+        else:
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                       rtol=TOL_GP, atol=TOL_GP,
+                                       err_msg=name)
+    for leaf, w, name in zip(leaves, want_grads, names):
+        assert leaf.grad.shape == leaf.shape, name
+        if bf16:
+            _assert_close_bf16(leaf.grad.numpy(), w, name)
+        else:
+            np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                       rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                       err_msg=name)
+    # its plain versions are the ones the card is held to
+    plain = (tfused.whitened_marginals_bf16_plain if bf16
+             else tfused.whitened_marginals_plain)(*(_t(a) for a in args))
+    for p, g in zip(plain, got):
+        torch.testing.assert_close(p, g.detach(), rtol=0, atol=0)
+    plain_bwd = (tfused.whitened_marginals_bf16_bwd_plain if bf16
+                 else tfused.whitened_marginals_bwd_plain)(
+        *(_t(a) for a in args), _t(dmean), _t(dvar))
+    for p, leaf, name in zip(plain_bwd, leaves, names):
+        np.testing.assert_allclose(p.numpy(), leaf.grad.numpy(),
+                                   rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                   err_msg=name)
+    assert tfused.launches == tfused.bwd_launches == 0
+
+
+def _hidden_pair(use_pallas, use_fused, d=4, m=8, h=3, seed=0):
+    """A two-layer DeepGP (h hidden GPs) in both frameworks, same weights,
+    q(u) away from the prior in both layers."""
+    x = np.random.default_rng(seed).normal(size=(2, 9, d)).astype(np.float32)
+    kw = dict(input_dims=d, num_inducing=m, use_pallas=use_pallas,
+              use_fused=use_fused, hidden_dims=(h,), ls_init=-1.0)
+    jmod = jgp.DeepGP(**kw)
+    params = jax.tree_util.tree_map(np.asarray, jmod.init(
+        {"params": jax.random.PRNGKey(seed)}, jnp.asarray(x))["params"])
+    rng = np.random.default_rng(seed + 1)
+    for layer in ("hidden_layer0", "output_layer"):
+        p = params[layer]
+        p["variational_mean"] = (0.5 * rng.normal(
+            size=p["variational_mean"].shape)).astype(np.float32)
+        p["variational_log_stddev"] = (0.3 * rng.normal(
+            size=p["variational_log_stddev"].shape)).astype(np.float32)
+    tmod = tgp.DeepGP(**kw, device="cpu")
+    tmod.load_state_dict(from_flax(params))
+    return x, jmod, params, tmod
+
+
+@pytest.mark.parametrize("use_fused", [False, True],
+                         ids=["unfused", "fused"])
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["xla", "pallas"])
+def test_deep_gp_hidden_layers_match_jax(use_pallas, use_fused):
+    """hidden_dims=(3,) at eps = 0 (JAX without a 'noise' rng, the port
+    without draws or a generator).  The hidden layer is batched over its 3
+    GPs (rbf with ``use_pallas``); the output layer is fused when asked."""
+    x, jmod, params, tmod = _hidden_pair(use_pallas, use_fused)
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = tmod(_t(x))
+    assert got.mean.shape == (2, 9)
+    for field in ("mean", "var", "kl", "noise"):
+        np.testing.assert_allclose(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            rtol=TOL_GP, atol=TOL_GP, err_msg=field)
+    assert tmod.hidden_layer0.inducing_points.shape == (3, 8, 4)
+
+
+def test_deep_gp_hidden_draw_is_mean_plus_sqrt_var_eps():
+    """With injected eps the hidden layer's draw x = mean + sqrt(var) eps
+    feeds the output layer, composed here from the JAX package's own
+    layers; a generator's draws are the same as injecting them."""
+    x, _, params, tmod = _hidden_pair(True, True, seed=2)
+    eps = np.random.default_rng(3).normal(size=(2, 9, 3)).astype(np.float32)
+    hidden = jgp._VariationalLayer(input_dims=4, output_dims=3,
+                                   num_inducing=8, use_pallas=True,
+                                   ls_init=-1.0)
+    output = jgp._VariationalLayer(input_dims=3, num_inducing=8,
+                                   use_fused=True, ls_init=-1.0)
+    mean, var, kl_h = hidden.apply({"params": params["hidden_layer0"]},
+                                   jnp.asarray(x))
+    x1 = mean + jnp.sqrt(var) * jnp.asarray(eps)
+    mean, var, kl_o = output.apply({"params": params["output_layer"]}, x1)
+    with torch.no_grad():
+        got = tmod(_t(x), eps=[_t(eps)])
+    for g, w, name in ((got.mean, mean, "mean"), (got.var, var, "var"),
+                       (got.kl, kl_h + kl_o, "kl")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL_GP,
+                                   atol=TOL_GP, err_msg=name)
+    gen = torch.Generator().manual_seed(11)
+    draws = torch.randn((2, 9, 3), generator=torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        drawn = tmod(_t(x), generator=gen)
+        injected = tmod(_t(x), eps=[draws])
+        zero = tmod(_t(x))
+    torch.testing.assert_close(drawn.mean, injected.mean, rtol=0, atol=0)
+    assert (drawn.mean - zero.mean).abs().max() > 1e-3

@@ -15,10 +15,15 @@ import torch
 from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
     ForecastDenoising,
 )
+from fine_grained_gaussian_process_forcasting_torch.gp.exact_blur import (
+    ExactGPBlur,
+)
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+    cholesky,
     flash_attention as flash,
     fused_gp,
     head_folded_attention as hfa,
+    rbf,
 )
 from fine_grained_gaussian_process_forcasting_torch.train import Trainer
 from fine_grained_gaussian_process_forcasting_torch.train.predict import (
@@ -85,7 +90,8 @@ def _assert_close_bf16(got, want, name="", scale=None, rel=TOL_BF16):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
                                      (2, 5, 7, 300), (3, 50, 96, 512),
-                                     (2, 101, 512, 512), (1, 70, 130, 40)])
+                                     (2, 101, 512, 512), (1, 70, 130, 40),
+                                     (4, 288, 8, 512)])
 def test_fused_gp_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m, device=cuda)
     before = fused_gp.launches
@@ -119,7 +125,7 @@ GP_GRADS = ("x", "zs", "u", "w", "outputscale", "inv_ls", "mean_w", "mean_b")
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
                                      (2, 5, 7, 300), (3, 13, 1, 16),
                                      (3, 50, 96, 512), (2, 101, 512, 512),
-                                     (1, 70, 130, 40)])
+                                     (1, 70, 130, 40), (4, 288, 8, 512)])
 def test_fused_gp_bwd_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m + 1, device=cuda)
     rng = np.random.default_rng(d)
@@ -210,6 +216,156 @@ def test_fused_gp_bf16_kernel_takes_grad(cuda):
     (torch.sin(mean) * 1.7 + var ** 2 * 0.3).sum().backward()
     for a, c, name in zip(leaves, cpu, GP_GRADS):
         _assert_close_bf16(a.grad.cpu(), c.grad, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_nonaffine_kernels_match_plain(cuda, bf16):
+    """``whitened_marginals``(``_bf16``): the affine kernels at inv_ls 1,
+    mean_w 0, mean_b 0, forward and backward through the autograd Function,
+    against the plain versions; counted on the affine kernels' counters."""
+    b, n, d, m = 3, 77, 32, 512
+    args = _fused_inputs(b, n, d, m, seed=9, device=cuda)
+    args = [(args[0] * args[5]).contiguous()] + args[1:5]
+    rng = np.random.default_rng(9)
+    cot = [torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)).to(
+        cuda) for _ in range(2)]
+    counters = ("bf16_launches", "bf16_bwd_launches", "launches",
+                "bwd_launches")
+    if not bf16:
+        counters = counters[2:] + counters[:2]
+    before = [getattr(fused_gp, c) for c in counters]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    got = (fused_gp.whitened_marginals_bf16 if bf16
+           else fused_gp.whitened_marginals)(*leaves)
+    torch.autograd.backward(got, cot)
+    torch.cuda.synchronize()
+    assert [getattr(fused_gp, c) for c in counters] == [
+        before[0] + 1, before[1] + 1, before[2], before[3]]
+    want = fused_gp.whitened_marginals_plain(*args, bf16=bf16)
+    want_grads = fused_gp.whitened_marginals_bwd_plain(*args, *cot,
+                                                       bf16=bf16)
+    torch.testing.assert_close(got[0].detach(), want[0], rtol=TOL_GP,
+                               atol=TOL_GP)
+    if bf16:
+        _assert_close_bf16(got[1].detach(), want[1], "var")
+        for leaf, w, name in zip(leaves, want_grads, GP_GRADS):
+            _assert_close_bf16(leaf.grad, w, name)
+    else:
+        torch.testing.assert_close(got[1].detach(), want[1], rtol=TOL_GP,
+                                   atol=TOL_GP)
+        _assert_grads_close([t.grad for t in leaves], want_grads,
+                            GP_GRADS[:5])
+
+
+# the rbf kernel: the JAX package's own tolerances for it
+# (tests/test_pallas_kernels.py), forward and gradients
+TOL_RBF, ATOL_RBF = 1e-4, 1e-5
+TOL_RBF_GRAD, ATOL_RBF_GRAD = 2e-3, 1e-4
+
+
+def _rbf_inputs(h, batch, n, m, d, seed, device):
+    rng = np.random.default_rng(seed)
+    lead = (h,) if h else ()
+    arrays = (rng.normal(size=batch + (n, d)), rng.normal(size=lead + (m, d)),
+              np.sqrt(2.0 * d) * rng.uniform(0.5, 1.5, size=lead + (d,)),
+              rng.uniform(0.5, 1.5, size=lead))
+    return [torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+            for a in arrays]
+
+
+# rows 231 and 65 are no multiple of the kernel's 64-row tile, M 300 and
+# 129 none of its 128 columns, d 7 and 40 none of its 16-column rounds
+RBF_SHAPES = [(0, (3,), 77, 300, 7), (8, (4,), 288, 512, 32),
+              (3, (2,), 65, 129, 40), (2, (), 1, 1, 1), (0, (), 130, 64, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,batch,n,m,d", RBF_SHAPES)
+def test_rbf_kernel_matches_plain(cuda, h, batch, n, m, d):
+    x, z, ls, os_ = _rbf_inputs(h, batch, n, m, d, seed=n + m, device=cuda)
+    before = rbf.launches
+    got = rbf.rbf_cross_kernel(x, z, ls, os_)
+    torch.cuda.synchronize()
+    assert rbf.launches == before + 1  # one launch for all h GPs
+    want = rbf.rbf_cross_kernel_plain(x, z, ls, os_)
+    assert got.shape == want.shape == ((h,) if h else ()) + batch + (n, m)
+    torch.testing.assert_close(got, want, rtol=TOL_RBF, atol=ATOL_RBF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [0, 3])
+def test_rbf_kernel_takes_grad(cuda, h):
+    """The Function on the card (kernel forward, plain closed-form VJP)
+    against the same Function on the CPU."""
+    args = _rbf_inputs(h, (2,), 45, 70, 6, seed=h, device=cuda)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = rbf.launches
+    k = rbf.rbf_cross_kernel(*leaves)
+    (torch.sin(k) * k).sum().backward()
+    assert rbf.launches == before + 1
+    cpu = [a.cpu().requires_grad_(True) for a in args]
+    kc = rbf.rbf_cross_kernel(*cpu)
+    (torch.sin(kc) * kc).sum().backward()
+    for a, c, name in zip(leaves, cpu, ("x", "z", "ls", "os")):
+        torch.testing.assert_close(a.grad.cpu(), c.grad, rtol=TOL_RBF_GRAD,
+                                   atol=ATOL_RBF_GRAD, msg=name)
+
+
+# the JAX package's Cholesky-kernel tolerance (tests/test_pallas_kernels.py)
+TOL_CHOL = 2e-3
+
+
+def _spd(b, n, seed, device):
+    x = np.random.default_rng(seed).normal(size=(b, n, n)).astype(np.float32)
+    a = x @ x.transpose(0, 2, 1) / n + 0.5 * np.eye(n, dtype=np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(8, 96), (4, 192), (3, 240), (2, 241),
+                                 (2, 384), (5, 1), (3, 33)])
+def test_cholesky_kernel_matches_plain(cuda, b, n):
+    """n <= 240 in shared memory, above it in device memory (n 384: the
+    true sequence length)."""
+    a = _spd(b, n, seed=n, device=cuda)
+    before = cholesky.launches
+    got = cholesky.batched_cholesky(a)
+    torch.cuda.synchronize()
+    assert cholesky.launches == before + 1
+    torch.testing.assert_close(got, cholesky.batched_cholesky_plain(a),
+                               rtol=TOL_CHOL, atol=TOL_CHOL)
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    torch.testing.assert_close(got @ got.transpose(-1, -2), a, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [96, 384])
+def test_cholesky_kernel_gives_nan_where_not_positive_definite(cuda, n):
+    a = _spd(3, n, seed=1, device=cuda)
+    a[1] -= 2.0 * torch.eye(n, device=cuda)
+    got = cholesky.batched_cholesky(a)  # no exception
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all()
+    assert torch.isfinite(got[[0, 2]]).all()
+    want = cholesky.batched_cholesky_plain(a)
+    torch.testing.assert_close(got[[0, 2]], want[[0, 2]], rtol=TOL_CHOL,
+                               atol=TOL_CHOL)
+    assert torch.isnan(want[1]).all()
+
+
+@pytest.mark.gpu
+def test_cholesky_kernel_takes_grad(cuda):
+    a = _spd(3, 50, seed=4, device=cuda)
+    leaf = a.clone().requires_grad_(True)
+    before = cholesky.launches
+    torch.sin(cholesky.batched_cholesky(leaf)).sum().backward()
+    assert cholesky.launches == before + 1
+    cpu = a.cpu().requires_grad_(True)
+    torch.sin(cholesky.batched_cholesky(cpu)).sum().backward()
+    torch.testing.assert_close(leaf.grad.cpu(), cpu.grad, rtol=TOL_CHOL,
+                               atol=TOL_CHOL)
 
 
 def _qkv(b, h, lq, lk, d, seed, device):
@@ -584,3 +740,82 @@ def test_wide_training_step_on_card_matches_cpu(cuda, config):
         scale = gc.abs().max().item()
         tol = TOL_BF16_GRAD if bf16 else 1e-3  # fp32: as the smoke run's
         assert (gg - gc).abs().max().item() <= tol * scale, name
+
+
+GP_KINDS = {
+    # a hidden layer of 8 GPs on the rbf route (the smoke's width), the
+    # output layer fused (d 8); in d 3 its 32-point Gram matrix is so
+    # ill-conditioned that the CPU's own fp32 gradients lie 3e-3 from float64
+    "multilayer": (dict(gp_hidden_dims=(8,), use_pallas_gp=True),
+                   {"rbf": 1, "fused_gp": 1, "fused_gp_bwd": 1,
+                    "cholesky": 0}),
+    # the exact blur takes the library's factorization, as in JAX
+    "exact": (dict(gp_kind="exact", exact_noise_init=0.1),
+              {"rbf": 0, "fused_gp": 0, "fused_gp_bwd": 0, "cholesky": 0}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", list(GP_KINDS))
+def test_gp_kind_training_step_on_card_matches_cpu(cuda, config):
+    """One forward and backward of the multi-layer (eps 0: no generator)
+    and the exact-blur composites on the card and on the CPU from the same
+    weights and windows, with the kernels' launches."""
+    gp, expect = GP_KINDS[config]
+    kw = dict(SMALL, attn_type="basic", **gp)
+    rng = np.random.default_rng(12)
+    batch = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             for shape in ((BATCH, ENC, F), (BATCH, DEC, F), (BATCH, DEC, 1))]
+    cpu_model = ForecastDenoising(**kw, device="cpu")
+    with torch.no_grad():
+        cpu_model.lam.fill_(0.003)  # the GP's likelihood counts
+        for name, p in cpu_model.deep_gp.named_parameters():
+            if name.endswith(("variational_mean", "variational_log_stddev")):
+                p.copy_(torch.from_numpy(0.4 * rng.normal(size=p.shape)))
+    gpu_model = ForecastDenoising(**kw, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    loss_c, grads_c = _step(cpu_model, batch)
+    rbf.launches = cholesky.launches = 0
+    fused_gp.launches = fused_gp.bwd_launches = 0
+    loss_g, grads_g = _step(gpu_model, [t.to(cuda) for t in batch])
+    assert {"rbf": rbf.launches, "fused_gp": fused_gp.launches,
+            "fused_gp_bwd": fused_gp.bwd_launches,
+            "cholesky": cholesky.launches} == expect
+    # the loss within 1e-4, each gradient within 1e-3 of its largest
+    # magnitude on the CPU, as the smoke run's
+    np.testing.assert_allclose(loss_g, loss_c, rtol=TOL_MODEL)
+    for name, gc in grads_c.items():
+        err = (grads_g[name] - gc).abs().max().item()
+        assert err <= 1e-3 * gc.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_exact_blur_pallas_on_card_matches_cusolver_and_cpu(cuda):
+    """``ExactGPBlur(use_pallas=True)``: the Cholesky kernel, twice per
+    factorization (the jitter probe, then the differentiable one), against
+    the library route on the card and the CPU."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(6, 40, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(6, 40)).astype(np.float32))
+    ref = ExactGPBlur(8, ls_init=-1.0, noise_init=0.1, device="cpu")
+    results = {}
+    for name, use_pallas, device in (("kernel", True, cuda),
+                                     ("cusolver", False, cuda),
+                                     ("cpu", True, "cpu")):
+        blur = ExactGPBlur(8, use_pallas=use_pallas, device=device)
+        blur.load_state_dict(ref.state_dict())
+        xl = x.to(device).requires_grad_(True)
+        cholesky.launches = 0
+        smooth, mll = blur(xl, y.to(device))
+        (smooth.sum() - mll).backward()
+        results[name] = [smooth.detach().cpu(), mll.detach().cpu(),
+                         xl.grad.cpu()] + [p.grad.cpu()
+                                           for p in blur.parameters()]
+        if name == "kernel":
+            assert cholesky.launches == 4  # two _factor calls
+        else:
+            assert cholesky.launches == 0
+    for other in ("cusolver", "cpu"):
+        for g, w in zip(results["kernel"], results[other]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                       msg=other)

@@ -24,7 +24,10 @@ from fine_grained_gaussian_process_forcasting_torch.models import (
 from fine_grained_gaussian_process_forcasting_torch.models import (
     transformer as ttr,
 )
-from fine_grained_gaussian_process_forcasting_torch.params import from_flax
+from fine_grained_gaussian_process_forcasting_torch.params import (
+    from_flax,
+    to_flax,
+)
 from fine_grained_gaussian_process_forcasting_torch.train.predict import (
     InferenceSession,
 )
@@ -71,6 +74,18 @@ CASES = {
     "basic_no_denoise": dict(attn_type="basic", denoise=False),
     "basic_gp_training": dict(attn_type="basic", training=True),
     "autoformer_gp_training": dict(attn_type="autoformer", training=True),
+    # the multi-layer deep GP (3 hidden GPs) at eps = 0: JAX without a
+    # 'noise' rng, the port without draws or a generator
+    "basic_multilayer": dict(attn_type="basic", gp_hidden_dims=(3,)),
+    "autoformer_multilayer_pallas_training": dict(
+        attn_type="autoformer", gp_hidden_dims=(3,), use_pallas_gp=True,
+        training=True),
+    # the exact-GP blur, its MLL in the loss when training
+    "basic_exact": dict(attn_type="basic", gp_kind="exact",
+                        exact_noise_init=0.1),
+    "autoformer_exact_training": dict(attn_type="autoformer",
+                                      gp_kind="exact", exact_noise_init=0.1,
+                                      training=True),
 }
 
 
@@ -267,15 +282,152 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     (dict(attn_type="ATA"), NotImplementedError),
     (dict(attn_type="nope"), ValueError),
     (dict(backbone="lstm"), NotImplementedError),
-    (dict(gp_kind="exact"), NotImplementedError),
-    (dict(use_pallas_gp=True), NotImplementedError),
-    (dict(gp_hidden_dims=(4,)), NotImplementedError),
     (dict(attn_type="autoformer", compute_dtype=torch.bfloat16),
      NotImplementedError),
 ])
 def test_unported_options_raise(kwargs, error):
     with pytest.raises(error):
         tfd.ForecastDenoising(**{**SMALL, **kwargs}, device="cpu")
+
+
+def test_exact_blur_takes_only_the_joint_injection():
+    with pytest.raises(ValueError, match="gp_inject"):
+        tfd.ForecastDenoising(**SMALL, gp_kind="exact", gp_inject="enc",
+                              device="cpu")
+    with pytest.raises(ValueError, match="gp_kind"):
+        tfd.ForecastDenoising(**SMALL, gp_kind="nope", device="cpu")
+
+
+# at the size the JAX package's own multi-layer and exact composite tests
+# would need to stay fast (its Pallas rbf runs in interpret mode)
+GP_SMALL = dict(SMALL, d_model=8, n_heads=2, pred_len=8, num_inducing=16)
+GP_ENC, GP_DEC = 16, 8
+GP_CONFIGS = {
+    "multilayer_pallas": dict(attn_type="basic", gp_hidden_dims=(3,),
+                              use_pallas_gp=True),
+    "exact": dict(attn_type="basic", gp_kind="exact", exact_noise_init=0.1),
+}
+
+
+def _gp_config_pair(config, seed=5):
+    kw = GP_CONFIGS[config]
+    rng = np.random.default_rng(seed)
+    enc = rng.normal(size=(B, GP_ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(B, GP_DEC, F)).astype(np.float32)
+    y = rng.normal(size=(B, GP_DEC, 1)).astype(np.float32)
+    jmod = jfd.ForecastDenoising(**GP_SMALL, **kw)
+    params = _np_tree(jmod.init({"params": jax.random.PRNGKey(seed)}, enc,
+                                dec)["params"])
+    params["lam"] = np.array([0.003], np.float32)
+    for layer in ("hidden_layer0", "output_layer"):  # q(u) off the prior
+        for name, scale in (("variational_mean", 0.5),
+                            ("variational_log_stddev", 0.3)):
+            p = params["deep_gp"].get(layer)
+            if p is not None:
+                p[name] = (scale * rng.normal(size=p[name].shape)).astype(
+                    np.float32)
+    tmod = tfd.ForecastDenoising(**GP_SMALL, **kw, device="cpu")
+    tmod.load_state_dict(from_flax(params))
+    return jmod, params, tmod, (enc, dec, y)
+
+
+@pytest.mark.parametrize("config", list(GP_CONFIGS))
+def test_gp_config_first_step_gradients_match_jax(config):
+    """The training loss and every parameter's gradient of the multi-layer
+    (rbf route, eps = 0) and the exact-blur composites."""
+    jmod, params, tmod, (enc, dec, y) = _gp_config_pair(config)
+
+    def loss_fn(p):
+        return jmod.apply({"params": p}, enc, dec, y, training=True).loss
+
+    want_loss, want = jax.jit(jax.value_and_grad(loss_fn))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    out = tmod(*(torch.from_numpy(a) for a in (enc, dec, y)), training=True)
+    out.loss.backward()
+    np.testing.assert_allclose(float(out.loss.detach()), float(want_loss),
+                               rtol=TOL, atol=TOL)
+    got = to_flax({n: p.grad for n, p in tmod.named_parameters()})
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert set(flat_got) == set(flat_want)
+    for path, g in flat_got.items():
+        np.testing.assert_allclose(g, np.asarray(flat_want[path]), rtol=TOL,
+                                   atol=TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+    gp = got["deep_gp"]  # the GP's own parameters receive gradient
+    layers = ([gp["hidden_layer0"], gp["output_layer"]] if "output_layer" in gp
+              else [gp])
+    for layer in layers:
+        for name, g in layer.items():
+            assert np.abs(g).sum() > 0, name
+
+
+def test_multilayer_injected_gp_eps_matches_jax_noise_draws(monkeypatch):
+    """The multi-layer composite with the hidden layer's draws injected
+    (``gp_eps``): JAX draws eps from its 'noise' rng, the port is handed
+    those draws; the training loss, the predictions and every parameter's
+    gradient agree."""
+    jmod, params, tmod, (enc, dec, y) = _gp_config_pair("multilayer_pallas")
+    rngs = {"noise": jax.random.PRNGKey(7)}
+    draws, normal = [], jax.random.normal
+
+    def recording(key, shape=(), dtype=float):
+        out = normal(key, shape, dtype)
+        draws.append(np.array(out))
+        return out
+
+    monkeypatch.setattr(jax.random, "normal", recording)
+    want_out = jmod.apply({"params": params}, enc, dec, y, training=True,
+                          rngs=rngs)
+    monkeypatch.undo()
+    assert [d.shape for d in draws] == [(B, GP_ENC + GP_DEC, 3)]
+
+    def loss_fn(p):
+        return jmod.apply({"params": p}, enc, dec, y, training=True,
+                          rngs=rngs).loss
+
+    want_loss, want = jax.jit(jax.value_and_grad(loss_fn))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    gp_eps = [torch.from_numpy(d) for d in draws]
+    out = tmod(*(torch.from_numpy(a) for a in (enc, dec, y)), training=True,
+               gp_eps=gp_eps)
+    out.loss.backward()
+    np.testing.assert_allclose(float(out.loss.detach()), float(want_loss),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out.predictions.detach().numpy(),
+                               np.asarray(want_out.predictions), rtol=TOL,
+                               atol=TOL)
+    got = to_flax({n: p.grad for n, p in tmod.named_parameters()})
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    for path, g in jax.tree_util.tree_flatten_with_path(got)[0]:
+        np.testing.assert_allclose(g, np.asarray(flat_want[path]), rtol=TOL,
+                                   atol=TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+    # the draws matter: at eps = 0 the loss is another
+    with torch.no_grad():
+        at_zero = tmod(*(torch.from_numpy(a) for a in (enc, dec, y)),
+                       training=True).loss
+    assert abs(float(at_zero) - float(want_loss)) > 10 * TOL
+
+
+@pytest.mark.parametrize("config", list(GP_CONFIGS))
+def test_gp_config_params_round_trip(config):
+    """from_flax -> the port's state dict (every key and shape, the hidden
+    layer's (h,)-shaped former scalars too) -> to_flax gives the tree back."""
+    _, params, tmod, _ = _gp_config_pair(config)
+    back = to_flax(tmod.state_dict())
+    flat = dict(jax.tree_util.tree_flatten_with_path(params)[0])
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert set(flat_back) == set(flat)
+    for path, v in flat.items():
+        np.testing.assert_array_equal(flat_back[path], np.asarray(v),
+                                      err_msg=jax.tree_util.keystr(path))
+    if config == "multilayer_pallas":
+        hidden = back["deep_gp"]["hidden_layer0"]
+        assert hidden["raw_outputscale"].shape == (3,)
+        assert hidden["mean_bias"].shape == (3,)
+        assert hidden["inducing_points"].shape == (3, 16, 8)
+        assert back["deep_gp"]["output_layer"]["mean_weight"].shape == (3,)
 
 
 def test_unported_session_surfaces_raise():
@@ -306,7 +458,8 @@ def test_port_imports_nothing_of_jax():
     for module in ("train/trainer.py", "train/schedule.py",
                    "train/checkpoint.py", "data/window.py", "params.py",
                    "ops/cuda/fused_gp.py", "ops/cuda/head_folded_attention.py",
-                   "ops/cuda/flash_attention.py"):
+                   "ops/cuda/flash_attention.py", "ops/cuda/rbf.py",
+                   "ops/cuda/cholesky.py", "gp/exact.py", "gp/exact_blur.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

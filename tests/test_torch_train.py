@@ -60,7 +60,12 @@ ENC_LEN, DEC_LEN, BS, STEPS = 24, 8, 8, 5
 SMALL = dict(src_input_size=SRC, tgt_input_size=TGT, d_model=DM,
              n_heads=NH, d_k=DM // NH, stack_size=1, pred_len=PRED,
              num_inducing=16, gp_ls_init=-1.0)
-CONFIGS = {"autoformer_gp_denoise": "autoformer", "basic_gp_denoise": "basic"}
+# the exact-GP blur: its MLL replaces the ELBO, and it draws nothing at
+# random, so the two trainers see the same function step by step
+EXACT = dict(SMALL, gp_kind="exact", exact_noise_init=0.1)
+CONFIGS = {"autoformer_gp_denoise": ("autoformer", SMALL),
+           "basic_gp_denoise": ("basic", SMALL),
+           "basic_exact": ("basic", EXACT)}
 # the production-width model cut to a test's size (d_k 64, two layers), in
 # fp32 (held to the fp32 tolerances above: JAX goes through its flash kernel
 # in interpret mode, the port through the plain route) and in bf16
@@ -103,11 +108,12 @@ def _pair(attn_type, base=SMALL, dtypes=None, **kw):
     params["lam"] = np.array([0.003], np.float32)  # the ELBO counts
     # q(u) away from the prior, else the marginals ignore Z, W and 1/ls
     rng = np.random.default_rng(5)
-    layer = params["deep_gp"]["output_layer"]
+    layer = params["deep_gp"].get("output_layer", {})  # none in the exact
     for name, scale in (("variational_mean", 0.5),
                         ("variational_log_stddev", 0.3)):
-        layer[name] = (scale * rng.normal(size=layer[name].shape)).astype(
-            np.float32)
+        if name in layer:
+            layer[name] = (scale * rng.normal(
+                size=layer[name].shape)).astype(np.float32)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     jstate = JTrainState(params=jparams,
                          opt_state=jtrainer.optimizer.init(jparams),
@@ -124,7 +130,7 @@ def _pair(attn_type, base=SMALL, dtypes=None, **kw):
 @pytest.mark.parametrize("config", list(CONFIGS) + list(WIDE_CONFIGS))
 def test_trainer_matches_jax_per_step(config):
     if config in CONFIGS:
-        jtrainer, jstate, trainer, state, _ = _pair(CONFIGS[config])
+        jtrainer, jstate, trainer, state, _ = _pair(*CONFIGS[config])
         tol = TOL_LOSS
     else:
         dtypes = WIDE_CONFIGS[config]
@@ -150,7 +156,7 @@ def test_trainer_matches_jax_per_step(config):
 @pytest.mark.parametrize("config", list(CONFIGS) + list(WIDE_CONFIGS))
 def test_first_step_gradients_match_jax(config):
     if config in CONFIGS:
-        jtrainer, _, trainer, _, params = _pair(CONFIGS[config])
+        jtrainer, _, trainer, _, params = _pair(*CONFIGS[config])
         bf16 = False
     else:
         dtypes = WIDE_CONFIGS[config]
@@ -185,10 +191,14 @@ def test_first_step_gradients_match_jax(config):
             np.testing.assert_allclose(
                 g, w, rtol=RTOL_GRAD, atol=ATOL_GRAD,
                 err_msg=jax.tree_util.keystr(path))
-    # the GP's own parameters receive gradient through the fused kernel
-    gp = got["deep_gp"]["output_layer"]
-    for name in ("inducing_points", "variational_mean", "raw_lengthscale",
-                 "raw_outputscale", "mean_weight", "mean_bias"):
+    # the GP's own parameters receive gradient (through the fused kernel,
+    # or the exact blur's factorization)
+    gp = got["deep_gp"].get("output_layer", got["deep_gp"])
+    names = (("raw_lengthscale", "raw_outputscale", "raw_noise",
+              "mean_weight", "mean_bias") if "raw_noise" in gp else
+             ("inducing_points", "variational_mean", "raw_lengthscale",
+              "raw_outputscale", "mean_weight", "mean_bias"))
+    for name in names:
         assert np.abs(gp[name]).sum() > 0, name
 
 
