@@ -18,8 +18,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    cross-covariance at the multi-layer flagship's hidden layer (8 GPs, one
    launch); the batched Cholesky at the exact blur's (256, 192, 192) and
    (256, 96, 96), at (16, 384, 384) for correctness, and on a batch with an
-   indefinite matrix (NaN there, no exception).  The library's backward is
-   timed on the device alone, from its kernels under ``torch.profiler``.
+   indefinite matrix (NaN there, no exception); the small-head attention
+   (d <= 8, on no path) at the flagship's three calls at d 4, timed beside
+   SDPA and the head-folded kernel, and at d 2 and d 8, with two backward
+   runs bit-equal.  The library's backward is timed on the device alone,
+   from its kernels under ``torch.profiler``.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -54,11 +57,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    once, forward and backward, through the Cholesky kernel (two launches
    per factorization: the jitter probe and the differentiable one), held
    against cuSOLVER on the card and against the CPU.
+7. The training CLI, ``cli_ata``: ``train.cli.main`` as ``run.sh`` runs it
+   (``--exp_name solar --attn_type ATA --denoising True --gp True``) on
+   synthetic solar data at the flagship width, cut to 2560 training and 512
+   validation and test windows, 3 epochs, 1 trial, 1 seed, into a temporary
+   directory; twice: ``--use_pallas_attention auto`` (the conv family's
+   plain attention) and ``True`` (the head-folded kernel, six launches each
+   way per step).  Checks finite losses, the launches per step and per
+   evaluated batch, the checkpoint, the predictions ``.npz`` (2, 256, 96),
+   the ``reported_errors_solar.csv`` row, and one step of the checkpointed
+   ATA model on 16 windows against the port's CPU run.
 
 The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
 ReLU, so that a near-tie broken the other way on one device cannot make the
-two compute different functions; how many differed is printed.
+two compute different functions; likewise ATA's top-1 scale of every
+(position, channel) and its side of zero; how many differed is printed.
 
 Prints the ``kernels`` JSON line (each kernel's launches summed over the
 serving and training runs, and by run), then the card's name and power
@@ -69,6 +83,7 @@ failure, without a result line.  Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import json
 import math
 import subprocess
@@ -126,6 +141,12 @@ TOL_ATTENTION_BWD = 1e-5
 # one training step on the card against the CPU: the loss, and each
 # parameter's gradient relative to its largest magnitude
 TOL_TRAIN = 1e-3
+# a gradient that is 0 in exact arithmetic (ATA's convolution biases: the
+# batch norm right after each subtracts their contribution with the mean)
+# is a sum of terms that cancel, whose rounding residue has no reference
+# value to be held to: on each device it must stay below 1e-5 of the step's
+# largest gradient
+ZERO_GRAD = 1e-5
 # bf16 kernels against their plain versions, which round the same operands
 # to bf16 at the same places: they differ by the order of the fp32 sums and
 # (flash) by rounding the unnormalised instead of the normalised
@@ -1065,6 +1086,153 @@ def check_head_folded_bwd(gen):
             "calls": rows}
 
 
+# small-head attention (d <= 8), on no path: the flagship's three calls at
+# d 4, timed, and d 2 (the HPO grid's d_model 16) and d 8 at enc-self, held
+# for correctness; (Lq, Lk, d)
+SMALL_HEAD_CALLS = {"enc_self": (ENC_LEN, ENC_LEN, 4),
+                    "dec_self": (DEC_LEN, DEC_LEN, 4),
+                    "dec_cross": (DEC_LEN, ENC_LEN, 4),
+                    "enc_self_d2": (ENC_LEN, ENC_LEN, 2),
+                    "enc_self_d8": (ENC_LEN, ENC_LEN, 8)}
+SMALL_HEAD_TIMED = ("enc_self", "dec_self", "dec_cross")
+# the JAX package's tolerances for that kernel (tests/test_pallas_kernels.py):
+# (rtol, atol), held as max|kernel - plain| / (atol + rtol |plain|) <= 1
+TOL_SMALL_HEAD = (1e-4, 1e-5)
+TOL_SMALL_HEAD_BWD = (2e-3, 1e-4)
+_SMALL_HEAD_SOURCE = ("fine_grained_gaussian_process_forcasting_torch/csrc/"
+                      "small_head_attention.cu")
+_SMALL_HEAD_PALLAS = ("fine_grained_gaussian_process_forcasting_tpu/ops/"
+                      "pallas/small_head_attention.py")
+
+
+def check_small_head(gen):
+    """The small-head kernels, forward and backward, against their plain
+    versions; the flagship's calls timed beside the plain version, SDPA and
+    the port's head-folded kernel at the same shapes.  Bounds from the JAX
+    kernel's cost estimate: forward 4 n Lq Lk d flops, n Lq Lk
+    exponentials, 4 n (2 Lq + 2 Lk) d bytes; backward 12 n Lq Lk d flops,
+    n Lq Lk exponentials, 4 n (3 Lq + 4 Lk) d bytes.  Both forwards are
+    timed writing each row's log-sum-exp, as their autograd Functions run
+    them.  No path reaches it: two entries, ``on_path`` false."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        head_folded_attention as hfa,
+        small_head_attention as sha,
+    )
+
+    dev = "cuda"
+    n = B * HEADS
+    fwd_launch, bwd_launch = sha.launcher(), sha.bwd_launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    keys = ("ms", "plain_ms", "library_ms", "head_folded_ms", "flops", "exps",
+            "bytes")
+    totals = {"fwd": dict.fromkeys(keys, 0.0), "bwd": dict.fromkeys(keys, 0.0)}
+    rows = {"fwd": [], "bwd": []}
+    worst = {"fwd": (0.0, 0.0), "bwd": (0.0, 0.0)}
+    for call, (lq, lk, d) in SMALL_HEAD_CALLS.items():
+        q = torch.randn(B, HEADS, lq, d, device=dev, generator=gen)
+        k = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
+        v = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
+        do = torch.randn(B, HEADS, lq, d, device=dev, generator=gen)
+        with torch.inference_mode():
+            got = sha.small_head_attention(q, k, v)
+            out, lse = sha.forward_kernel(q, k, v)
+            grads = sha.backward_kernel(q, k, v, out, lse, do)
+            again = sha.backward_kernel(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+            err_f = _measure(got, sha.small_head_attention_plain(q, k, v),
+                             TOL_SMALL_HEAD)
+            want = sha.small_head_attention_bwd_plain(q, k, v, do)
+            errs = [_measure(g, w_, TOL_SMALL_HEAD_BWD)
+                    for g, w_ in zip(grads, want)]
+            err_b = (max(e[0] for e in errs), max(e[1] for e in errs))
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        log(f"small_head_attention {call} (b {B}, h {HEADS}, Lq {lq}, Lk "
+            f"{lk}, d {d}): fwd max|kernel - plain| {err_f[0]:.3e} "
+            f"({err_f[1]:.3f} of the tolerance {TOL_SMALL_HEAD}); bwd "
+            f"{err_b[0]:.3e} ({err_b[1]:.3f} of {TOL_SMALL_HEAD_BWD}); two "
+            f"backward runs bit-equal: {same}")
+        if not (err_f[1] <= 1.0 and err_b[1] <= 1.0 and same):
+            raise AssertionError(
+                f"small_head_attention {call}: fwd {err_f}, bwd {err_b}, "
+                f"bit-equal {same}")
+        for way, err in (("fwd", err_f), ("bwd", err_b)):
+            worst[way] = max(worst[way], err, key=lambda e: e[1])
+        if call not in SMALL_HEAD_TIMED:
+            continue
+        with torch.inference_mode():
+            fwd_out, fwd_lse = torch.empty_like(q), torch.empty_like(lse)
+            bufs = [torch.empty_like(t) for t in (q, k, v, lse)]
+            fwd_ptrs = [t.data_ptr() for t in (q, k, v, fwd_out, fwd_lse)]
+            bwd_ptrs = [t.data_ptr() for t in (q, k, v, out, lse, do)] + [
+                t.data_ptr() for t in bufs]
+
+            def run_fwd():
+                if fwd_launch(*fwd_ptrs, n, lq, lk, d, stream):
+                    raise RuntimeError("small_head_attention_fwd failed")
+
+            def run_bwd():
+                if bwd_launch(*bwd_ptrs, n, lq, lk, d, stream):
+                    raise RuntimeError("small_head_attention_bwd failed")
+
+            hf_out, hf_lse = hfa.forward_kernel(q, k, v, with_lse=True)
+            timed = {
+                "fwd": {"ms": time_ms(run_fwd, 50),
+                        "plain_ms": time_ms(lambda: sha.small_head_attention_plain(
+                            q, k, v), 20),
+                        "library_ms": time_ms(
+                            lambda: scaled_dot_product_attention(q, k, v), 20),
+                        "head_folded_ms": time_ms(
+                            lambda: hfa.forward_kernel(q, k, v, True), 50)},
+                "bwd": {"ms": time_ms(run_bwd, 50),
+                        "plain_ms": time_ms(
+                            lambda: sha.small_head_attention_bwd_plain(
+                                q, k, v, do), 20),
+                        "head_folded_ms": time_ms(
+                            lambda: hfa.backward_kernel(q, k, v, hf_out,
+                                                        hf_lse, do), 50)}}
+        timed["bwd"]["library_ms"] = sdpa_bwd_ms(q, k, v, do, 20)
+        pairs = float(n * lq * lk)
+        work = {"fwd": (4.0 * pairs * d, pairs, 4.0 * n * (2 * lq + 2 * lk) * d),
+                "bwd": (12.0 * pairs * d, pairs,
+                        4.0 * n * (3 * lq + 4 * lk) * d)}
+        for way in ("fwd", "bwd"):
+            flops, exps, nbytes = work[way]
+            bound_ms, bound_by = bound(flops, exps, nbytes)
+            t = timed[way]
+            log(f"small_head_attention {way} {call}: kernel {t['ms']:.4f} ms"
+                f"{' (2 launches)' if way == 'bwd' else ''}, plain "
+                f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, "
+                f"head-folded kernel {t['head_folded_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+            rows[way].append({"call": call, "lq": lq, "lk": lk, "d": d,
+                              "bound_ms": bound_ms, "bound_by": bound_by, **t})
+            for key, val in (*t.items(), ("flops", flops), ("exps", exps),
+                             ("bytes", nbytes)):
+                totals[way][key] += val
+    entries = []
+    for way, line, tol in (("fwd", 126, TOL_SMALL_HEAD),
+                           ("bwd", 148, TOL_SMALL_HEAD_BWD)):
+        t = totals[way]
+        bound_ms, bound_by = bound(t["flops"], t["exps"], t["bytes"])
+        # the three flagship-shaped calls, summed
+        entries.append({
+            "name": f"small_head_attention ({way}, fp32)", "route": "cuda",
+            "source": _SMALL_HEAD_SOURCE,
+            "replaces": f"{_SMALL_HEAD_PALLAS}:{line}",
+            "max_abs_err": worst[way][0], "err_over_tolerance": worst[way][1],
+            "tolerance": tol, "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"],
+            "library": ("scaled_dot_product_attention" if way == "fwd" else
+                        "scaled_dot_product_attention's backward kernels, "
+                        "device time under torch.profiler"),
+            "head_folded_ms": t["head_folded_ms"], "on_path": False,
+            "calls": rows[way]})
+    return entries
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """One model configuration and how deep this script drives it."""
@@ -1086,6 +1254,9 @@ class Config:
     gp: dict = dataclasses.field(default_factory=dict)  # GP options
     # gradients that the training check may also judge against float64
     f64_leaves: tuple = ()
+    # gradients that are 0 in exact arithmetic (fnmatch patterns): residue
+    # on both devices, held below ZERO_GRAD of the step's largest gradient
+    zero_leaves: tuple = ()
 
     def model(self, device: str):
         from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
@@ -1131,7 +1302,8 @@ _NONE = dict.fromkeys(
     ("fused_gp", "fused_gp_bwd", "head_folded_attention",
      "head_folded_attention_bwd", "fused_gp_bf16", "fused_gp_bf16_bwd",
      "flash_attention", "flash_attention_bwd", "flash_attention_bf16sm",
-     "flash_attention_bf16sm_bwd", "rbf", "cholesky"), 0)
+     "flash_attention_bf16sm_bwd", "rbf", "cholesky", "small_head_attention",
+     "small_head_attention_bwd"), 0)
 _FLAGSHIP = dict(batch=B, enc_len=ENC_LEN, dec_len=DEC_LEN, pred=PRED,
                  features=F, d_model=D_MODEL, layers=LAYERS, bf16=False,
                  n_windows=N_WINDOWS, n_check=N_CHECK)
@@ -1289,6 +1461,50 @@ class _EpsRecorder:
         self.module.draw_eps = self.original
 
 
+class _ScaleMaxRecorder:
+    """Wraps ATA's top-1 over scales (``conv_attention.relu_scale_max``) and
+    keeps, per call, which scale won each (position, channel) and whether
+    the winner was positive.  Given ``replay`` (another run's ``choices``),
+    each call takes the replayed scale, on the replayed side of zero (a value
+    within rounding of it is moved there, keeping its gradient), so that both
+    runs differentiate the same piece: a near-tie between two scales, or a
+    winner within rounding of 0, can fall the other way on another device.
+    ``flips`` counts where this run's own choice differed."""
+
+    def __init__(self, replay=None):
+        from fine_grained_gaussian_process_forcasting_torch.ops import (
+            conv_attention,
+        )
+
+        self.module = conv_attention
+        self.original = conv_attention.relu_scale_max
+        self.replay = replay
+        self.choices, self.flips = [], 0
+
+    def __enter__(self):
+        def recording(pre):
+            top, idx = pre.max(dim=-1)
+            positive = top > 0
+            self.choices.append((idx.cpu(), positive.cpu()))
+            if self.replay is None:
+                return self.original(pre)
+            want_idx, want_pos = (t.to(pre.device)
+                                  for t in self.replay[len(self.choices) - 1])
+            self.flips += int(((want_idx != idx) & want_pos
+                               | (want_pos != positive)).sum())
+            sel = pre.gather(-1, want_idx[..., None])[..., 0]
+            grad = torch.where(want_pos, sel - sel.detach(),
+                               torch.zeros_like(sel))
+            return torch.where(want_pos, sel.detach().clamp_min(1e-30),
+                               torch.zeros_like(sel)) + grad
+
+        self.module.relu_scale_max = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.relu_scale_max = self.original
+
+
 def _differing(chosen, replayed):
     """Per call: where this run's own top-k set differs from the one it
     replayed (per window in eval, one flag in training)."""
@@ -1338,6 +1554,7 @@ def _counters():
         fused_gp,
         head_folded_attention,
         rbf,
+        small_head_attention,
     )
 
     return {"fused_gp": (fused_gp, "launches"),
@@ -1353,7 +1570,10 @@ def _counters():
             "flash_attention_bf16sm_bwd": (flash_attention,
                                            "sm16_bwd_launches"),
             "rbf": (rbf, "launches"),
-            "cholesky": (cholesky, "launches")}
+            "cholesky": (cholesky, "launches"),
+            "small_head_attention": (small_head_attention, "launches"),
+            "small_head_attention_bwd": (small_head_attention,
+                                         "bwd_launches")}
 
 
 def zero_counts():
@@ -1455,26 +1675,30 @@ def check_step_against_cpu(cfg: Config, params, batch):
                           generator=draw_gen, device="cuda")
               for h in cfg.gp.get("gp_hidden_dims", ())]
 
-    def step(model, device, replay=None, masks=None, dtype=torch.float32):
+    def step(model, device, replay=None, masks=None, scales=None,
+             dtype=torch.float32):
         enc, dec, y = (t[:cfg.n_check].to(device, dtype) for t in batch)
         with _DelayRecorder(replay=replay) as rec, \
-                _ReluRecorder(model, replay=masks) as relu:
+                _ReluRecorder(model, replay=masks) as relu, \
+                _ScaleMaxRecorder(replay=scales) as top:
             out = model(enc, dec, y, training=True,
                         generator=torch.Generator(device).manual_seed(SEED),
                         gp_eps=[e.to(device, dtype) for e in gp_eps] or None)
         out.loss.backward()
         return out.loss.item(), {n: p.grad.detach().cpu()
                                  for n, p in model.named_parameters()}, \
-            rec, relu
+            rec, relu, top
 
     model = cfg.model("cuda")
     model.load_state_dict(params)
-    loss_g, grads_g, rec_g, relu_g = step(model, "cuda")
-    # the cpu takes the card's delays and its side of every ReLU
-    replay, masks = rec_g.delays, relu_g.masks
+    loss_g, grads_g, rec_g, relu_g, top_g = step(model, "cuda")
+    # the cpu takes the card's delays, its side of every ReLU and its top
+    # scale of every ATA pyramid
+    replay, masks, scales = rec_g.delays, relu_g.masks, top_g.choices
     model = cfg.model("cpu")
     model.load_state_dict(params)
-    loss_c, grads_c, rec, relu = step(model, "cpu", replay, masks)
+    loss_c, grads_c, rec, relu, top = step(model, "cpu", replay, masks,
+                                           scales)
     flipped = [i for i, differs in
                enumerate(_differing(rec.delays, replay)) if differs]
     if replay:
@@ -1486,12 +1710,20 @@ def check_step_against_cpu(cfg: Config, params, batch):
     # a gradient a million times smaller than the largest one (the inert
     # GP's lengthscale and inducing points at the default init: ~1e-18) is
     # rounding residue on both devices, so its error is held to that floor
-    floor = 1e-6 * max(g.abs().max().item() for g in grads_c.values())
-    over = {}
+    largest = max(g.abs().max().item() for g in grads_c.values())
+    floor = 1e-6 * largest
+    over, zero_resid = {}, 0.0
     for name, gc in grads_c.items():
         if grads_g[name].dtype != torch.float32:
             raise AssertionError(f"train {cfg.name}: gradient of {name} is "
                                  f"{grads_g[name].dtype}")
+        if any(fnmatch.fnmatch(name, pat) for pat in cfg.zero_leaves):
+            resid = max(gc.abs().max().item(),
+                        grads_g[name].abs().max().item()) / largest
+            zero_resid = max(zero_resid, resid)
+            if not resid <= ZERO_GRAD:
+                over[name] = resid
+            continue
         scale = max(gc.abs().max().item(), floor)
         err = (grads_g[name] - gc).abs().max().item()
         rel = err / scale if scale > 0 else err
@@ -1508,7 +1740,8 @@ def check_step_against_cpu(cfg: Config, params, batch):
     if set(over) & set(cfg.f64_leaves):
         model = cfg.model("cpu").double()
         model.load_state_dict(params)
-        _, grads64, _, _ = step(model, "cpu", replay, masks, torch.float64)
+        _, grads64, _, _, _ = step(model, "cpu", replay, masks, scales,
+                                   torch.float64)
         for name in set(over) & set(cfg.f64_leaves):
             err64 = [(t[name].double() - grads64[name]).abs().max().item()
                      for t in (grads_g, grads_c)]
@@ -1522,9 +1755,16 @@ def check_step_against_cpu(cfg: Config, params, batch):
         f"loss {loss_g:.7f} vs {loss_c:.7f} (rel diff {loss_err:.3e}, tol "
         f"{tol_loss:.3e}); worst gradient {worst_name}: max|cuda - cpu| / "
         f"max(max|cpu|, floor {floor:.1e}) {worst:.3e} over "
-        f"{len(grads_c)} parameters (tol {tol:.3e}); feed-forward "
+        f"{len(grads_c)} parameters (tol {tol:.3e})"
+        + (f"; gradients 0 in exact arithmetic ({cfg.zero_leaves}): largest "
+           f"on either device {zero_resid:.3e} of the largest gradient "
+           f"(bound {ZERO_GRAD:.0e})" if cfg.zero_leaves else "")
+        + "; feed-forward "
         f"pre-activations moved to the card's side of zero on the cpu: "
-        f"{relu.flips} of {sum(m.numel() for m in masks)}")
+        f"{relu.flips} of {sum(m.numel() for m in masks)}"
+        + (f"; ATA top-1 scales (or their side of zero) replayed from the "
+           f"card on the cpu: {top.flips} of "
+           f"{sum(c[0].numel() for c in scales)}" if scales else ""))
     if over:
         raise AssertionError(f"train {cfg.name}: cuda and cpu disagree: "
                              f"{over}")
@@ -1532,7 +1772,9 @@ def check_step_against_cpu(cfg: Config, params, batch):
             "max_rel_diff": max(loss_err, worst), "tolerance": tol,
             "judged_against_float64": f64,
             "delays_replayed_calls": len(flipped),
-            "relu_sides_replayed": relu.flips}
+            "relu_sides_replayed": relu.flips,
+            "ata_scales_replayed": top.flips,
+            "zero_gradient_residue": zero_resid}
 
 
 def train(cfg: Config, card: str):
@@ -1675,6 +1917,149 @@ def exact_blur_pallas(model, card: str):
                     "tolerance": TOL_TRAIN}
 
 
+# the training CLI on synthetic solar data, as run.sh runs it, at the
+# flagship width (d_model 32, 8 heads, 1 layer, 512 inducing points, batch
+# 256, enc 192, dec/pred 96); cut: 2560 of 32,000 training windows and 512
+# of 3,840 validation and test windows per epoch, 3 of 50 epochs, 1 of 4
+# trials, 1 of 3 seeds
+CLI_EPOCHS, CLI_TRAIN, CLI_VALID = 3, 2560, 512
+CLI_ARGV = ["--exp_name", "solar", "--attn_type", "ATA", "--model_name",
+            "ATA", "--denoising", "True", "--gp", "True", "--synthetic",
+            "--d_model_choices", str(D_MODEL), "--stack_choices", str(LAYERS),
+            "--n_trials", "1", "--n_seeds", "1", "--num_epochs",
+            str(CLI_EPOCHS), "--max_train_samples", str(CLI_TRAIN),
+            "--max_valid_samples", str(CLI_VALID)]
+CLI_FEATURES = 5  # solar: day_of_week, hour, Power(MW), categorical_id, capacity
+
+
+class _EpochWatch:
+    """Wraps ``Trainer.train_epoch`` for one CLI run: times each epoch (its
+    losses are read back, so the call ends synchronised), keeps the last
+    epoch's first batch for the CPU check, and profiles the epoch
+    ``profile_epoch`` against the wall time of the one before it."""
+
+    def __init__(self, label: str, profile_epoch: int):
+        from fine_grained_gaussian_process_forcasting_torch.train import (
+            trainer,
+        )
+
+        self.cls, self.original = trainer.Trainer, trainer.Trainer.train_epoch
+        self.label, self.profile_epoch = label, profile_epoch
+        self.epoch_ms, self.steps, self.batch, self.profile = [], [], None, None
+
+    def __enter__(self):
+        def train_epoch(trainer_self, state, data):
+            self.batch = tuple(t[0] for t in data)
+            self.steps.append(int(data[0].shape[0]))
+            result = {}
+
+            def run():
+                result["out"] = self.original(trainer_self, state, data)
+
+            t0 = time.perf_counter()
+            if len(self.epoch_ms) == self.profile_epoch:
+                self.profile = profile_device(
+                    run, f"{self.label}, epoch {self.profile_epoch} "
+                    f"({self.steps[-1]} steps)", self.epoch_ms[-1])
+            else:
+                run()
+            self.epoch_ms.append((time.perf_counter() - t0) * 1e3)
+            return result["out"]
+
+        self.cls.train_epoch = train_epoch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_epoch = self.original
+
+
+def cli_ata(card: str, use_pallas: bool):
+    """``train.cli.main`` end to end on the card: synthetic solar windows,
+    one trial of 3 epochs, the best checkpoint, the evaluation on the test
+    windows, ``reported_errors_solar.csv``; the conv-family attention plain
+    (``--use_pallas_attention auto``) or through the head-folded kernel
+    (``True``)."""
+    import shutil
+    import tempfile
+
+    from fine_grained_gaussian_process_forcasting_torch.train import cli
+
+    flag = "True" if use_pallas else "auto"
+    label = f"cli_ata ({flag})"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        argv = CLI_ARGV + ["--use_pallas_attention", flag, "--out_dir",
+                           out_dir]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with _EpochWatch(label, profile_epoch=CLI_EPOCHS - 1) as watch:
+            results = cli.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        steps = sum(watch.steps)
+        n_valid = CLI_VALID // B
+        evals = CLI_EPOCHS * n_valid + n_valid  # validation, then the test
+        per_call = 6  # enc-self, dec-self, dec-cross, in both passes
+        expect = dict(_NONE, fused_gp=steps + evals, fused_gp_bwd=steps)
+        if use_pallas:
+            expect.update(head_folded_attention=per_call * (steps + evals),
+                          head_folded_attention_bwd=per_call * steps)
+        if watch.steps != [CLI_TRAIN // B] * CLI_EPOCHS or counts != expect:
+            raise AssertionError(f"{label}: steps {watch.steps}, launches "
+                                 f"{counts}, expected {expect}")
+        name = "ATA_solar_96_8220_denoise_gp"
+        with open(f"{out_dir}/losses_lists/{name}_metrics.jsonl") as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [m[k] for m in metrics for k in ("train_loss", "valid_loss")]
+        if len(metrics) != CLI_EPOCHS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: epoch metrics {metrics}")
+        with open(f"{out_dir}/reported_errors_solar.csv") as f:
+            rows = f.read().splitlines()
+        if rows[0] != ",MSE,MAE" or len(rows) != 2 \
+                or not rows[1].startswith(name + ","):
+            raise AssertionError(f"{label}: reported errors {rows}")
+        preds = np.load(f"{out_dir}/solar/{name}.npz")["predictions"]
+        if preds.shape != (n_valid, B, PRED) or not np.isfinite(preds).all():
+            raise AssertionError(f"{label}: predictions {preds.shape}")
+        params = torch.load(f"{out_dir}/models_solar_{PRED}/{name}",
+                            weights_only=True)["params"]
+        if not results or not math.isfinite(results[0]["mse"]):
+            raise AssertionError(f"{label}: evaluation {results}")
+
+        epoch_ms = watch.epoch_ms
+        step_ms = epoch_ms[1] / watch.steps[1]  # the first steady epoch
+        busy = watch.profile
+        mean_loss = ", ".join(f"{m['train_loss'] / watch.steps[0]:.6f}"
+                              for m in metrics)
+        log(f"{label} on {card}: cli.main in {wall:.2f} s; train epochs of "
+            f"{watch.steps[0]} steps of {B} windows: "
+            f"{', '.join(f'{t:.2f}' for t in epoch_ms)} ms (epoch 0 warms "
+            f"up, epoch {CLI_EPOCHS - 1} under the profiler); per step "
+            f"{step_ms:.3f} ms ({1e3 / step_ms:.2f} steps/s); device busy "
+            f"{busy['busy_ms'] / watch.steps[-1]:.4f} ms per step, idle "
+            f"share {busy['idle_share']:.3f}; peak memory "
+            f"{peak / 2**20:.1f} MiB; test {results[0]['errors']}; mean "
+            f"train loss per epoch {mean_loss}; launches {counts}")
+        cfg = Config(f"cli_ata_{flag}", "ATA", batch=B, enc_len=ENC_LEN,
+                     dec_len=DEC_LEN, pred=PRED, features=CLI_FEATURES,
+                     d_model=D_MODEL, layers=LAYERS, bf16=False, n_windows=0,
+                     n_check=N_CHECK, per_batch=_NONE, per_step=_NONE,
+                     gp=dict(use_pallas_attention=True if use_pallas
+                             else None),
+                     zero_leaves=("*.ata.*_conv*.bias",))
+        cpu_check = check_step_against_cpu(cfg, params, watch.batch)
+        cpu_check.update(epoch_ms=epoch_ms, steps_per_s=1e3 / step_ms,
+                         idle_share=busy["idle_share"],
+                         peak_mib=peak / 2**20, test_errors=results[0]["errors"])
+        return counts, cpu_check
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1715,6 +2100,8 @@ def main() -> int:
             gen, flagship, bf16)
     kernels["rbf"] = check_rbf(gen)
     kernels["cholesky"] = check_cholesky(gen)
+    (kernels["small_head_attention"],
+     kernels["small_head_attention_bwd"]) = check_small_head(gen)
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the fp32 flash entries and the non-affine fused-GP entries share other
@@ -1738,6 +2125,10 @@ def main() -> int:
                 model, smi)
             record("exact_blur_pallas", counts)
         del model
+    for use_pallas in (False, True):
+        path = f"cli_ata_{'pallas' if use_pallas else 'auto'}"
+        counts, cpu_checks[path] = cli_ata(smi, use_pallas)
+        record(path, counts)
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())

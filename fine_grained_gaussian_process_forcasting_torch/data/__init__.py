@@ -1,1 +1,3 @@
-"""Data containers (counterpart of the JAX package's ``data/``)."""
+"""The data layer (the port's own copy of the JAX package's ``data/``, on
+column tables instead of pandas frames): formatters, experiments, synthetic
+frames, windowing and batching."""

@@ -31,17 +31,24 @@ from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
 from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (
     auto_correlation,
 )
+from fine_grained_gaussian_process_forcasting_torch.ops.conv_attention import (
+    ACATAttention,
+    ATAAttention,
+    ConvAttnAttention,
+)
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention import (
     fused_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
+    MAX_HEAD_DIM,
     head_folded_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import dense
 
 ATTENTION_TYPES = ("basic", "ATA", "ACAT", "conv_attn", "autoformer",
                    "informer", "fedformer")
-PORTED_ATTENTION_TYPES = ("basic", "autoformer")
+PORTED_ATTENTION_TYPES = ("basic", "autoformer", "ATA", "ACAT", "conv_attn")
+CONV_ATTENTION_TYPES = ("ATA", "ACAT", "conv_attn")
 
 
 def positional_encoding(length: int, d_model: int, device=None,
@@ -101,6 +108,12 @@ class MultiHeadAttention(nn.Module):
     projection; cross-attention uses separate ``wq``/``wk``/``wv``.  As the
     Flax module creates only the set its calls use, ``is_self`` says which
     set this layer holds.
+
+    The conv family keeps the JAX package's boolean opt-in: only an explicit
+    ``use_pallas_attention=True`` takes the head-folded kernel (ATA and
+    conv_attn, on CUDA tensors), and auto (None) is the plain op, as
+    ``bool(None)`` is there.  The port's kernel takes d_k <= 63, so the flag
+    at a larger d_k raises rather than run the plain op in its place.
     """
 
     def __init__(self, d_model: int, d_k: int, d_v: int, n_heads: int,
@@ -114,10 +127,33 @@ class MultiHeadAttention(nn.Module):
             raise NotImplementedError(
                 f"attn_type={attn_type!r} is not ported yet (ROADMAP.md "
                 "modules to port, item 9: the rest of the attention zoo)")
+        if attn_type in CONV_ATTENTION_TYPES and dtype is not None \
+                and dtype.itemsize == 2:
+            raise NotImplementedError(
+                f"attn_type={attn_type!r} with compute_dtype={dtype} is not "
+                "ported yet: the JAX conv layers promote a 16-bit input to "
+                "fp32 against their fp32 kernels (ROADMAP.md modules to port, "
+                "item 14)")
+        use_kernel = bool(use_pallas_attention)
+        if (attn_type in ("ATA", "conv_attn") and use_kernel
+                and d_k > MAX_HEAD_DIM):
+            raise ValueError(
+                f"attn_type={attn_type!r} with use_pallas_attention=True at "
+                f"d_k={d_k}: the port's head-folded kernel takes d_k <= "
+                f"{MAX_HEAD_DIM}, and the flag asks for that kernel; pass "
+                "use_pallas_attention=None (the plain op)")
         self.d_k, self.d_v, self.n_heads = d_k, d_v, n_heads
         self.attn_type = attn_type
         self.use_pallas_attention = use_pallas_attention
         h = n_heads
+        conv_kw = dict(device=device, generator=generator)
+        if attn_type == "ATA":
+            self.ata = ATAAttention(d_k, h, use_kernel=use_kernel, **conv_kw)
+        elif attn_type == "ACAT":
+            self.acat = ACATAttention(d_k, h, **conv_kw)
+        elif attn_type == "conv_attn":
+            self.conv_attn = ConvAttnAttention(d_k, h, use_kernel=use_kernel,
+                                               **conv_kw)
         kw = dict(bias=False, device=device, generator=generator,
                   dtype=dtype)
         if is_self:
@@ -144,7 +180,13 @@ class MultiHeadAttention(nn.Module):
             return x.reshape(b, -1, h, d).transpose(1, 2)
 
         q, k, v = split(q, d_k), split(k, d_k), split(v, d_v)
-        if self.attn_type == "autoformer":
+        if self.attn_type == "ATA":
+            context = self.ata(q, k, v)
+        elif self.attn_type == "ACAT":
+            context = self.acat(q, k, v)
+        elif self.attn_type == "conv_attn":
+            context = self.conv_attn(q, k, v)
+        elif self.attn_type == "autoformer":
             # batch-shared delays in training, per-sample in eval
             context, _ = auto_correlation(q, k, v, training=training)
         else:

@@ -21,7 +21,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("fused_gp", "head_folded_attention", "flash_attention", "rbf",
-           "cholesky")
+           "cholesky", "small_head_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}

@@ -3,7 +3,8 @@
 The port's module attributes carry the Flax module names (``forecasting_model
 .encoder.layer0.self_attn.wqkv`` and so on), so a Flax parameter tree maps
 onto a state dict by flattening its path.  Dense ``kernel`` (in, out) becomes
-``Linear.weight`` (out, in); every other leaf keeps its name and shape.  The
+``Linear.weight`` (out, in), a 1-D Conv ``kernel`` (f, in, out) the conv1d
+``weight`` (out, in, f); every other leaf keeps its name and shape.  The
 input is a nested dict of numpy arrays, so loading needs no JAX;
 ``to_flax`` is the inverse, for parameters and for their gradients.
 """
@@ -94,9 +95,10 @@ def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
                 continue
             arr = np.array(value, dtype=np.float32)  # a writable copy
             if name == "kernel":
-                if arr.ndim != 2:
+                if arr.ndim not in (2, 3):
                     raise ValueError(f"{prefix}kernel has shape {arr.shape}; "
-                                     "only Dense kernels are mapped")
+                                     "only Dense and 1-D Conv kernels are "
+                                     "mapped")
                 name, arr = "weight", np.ascontiguousarray(arr.T)
             state[prefix + name] = torch.from_numpy(arr)
 
@@ -109,12 +111,13 @@ def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
     nested dict of float32 numpy arrays; the inverse of ``from_flax``.
 
     Every 2-D ``weight`` of the port is an ``nn.Linear``'s, and becomes the
-    Dense ``kernel`` (in, out)."""
+    Dense ``kernel`` (in, out); every 3-D one a conv1d's, and becomes the
+    Conv ``kernel`` (f, in, out)."""
     tree: dict = {}
     for key, value in state.items():
         *path, name = key.split(".")
         arr = value.detach().cpu().numpy().astype(np.float32)
-        if name == "weight" and arr.ndim == 2:
+        if name == "weight" and arr.ndim in (2, 3):
             name, arr = "kernel", np.ascontiguousarray(arr.T)
         node = tree
         for part in path:

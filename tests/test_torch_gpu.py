@@ -24,6 +24,7 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
     fused_gp,
     head_folded_attention as hfa,
     rbf,
+    small_head_attention as sha,
 )
 from fine_grained_gaussian_process_forcasting_torch.train import Trainer
 from fine_grained_gaussian_process_forcasting_torch.train.predict import (
@@ -819,3 +820,123 @@ def test_exact_blur_pallas_on_card_matches_cusolver_and_cpu(cuda):
         for g, w in zip(results["kernel"], results[other]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
                                        msg=other)
+
+
+# small-head attention (d <= 8): the JAX package's tolerances for that
+# kernel (tests/test_pallas_kernels.py), held as rtol / atol
+TOL_SH, ATOL_SH = 1e-4, 1e-5
+TOL_SH_GRAD, ATOL_SH_GRAD = 2e-3, 1e-4
+SMALL_HEAD_SHAPES = [(4, 8, 192, 192, 4), (3, 8, 96, 96, 2),
+                     (2, 8, 96, 192, 8), (2, 3, 1030, 20, 5),
+                     (3, 2, 37, 600, 1), (2, 2, 70, 33, 3)]
+
+
+def _small_head_inputs(b, h, lq, lk, d, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, h, n, d, device=device, generator=g)
+            for n in (lq, lk, lk, lq)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lk,d", SMALL_HEAD_SHAPES)
+def test_small_head_kernel_matches_plain(cuda, b, h, lq, lk, d):
+    q, k, v, do = _small_head_inputs(b, h, lq, lk, d, cuda)
+    before = sha.launches
+    with torch.no_grad():
+        got = sha.small_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sha.launches == before + 1
+    torch.testing.assert_close(got, sha.small_head_attention_plain(q, k, v),
+                               rtol=TOL_SH, atol=ATOL_SH)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lk,d", SMALL_HEAD_SHAPES)
+def test_small_head_bwd_kernel_matches_plain_bit_for_bit_run_to_run(
+        cuda, b, h, lq, lk, d):
+    q, k, v, do = _small_head_inputs(b, h, lq, lk, d, cuda, seed=1)
+    out, lse = sha.forward_kernel(q, k, v)
+    first = sha.backward_kernel(q, k, v, out, lse, do)
+    second = sha.backward_kernel(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    want = sha.small_head_attention_bwd_plain(q, k, v, do)
+    for a, b_, w in zip(first, second, want):
+        assert torch.equal(a, b_)  # no atomics: the same bits every run
+        torch.testing.assert_close(a, w, rtol=TOL_SH_GRAD, atol=ATOL_SH_GRAD)
+
+
+@pytest.mark.gpu
+def test_small_head_function_counts_its_launches(cuda):
+    q, k, v, do = _small_head_inputs(2, 4, 50, 61, 4, cuda, seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = sha.launches, sha.bwd_launches
+    hf_fwd, hf_bwd = hfa.launches, hfa.bwd_launches
+    out = sha.small_head_attention(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (sha.launches, sha.bwd_launches) == (fwd + 1, bwd + 1)
+    # its own kernels, not the head-folded ones
+    assert (hfa.launches, hfa.bwd_launches) == (hf_fwd, hf_bwd)
+    want = sha.small_head_attention_bwd_plain(q, k, v, do)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=TOL_SH_GRAD,
+                                   atol=ATOL_SH_GRAD)
+    with pytest.raises(ValueError, match="1..8"):
+        sha.small_head_attention(*(torch.zeros(1, 1, 4, 9, device=cuda)
+                                   for _ in range(3)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn_type", ["ATA", "conv_attn"])
+def test_conv_family_with_the_flag_takes_head_folded(cuda, attn_type):
+    """use_pallas_attention=True: the head-folded kernel six times each way
+    per step (enc-self, dec-self, dec-cross, twice); auto: never."""
+    enc = torch.randn(8, 48, 5, device=cuda)
+    dec = torch.randn(8, 16, 5, device=cuda)
+    y = torch.randn(8, 16, 1, device=cuda)
+    for flag, per_step in ((True, 6), (None, 0)):
+        model = ForecastDenoising(5, 5, 32, 8, 4, 1, 16, attn_type=attn_type,
+                                  num_inducing=32, use_pallas_attention=flag,
+                                  device=cuda)
+        fwd, bwd = hfa.launches, hfa.bwd_launches
+        out = model(enc, dec, y, training=True)
+        out.loss.backward()
+        torch.cuda.synchronize()
+        assert (hfa.launches - fwd, hfa.bwd_launches - bwd) == (per_step,
+                                                                per_step)
+        assert torch.isfinite(out.loss)
+
+
+@pytest.mark.gpu
+def test_harness_on_card(cuda, tmp_path):
+    """A tiny ATA study through the harness on the card: trains, keeps the
+    best checkpoint, evaluates and writes the reported errors."""
+    from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
+        make_synthetic_frame,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.harness import (
+        ExperimentHarness,
+        HarnessArgs,
+    )
+
+    args = HarnessArgs(exp_name="solar", model_name="ATA", attn_type="ATA",
+                       pred_len=8, seed=3, n_trials=1, num_epochs=2,
+                       d_model_choices=(16,), stack_choices=(1,),
+                       num_inducing=16, max_train_samples=64,
+                       max_valid_samples=32, use_pallas_attention=True,
+                       out_dir=str(tmp_path))
+    frame = make_synthetic_frame("solar", num_entities=4,
+                                 steps_per_entity=600)
+    fwd = fused_gp.launches
+    harness = ExperimentHarness(frame, args)
+    harness.run_study()
+    result = harness.evaluate()
+    # 2 epochs x (2 train steps + 1 valid batch), then 1 test batch
+    assert fused_gp.launches - fwd == 7
+    assert np.isfinite(result["mse"])
+    name = harness.model_name
+    assert (tmp_path / "models_solar_8" / name).exists()
+    preds = np.load(tmp_path / "solar" / f"{name}.npz")["predictions"]
+    assert preds.shape == (1, 32, 8) and np.isfinite(preds).all()
+    assert (tmp_path / "reported_errors_solar.csv").read_text().startswith(
+        ",MSE,MAE\n" + name + ",")

@@ -1,0 +1,246 @@
+"""PyTorch port vs the JAX package: the experiment harness and the CLI.
+
+Both harnesses run one study at a test's size (d_model 16, one layer, 16
+inducing points, a few dozen windows, 2 epochs) from the same initial
+parameters: the JAX ``Trainer.init_state`` is wrapped to record its
+parameters, and the port's ``Trainer.init_state`` is handed them through
+``params.from_flax``.  The conv family runs through ``conv_attn``: JAX's own
+ATA gradient is NaN under ``jax.jit`` on the CPU (ROADMAP.md section 3), and
+the JAX trainer jits its epoch."""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fine_grained_gaussian_process_forcasting_tpu.data import (
+    synthetic as jsyn,
+)
+from fine_grained_gaussian_process_forcasting_tpu.train import cli as jcli
+from fine_grained_gaussian_process_forcasting_tpu.train import (
+    harness as jharness,
+)
+from fine_grained_gaussian_process_forcasting_tpu.train import (
+    trainer as jtrainer,
+)
+from fine_grained_gaussian_process_forcasting_torch.data import (
+    synthetic as tsyn,
+)
+from fine_grained_gaussian_process_forcasting_torch.params import from_flax
+from fine_grained_gaussian_process_forcasting_torch.train import cli as tcli
+from fine_grained_gaussian_process_forcasting_torch.train import (
+    harness as tharness,
+)
+from fine_grained_gaussian_process_forcasting_torch.train import (
+    trainer as ttrainer,
+)
+
+# per-epoch sums of per-step MSEs of the same model, trained 4 steps from
+# the same parameters in fp32 by two frameworks: 1e-4 relative
+TOL = 1e-4
+ARGS = dict(exp_name="solar", model_name="cmp", attn_type="conv_attn",
+            pred_len=8, seed=7, n_trials=1, num_epochs=2,
+            d_model_choices=(16,), stack_choices=(1,), num_inducing=16,
+            gp_ls_init=-1.0, max_train_samples=32, max_valid_samples=16)
+FRAME = dict(num_entities=4, steps_per_entity=600, seed=0)
+
+
+def _port_args(out_dir, **kw):
+    return tharness.HarnessArgs(**{**ARGS, **kw, "out_dir": str(out_dir)})
+
+
+@pytest.fixture(scope="module")
+def both_runs(tmp_path_factory):
+    """One study each, from the same initial parameters."""
+    recorded = {}
+    mp = pytest.MonkeyPatch()
+    jax_init = jtrainer.Trainer.init_state
+
+    def record(self, *a, **kw):
+        state = jax_init(self, *a, **kw)
+        recorded.setdefault("params", jax.device_get(state.params))
+        return state
+
+    port_init = ttrainer.Trainer.init_state
+
+    def hand_over(self, params=None, seed=0):
+        if params is None:
+            params = from_flax(recorded["params"])
+        return port_init(self, params, seed)
+
+    mp.setattr(jtrainer.Trainer, "init_state", record)
+    mp.setattr(ttrainer.Trainer, "init_state", hand_over)
+    try:
+        jdir = tmp_path_factory.mktemp("jax")
+        jh = jharness.ExperimentHarness(
+            jsyn.make_synthetic_frame("solar", **FRAME),
+            jharness.HarnessArgs(**ARGS, out_dir=str(jdir)))
+        jh.run_study()
+        jres = jh.evaluate()
+        tdir = tmp_path_factory.mktemp("torch")
+        th = tharness.ExperimentHarness(
+            tsyn.make_synthetic_frame("solar", **FRAME), _port_args(tdir),
+            device="cpu")
+        th.run_study()
+        tres = th.evaluate()
+    finally:
+        mp.undo()
+    return {"jax": (jh, jres, jdir), "torch": (th, tres, tdir)}
+
+
+def test_harness_windows_and_names_match_jax(both_runs):
+    jh, _, _ = both_runs["jax"]
+    th, _, _ = both_runs["torch"]
+    assert th.model_name == jh.model_name == "cmp_solar_8_7_denoise_gp"
+    assert th.batch_size == jh.batch_size == 16
+    for split in ("train_data", "valid_data", "test_data"):
+        for name in ("enc", "dec", "y"):
+            np.testing.assert_array_equal(
+                getattr(getattr(th, split), name),
+                getattr(getattr(jh, split), name))
+
+
+@pytest.mark.parametrize("curve", ["train", "valid"])
+def test_harness_loss_curves_match_jax(both_runs, curve):
+    name = both_runs["jax"][0].model_name
+    want, got = (np.load(both_runs[side][2] / "losses_lists"
+                         / f"{name}_mse_losses_{curve}.npy")
+                 for side in ("jax", "torch"))
+    assert got.shape == want.shape == (2,)
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=TOL)
+
+
+def test_harness_best_config_and_study_state_match_jax(both_runs):
+    jh, _, jdir = both_runs["jax"]
+    th, _, tdir = both_runs["torch"]
+    assert th.best_config == jh.best_config == (16, 1)
+    np.testing.assert_allclose(th.best_val, jh.best_val, rtol=TOL)
+    states = [json.loads((d / "losses_lists"
+                          / f"{jh.model_name}_study.json").read_text())
+              for d in (jdir, tdir)]
+    assert states[0]["trials"].keys() == states[1]["trials"].keys()
+    assert states[0]["best_config"] == states[1]["best_config"]
+
+
+def test_harness_evaluation_matches_jax(both_runs):
+    name = both_runs["jax"][0].model_name
+    _, jres, jdir = both_runs["jax"]
+    _, tres, tdir = both_runs["torch"]
+    np.testing.assert_allclose(tres["mse"], jres["mse"], rtol=TOL)
+    np.testing.assert_allclose(tres["mae"], jres["mae"], rtol=TOL)
+    rows = [(d / "reported_errors_solar.csv").read_text().splitlines()
+            for d in (jdir, tdir)]
+    assert rows[0][0] == rows[1][0] == ",MSE,MAE"
+    assert len(rows[0]) == len(rows[1]) == 2
+    jrow, trow = (r[1].split(",") for r in rows)
+    assert jrow[0] == trow[0] == name
+    # the printed means and stds (3 and 4 decimals) of nearly equal numbers
+    for j, t, unit in zip(" ".join(jrow[1:]).split(),
+                          " ".join(trow[1:]).split(), (1e-3, 1e-4) * 2):
+        assert abs(float(j) - float(t)) <= 1.5 * unit
+    jz, tz = (np.load(d / "solar" / f"{name}.npz") for d in (jdir, tdir))
+    np.testing.assert_array_equal(tz["test_y"], jz["test_y"])
+    assert tz["predictions"].shape == jz["predictions"].shape == (1, 16, 8)
+    assert np.isfinite(jz["predictions"]).all()
+    np.testing.assert_allclose(tz["predictions"], jz["predictions"],
+                               rtol=TOL, atol=TOL)
+    assert (tdir / f"models_solar_8" / name).exists()
+
+
+def test_study_resume_skips_completed_trials(tmp_path, monkeypatch):
+    frame = tsyn.make_synthetic_frame("solar", **FRAME)
+    first = tharness.ExperimentHarness(frame, _port_args(tmp_path),
+                                       device="cpu")
+    first.run_study()
+    want = first.evaluate()
+
+    def no_training(*a, **kw):
+        raise AssertionError("a completed trial was trained again")
+
+    monkeypatch.setattr(ttrainer.Trainer, "train_epoch", no_training)
+    again = tharness.ExperimentHarness(frame, _port_args(tmp_path),
+                                       device="cpu")
+    assert again.best_config == first.best_config
+    study = again.run_study()
+    assert study.best_trial.value == first.best_val
+    # the best parameters come back from the checkpoint
+    got = again.evaluate()
+    assert got["mse"] == want["mse"]
+
+
+def test_stale_study_state_is_refused(tmp_path):
+    frame = tsyn.make_synthetic_frame("solar", **FRAME)
+    first = tharness.ExperimentHarness(frame, _port_args(tmp_path),
+                                       device="cpu")
+    first.run_study()
+    path = first._study_state_path
+    with open(path) as f:
+        state = json.load(f)
+    state["best_config"] = [32, 1]  # not the checkpoint's width
+    with open(path, "w") as f:
+        json.dump(state, f)
+    again = tharness.ExperimentHarness(frame, _port_args(tmp_path),
+                                       device="cpu")
+    with pytest.raises(ValueError, match="stale"):
+        again.evaluate()
+
+
+CLI_ARGS = ["--exp_name", "solar", "--attn_type", "ATA", "--model_name",
+            "ATA", "--denoising", "True", "--gp", "True", "--synthetic",
+            "--pred_len", "8", "--d_model_choices", "16", "--stack_choices",
+            "1", "--n_trials", "1", "--n_seeds", "1", "--num_epochs", "1",
+            "--num_inducing", "16", "--max_train_samples", "32",
+            "--max_valid_samples", "16"]
+
+
+def test_cli_runs_end_to_end_on_the_cpu(tmp_path):
+    results = tcli.main(CLI_ARGS + ["--out_dir", str(tmp_path)],
+                        device="cpu")
+    assert len(results) == 1 and np.isfinite(results[0]["mse"])
+    # the seeds of random.seed(1234), as the reference draws them
+    name = "ATA_solar_8_8220_denoise_gp"
+    assert (tmp_path / "solar" / f"{name}.npz").exists()
+    assert (tmp_path / f"models_solar_8" / name).exists()
+    lines = (tmp_path / "reported_errors_solar.csv").read_text().splitlines()
+    assert lines[0] == ",MSE,MAE" and lines[1].startswith(name + ",")
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"],
+                                   ["--fsdp", "True"],
+                                   ["--multiseed", "True"]],
+                         ids=["dp", "tp", "fsdp", "multiseed"])
+def test_cli_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(CLI_ARGS + ["--out_dir", str(tmp_path)] + flags,
+                  device="cpu")
+
+
+def test_cli_parser_matches_jax():
+    """Every flag, its destination and its default."""
+    def surface(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.nargs)
+                for a in parser._actions if a.dest != "help"}
+
+    assert surface(tcli.build_parser()) == surface(jcli.build_parser())
+    for argv in ([], ["--use_pallas_attention", "True", "--iso", "True",
+                      "--gp_ls_init", "auto"]):
+        got = vars(tcli.build_parser().parse_args(argv))
+        assert got == vars(jcli.build_parser().parse_args(argv))
+
+
+def test_multiseed_harness_is_not_ported():
+    with pytest.raises(NotImplementedError, match="multiseed"):
+        tharness.MultiSeedExperimentHarness(
+            tsyn.make_synthetic_frame("solar", **FRAME),
+            _port_args("."), seeds=(1, 2))
+
+
+def test_harness_needs_a_card_unless_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tharness.ExperimentHarness(
+            tsyn.make_synthetic_frame("solar", **FRAME),
+            _port_args(tmp_path))

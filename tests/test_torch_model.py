@@ -235,20 +235,39 @@ def test_transformer_bf16_matches_jax():
 
 
 def test_from_flax_covers_every_parameter():
+    """Every parameter of the Flax tree lands on the port's state dict with
+    its shape, for basic attention and the three conv-family types (Conv
+    kernels (f, in, out) become conv1d weights (out, in, f))."""
     rng = np.random.default_rng(0)
     enc = rng.normal(size=(2, ENC, F)).astype(np.float32)
     dec = rng.normal(size=(2, DEC, F)).astype(np.float32)
-    params = jfd.ForecastDenoising(**SMALL).init(
-        jax.random.PRNGKey(0), enc, dec)
-    state = from_flax(_np_tree(params))  # the {"params": ...} wrapper too
-    model = tfd.ForecastDenoising(**SMALL, device="cpu")
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert {k: tuple(v.shape) for k, v in state.items()} == want
-    w = params["params"]["forecasting_model"]["encoder"]["layer0"][
-        "self_attn"]["wqkv"]["kernel"]
-    np.testing.assert_array_equal(
-        state["forecasting_model.encoder.layer0.self_attn.wqkv.weight"],
-        np.asarray(w).T)
+    for attn_type in ("basic", "ATA", "ACAT", "conv_attn"):
+        params = jfd.ForecastDenoising(**SMALL, attn_type=attn_type).init(
+            jax.random.PRNGKey(0), enc, dec)
+        state = from_flax(_np_tree(params))  # the {"params": ...} wrapper too
+        model = tfd.ForecastDenoising(**SMALL, attn_type=attn_type,
+                                      device="cpu")
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        assert {k: tuple(v.shape) for k, v in state.items()} == want, \
+            attn_type
+        layer = params["params"]["forecasting_model"]["encoder"]["layer0"][
+            "self_attn"]
+        w = layer["wqkv"]["kernel"]
+        np.testing.assert_array_equal(
+            state["forecasting_model.encoder.layer0.self_attn.wqkv.weight"],
+            np.asarray(w).T)
+        if attn_type == "ATA":
+            w = layer["ata"]["k_conv7"]["kernel"]
+            np.testing.assert_array_equal(
+                state["forecasting_model.encoder.layer0.self_attn.ata."
+                      "k_conv7.weight"], np.asarray(w).transpose(2, 1, 0))
+        back = to_flax(state)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(
+                params["params"]):
+            node = back
+            for key in path:
+                node = node[key.key]
+            np.testing.assert_array_equal(node, np.asarray(leaf))
 
 
 def test_isotropic_mode_needs_generator_or_noise():
@@ -279,7 +298,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(attn_type="informer"), NotImplementedError),
-    (dict(attn_type="ATA"), NotImplementedError),
+    (dict(attn_type="fedformer"), NotImplementedError),
     (dict(attn_type="nope"), ValueError),
     (dict(backbone="lstm"), NotImplementedError),
     (dict(attn_type="autoformer", compute_dtype=torch.bfloat16),
@@ -444,12 +463,13 @@ def test_unported_session_surfaces_raise():
 
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
               "fine_grained_gaussian_process_forcasting_tpu", "_torch_gp_ref",
-              "tests"}
+              "tests", "pandas", "sklearn"}
 
 
 def test_port_imports_nothing_of_jax():
     """An AST scan: the environment preloads jax, so sys.modules cannot
-    show what the port imports."""
+    show what the port imports.  Nor pandas or scikit-learn: the machine
+    with the card has neither."""
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "fine_grained_gaussian_process_forcasting_torch")
                    .rglob("*.py")) + [root / "chip_smoke.py"]
@@ -459,7 +479,11 @@ def test_port_imports_nothing_of_jax():
                    "train/checkpoint.py", "data/window.py", "params.py",
                    "ops/cuda/fused_gp.py", "ops/cuda/head_folded_attention.py",
                    "ops/cuda/flash_attention.py", "ops/cuda/rbf.py",
-                   "ops/cuda/cholesky.py", "gp/exact.py", "gp/exact_blur.py"):
+                   "ops/cuda/cholesky.py", "gp/exact.py", "gp/exact_blur.py",
+                   "ops/cuda/small_head_attention.py", "ops/conv_attention.py",
+                   "data/table.py", "data/synthetic.py",
+                   "data/formatters/scaling.py", "train/hpo.py",
+                   "train/harness.py", "train/cli.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
