@@ -21,8 +21,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    indefinite matrix (NaN there, no exception); the small-head attention
    (d <= 8, on no path) at the flagship's three calls at d 4, timed beside
    SDPA and the head-folded kernel, and at d 2 and d 8, with two backward
-   runs bit-equal.  The library's backward is timed on the device alone,
-   from its kernels under ``torch.profiler``.
+   runs bit-equal; the flash kernels at the head dims they pad in their
+   tiles (60, 72, 128, 256), both dtypes; the fused GP at M 1024 and 2048,
+   where it takes M in chunks, both dtypes (these on no path).  The
+   library's backward is timed on the device alone, from its kernels under
+   ``torch.profiler``.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -46,7 +49,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bf16 fused GP; per step as many again backward; no head-folded launch.
    The first 4 windows, and one step on 4 windows, against the port's CPU
    run at a bf16 tolerance.
-6. Serving and training, the rest of the GP layer: ``multilayer``, the
+6. Serving and training, the rest of the GP layer and the conv family at
+   the production width: ``multilayer``, the
    flagship with a hidden layer of 8 GPs on the ``use_pallas_gp`` route
    (per batch one rbf launch for the 8 GPs and one fused GP for the output
    layer at d 8; per step the same and one fused-GP backward), and
@@ -56,7 +60,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    weights on its encoder and decoder states, ``smooth`` twice and ``mll``
    once, forward and backward, through the Cholesky kernel (two launches
    per factorization: the jitter probe and the differentiable one), held
-   against cuSOLVER on the card and against the CPU.
+   against cuSOLVER on the card and against the CPU.  ``conv_attn_wide``:
+   ``conv_attn`` at d_model 512, 8 heads (d_k 64), fp32, with
+   ``use_pallas_attention=True``: one served batch of 64 and 3 + 4 training
+   steps, the fp32 flash kernels six times each way a step.
 7. The training CLI, ``cli_ata``: ``train.cli.main`` as ``run.sh`` runs it
    (``--exp_name solar --attn_type ATA --denoising True --gp True``) on
    synthetic solar data at the flagship width, cut to 2560 training and 512
@@ -110,6 +117,7 @@ P_B, P_ENC_LEN, P_DEC_LEN, P_PRED, P_F = 64, 512, 128, 128, 8
 P_D_MODEL, P_LAYERS = 512, 2
 P_N_WINDOWS = 216  # three full batches + a ragged tail of 24
 P_N_CHECK = 4  # windows compared with the CPU run (slow at this width)
+C_B = 64  # conv_attn_wide's batch
 
 # the multi-layer flagship: one hidden layer of 8 GPs before the output GP
 ML_HIDDEN = 8
@@ -294,15 +302,40 @@ def _gp_inputs(gen, shape):
             torch.tensor(0.1, device=dev))
 
 
-def check_fused_gp(gen, shape, bf16=False):
+# M past the single-pass kernels' 720, where the kernels take M in chunks
+# of 512 (fused_gp.layout): the flagship's windows and width at 1024 and
+# 2048 inducing points, on a quarter of its batch
+LARGE_M_SHAPES = [(64, ENC_LEN + DEC_LEN, D_MODEL, m) for m in (1024, 2048)]
+
+
+def _gp_inputs_large_m(gen, shape):
+    """Inputs of the fused GP at a large M: W = A^T diag(1 - s^2) A with A
+    of entries ~ N(0, 1 / M), the form of L^-T diag(1 - s^2) L^-1 with the
+    magnitudes of a well-spread set of inducing points (2048 random points
+    in d 32 give a Gram matrix that the fp32 Cholesky cannot factor well)."""
+    x, zs, u, _, os_, inv_ls, mean_w, mean_b = _gp_inputs(
+        gen, shape[:3] + (16,))
+    b, n, d, m = shape
+    z = torch.randn(m, d, device="cuda", generator=gen)
+    zs = (z * inv_ls).contiguous()
+    a = torch.randn(m, m, device="cuda", generator=gen) / math.sqrt(m)
+    s2 = torch.rand(m, device="cuda", generator=gen)
+    w = a.T @ (a * (1.0 - s2)[:, None])
+    w = (0.5 * (w + w.T)).contiguous()
+    u = (0.3 * torch.randn(m, device="cuda", generator=gen)).contiguous()
+    return (x, zs, u, w, os_, inv_ls, mean_w, mean_b)
+
+
+def check_fused_gp(gen, shape, bf16=False, large_m=False):
     """The forward kernel against its plain version at (b, n, d, m), and
-    its time beside the plain version's and its bound."""
+    its time beside the plain version's and its bound.  ``large_m``: the
+    chunked kernels' inputs (``_gp_inputs_large_m``); an entry on no path."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     dev = "cuda"
     b, n, d, m = shape
     tag = f"fused_gp{'_bf16' if bf16 else ''} (rows {b * n}, d {d}, M {m})"
-    args = _gp_inputs(gen, shape)
+    args = (_gp_inputs_large_m if large_m else _gp_inputs)(gen, shape)
     w = args[3]
     with torch.inference_mode():
         wrapper = (fused_gp.whitened_marginals_affine_bf16 if bf16
@@ -338,7 +371,7 @@ def check_fused_gp(gen, shape, bf16=False):
                                                   var.data_ptr()]
 
     def run_kernel():
-        if launch(*ptrs, b * n, d, m, stream):
+        if launch(*ptrs, b * n, d, m, fused_gp.layout(m).chunk, stream):
             raise RuntimeError("fused_gp launch failed")
 
     with torch.inference_mode():
@@ -362,9 +395,11 @@ def check_fused_gp(gen, shape, bf16=False):
         f"the fp32 rest {rest / 1e9:.1f} GFLOP"
         + (f"; W cast and transpose {cast_ms:.4f} ms" if bf16 else ""))
     return {"name": "fused_gp.whitened_marginals_affine"
-                    + ("_bf16 (fwd)" if bf16 else " (fwd, fp32)"),
+                    + ("_bf16 (fwd" if bf16 else " (fwd, fp32")
+                    + (f", M {m} in chunks of {fused_gp.layout(m).chunk})"
+                       if large_m else ")"),
             "route": "cuda", "source": _FUSED_GP_SOURCE,
-            "replaces": _FUSED_GP_PALLAS + ":222",
+            "replaces": _FUSED_GP_PALLAS + ":222", "on_path": not large_m,
             "shape": {"rows": r, "d": d, "M": m},
             "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -451,15 +486,16 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
     bwd_ptrs = ([a.data_ptr() for a in kernel_args[:7]]
                 + [c.data_ptr() for c in cot]
                 + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
+    chunk = fused_gp.layout(m).chunk
     fwd_launch, bwd_launch = fused_gp.launcher(bf16), fused_gp.bwd_launcher(
         bf16)
 
     def run_fwd():
-        if fwd_launch(*fwd_ptrs, b * n, d, m, stream):
+        if fwd_launch(*fwd_ptrs, b * n, d, m, chunk, stream):
             raise RuntimeError("fused_gp launch failed")
 
     def run_bwd():
-        if bwd_launch(*bwd_ptrs, b * n, d, m, stream):
+        if bwd_launch(*bwd_ptrs, b * n, d, m, chunk, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -754,14 +790,14 @@ def check_head_folded(gen):
             "calls": rows}
 
 
-def check_fused_gp_bwd(gen, shape, bf16=False):
+def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     dev = "cuda"
     b, n, d, m = shape
     tag = f"fused_gp{'_bf16' if bf16 else ''} bwd (rows {b * n}, d {d}, M {m})"
     rel_tol = TOL_BF16 if bf16 else TOL_FUSED_GP_BWD
-    args = _gp_inputs(gen, shape)
+    args = (_gp_inputs_large_m if large_m else _gp_inputs)(gen, shape)
     cot = (torch.randn(b, n, device=dev, generator=gen),
            torch.randn(b, n, device=dev, generator=gen))
     with torch.inference_mode():
@@ -804,7 +840,7 @@ def check_fused_gp_bwd(gen, shape, bf16=False):
             + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
 
     def run_kernel():
-        if launch(*ptrs, b * n, d, m, stream):
+        if launch(*ptrs, b * n, d, m, fused_gp.layout(m).chunk, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -829,9 +865,11 @@ def check_fused_gp_bwd(gen, shape, bf16=False):
         f"{products / 1e9:.1f} GFLOP, the fp32 rest {rest / 1e9:.1f} GFLOP); "
         f"library: none")
     return {"name": "fused_gp.whitened_marginals_affine"
-                    + ("_bf16 (bwd)" if bf16 else " (bwd, fp32)"),
+                    + ("_bf16 (bwd" if bf16 else " (bwd, fp32")
+                    + (f", M {m} in chunks of {fused_gp.layout(m).chunk})"
+                       if large_m else ")"),
             "route": "cuda", "source": _FUSED_GP_SOURCE,
-            "replaces": _FUSED_GP_PALLAS + ":290",
+            "replaces": _FUSED_GP_PALLAS + ":290", "on_path": not large_m,
             "shape": {"rows": r, "d": d, "M": m},
             "max_abs_err": worst_abs, "max_rel_err": worst,
             "tolerance": rel_tol,
@@ -910,10 +948,10 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
             wrapper = (fa.fused_attention_bf16sm if sm_bf16
                        else fa.fused_attention)
             got = wrapper(q, k, v)
-            out, lse = fa.forward_kernel(q, k, v, True, sm_bf16)
-            grads = fa.backward_kernel(q, k, v, out, lse, do, sm_bf16)
+            out, stats = fa.forward_kernel(q, k, v, True, sm_bf16)
+            grads = fa.backward_kernel(q, k, v, out, stats, do, sm_bf16)
             torch.cuda.synchronize()
-            again = fa.backward_kernel(q, k, v, out, lse, do, sm_bf16)
+            again = fa.backward_kernel(q, k, v, out, stats, do, sm_bf16)
             want = fa.fused_attention_plain(q, k, v, sm_bf16)
             want_grads = fa.fused_attention_bwd_plain(q, k, v, do, sm_bf16)
             if not all(torch.equal(a, g) for a, g in zip(again, grads)):
@@ -928,13 +966,20 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
                   for g, w_ in zip(grads, want_grads))))
             bufs = [torch.empty_like(t) for t in (q, k, v)] + [
                 torch.empty(P_B, h, length, device=dev)]
-            fwd_ptrs = [t.data_ptr() for t in (q, k, v, out)] + [None]
-            bwd_ptrs = [t.data_ptr() for t in (q, k, v, out, lse, do)] + [
+            o_lo = None if stats.o_lo is None else stats.o_lo.data_ptr()
+            # inference (no statistics) and training (lse, and o_lo for
+            # bf16): the forward with the statistics is what a training
+            # step launches
+            fwd_ptrs = [t.data_ptr() for t in (q, k, v, out)] + [None, None]
+            train_ptrs = [t.data_ptr() for t in (q, k, v, out)] + [
+                o_lo, stats.lse.data_ptr()]
+            bwd_ptrs = [t.data_ptr() for t in (q, k, v, out)] + [
+                o_lo, stats.lse.data_ptr(), do.data_ptr()] + [
                 t.data_ptr() for t in bufs]
             fwd_launch, bwd_launch = fa.launcher(), fa.bwd_launcher()
 
-            def run_fwd():
-                if fwd_launch(*fwd_ptrs, P_B * h, length, length, d,
+            def run_fwd(ptrs=fwd_ptrs):
+                if fwd_launch(*ptrs, P_B * h, length, length, d,
                               int(bf16), int(sm_bf16), stream):
                     raise RuntimeError("flash_attention_fwd launch failed")
 
@@ -944,6 +989,7 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
                     raise RuntimeError("flash_attention_bwd launch failed")
 
             ms = time_ms(run_fwd, iters)
+            train_ms = time_ms(lambda: run_fwd(train_ptrs), iters)
             bwd_ms = time_ms(run_bwd, max(iters // 2, 3))
             plain_ms = time_ms(
                 lambda: fa.fused_attention_plain(q, k, v, sm_bf16), 5)
@@ -953,7 +999,7 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
                 lambda: scaled_dot_product_attention(q, k, v), iters)
         sdpa_bwd = sdpa_bwd_ms(q, k, v, do, 10)
         fwd = {"call": call, "L": length, "max_abs_err": abs_err,
-               "measure": err, "ms": ms,
+               "measure": err, "ms": ms, "ms_with_statistics": train_ms,
                "plain_ms": plain_ms, "library_ms": sdpa_fwd,
                "flops": 4.0 * pairs * d, "exps": pairs, "bytes": 4 * nbytes}
         bwd = {"call": call, "L": length, "max_abs_err": bwd_abs_err,
@@ -971,7 +1017,11 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
             log(f"{tag} {name} {call} (b {P_B}, h {h}, L {length},"
                 f" d {d}): {what} {row['measure']:.3e} (limit {limit:.3e}; "
                 f"max|kernel - plain| {row['max_abs_err']:.3e}); kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                f"{row['ms']:.4f} ms"
+                + (f" (with the training statistics "
+                   f"{row['ms_with_statistics']:.4f} ms)"
+                   if "ms_with_statistics" in row else "")
+                + f", plain {row['plain_ms']:.4f} ms, sdpa "
                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']})")
             if not row["measure"] <= limit:
@@ -1006,7 +1056,108 @@ def check_flash(gen, dtype=torch.bfloat16, sm_bf16=False):
             "ms": total["ms"], "kernel_ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": total["library_ms"],
-            "library": library, "on_path": bf16 and not sm_bf16,
+            "library": library, "on_path": not sm_bf16,
+            "calls": rows})
+    return entries
+
+
+# head dims the flash kernels pad in their tiles (the port refused them
+# before): held against plain at a short self-attention, both dtypes
+PADDED_D = (60, 72, 128, 256)
+PADDED_B, PADDED_L = 8, 256
+
+
+def check_flash_padded(gen, dtype):
+    """The flash kernels at the padded head dims ``PADDED_D`` (b 8, h 8,
+    L 256): forward and backward against their plain versions, two backward
+    runs bit-equal, timed beside the plain version and SDPA; two kernel
+    entries (forward, backward) whose calls are the head dims, on no path
+    of this script."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        flash_attention as fa,
+    )
+
+    bf16 = dtype == torch.bfloat16
+    dname = "bf16" if bf16 else "fp32"
+    h, length = HEADS, PADDED_L
+    fwd_rows, bwd_rows = [], []
+    for d in PADDED_D:
+        q, k, v, do = (torch.randn(PADDED_B, h, length, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        with torch.inference_mode():
+            out, stats = fa.forward_kernel(q, k, v, True)
+            grads = fa.backward_kernel(q, k, v, out, stats, do)
+            again = fa.backward_kernel(q, k, v, out, stats, do)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                raise AssertionError(f"flash {dname} d {d}: two backward "
+                                     f"runs differ")
+            want = fa.fused_attention_plain(q, k, v)
+            want_grads = fa.fused_attention_bwd_plain(q, k, v, do)
+            ms = time_ms(lambda: fa.forward_kernel(q, k, v, False), 10)
+            bwd_ms = time_ms(lambda: fa.backward_kernel(q, k, v, out, stats,
+                                                        do), 5)
+            plain_ms = time_ms(lambda: fa.fused_attention_plain(q, k, v), 3)
+            plain_bwd_ms = time_ms(
+                lambda: fa.fused_attention_bwd_plain(q, k, v, do), 3)
+            sdpa_ms = time_ms(lambda: scaled_dot_product_attention(q, k, v),
+                              10)
+        sdpa_bwd = sdpa_bwd_ms(q, k, v, do, 5)
+        pairs = float(PADDED_B * h * length * length)
+        nbytes = float(q.element_size()) * PADDED_B * h * length * d
+        for rows, g, w_, t, pt, lt, flops, nb, tol in (
+                (fwd_rows, [out], [want], ms, plain_ms, sdpa_ms, 4.0, 4,
+                 TOL_FLASH_F32),
+                (bwd_rows, grads, want_grads, bwd_ms, plain_bwd_ms, sdpa_bwd,
+                 10.0, 7, TOL_FLASH_F32_BWD)):
+            diffs = [(a.float() - b_.float()).abs() for a, b_ in zip(g, w_)]
+            abs_err = max(x.max().item() for x in diffs)
+            if bf16:
+                measure = max(x.max().item() / max(1.0, b_.float().abs().max(
+                    ).item()) for x, b_ in zip(diffs, w_))
+                limit = TOL_BF16
+            else:
+                measure = max((x / (tol[1] + tol[0] * b_.abs())).max().item()
+                              for x, b_ in zip(diffs, w_))
+                limit = 1.0
+            row = {"d": d, "wgmma_width": fa.wgmma_width(d, dtype),
+                   "max_abs_err": abs_err, "measure": measure, "ms": t,
+                   "plain_ms": pt, "library_ms": lt,
+                   "flops": flops * pairs * d, "exps": pairs,
+                   "bytes": nb * nbytes}
+            row["bound_ms"], row["bound_by"] = _flash_bound(row, bf16)
+            what = "fwd" if rows is fwd_rows else "bwd"
+            log(f"flash_attention {dname} {what} padded d {d} (b {PADDED_B}, "
+                f"h {h}, L {length}; wgmma width {row['wgmma_width']}): "
+                f"measure {measure:.3e} (limit {limit:.3e}; max|kernel - "
+                f"plain| {abs_err:.3e}); kernel {t:.4f} ms, plain "
+                f"{pt:.4f} ms, sdpa {lt:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            if not measure <= limit:
+                raise AssertionError(f"flash {dname} {what} d {d} disagrees "
+                                     f"with its plain version: {measure} > "
+                                     f"{limit}")
+            rows.append(row)
+    entries = []
+    for rows, what, line, tol in ((fwd_rows, "fwd", 126, TOL_FLASH_F32),
+                                  (bwd_rows, "bwd", 151, TOL_FLASH_F32_BWD)):
+        total, bound_ms, bound_by = _sum_calls(rows, bf16)
+        entries.append({
+            "name": f"flash_attention.fused_attention ({what}, {dname}, "
+                    f"padded d {'/'.join(map(str, PADDED_D))})",
+            "route": "cuda", "source": _FLASH_SOURCE,
+            "replaces": f"{_FLASH_PALLAS}:{line}",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "measure": max(r["measure"] for r in rows),
+            "tolerance": (TOL_BF16 if bf16 else
+                          {"rtol": tol[0], "atol": tol[1]}),
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": total["library_ms"],
+            "library": "scaled_dot_product_attention", "on_path": False,
             "calls": rows})
     return entries
 
@@ -1257,6 +1408,8 @@ class Config:
     # gradients that are 0 in exact arithmetic (fnmatch patterns): residue
     # on both devices, held below ZERO_GRAD of the step's largest gradient
     zero_leaves: tuple = ()
+    epochs: int = N_EPOCHS  # timed epochs of training
+    steps: int = N_TRAIN_STEPS  # steps per timed epoch
 
     def model(self, device: str):
         from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
@@ -1302,7 +1455,8 @@ _NONE = dict.fromkeys(
     ("fused_gp", "fused_gp_bwd", "head_folded_attention",
      "head_folded_attention_bwd", "fused_gp_bf16", "fused_gp_bf16_bwd",
      "flash_attention", "flash_attention_bwd", "flash_attention_bf16sm",
-     "flash_attention_bf16sm_bwd", "rbf", "cholesky", "small_head_attention",
+     "flash_attention_bf16sm_bwd", "flash_attention_fp32",
+     "flash_attention_fp32_bwd", "rbf", "cholesky", "small_head_attention",
      "small_head_attention_bwd"), 0)
 _FLAGSHIP = dict(batch=B, enc_len=ENC_LEN, dec_len=DEC_LEN, pred=PRED,
                  features=F, d_model=D_MODEL, layers=LAYERS, bf16=False,
@@ -1348,6 +1502,17 @@ CONFIGS = (
     Config("exact", "autoformer", **_FLAGSHIP, per_batch=_NONE,
            per_step=_NONE,
            gp=dict(gp_kind="exact", exact_noise_init=0.1, gp_ls_init=-1.0)),
+    # conv_attn at the production width in fp32 with the flag (d_model 512,
+    # 8 heads, d_k 64; --d_model_choices 512 --use_pallas_attention True):
+    # the conv family's softmax attention on the fp32 flash kernels, enc-self,
+    # dec-self and dec-cross in both passes; one served batch and a few steps
+    Config("conv_attn_wide", "conv_attn", batch=C_B, enc_len=ENC_LEN,
+           dec_len=DEC_LEN, pred=PRED, features=F, d_model=P_D_MODEL,
+           layers=LAYERS, bf16=False, n_windows=C_B, n_check=P_N_CHECK,
+           per_batch=dict(_NONE, fused_gp=1, flash_attention_fp32=6),
+           per_step=dict(_NONE, fused_gp=1, fused_gp_bwd=1,
+                         flash_attention_fp32=6, flash_attention_fp32_bwd=6),
+           gp=dict(use_pallas_attention=True), epochs=1, steps=4),
 )
 
 
@@ -1569,6 +1734,9 @@ def _counters():
             "flash_attention_bf16sm": (flash_attention, "sm16_launches"),
             "flash_attention_bf16sm_bwd": (flash_attention,
                                            "sm16_bwd_launches"),
+            "flash_attention_fp32": (flash_attention, "f32_launches"),
+            "flash_attention_fp32_bwd": (flash_attention,
+                                         "f32_bwd_launches"),
             "rbf": (rbf, "launches"),
             "cholesky": (cholesky, "launches"),
             "small_head_attention": (small_head_attention, "launches"),
@@ -1582,8 +1750,14 @@ def zero_counts():
 
 
 def read_counts():
-    return {name: getattr(module, attr)
-            for name, (module, attr) in _counters().items()}
+    """The launch counts; the flash wrapper's own counters take every
+    operand dtype, so "flash_attention" here is the bf16 share and
+    "flash_attention_fp32" the fp32 one."""
+    counts = {name: getattr(module, attr)
+              for name, (module, attr) in _counters().items()}
+    for key in ("flash_attention", "flash_attention_bwd"):
+        counts[key] -= counts[key.replace("attention", "attention_fp32")]
+    return counts
 
 
 def serve(cfg: Config, card: str):
@@ -1780,7 +1954,7 @@ def check_step_against_cpu(cfg: Config, params, batch):
 def train(cfg: Config, card: str):
     from fine_grained_gaussian_process_forcasting_torch.train import Trainer
 
-    data = cfg.training_data(N_WARMUP + N_EPOCHS * N_TRAIN_STEPS + 2,
+    data = cfg.training_data(N_WARMUP + cfg.epochs * cfg.steps + 2,
                              SEED + 1)
     model = cfg.model("cuda")
     trainer = Trainer(model, cfg.d_model, warmup_steps=WARMUP_STEPS,
@@ -1796,15 +1970,15 @@ def train(cfg: Config, card: str):
 
     zero_counts()
     epoch_ms, loss_sums = [], []
-    for e in range(N_EPOCHS):
+    for e in range(cfg.epochs):
         t0 = time.perf_counter()
         state, loss_sum, _ = trainer.train_epoch(
-            state, batches(N_WARMUP + e * N_TRAIN_STEPS, N_TRAIN_STEPS))
+            state, batches(N_WARMUP + e * cfg.steps, cfg.steps))
         epoch_ms.append((time.perf_counter() - t0) * 1e3)  # float() synced
         loss_sums.append(loss_sum)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expect = {k: N_EPOCHS * N_TRAIN_STEPS * v
+    expect = {k: cfg.epochs * cfg.steps * v
               for k, v in cfg.per_step.items()}
     if counts != expect:
         raise AssertionError(f"train {cfg.name}: launches {counts}, "
@@ -1815,16 +1989,16 @@ def train(cfg: Config, card: str):
                              f"{loss_sums}")
     if not all(p.dtype == torch.float32 for p in model.parameters()):
         raise AssertionError(f"train {cfg.name}: a parameter left fp32")
-    step_ms = [t / N_TRAIN_STEPS for t in epoch_ms]
+    step_ms = [t / cfg.steps for t in epoch_ms]
     median = float(np.median(step_ms))
-    log(f"train {cfg.name} on {card}: {N_EPOCHS} epochs of {N_TRAIN_STEPS} "
+    log(f"train {cfg.name} on {card}: {cfg.epochs} epochs of {cfg.steps} "
         f"steps of {cfg.batch} windows: "
         f"{', '.join(f'{t:.2f}' for t in epoch_ms)} "
         f"ms; per step: median {median:.3f} ms ({1e3 / median:.2f} "
         f"steps/s); mean loss per epoch "
-        f"{', '.join(f'{v / N_TRAIN_STEPS:.6f}' for v in loss_sums)}; "
+        f"{', '.join(f'{v / cfg.steps:.6f}' for v in loss_sums)}; "
         f"launches {counts}; peak memory {peak / 2**20:.1f} MiB")
-    first = N_WARMUP + N_EPOCHS * N_TRAIN_STEPS
+    first = N_WARMUP + cfg.epochs * cfg.steps
     after = {}
 
     def one_step():
@@ -2077,15 +2251,18 @@ def main() -> int:
                                                        bf16=True)}
     kernels["flash_attention"], kernels["flash_attention_bwd"] = check_flash(
         gen)
-    # held and timed, on no path of this script: the sm_bf16 variant, to
-    # which nothing routes, and the fp32 kernels, which an fp32 model at
-    # d_k 64 takes
+    # held and timed: the sm_bf16 variant, to which nothing routes, and the
+    # fp32 kernels, which conv_attn_wide takes
     (kernels["flash_attention_bf16sm"],
      kernels["flash_attention_bf16sm_bwd"]) = check_flash(gen, sm_bf16=True)
     for sm_bf16, key in ((False, "flash_attention_fp32"),
                          (True, "flash_attention_fp32sm")):
         kernels[key], kernels[key + "_bwd"] = check_flash(
             gen, torch.float32, sm_bf16)
+    # the head dims the kernels pad, on no path of this script
+    for dtype, key in ((torch.bfloat16, "flash_attention_padded_bf16"),
+                       (torch.float32, "flash_attention_padded_fp32")):
+        kernels[key], kernels[key + "_bwd"] = check_flash_padded(gen, dtype)
     # the fp32 fused GP at the production width too (no path of this script
     # runs it there; it is the width the kernel could not take before)
     kernels["fused_gp"]["at_production_width"] = check_fused_gp(gen,
@@ -2098,6 +2275,13 @@ def main() -> int:
                       (True, "fused_gp_nonaffine_bf16")):
         kernels[key], kernels[key + "_bwd"] = check_fused_gp_nonaffine(
             gen, flagship, bf16)
+    # M past 720: the chunked kernels, on no path of this script
+    for shape in LARGE_M_SHAPES:
+        for bf16 in (False, True):
+            key = f"fused_gp{'_bf16' if bf16 else ''}_m{shape[3]}"
+            kernels[key] = check_fused_gp(gen, shape, bf16, large_m=True)
+            kernels[key + "_bwd"] = check_fused_gp_bwd(gen, shape, bf16,
+                                                       large_m=True)
     kernels["rbf"] = check_rbf(gen)
     kernels["cholesky"] = check_cholesky(gen)
     (kernels["small_head_attention"],

@@ -56,7 +56,10 @@
 //      summed into per-row partial variances.  K and K W never reach device
 //      memory.
 // Rows past the end are zero inputs whose results are never stored (no
-// padding in device memory).
+// padding in device memory).  K^T over all of M fits a block up to M 720;
+// beyond, the chunked kernels further down hold one chunk of 512 inducing
+// points and recompute K^T chunk by chunk for each panel (the wrapper's
+// `layout` picks the chunk and passes it to the launchers).
 //
 // Backward design.  The Pallas backward sums the parameter cotangents across
 // its grid with init-at-step-0-then-add, which is right only on the TPU's
@@ -806,6 +809,506 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
   }
 }
 
+// ------------------------------------------------ M in chunks (M > 720) --
+//
+// At M > 720 the tile's K^T over all of M (m_pad x 68 floats) no longer fits
+// a block's shared memory.  The chunked kernels below hold K^T for one
+// chunk of `chunk` inducing points (a multiple of the 256-column panel) and
+// recompute it as the panels need it: for each panel p of W's columns, the
+// chunks are computed in turn, each multiplied into the panel's register
+// tile, the chunk that holds the panel's own columns last, so that the
+// panel's epilogue finds K[r, n] of its columns in shared memory.  K is
+// computed n_panels times instead of once: 3 M d flops a row per panel
+// against the panel's 512 M of K W, d / 170 of the product.  Rows, warps
+// and register tiles are those of the single-pass kernels above.
+
+// W rows k0.. (of `rows`) and columns n0 + tid of the row-major (rows,
+// ncols) w into registers
+__device__ __forceinline__ void load_w_rows(const float* __restrict__ w,
+                                            int rows, int ncols, int k0,
+                                            int n0, int tid,
+                                            float (&regs)[PREFETCH]) {
+  const int n = n0 + tid;
+#pragma unroll
+  for (int i = 0; i < PREFETCH; ++i) {
+    const int k = k0 + i;
+    regs[i] = (k < rows && n < ncols) ? __ldg(w + (size_t)k * ncols + n) : 0.f;
+  }
+}
+
+// g += the fp32 (K W) tile of panel p over the chunk's rows: kt holds K^T
+// of the chunk (rows_pad rows, zeros past `rows`), w the chunk's W rows.
+// Begins and ends with a barrier.
+__device__ __forceinline__ void kw_panel_rows(const float* __restrict__ w,
+                                              const float* kt, float* wbuf,
+                                              int rows, int rows_pad,
+                                              int ncols, int p,
+                                              float (&g)[8][8]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_chunks = rows_pad / BK;
+  float pre[PREFETCH];
+  load_w_rows(w, rows, ncols, 0, p * PANEL, tid, pre);
+  __syncthreads();  // wbuf is free
+#pragma unroll
+  for (int i = 0; i < PREFETCH; ++i) wbuf[i * PANEL + tid] = pre[i];
+  __syncthreads();
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) load_w_rows(w, rows, ncols, (c + 1) * BK, p * PANEL, tid, pre);
+    const float* wb = wbuf + (c & 1) * (BK * PANEL);
+    const float* ktk = kt + c * BK * KT_STRIDE + warp * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4* kr = reinterpret_cast<const float4*>(ktk + kk * KT_STRIDE);
+      const float4 ka = kr[0], kb = kr[1];
+      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+      const float4 wa = reinterpret_cast<const float4*>(wb + kk * PANEL)[lane];
+      const float4 wc = reinterpret_cast<const float4*>(wb + kk * PANEL + PANEL / 2)[lane];
+      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g[i][j] = fmaf(kv[i], wv[j], g[i][j]);
+    }
+    if (c + 1 < n_chunks) {
+      float* nb = wbuf + ((c + 1) & 1) * (BK * PANEL);
+#pragma unroll
+      for (int i = 0; i < PREFETCH; ++i) nb[i * PANEL + tid] = pre[i];
+    }
+    __syncthreads();
+  }
+}
+
+// c += the bf16 (K W) tile of the warp's 32 columns n0.. over the chunk's
+// rows k_lo.. (rows_pad of them; kt holds their K^T); wt as kw_panels_mma's,
+// wt_cols columns
+__device__ __forceinline__ void kw_panel_rows_mma(const __nv_bfloat16* __restrict__ wt,
+                                                  int wt_cols, const float* kt,
+                                                  int k_lo, int rows_pad, int n0,
+                                                  float (&c)[4][4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int k0 = 0; k0 < rows_pad; k0 += 16) {
+    const float* kk = kt + (k0 + 2 * t) * KT_STRIDE + g;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float* km = kk + mt * 16;
+      a[mt][0] = pack_bf16(km[0], km[KT_STRIDE]);
+      a[mt][1] = pack_bf16(km[8], km[KT_STRIDE + 8]);
+      a[mt][2] = pack_bf16(km[8 * KT_STRIDE], km[9 * KT_STRIDE]);
+      a[mt][3] = pack_bf16(km[8 * KT_STRIDE + 8], km[9 * KT_STRIDE + 8]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+          wt + (size_t)(n0 + nt * 8 + g) * wt_cols + k_lo + k0 + 2 * t);
+      const uint32_t b0 = __ldg(wr);
+      const uint32_t b1 = __ldg(wr + 4);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
+    }
+  }
+}
+
+// chunk i of panel p's sweep: all chunks, the one holding the panel's
+// columns last
+__device__ __forceinline__ int sweep_chunk(int p, int i, int chunk, int n_chunks) {
+  return ((p * PANEL) / chunk + 1 + i) % n_chunks;
+}
+
+__device__ __forceinline__ int pad16(int n) { return (n + BK - 1) / BK * BK; }
+
+// For each panel p (n_panels of them over M columns) computes K^T chunk by
+// chunk into kt and calls on_chunk(p, lo, cnt, cnt_pad) after each; then
+// epilogue(p, home_lo) with the panel's home chunk in kt.
+template <class OnChunk, class Epilogue>
+__device__ __forceinline__ void chunked_sweeps(const float* __restrict__ x,
+                                               const float* __restrict__ zs,
+                                               const float* __restrict__ inv_ls,
+                                               float os, float* kt, float* wbuf,
+                                               int row0, int R, int d, int M,
+                                               int chunk, OnChunk& on_chunk,
+                                               Epilogue& epilogue) {
+  const int n_chunks = (M + chunk - 1) / chunk;
+  const int n_panels = (M + PANEL - 1) / PANEL;
+  for (int p = 0; p < n_panels; ++p) {
+    for (int i = 0; i < n_chunks; ++i) {
+      const int lo = sweep_chunk(p, i, chunk, n_chunks) * chunk;
+      const int cnt = min(chunk, M - lo);
+      tile_kt(x, zs + (size_t)lo * d, inv_ls, os, kt, wbuf, row0, R, d, cnt,
+              pad16(cnt));
+      on_chunk(p, lo, cnt, pad16(cnt));
+    }
+    epilogue(p, (p * PANEL) / chunk * chunk);
+  }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_gp_fwd_chunked_kernel(const float* __restrict__ x,
+                            const float* __restrict__ zs,
+                            const float* __restrict__ u,
+                            const void* __restrict__ w,
+                            const float* __restrict__ os_ptr,
+                            const float* __restrict__ inv_ls,
+                            const float* __restrict__ mean_w,
+                            const float* __restrict__ mean_b_ptr,
+                            float* __restrict__ mean_out,
+                            float* __restrict__ var_out, int R, int d, int M,
+                            int m_pad, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;                      // [chunk][KT_STRIDE]
+  float* wbuf = kt + chunk * KT_STRIDE;  // [2][BK][PANEL]; staging
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * TR;
+  const float os = *os_ptr;
+
+  float macc[8];  // K u of the warp's 8 rows, this lane's share
+#pragma unroll
+  for (int i = 0; i < 8; ++i) macc[i] = 0.f;
+  float g[8][8];
+  float c[4][4][4];
+  VarEpilogue epi{kt, M, lane, warp, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+  VarEpilogueMma epi16{kt, M, lane >> 2, lane & 3,
+                       {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+  };
+  zero();
+  auto on_chunk = [&](int p, int lo, int cnt, int cnt_pad) {
+    if (p == 0) {
+      for (int m = lane; m < cnt; m += 32) {
+        const float um = __ldg(u + lo + m);
+        const float4* km = reinterpret_cast<const float4*>(kt + m * KT_STRIDE + warp * 8);
+        const float4 a = km[0], b = km[1];
+        macc[0] = fmaf(a.x, um, macc[0]); macc[1] = fmaf(a.y, um, macc[1]);
+        macc[2] = fmaf(a.z, um, macc[2]); macc[3] = fmaf(a.w, um, macc[3]);
+        macc[4] = fmaf(b.x, um, macc[4]); macc[5] = fmaf(b.y, um, macc[5]);
+        macc[6] = fmaf(b.z, um, macc[6]); macc[7] = fmaf(b.w, um, macc[7]);
+      }
+    }
+    if constexpr (BF16) {
+      const int n0 = p * PANEL + warp * 32;
+      if (n0 < M)
+        kw_panel_rows_mma(static_cast<const __nv_bfloat16*>(w), m_pad, kt, lo,
+                          cnt_pad, n0, c);
+    } else {
+      kw_panel_rows(static_cast<const float*>(w) + (size_t)lo * M, kt, wbuf,
+                    cnt, cnt_pad, M, p, g);
+    }
+  };
+  auto epilogue = [&](int p, int home_lo) {
+    // kt holds the rows home_lo..: K[r, n] of the panel's columns n
+    if constexpr (BF16) {
+      const int n0 = p * PANEL + warp * 32;
+      epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+      if (n0 < M) epi16(n0, c);
+    } else {
+      epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+      epi(p, g);
+    }
+    zero();
+  };
+  chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
+                 epilogue);
+
+  // mean: x . mean_w of the warp's rows, lanes stride over d
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + warp * 8 + i;
+    if (row < R) {
+      const float* xr = x + (size_t)row * d;
+      for (int k = lane; k < d; k += 32) macc[i] = fmaf(xr[k], mean_w[k], macc[i]);
+    }
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float s = warp_sum(macc[i]);
+    if (lane == i) mine = s;
+  }
+  {
+    const int row = row0 + warp * 8 + lane;
+    if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
+  }
+
+  if constexpr (BF16) {
+    __syncthreads();  // wbuf: the last product is done
+    float* red = wbuf;            // [8][TR]
+    float* sums = wbuf + 8 * TR;  // [TR]
+    row_sums_mma(epi16.part, red, sums);
+    if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
+  } else {
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float s = warp_sum(epi.var_part[i]);
+      if (lane == i) v = s;
+    }
+    const int row = row0 + warp * 8 + lane;
+    if (lane < 8 && row < R) var_out[row] = os - v;
+  }
+}
+
+// E^T of the tile's rows for inducing points lo.. (cnt of them, cnt_pad
+// rows) from emat into kt; colsum (if not null) gets each column's sum at
+// lo + m.  Begins and ends with a barrier.
+__device__ __forceinline__ void load_et(const float* emat, float* kt,
+                                        float* __restrict__ colsum, int lo,
+                                        int cnt, int cnt_pad, int row0, int R,
+                                        int M) {
+  __syncthreads();
+  for (int m = threadIdx.x; m < cnt_pad; m += THREADS) {
+    float* ktm = kt + m * KT_STRIDE;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int r = 0; r < TR; ++r) {
+      const int row = row0 + r;
+      const float e = (m < cnt && row < R) ? emat[(size_t)row * M + lo + m] : 0.f;
+      ktm[r] = e;
+      acc += e;
+    }
+    if (colsum != nullptr && m < cnt) colsum[lo + m] = acc;
+  }
+  __syncthreads();
+}
+
+// Backward launch 1 with M in chunks: the outputs of fused_gp_bwd_rows_kernel.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_gp_bwd_rows_chunked_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ zs,
+                                 const float* __restrict__ u,
+                                 const void* __restrict__ w,
+                                 const float* __restrict__ os_ptr,
+                                 const float* __restrict__ inv_ls,
+                                 const float* __restrict__ mean_w,
+                                 const float* __restrict__ dmean,
+                                 const float* __restrict__ dvar,
+                                 float* __restrict__ dx, float* kmat,
+                                 float* emat, float* __restrict__ part_m,
+                                 float* __restrict__ part_s, int R, int d,
+                                 int M, int m_pad, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;                      // [chunk][KT_STRIDE]  K^T, then E^T
+  float* wbuf = kt + chunk * KT_STRIDE;  // [2][BK][PANEL]; staging
+  float* dm_s = wbuf + WBUF;             // [TR]
+  float* dv_s = dm_s + TR;               // [TR]
+  float* rse_s = dv_s + TR;              // [TR]                rowsum(E)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int row0 = tile * TR;
+  const float os = *os_ptr;
+  const int n_chunks = (M + chunk - 1) / chunk;
+
+  if (tid < TR) {
+    const int row = row0 + tid;
+    dm_s[tid] = row < R ? dmean[row] : 0.f;  // tail rows: zero cotangents
+    dv_s[tid] = row < R ? dvar[row] : 0.f;
+  }
+  __syncthreads();
+
+  float g[8][8];
+  float c[4][4][4];
+  EEpilogue epi;
+  epi.kt = kt; epi.u = u; epi.emat = emat;
+  epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
+  EEpilogueMma epi16;
+  epi16.kt = kt; epi16.u = u; epi16.emat = emat;
+  epi16.M = M; epi16.R = R; epi16.g = lane >> 2; epi16.t = lane & 3;
+  epi16.row0 = row0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    epi.dm[i] = dm_s[warp * 8 + i];
+    epi.dv[i] = dv_s[warp * 8 + i];
+    epi.rowsum[i] = 0.f;
+    const int r = (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+    epi16.dm[i] = dm_s[r];
+    epi16.dv[i] = dv_s[r];
+    epi16.part[i] = 0.f;
+  }
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+  };
+  zero();
+
+  auto on_chunk = [&](int p, int lo, int cnt, int cnt_pad) {
+    if (p == 0) {  // K to device memory, and the tile's K^T dmean
+      for (int m = tid; m < cnt; m += THREADS) {
+        const float* ktm = kt + m * KT_STRIDE;
+        const int mg = lo + m;
+        float acc = 0.f;
+        if constexpr (BF16) {
+          const size_t rp = (size_t)gridDim.x * TR;
+          uint4* k16 = reinterpret_cast<uint4*>(
+              reinterpret_cast<__nv_bfloat16*>(kmat) + (size_t)mg * rp + row0);
+          uint4* dvk16 = reinterpret_cast<uint4*>(
+              reinterpret_cast<__nv_bfloat16*>(kmat) + ((size_t)M + mg) * rp + row0);
+#pragma unroll
+          for (int r8 = 0; r8 < TR / 8; ++r8) {
+            uint32_t a[4], b[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int r = 8 * r8 + 2 * j;
+              const float k0v = ktm[r], k1v = ktm[r + 1];
+              acc = fmaf(k0v, dm_s[r], acc);
+              acc = fmaf(k1v, dm_s[r + 1], acc);
+              a[j] = pack_bf16(k0v, k1v);
+              b[j] = pack_bf16(dv_s[r] * k0v, dv_s[r + 1] * k1v);
+            }
+            k16[r8] = make_uint4(a[0], a[1], a[2], a[3]);
+            dvk16[r8] = make_uint4(b[0], b[1], b[2], b[3]);
+          }
+        } else {
+#pragma unroll 16
+          for (int r = 0; r < TR; ++r) {
+            acc = fmaf(ktm[r], dm_s[r], acc);
+            const int row = row0 + r;
+            if (row < R) kmat[(size_t)row * M + mg] = ktm[r];
+          }
+        }
+        part_m[((size_t)tile * 2 + 0) * M + mg] = acc;
+      }
+    }
+    if constexpr (BF16) {
+      const int n0 = p * PANEL + warp * 32;
+      if (n0 < M)
+        kw_panel_rows_mma(static_cast<const __nv_bfloat16*>(w), m_pad, kt, lo,
+                          cnt_pad, n0, c);
+    } else {
+      kw_panel_rows(static_cast<const float*>(w) + (size_t)lo * M, kt, wbuf,
+                    cnt, cnt_pad, M, p, g);
+    }
+  };
+  auto epilogue = [&](int p, int home_lo) {  // E of the panel's columns
+    if constexpr (BF16) {
+      const int n0 = p * PANEL + warp * 32;
+      epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+      if (n0 < M) epi16(n0, c);
+    } else {
+      epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+      epi(p, g);
+    }
+    zero();
+  };
+  chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
+                 epilogue);
+  __syncthreads();  // emat's writes are read back below; wbuf is free
+  if constexpr (BF16) {
+    row_sums_mma(epi16.part, wbuf, rse_s);
+  } else {
+    float mine = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float s = warp_sum(epi.rowsum[i]);
+      if (lane == i) mine = s;
+    }
+    if (lane < 8) rse_s[warp * 8 + lane] = mine;
+  }
+
+  // dxs = E zs - rowsum(E) xs, dx and the slots' sums, E^T chunk by chunk;
+  // colsum(E) with the first sweep over the chunks
+  float* colsum = part_m + ((size_t)tile * 2 + 1) * M;
+  const int slots = d > SMALL_D ? 8 : 2;
+  float* part_t = part_s + (size_t)tile * (slots * 2 * d + 3);
+  if (d > SMALL_D) {
+    DxEpilogue dxe{x, inv_ls, mean_w, dx, part_t, rse_s, dm_s, R, d, lane,
+                   warp, row0};
+    const int n_panels = (d + PANEL - 1) / PANEL;
+    for (int p = 0; p < n_panels; ++p) {
+      zero();
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int lo = ci * chunk;
+        const int cnt = min(chunk, M - lo);
+        load_et(emat, kt, p == 0 ? colsum : nullptr, lo, cnt, pad16(cnt), row0,
+                R, M);
+        kw_panel_rows(zs + (size_t)lo * d, kt, wbuf, cnt, pad16(cnt), d, p, g);
+      }
+      dxe(p, g);
+    }
+  } else {
+    const int r = tid & (TR - 1);
+    const int grp = tid >> 6;  // 0..3
+    const int row = row0 + r;
+    for (int kb = 0; kb < d; kb += 32) {
+      const int k0 = kb + grp * 8;
+      const int nk = min(8, d - k0);  // <= 0: no column of its own
+      float acc[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc[jj] = 0.f;
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int lo = ci * chunk;
+        const int cnt = min(chunk, M - lo);
+        load_et(emat, kt, kb == 0 ? colsum : nullptr, lo, cnt, pad16(cnt),
+                row0, R, M);
+        if (nk > 0) {
+          for (int m = 0; m < cnt; ++m) {
+            const float e = kt[m * KT_STRIDE + r];
+            const float* zm = zs + (size_t)(lo + m) * d + k0;
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+              if (jj < nk) acc[jj] = fmaf(e, __ldg(zm + jj), acc[jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float s_dx = 0.f, s_dm = 0.f;
+        if (jj < nk && row < R) {
+          const int k = k0 + jj;
+          const float xv = x[(size_t)row * d + k];
+          const float il = inv_ls[k];
+          const float dxs = acc[jj] - rse_s[r] * (xv * il);
+          dx[(size_t)row * d + k] = fmaf(dxs, il, dm_s[r] * mean_w[k]);
+          s_dx = dxs * xv;
+          s_dm = dm_s[r] * xv;
+        }
+        s_dx = warp_sum(s_dx);
+        s_dm = warp_sum(s_dm);
+        if (lane == 0 && jj < nk) {
+          part_t[(size_t)(warp & 1) * 2 * d + k0 + jj] = s_dx;
+          part_t[(size_t)(warp & 1) * 2 * d + d + k0 + jj] = s_dm;
+        }
+      }
+    }
+  }
+  // the tile's scalar sums
+  if (tid < 3) {
+    const float* src = tid == 0 ? rse_s : (tid == 1 ? dv_s : dm_s);
+    float acc = 0.f;
+    for (int r = 0; r < TR; ++r) acc += src[r];
+    part_t[slots * 2 * d + tid] = acc;
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void frag(const float* p, float (&out)[N]) {
   if constexpr (N == 4) {
@@ -1162,26 +1665,44 @@ __host__ BwdPlan plan(int R, int d, int M, bool bf16) {
   return p;
 }
 
-int smem_fwd(int M) {
-  const long long m_pad = (M + BK - 1) / BK * BK;
-  return (int)((m_pad * KT_STRIDE + WBUF) * (long long)sizeof(float));
+// Shared memory of a forward block that holds K^T for `rows` inducing
+// points (all of M, padded, or one chunk); the backward's row launch needs
+// 3 TR floats more.  The wrapper's layout() mirrors these two.
+int smem_fwd(int rows) {
+  return (int)(((long long)rows * KT_STRIDE + WBUF) * (long long)sizeof(float));
 }
 
-int smem_bwd(int M) { return smem_fwd(M) + 3 * TR * (int)sizeof(float); }
+int smem_bwd(int rows) { return smem_fwd(rows) + 3 * TR * (int)sizeof(float); }
+
+// chunk >= m_pad: the single-pass kernels; else a multiple of PANEL
+bool chunk_ok(int M, int chunk) {
+  const int m_pad = (M + BK - 1) / BK * BK;
+  return chunk >= m_pad || (chunk > 0 && chunk % PANEL == 0);
+}
 
 template <bool BF16>
 int launch_fwd(const float* x, const float* zs, const float* u, const void* w,
                const float* os, const float* inv_ls, const float* mean_w,
                const float* mean_b, float* mean, float* var, int R, int d,
-               int M, cudaStream_t stream) {
+               int M, int chunk, cudaStream_t stream) {
+  if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
   const int m_pad = (M + BK - 1) / BK * BK;
-  const int smem = smem_fwd(M);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const int blocks = (R + TR - 1) / TR;
-  fused_gp_fwd_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
-      x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
+  if (chunk >= m_pad) {
+    const int smem = smem_fwd(m_pad);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_gp_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_gp_fwd_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
+        x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
+    return (int)cudaGetLastError();
+  }
+  const int smem = smem_fwd(chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_gp_fwd_chunked_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_gp_fwd_chunked_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
+      x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1191,7 +1712,8 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
                const float* dmean, const float* dvar, float* dx, float* dzs,
                float* du, float* dw, float* dos, float* dinv_ls,
                float* dmean_w, float* dmean_b, float* scratch, int R, int d,
-               int M, cudaStream_t st) {
+               int M, int chunk, cudaStream_t st) {
+  if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
   const BwdPlan p = plan(R, d, M, BF16);
   float* kmat = scratch + p.kmat;
   float* emat = scratch + p.emat;
@@ -1200,13 +1722,25 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
   float* pw = scratch + p.pw;
   float* pz = scratch + p.pz;
 
-  const int smem = smem_bwd(M);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_bwd_rows_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_gp_bwd_rows_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
-      x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
-      part_s, R, d, M, p.m_pad);
+  cudaError_t err;
+  if (chunk >= p.m_pad) {
+    const int smem = smem_bwd(p.m_pad);
+    err = cudaFuncSetAttribute(
+        fused_gp_bwd_rows_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_gp_bwd_rows_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
+        x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
+        part_s, R, d, M, p.m_pad);
+  } else {
+    const int smem = smem_bwd(chunk);
+    err = cudaFuncSetAttribute(
+        fused_gp_bwd_rows_chunked_kernel<BF16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_gp_bwd_rows_chunked_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
+        x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
+        part_s, R, d, M, p.m_pad, chunk);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int mt = (M + CBM - 1) / CBM;
@@ -1240,20 +1774,6 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
 
 extern "C" {
 
-// Shared memory the forward launch needs, in bytes (the wrapper checks it
-// against the card's per-block limit before launching).  It grows with M
-// only: d streams through a fixed staging buffer.
-long long fused_gp_fwd_smem_bytes(int d, int M) {
-  (void)d;
-  return smem_fwd(M);
-}
-
-// Shared memory of the backward's row launch, in bytes.
-long long fused_gp_bwd_smem_bytes(int d, int M) {
-  (void)d;
-  return smem_bwd(M);
-}
-
 // Floats of device scratch the backward needs (the wrapper allocates it).
 long long fused_gp_bwd_scratch_floats(int R, int d, int M) {
   return plan(R, d, M, false).total;
@@ -1270,13 +1790,15 @@ int fused_gp_bf16_wt_cols(int M) { return (M + BK - 1) / BK * BK; }
 
 // x (R, d) raw rows; zs (M, d) = Z / lengthscale; u (M,); w (M, M) row-major;
 // os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs.
+// chunk: the inducing points a block holds K^T for (the wrapper's layout():
+// M padded to 16 for the single-pass kernels, else a multiple of 256).
 // Returns the cudaError_t of the launch.
 int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w,
                  const float* os, const float* inv_ls, const float* mean_w,
                  const float* mean_b, float* mean, float* var, int R, int d,
-                 int M, void* stream) {
+                 int M, int chunk, void* stream) {
   return launch_fwd<false>(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
-                           R, d, M, (cudaStream_t)stream);
+                           R, d, M, chunk, (cudaStream_t)stream);
 }
 
 // The same with the K W product in bf16 on the tensor cores; wt is the bf16
@@ -1284,9 +1806,10 @@ int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w
 int fused_gp_bf16_fwd(const float* x, const float* zs, const float* u,
                       const void* wt, const float* os, const float* inv_ls,
                       const float* mean_w, const float* mean_b, float* mean,
-                      float* var, int R, int d, int M, void* stream) {
+                      float* var, int R, int d, int M, int chunk,
+                      void* stream) {
   return launch_fwd<true>(x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var,
-                          R, d, M, (cudaStream_t)stream);
+                          R, d, M, chunk, (cudaStream_t)stream);
 }
 
 // The VJP.  Inputs as the forward's, plus dmean, dvar (R,); outputs dx
@@ -1299,10 +1822,10 @@ int fused_gp_bwd(const float* x, const float* zs, const float* u, const float* w
                  const float* dmean, const float* dvar, float* dx, float* dzs,
                  float* du, float* dw, float* dos, float* dinv_ls,
                  float* dmean_w, float* dmean_b, float* scratch, int R, int d,
-                 int M, void* stream) {
+                 int M, int chunk, void* stream) {
   return launch_bwd<false>(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
                            dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
-                           scratch, R, d, M, (cudaStream_t)stream);
+                           scratch, R, d, M, chunk, (cudaStream_t)stream);
 }
 
 // The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores; wt as
@@ -1313,10 +1836,10 @@ int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
                       const float* dvar, float* dx, float* dzs, float* du,
                       float* dw, float* dos, float* dinv_ls, float* dmean_w,
                       float* dmean_b, float* scratch, int R, int d, int M,
-                      void* stream) {
+                      int chunk, void* stream) {
   return launch_bwd<true>(x, zs, u, wt, os, inv_ls, mean_w, dmean, dvar, dx,
                           dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
-                          scratch, R, d, M, (cudaStream_t)stream);
+                          scratch, R, d, M, chunk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -40,7 +40,6 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention imp
     fused_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
-    MAX_HEAD_DIM,
     head_folded_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import dense
@@ -74,7 +73,8 @@ def basic_attention_route(device: torch.device, d_k: int, is_self: bool,
     cross-attention, and the flash kernel for self-attention at
     64 <= d_k < 128; cross-attention at d_k >= 64 and everything at
     d_k >= 128 are plain.  An explicit True or False forces a kernel (the one
-    of that d_k) or the plain path.
+    of that d_k: flash at every d_k >= 64, as JAX's flag takes its
+    ``fused_attention`` there) or the plain path.
     """
     if torch.device(device).type == "cpu":
         return "plain"
@@ -110,10 +110,9 @@ class MultiHeadAttention(nn.Module):
     set this layer holds.
 
     The conv family keeps the JAX package's boolean opt-in: only an explicit
-    ``use_pallas_attention=True`` takes the head-folded kernel (ATA and
-    conv_attn, on CUDA tensors), and auto (None) is the plain op, as
-    ``bool(None)`` is there.  The port's kernel takes d_k <= 63, so the flag
-    at a larger d_k raises rather than run the plain op in its place.
+    ``use_pallas_attention=True`` takes a kernel (ATA and conv_attn, on CUDA
+    tensors; ``conv_attention.conv_attention_route``), and auto (None) is the
+    plain op, as ``bool(None)`` is there.
     """
 
     def __init__(self, d_model: int, d_k: int, d_v: int, n_heads: int,
@@ -135,13 +134,6 @@ class MultiHeadAttention(nn.Module):
                 "fp32 against their fp32 kernels (ROADMAP.md modules to port, "
                 "item 14)")
         use_kernel = bool(use_pallas_attention)
-        if (attn_type in ("ATA", "conv_attn") and use_kernel
-                and d_k > MAX_HEAD_DIM):
-            raise ValueError(
-                f"attn_type={attn_type!r} with use_pallas_attention=True at "
-                f"d_k={d_k}: the port's head-folded kernel takes d_k <= "
-                f"{MAX_HEAD_DIM}, and the flag asks for that kernel; pass "
-                "use_pallas_attention=None (the plain op)")
         self.d_k, self.d_v, self.n_heads = d_k, d_v, n_heads
         self.attn_type = attn_type
         self.use_pallas_attention = use_pallas_attention

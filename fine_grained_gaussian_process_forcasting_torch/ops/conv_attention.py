@@ -14,9 +14,10 @@ as conv1d's (out, in, f) weight (``params.from_flax`` transposes it).  The
 convolutions are cuDNN's (plain XLA in JAX, no Pallas), with TF32 off (the
 package pins it at import).
 
-The final softmax attention of ATA and ConvAttn takes the port's
-head-folded kernel when the layer's flag is set and the tensors lie on the
-card (``_dot_attention``), and the plain version on the CPU.
+The final softmax attention of ATA and ConvAttn takes a kernel of the port
+when the layer's flag is set (``conv_attention_route``): the head-folded
+kernel at d_k <= 63 and the flash kernel above, on the card; each wrapper's
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ from torch import nn
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
     scaled_dot_attention,
 )
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention import (
+    fused_attention,
+)
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
+    MAX_HEAD_DIM,
     head_folded_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import (
@@ -79,14 +84,29 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
+def conv_attention_route(d_k: int, use_kernel: bool) -> str:
+    """Which implementation the conv family's final softmax attention takes:
+    "head_folded", "flash" or "plain".
+
+    Only the flag takes a kernel, as in JAX, whose ``_dot_attention`` runs
+    its head-folded kernel at every d_k: here the head-folded kernel at
+    d_k <= 63 and the flash kernel above, which compute the same softmax
+    attention.  Without the flag the plain op.  The same on every device: on
+    the CPU the named wrapper runs its plain version.
+    """
+    if not use_kernel:
+        return "plain"
+    return "head_folded" if d_k <= MAX_HEAD_DIM else "flash"
+
+
 def _dot_attention(q, k, v, use_kernel: bool):
-    """The conv family's final softmax attention: the head-folded kernel
-    when ``use_kernel`` (on CUDA tensors; its plain version on the CPU),
-    else the plain op."""
-    if use_kernel:
-        return head_folded_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous())
-    return scaled_dot_attention(q, k, v)[0]
+    """The conv family's final softmax attention, by
+    ``conv_attention_route``."""
+    route = conv_attention_route(q.shape[-1], use_kernel)
+    if route == "plain":
+        return scaled_dot_attention(q, k, v)[0]
+    kernel = head_folded_attention if route == "head_folded" else fused_attention
+    return kernel(q.contiguous(), k.contiguous(), v.contiguous())
 
 
 def _merge_heads(x):

@@ -1,5 +1,5 @@
-"""Fused softmax attention for head dims 64..127 (bf16 and fp32): CUDA
-kernels + plain.
+"""Fused softmax attention at any head dim (bf16 and fp32): CUDA kernels +
+plain.
 
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py``
 ``fused_attention`` and ``fused_attention_bf16sm``: softmax(q k^T / sqrt(d)) v
@@ -12,6 +12,13 @@ the operands' dtype.
 ``fused_attention_bf16sm`` subtracts the row's max in fp32 and then runs the
 exponential, the sum and the division on bf16 values (the sum itself in
 fp32); nothing routes to it.
+
+Every head dim d >= 1 runs, as the Pallas kernel's zero-padding to the lane
+width takes any d: the kernels zero-fill their shared-memory tiles past d
+and mask their stores, nothing is padded in device memory.  bf16 operands
+at d <= 256 take the ``wgmma`` kernels (padded width ``wgmma_width``: 64,
+128 or 256); fp32 operands and bf16 at d > 256 take the FFMA kernels, 64
+output columns a block.
 
 ``fused_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors and
 runs the plain version for CPU tensors; it never falls back from one to the
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -39,9 +47,20 @@ bwd_launches = 0
 #: the same two counts for the sm_bf16 variant
 sm16_launches = 0
 sm16_bwd_launches = 0
+#: the fp32 operands' share of ``launches`` and ``bwd_launches``
+f32_launches = 0
+f32_bwd_launches = 0
 
-MIN_HEAD_DIM, MAX_HEAD_DIM = 64, 127
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+def wgmma_width(d: int, dtype) -> int:
+    """The padded head dim of the ``wgmma`` kernels that a call takes (64,
+    128 or 256), or 0 where the FFMA kernels take it; as ``wgmma_width``
+    in the CUDA source decides."""
+    if dtype != torch.bfloat16 or d > 256:
+        return 0
+    return 64 if d <= 64 else (128 if d <= 128 else 256)
 
 
 def _dot(a, b):
@@ -83,20 +102,31 @@ def fused_attention_bwd_plain(q, k, v, do, sm_bf16=False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+class Stats(NamedTuple):
+    """What the forward keeps for the backward: each row's log-sum-exp, (b,
+    h, lq) (``sm_bf16``: its max and rounded sum, (2, b, h, lq)), and, for
+    bf16 operands, ``o_lo``, the output's rounding residual against the
+    product with unrounded probabilities, so that the backward's
+    D = rowsum(dO o (o + o_lo)) is the reference's rowsum(dP o P)."""
+    lse: torch.Tensor
+    o_lo: Optional[torch.Tensor]
+
+
 def launcher():
-    """The C forward launcher: (q, k, v, out, stats-or-null pointers, b*h,
-    Lq, Lk, d, bf16, sm_bf16, stream) -> cudaError_t."""
+    """The C forward launcher: (q, k, v, out, o_lo-or-null, stats-or-null
+    pointers, b*h, Lq, Lk, d, bf16, sm_bf16, stream) -> cudaError_t."""
     return _build.function(
         "flash_attention", "flash_attention_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def bwd_launcher():
-    """The C backward launcher: (q, k, v, o, stats, dout, dq, dk, dv, delta
-    pointers, b*h, Lq, Lk, d, bf16, sm_bf16, stream) -> cudaError_t."""
+    """The C backward launcher: (q, k, v, o, o_lo-or-null, stats, dout, dq,
+    dk, dv, delta pointers, b*h, Lq, Lk, d, bf16, sm_bf16, stream) ->
+    cudaError_t."""
     return _build.function(
         "flash_attention", "flash_attention_bwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _check(q, k, v):
@@ -109,11 +139,8 @@ def _check(q, k, v):
                          f"v {tuple(v.shape)} do not match")
     if q.dtype not in DTYPES:
         raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
-    step = 16 if q.dtype == torch.bfloat16 else 8
-    if not MIN_HEAD_DIM <= d <= MAX_HEAD_DIM or d % step:
-        raise ValueError(
-            f"head dim {d} is not a multiple of {step} in the kernel's "
-            f"{MIN_HEAD_DIM}..{MAX_HEAD_DIM} for {q.dtype}")
+    if d == 0:
+        raise ValueError("head dim 0")
     if lk == 0:
         raise ValueError("no keys")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -134,16 +161,20 @@ def forward_kernel(q, k, v, with_stats: bool, sm_bf16=False):
     backward: each row's log-sum-exp, (b, h, lq); with ``sm_bf16`` each row's
     max and rounded sum, (2, b, h, lq).  The inputs are checked by the
     caller."""
-    global launches, sm16_launches
+    global launches, sm16_launches, f32_launches
     b, h, lq, d = q.shape
     out = torch.empty_like(q)
-    shape = (2, b, h, lq) if sm_bf16 else (b, h, lq)
-    stats = (torch.empty(shape, device=q.device, dtype=torch.float32)
-             if with_stats else None)
+    stats = None
+    if with_stats:
+        shape = (2, b, h, lq) if sm_bf16 else (b, h, lq)
+        stats = Stats(torch.empty(shape, device=q.device, dtype=torch.float32),
+                      torch.empty_like(q) if q.dtype == torch.bfloat16
+                      else None)
     if out.numel() == 0:
         return out, stats
     err = launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     stats.data_ptr() if with_stats else None, b * h, lq,
+                     _ptr(stats.o_lo) if with_stats else None,
+                     stats.lse.data_ptr() if with_stats else None, b * h, lq,
                      k.shape[2], d, int(q.dtype == torch.bfloat16),
                      int(sm_bf16), _stream(q))
     if err != 0:
@@ -153,13 +184,18 @@ def forward_kernel(q, k, v, with_stats: bool, sm_bf16=False):
         sm16_launches += 1
     else:
         launches += 1
+        f32_launches += q.dtype == torch.float32
     return out, stats
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def backward_kernel(q, k, v, out, stats, do, sm_bf16=False):
-    """Launch the backward kernels: (dq, dk, dv); ``do`` contiguous, in the
-    operands' dtype."""
-    global bwd_launches, sm16_bwd_launches
+    """Launch the backward kernels: (dq, dk, dv); ``stats`` the forward's
+    ``Stats``; ``do`` contiguous, in the operands' dtype."""
+    global bwd_launches, sm16_bwd_launches, f32_bwd_launches
     b, h, lq, d = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -169,7 +205,8 @@ def backward_kernel(q, k, v, out, stats, do, sm_bf16=False):
     delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     err = bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        _ptr(stats.o_lo), stats.lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), b * h, lq, k.shape[2], d,
         int(q.dtype == torch.bfloat16), int(sm_bf16), _stream(q))
     if err != 0:
@@ -179,6 +216,7 @@ def backward_kernel(q, k, v, out, stats, do, sm_bf16=False):
         sm16_bwd_launches += 1
     else:
         bwd_launches += 1
+        f32_bwd_launches += q.dtype == torch.float32
     return dq, dk, dv
 
 
@@ -193,7 +231,7 @@ class _FusedAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v)
             return fused_attention_plain(q, k, v, sm_bf16)
         out, stats = forward_kernel(q, k, v, True, sm_bf16)
-        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.save_for_backward(q, k, v, out, *stats)
         return out
 
     @staticmethod
@@ -203,7 +241,8 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             return (None, *fused_attention_bwd_plain(q, k, v, do,
                                                      ctx.sm_bf16))
-        return (None, *backward_kernel(q, k, v, *saved,
+        out, lse, o_lo = saved
+        return (None, *backward_kernel(q, k, v, out, Stats(lse, o_lo),
                                        do.to(q.dtype).contiguous(),
                                        ctx.sm_bf16))
 

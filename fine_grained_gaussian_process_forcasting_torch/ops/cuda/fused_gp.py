@@ -33,6 +33,7 @@ backward.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -48,6 +49,38 @@ bf16_launches = 0
 bf16_bwd_launches = 0
 
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block can use
+# the kernels' shared-memory arithmetic (csrc/fused_gp.cu: TR, KT_STRIDE,
+# WBUF, BK)
+_TR, _KT_STRIDE, _WBUF, _BK = 64, 68, 2 * 16 * 256, 16
+#: inducing points a block holds K^T for when all of M does not fit (a
+#: multiple of the kernels' 256-column panel)
+CHUNK = 512
+
+
+class Layout(NamedTuple):
+    """How the kernels split M: ``chunk`` inducing points of K^T in a
+    block's shared memory (M padded to 16 when all of it fits, the single
+    pass; else ``CHUNK``), and the bytes the forward and the backward's row
+    launch need for it."""
+    chunk: int
+    fwd_smem: int
+    bwd_smem: int
+
+
+def layout(m: int) -> Layout:
+    """The kernels' split of M inducing points, which the launchers take:
+    one pass over all of M up to M 720, chunks of ``CHUNK`` beyond (the
+    counterpart of the Pallas kernel's ``_row_layout``, which shrinks its
+    row tile instead)."""
+    def fwd(rows):
+        return (rows * _KT_STRIDE + _WBUF) * 4
+
+    def bwd(rows):
+        return fwd(rows) + 3 * _TR * 4
+
+    m_pad = -(-m // _BK) * _BK
+    chunk = m_pad if bwd(m_pad) <= _MAX_SMEM else CHUNK
+    return Layout(chunk, fwd(chunk), bwd(chunk))
 
 
 def _round_bf16(t):
@@ -155,20 +188,21 @@ def whitened_marginals_bf16_bwd_plain(*args):
 
 def launcher(bf16=False):
     """The C launcher: (x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var
-    pointers, R, d, M, stream) -> cudaError_t.  ``bf16``: the bf16 variant's,
-    which takes ``bf16_wt(w)`` in the place of w."""
+    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16``:
+    the bf16 variant's, which takes ``bf16_wt(w)`` in the place of w."""
     return _build.function(
         "fused_gp", "fused_gp_bf16_fwd" if bf16 else "fused_gp_fwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def bwd_launcher(bf16=False):
     """The C backward launcher: (x, zs, u, w, os, inv_ls, mean_w, dmean,
     dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch
-    pointers, R, d, M, stream) -> cudaError_t.  ``bf16`` as ``launcher``."""
+    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16`` as
+    ``launcher``."""
     return _build.function(
         "fused_gp", "fused_gp_bf16_bwd" if bf16 else "fused_gp_bwd",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def bf16_wt(w):
@@ -183,25 +217,12 @@ def bf16_wt(w):
     return wt
 
 
-def _smem_bytes(d: int, m: int, symbol="fused_gp_fwd_smem_bytes") -> int:
-    return _build.function("fused_gp", symbol, [ctypes.c_int, ctypes.c_int],
-                           ctypes.c_longlong)(d, m)
-
-
 def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
     """Floats of device scratch one backward call needs at R rows."""
     symbol = ("fused_gp_bf16_bwd_scratch_floats" if bf16
               else "fused_gp_bwd_scratch_floats")
     return _build.function("fused_gp", symbol, [ctypes.c_int] * 3,
                            ctypes.c_longlong)(r, d, m)
-
-
-def _check_smem(d: int, m: int, symbol: str):
-    smem = _smem_bytes(d, m, symbol)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"{symbol[:-11]} kernel needs {smem} bytes of shared memory at "
-            f"d={d}, M={m}; a block has {_MAX_SMEM}")
 
 
 def _check(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b):
@@ -285,7 +306,6 @@ def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
     global launches, bf16_launches
     b, n, d = x.shape
     m = zs.shape[0]
-    _check_smem(d, m, "fused_gp_fwd_smem_bytes")
     mean = torch.empty((b, n), device=x.device, dtype=torch.float32)
     var = torch.empty((b, n), device=x.device, dtype=torch.float32)
     w_in = bf16_wt(w) if bf16 else w
@@ -294,7 +314,7 @@ def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
         x.data_ptr(), zs.data_ptr(), u.data_ptr(), w_in.data_ptr(),
         outputscale.data_ptr(), inv_ls.data_ptr(), mean_w.data_ptr(),
         mean_b.data_ptr(), mean.data_ptr(), var.data_ptr(), b * n, d, m,
-        stream)
+        layout(m).chunk, stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_fwd launch failed: cudaError {err}")
     if bf16:
@@ -311,7 +331,6 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     global bwd_launches, bf16_bwd_launches
     b, n, d = x.shape
     m = zs.shape[0]
-    _check_smem(d, m, "fused_gp_bwd_smem_bytes")
 
     def new(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
@@ -325,7 +344,7 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
         *(t.data_ptr() for t in (x, zs, u, w_in, outputscale, inv_ls, mean_w,
                                  dmean, dvar)),
         *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m,
-        stream)
+        layout(m).chunk, stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_bwd launch failed: cudaError {err}")
     if bf16:

@@ -136,6 +136,17 @@ def test_flagged_op_matches_jax_head_folded(op):
                                atol=TOL_OP)
 
 
+@pytest.mark.parametrize("d_k", [72, 128])
+@pytest.mark.parametrize("op", ["ATA", "conv_attn"])
+def test_flagged_op_above_the_head_folded_kernel_matches_jax(op, d_k):
+    """The flag at head dims past 64 (d_k 64 is held above): the port's
+    flash route (its plain version on the CPU) against JAX's head-folded
+    kernel (interpret mode)."""
+    assert tca.conv_attention_route(d_k, True) == "flash"
+    got, want = _flagged_op_at(op, d_k, seed=d_k)
+    np.testing.assert_allclose(got, want, rtol=TOL_OP, atol=TOL_OP)
+
+
 def test_batch_stats_norm_is_biased_batch_normalisation():
     x = np.random.default_rng(5).normal(size=(3, 7, 6)).astype(np.float32)
     norm = tca.BatchStatsNorm(6, device="cpu")
@@ -226,14 +237,37 @@ def test_forecast_denoising_step_matches_jax(attn_type):
             jax.tree_util.keystr(path)
 
 
+def _flagged_op_at(op, d_k, seed):
+    """(port, JAX) outputs of the op with the flag at head dim d_k, from
+    the same parameters and inputs."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(2, 2, 12, d_k)).astype(np.float32)
+               for _ in range(3))
+    make_j = (jca.ATAAttention if op == "ATA" else jca.ConvAttnAttention)
+    make_t = (tca.ATAAttention if op == "ATA" else tca.ConvAttnAttention)
+    jmod = make_j(d_k=d_k, n_heads=2, use_pallas_attention=True)
+    params = _init(jmod, seed, q, k, v)
+    want, _ = jmod.apply({"params": params}, q, k, v)
+    tmod = make_t(d_k, 2, use_kernel=True, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    tmod.load_state_dict(from_flax(_np_tree(params)))
+    with torch.no_grad():
+        got = tmod(*(torch.from_numpy(a) for a in (q, k, v)))
+    return got.numpy(), np.asarray(want)
+
+
 def test_flag_beyond_the_kernels_head_dim_raises():
-    with pytest.raises(ValueError, match="d_k"):
-        ttr.Transformer(d_model=512, d_ff=64, d_k=64, d_v=64, n_heads=8,
-                        n_layers=1, attn_type="ATA", use_pallas_attention=True,
-                        device="cpu")
-    # auto is the plain op at any d_k
+    """The flag at d_k 64, past the head-folded kernel's d_k <= 63: the port
+    takes the flash kernel there (its plain version on the CPU), JAX its
+    head-folded kernel (interpret mode), the same function; nothing
+    raises.  16-bit compute still raises."""
+    for op in ("ATA", "conv_attn"):
+        got, want = _flagged_op_at(op, 64, seed=8)
+        np.testing.assert_allclose(got, want, rtol=TOL_OP, atol=TOL_OP,
+                                   err_msg=op)
     ttr.Transformer(d_model=512, d_ff=64, d_k=64, d_v=64, n_heads=8,
-                    n_layers=1, attn_type="ATA", device="cpu")
+                    n_layers=1, attn_type="ATA", use_pallas_attention=True,
+                    device="cpu")
     # the JAX conv layers promote a 16-bit input to fp32: not ported yet
     with pytest.raises(NotImplementedError, match="item 14"):
         ttr.Transformer(d_model=32, d_ff=64, d_k=4, d_v=4, n_heads=8,

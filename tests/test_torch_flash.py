@@ -177,10 +177,60 @@ def test_fused_attention_on_cpu_differentiates_by_its_own_rule(dtype,
     assert tflash.sm16_launches == 0 and tflash.sm16_bwd_launches == 0
 
 
+# head dims that the kernels pad inside their tiles, as the Pallas kernel
+# pads d to the lane width: the same function at every d
+PADDED = [("fp32", 60), ("fp32", 100), ("fp32", 128), ("bf16", 60),
+          ("bf16", 72), ("bf16", 100), ("bf16", 128)]
+
+
+def _pairs(arrays, dtype):
+    if dtype == "bf16":
+        return [_bf16_pair(a) for a in arrays]
+    return [(jnp.asarray(a), torch.from_numpy(a)) for a in arrays]
+
+
+def _assert_close(got, want, dtype, name=""):
+    if dtype == "bf16":
+        _assert_close_bf16(got, want, name)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,d", PADDED)
+def test_fused_attention_plain_matches_jax_pallas_at_padded_head_dims(
+        dtype, d):
+    """The head dims the kernels used to refuse: forward against the Pallas
+    kernel (interpret mode, d zero-padded to the lane width)."""
+    pairs = _pairs(_qkv(24, 17, seed=d, d=d), dtype)
+    want = jflash.fused_attention(*(p[0] for p in pairs))
+    got = tflash.fused_attention(*(p[1] for p in pairs))
+    assert got.shape == (2, 2, 24, d)
+    if dtype == "bf16":
+        _assert_close_bf16(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL_FWD, atol=ATOL_FWD)
+
+
+@pytest.mark.parametrize("dtype,d", PADDED)
+def test_fused_attention_bwd_plain_matches_jax_vjp_at_padded_head_dims(
+        dtype, d):
+    arrays = _qkv(24, 17, seed=d + 1, d=d)
+    arrays.append(np.random.default_rng(d).normal(
+        size=arrays[0].shape).astype(np.float32))
+    pairs = _pairs(arrays, dtype)
+    _, vjp = jax.vjp(jflash.fused_attention, *(p[0] for p in pairs[:3]))
+    want = vjp(pairs[3][0])
+    got = tflash.fused_attention_bwd_plain(*(p[1] for p in pairs))
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert tuple(g.shape) == w.shape, name
+        _assert_close(g, w, dtype, name)
+
+
 @pytest.mark.parametrize("case,error,match", [
-    ("d60", ValueError, "head dim"),
-    ("d128", ValueError, "head dim"),
-    ("d72_bf16", ValueError, "multiple of 16"),
+    ("d0", ValueError, "head dim 0"),
     ("fp16", TypeError, "bfloat16 or float32"),
     ("mixed", TypeError, "k is"),
     ("strided", ValueError, "contiguous"),
@@ -188,12 +238,12 @@ def test_fused_attention_on_cpu_differentiates_by_its_own_rule(dtype,
 ])
 def test_fused_attention_refuses_what_the_kernel_does_not_take(case, error,
                                                                match):
+    """Every head dim d >= 1 is taken (the kernels pad inside their tiles);
+    what stays refused: an empty head dim, fp16, mixed dtypes, strides and
+    shape mismatches."""
     q, k, v = (torch.zeros(1, 2, 8, 64) for _ in range(3))
-    if case in ("d60", "d128"):
-        q, k, v = (torch.zeros(1, 2, 8, int(case[1:])) for _ in range(3))
-    elif case == "d72_bf16":
-        q, k, v = (torch.zeros(1, 2, 8, 72, dtype=torch.bfloat16)
-                   for _ in range(3))
+    if case == "d0":
+        q, k, v = (torch.zeros(1, 2, 8, 0) for _ in range(3))
     elif case == "fp16":
         q, k, v = (t.half() for t in (q, k, v))
     elif case == "mixed":

@@ -104,6 +104,49 @@ def test_fused_gp_plain_matches_jax_pallas(b, n):
                                    atol=TOL_GP)
 
 
+@pytest.mark.parametrize("m", [512, 720, 721, 1024, 2048, 4096])
+def test_fused_gp_layout_fits_a_block_at_any_m(m):
+    """The layout the kernels take: all of M in one pass up to M 720 (the
+    flagship's M 512 keeps its single-pass kernels), chunks of 512 inducing
+    points beyond, and a forward and backward block's shared memory within
+    the H100's 232,448 bytes either way.  d streams through a fixed buffer
+    and does not enter."""
+    lay = tfused.layout(m)
+    assert lay.fwd_smem <= 232_448 and lay.bwd_smem <= 232_448
+    m_pad = -(-m // 16) * 16
+    if m <= 720:
+        assert lay.chunk == m_pad
+    else:
+        assert lay.chunk == tfused.CHUNK and lay.chunk % 256 == 0
+        assert lay.chunk < m_pad
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_plain_matches_jax_pallas_at_m_1024(bf16):
+    """M 1024, where the kernels take M in chunks: the plain forward and VJP
+    against the Pallas kernel (interpret mode)."""
+    args = list(_fused_inputs(2, 9, d=8, m=1024, seed=1024 + bf16))
+    args[3] = (args[3] * (32 / 1024)).astype(np.float32)  # var of O(1)
+    dmean, dvar = _cotangents(2, 9, seed=5)
+    jfn = (jfused.whitened_marginals_affine_bf16 if bf16
+           else jfused.whitened_marginals_affine)
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in args))
+    want_grads = vjp((jnp.asarray(dmean), jnp.asarray(dvar)))
+    got = tfused.whitened_marginals_affine_plain(*(_t(a) for a in args),
+                                                 bf16=bf16)
+    grads = tfused.whitened_marginals_affine_bwd_plain(
+        *(_t(a) for a in args), _t(dmean), _t(dvar), bf16=bf16)
+    for g, w_, name in zip((*got, *grads), (*want, *want_grads),
+                           ("mean", "var") + GRAD_NAMES):
+        if bf16:
+            _assert_close_bf16(g.numpy(), w_, name)
+        else:
+            np.testing.assert_allclose(
+                g.numpy(), np.asarray(w_), rtol=RTOL_GRAD if name in
+                GRAD_NAMES else TOL_GP, atol=ATOL_GRAD if name in GRAD_NAMES
+                else TOL_GP, err_msg=name)
+
+
 def _assert_close_bf16(got, want, name=""):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, name

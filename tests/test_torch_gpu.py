@@ -88,11 +88,15 @@ def _assert_close_bf16(got, want, name="", scale=None, rel=TOL_BF16):
     assert err <= rel * max(scale, 1e-6), (name, err, scale)
 
 
+# M past the single-pass kernels' 720: the chunked kernels (fused_gp.layout)
+LARGE_M = [(3, 77, 32, 721), (2, 60, 32, 1024), (2, 35, 8, 2048)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
                                      (2, 5, 7, 300), (3, 50, 96, 512),
                                      (2, 101, 512, 512), (1, 70, 130, 40),
-                                     (4, 288, 8, 512)])
+                                     (4, 288, 8, 512), *LARGE_M])
 def test_fused_gp_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m, device=cuda)
     before = fused_gp.launches
@@ -126,7 +130,8 @@ GP_GRADS = ("x", "zs", "u", "w", "outputscale", "inv_ls", "mean_w", "mean_b")
 @pytest.mark.parametrize("b,n,d,m", [(4, 36, 16, 32), (3, 77, 32, 512),
                                      (2, 5, 7, 300), (3, 13, 1, 16),
                                      (3, 50, 96, 512), (2, 101, 512, 512),
-                                     (1, 70, 130, 40), (4, 288, 8, 512)])
+                                     (1, 70, 130, 40), (4, 288, 8, 512),
+                                     (2, 40, 100, 1024), *LARGE_M])
 def test_fused_gp_bwd_kernel_matches_plain(cuda, b, n, d, m):
     args = _fused_inputs(b, n, d, m, seed=m + 1, device=cuda)
     rng = np.random.default_rng(d)
@@ -162,7 +167,7 @@ def test_fused_gp_kernel_takes_grad(cuda):
 
 
 GP_SHAPES_BF16 = [(4, 36, 16, 32), (3, 77, 32, 512), (2, 5, 7, 300),
-                  (3, 50, 96, 512), (2, 101, 512, 512)]
+                  (3, 50, 96, 512), (2, 101, 512, 512), *LARGE_M]
 
 
 @pytest.mark.gpu
@@ -445,18 +450,19 @@ def test_head_folded_kernel_takes_grad(cuda, lq, lk):
 FLASH_SHAPES = [(64, 8, 512, 512, 64), (64, 8, 128, 128, 64),
                 (2, 3, 130, 77, 64), (1, 2, 50, 200, 96), (2, 1, 65, 64, 112),
                 (1, 1, 1, 1, 80)]
+# head dims the kernels pad inside their tiles (every d >= 1 runs): the
+# wgmma kernels' widths 64, 128 and 256 for bf16, the FFMA kernels' 64-column
+# blocks for fp32, and past 256 the FFMA kernels for bf16 too
+PADDED_D = [1, 8, 60, 72, 100, 128, 192, 256, 320]
+PADDED_SHAPES = [(2, 2, 70, 33, d) for d in PADDED_D]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES + [(2, 2, 70, 33, 72)])
+@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES + PADDED_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
     q, k, v = (t.to(dtype) for t in _qkv(b, h, lq, lk, d, seed=d, device=cuda))
-    if dtype == torch.bfloat16 and d % 16:
-        with pytest.raises(ValueError, match="head dim"):
-            flash.fused_attention(q, k, v)
-        return
     before = flash.launches
     got = flash.fused_attention(q, k, v)
     torch.cuda.synchronize()
@@ -471,25 +477,27 @@ def test_flash_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES)
+@pytest.mark.parametrize("b,h,lq,lk,d", FLASH_SHAPES + PADDED_SHAPES)
 def test_flash_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
     q, k, v = (t.to(dtype) for t in _qkv(b, h, lq, lk, d, seed=d + 1,
                                          device=cuda))
     do = torch.randn(b, h, lq, d, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(d)).to(dtype)
-    out, lse = flash.forward_kernel(q, k, v, with_stats=True)
+    out, stats = flash.forward_kernel(q, k, v, with_stats=True)
     want_lse = torch.logsumexp(
         torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5,
         dim=-1)
-    torch.testing.assert_close(lse, want_lse, rtol=TOL_FLASH, atol=1e-4)
+    torch.testing.assert_close(stats.lse, want_lse, rtol=TOL_FLASH, atol=1e-4)
+    assert (stats.o_lo is not None) == (dtype == torch.bfloat16)
     before = flash.bwd_launches
-    got = flash.backward_kernel(q, k, v, out, lse, do)
+    got = flash.backward_kernel(q, k, v, out, stats, do)
     torch.cuda.synchronize()
     assert flash.bwd_launches == before + 1
     want = flash.fused_attention_bwd_plain(q, k, v, do)
     # bf16, relative to the largest of the three gradients: the kernel takes
-    # D = rowsum(dO o O) from the rounded O, so where the exact gradient is 0
-    # (a single key: dq = dk = 0) it leaves O's rounding error
+    # D = rowsum(dO o (O + o_lo)), the reference's rowsum(dP o P) up to the
+    # rounding of the bf16 residual o_lo, so where the exact gradient is 0
+    # (a single key: dq = dk = 0) it leaves that rounding
     scale = max(w.float().abs().max().item() for w in want)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == dtype, name
@@ -499,7 +507,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d, dtype):
         else:
             _assert_close_bf16(g, w, name,
                                scale if min(lq, lk) == 1 else None)
-    again = flash.backward_kernel(q, k, v, out, lse, do)
+    again = flash.backward_kernel(q, k, v, out, stats, do)
     for g, a in zip(got, again):  # no atomics: equal bit for bit
         assert torch.equal(g, a)
 
@@ -521,7 +529,7 @@ def test_flash_bf16sm_kernels_match_plain(cuda, b, h, lq, lk, d, dtype):
     torch.cuda.synchronize()
     assert (flash.sm16_launches, flash.sm16_bwd_launches, flash.launches) == (
         before[0] + 2, before[1] + 1, before[2])
-    assert torch.equal(got, out) and stats.shape == (2, b, h, lq)
+    assert torch.equal(got, out) and stats.lse.shape == (2, b, h, lq)
     _assert_close_bf16(got, flash.fused_attention_plain(q, k, v, True),
                        "out", rel=TOL_SM16)
     want = flash.fused_attention_bwd_plain(q, k, v, do, True)
@@ -695,19 +703,63 @@ def _step(model, batch):
                              for n, p in model.named_parameters()}
 
 
+# head dims the flash kernels pad: a bf16 model at d_k 72 (auto: self-
+# attention on flash) and an fp32 model at d_k 128 with the flag (flash for
+# self- and cross-attention, as JAX's flag takes its fused_attention there)
+PADDED_MODELS = {
+    "dk72_bf16": dict(WIDE, d_model=144, d_k=72, **BF16),
+    "dk128_flag": dict(WIDE, d_model=256, d_k=128, use_pallas_attention=True),
+}
+
+
+def _flash_per_pass(kw):
+    """flash launches of one model call: self-attention in each of the two
+    layers of encoder and decoder, cross-attention too with the flag; the
+    forecaster and the denoiser each make one pass"""
+    return 2 * (6 if kw.get("use_pallas_attention") else 4)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("config", ["wide_fp32", "wide_bf16", "production"])
+@pytest.mark.parametrize("config", list(PADDED_MODELS))
+def test_padded_head_dim_model_serves_on_card(cuda, config):
+    """The models whose head dims the flash kernels used to refuse serve on
+    the card through them, and match the CPU run."""
+    kw = PADDED_MODELS[config]
+    rng = np.random.default_rng(5)
+    enc = rng.normal(size=(N, ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(N, DEC, F)).astype(np.float32)
+    cpu_model = ForecastDenoising(**kw, device="cpu")
+    state = cpu_model.state_dict()
+    want = InferenceSession(cpu_model, state, batch_size=BATCH,
+                            device="cpu").predict(enc, dec)
+    session = InferenceSession(ForecastDenoising(**kw, device=cuda), state,
+                               batch_size=BATCH, device=cuda)
+    _zero_counts()
+    got = session.predict(enc, dec)  # three batches
+    assert flash.launches == 3 * _flash_per_pass(kw) and hfa.launches == 0
+    assert np.isfinite(got).all()
+    if "compute_dtype" in kw:
+        assert np.abs(got - want).max() <= TOL_BF16_MODEL * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL_MODEL, atol=TOL_MODEL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["wide_fp32", "wide_bf16", "production",
+                                    *PADDED_MODELS])
 def test_wide_training_step_on_card_matches_cpu(cuda, config):
     """One forward and backward on the card (flash and fused-GP kernels,
     forward and backward) and on the CPU from the same weights and windows.
     ``production``: the full width (d_model 512, 8 heads, d_k 64, 2 layers,
-    512 inducing points, enc 512, dec 128, bf16) on 2 windows."""
+    512 inducing points, enc 512, dec 128, bf16) on 2 windows; the padded
+    head dims of ``PADDED_MODELS`` too."""
     if config == "production":
         kw = dict(WIDE, src_input_size=8, tgt_input_size=8, d_model=512,
                   n_heads=8, pred_len=128, num_inducing=512, **BF16)
         b, enc_len, dec_len, feats = 2, 512, 128, 8
     else:
-        kw = dict(WIDE, **(BF16 if config == "wide_bf16" else {}))
+        kw = PADDED_MODELS.get(config) or dict(
+            WIDE, **(BF16 if config == "wide_bf16" else {}))
         b, enc_len, dec_len, feats = BATCH, ENC, DEC, F
     bf16 = "compute_dtype" in kw
     rng = np.random.default_rng(11)
@@ -730,9 +782,10 @@ def test_wide_training_step_on_card_matches_cpu(cuda, config):
     loss_g, grads_g = _step(gpu_model, [t.to(cuda) for t in batch])
     gp = ({"fused_gp_bf16": 1, "fused_gp_bf16_bwd": 1} if bf16
           else {"fused_gp": 2})
+    per_pass = _flash_per_pass(kw)
     assert _flash_counts() == {
-        "flash": 8, "flash_bwd": 8, "head_folded": 0, "fused_gp": 0,
-        "fused_gp_bf16": 0, "fused_gp_bf16_bwd": 0, **gp}
+        "flash": per_pass, "flash_bwd": per_pass, "head_folded": 0,
+        "fused_gp": 0, "fused_gp_bf16": 0, "fused_gp_bf16_bwd": 0, **gp}
     np.testing.assert_allclose(loss_g, loss_c,
                                rtol=TOL_BF16_MODEL if bf16 else TOL_MODEL)
     for name, gc in grads_c.items():
@@ -905,6 +958,43 @@ def test_conv_family_with_the_flag_takes_head_folded(cuda, attn_type):
         assert (hfa.launches - fwd, hfa.bwd_launches - bwd) == (per_step,
                                                                 per_step)
         assert torch.isfinite(out.loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_k", [64, 128])
+@pytest.mark.parametrize("attn_type", ["ATA", "conv_attn"])
+def test_conv_family_with_the_flag_above_63_takes_flash(cuda, attn_type, d_k):
+    """use_pallas_attention=True past the head-folded kernel's d_k <= 63:
+    the op's softmax attention runs the flash kernel, forward and backward,
+    never the plain op, and matches the op with the plain attention."""
+    from fine_grained_gaussian_process_forcasting_torch.ops import (
+        conv_attention as tca,
+    )
+
+    make = tca.ATAAttention if attn_type == "ATA" else tca.ConvAttnAttention
+    ops = [make(d_k, 2, use_kernel=flag, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+           for flag in (True, False)]
+    ops[1].load_state_dict(ops[0].state_dict())
+    ops = [op.to(cuda) for op in ops]
+    qkv = _qkv(3, 2, 40, 40, d_k, seed=d_k, device=cuda)
+    grads, outs = [], []
+    for op in ops:
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        counts = (flash.launches, flash.bwd_launches, hfa.launches)
+        out = op(*leaves)
+        torch.sin(out).sum().backward()
+        torch.cuda.synchronize()
+        ran = (flash.launches - counts[0], flash.bwd_launches - counts[1],
+               hfa.launches - counts[2])
+        assert ran == ((1, 1, 0) if op.use_kernel else (0, 0, 0))
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.testing.assert_close(outs[0], outs[1], rtol=TOL_FLASH,
+                               atol=ATOL_FLASH)
+    for g, w, name in zip(*grads, "qkv"):
+        torch.testing.assert_close(g, w, rtol=TOL_FLASH_GRAD,
+                                   atol=ATOL_FLASH_GRAD, msg=name)
 
 
 @pytest.mark.gpu
