@@ -17,15 +17,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    variants (the same kernels, on no path) at the flagship shape; the rbf
    cross-covariance at the multi-layer flagship's hidden layer (8 GPs, one
    launch); the batched Cholesky at the exact blur's (256, 192, 192) and
-   (256, 96, 96), at (16, 384, 384) for correctness, and on a batch with an
-   indefinite matrix (NaN there, no exception); the small-head attention
+   (256, 96, 96), at (16, 384, 384), at the sizes around its 32-column
+   panels (n 1, 31, 32, 33, 97, 191, 192, 241) and past 1056 (n 1100, the
+   panel staged from device memory), and on batches with a matrix that
+   fails at the first pivot or inside a later panel (NaN there, no
+   exception); the small-head attention
    (d <= 8, on no path) at the flagship's three calls at d 4, timed beside
    SDPA and the head-folded kernel, and at d 2 and d 8, with two backward
    runs bit-equal; the flash kernels at the head dims they pad in their
    tiles (60, 72, 128, 256), both dtypes; the fused GP at M 1024 and 2048,
-   where it takes M in chunks, both dtypes (these on no path).  The
-   library's backward is timed on the device alone, from its kernels under
-   ``torch.profiler``.
+   where the fp32 kernels take M in chunks, both dtypes (these on no
+   path).  The bf16 backward (the `wgmma` design) is also held to float64:
+   each gradient no farther from it than twice the plain version, and two
+   runs bit-equal.  The fused-GP backward's device time by kernel is read
+   under ``torch.profiler`` at the flagship (fp32) and production (bf16)
+   shapes, with the scratch it allocates.  The library's backward is timed
+   on the device alone, from its kernels under ``torch.profiler``.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -145,6 +152,19 @@ TOL_SERVING = 1e-3
 # fp32 version itself feels (both are printed against float64).
 # Attention: the JAX package's kernel-gradient atol (1e-5).
 TOL_FUSED_GP_BWD = 1e-3
+# the bf16 fused-GP backward runs the reference's fp32 products as products
+# of bf16 parts: each gradient's distance from a float64 evaluation of the
+# function (the fp32 function, and the bf16 function rounded to bf16 at the
+# same places) may be at most twice the plain bf16 version's
+F64_BUDGET_BF16_BWD = 2.0
+# The distance from the bf16 function comes mostly from the elements where
+# an fp32 K and the float64 K round to different bf16 values, and the
+# kernel's K and plain's differ in their last bits, so each has its own set
+# of such elements: in one draw of the inputs the two distances are nearly
+# independent errors of one size, whose ratio exceeds 2 in about 30 % of
+# draws.  That comparison is made on the distances summed over F64_DRAWS
+# draws (a ratio above 2 in about 0.6 % of runs for two equal errors).
+F64_DRAWS = 16
 TOL_ATTENTION_BWD = 1e-5
 # one training step on the card against the CPU: the loss, and each
 # parameter's gradient relative to its largest magnitude
@@ -414,6 +434,34 @@ def _measure(got, want, rtol_atol):
             (diff / (atol + rtol * want.abs())).max().item())
 
 
+def _f64_ratio(kernel, plain):
+    """The kernel's distance from float64 over the plain version's."""
+    if plain > 0:
+        return kernel / plain
+    return 0.0 if kernel == 0 else math.inf
+
+
+def _bf16_function_distances(draw, kernel, plain, names, first=None):
+    """Each gradient's max distance from the bf16 function in float64
+    (rounded to bf16 where the plain bf16 version rounds), for the kernel
+    and for the plain version, summed over ``F64_DRAWS`` draws of the
+    inputs: ``first`` (args, cot) and then ``draw()``.  ``kernel(args,
+    cot)`` and ``plain(args, cot)`` give the gradients."""
+    sums = {name: [0.0, 0.0] for name in names}
+    for i in range(F64_DRAWS):
+        args, cot = first if i == 0 and first is not None else draw()
+        with torch.inference_mode():
+            got = kernel(args, cot)
+            want = plain(args, cot)
+            exact = plain([a.double() for a in args],
+                          [c.double() for c in cot])
+        for name, g, w_, e in zip(names, got, want, exact):
+            sums[name][0] += (g.double() - e).abs().max().item()
+            sums[name][1] += (w_.double() - e).abs().max().item()
+        del got, want, exact
+    return sums
+
+
 def check_fused_gp_nonaffine(gen, shape, bf16=False):
     """``whitened_marginals``(``_bf16``), forward and backward, which run
     the affine kernels at inv_ls 1, mean_w 0, mean_b 0: the wrappers
@@ -450,23 +498,59 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
     # max(1, its largest magnitude), as the affine backward's.  dos alone,
     # a sum of 37.7 M terms that nearly cancel (both fp32 versions lie
     # ~2e-2 from float64 there), may instead be no farther from the float64
-    # function than twice the plain version is, and within 10x the tolerance
+    # function than twice the plain version is, and within 10x the tolerance.
+    # bf16: besides, every gradient within F64_BUDGET_BF16_BWD times plain's
+    # distance from that float64 function (summed over F64_DRAWS draws) and
+    # from the fp32 function in float64
     tols = [TOL_FUSED_GP, TOL_BF16 * max(1.0, want[1].abs().max().item())
             if bf16 else TOL_FUSED_GP]
     errs = [(g - w_).abs().max().item() for g, w_ in zip(got, want)]
     rel_tol = TOL_BF16 if bf16 else TOL_FUSED_GP_BWD
+    names = ("dxs", "dzs", "du", "dW", "dos")
+    if bf16:
+        with torch.inference_mode():
+            fp32_fn = fused_gp.whitened_marginals_bwd_plain(
+                *(a.double() for a in args + cot))
+
+        def draw():
+            x, zs_, u_, w_, os__, inv = _gp_inputs(gen, shape)[:6]
+            return (((x * inv).contiguous(), zs_, u_, w_, os__),
+                    (torch.randn(b, n, device=dev, generator=gen),
+                     torch.randn(b, n, device=dev, generator=gen)))
+
+        summed = _bf16_function_distances(
+            draw, lambda a, c: fused_gp.backward_kernel(
+                *fused_gp._affine_args(*a), *c, bf16=True)[:5],
+            lambda a, c: fused_gp.whitened_marginals_bwd_plain(*a, *c,
+                                                               bf16=True),
+            names, first=(args, cot))
     bwd_errs, bwd_ok, f64 = [], True, {}
-    for name, g, w_, e in zip(("dxs", "dzs", "du", "dW", "dos"), grads,
-                              want_grads, exact_grads):
+    for i, (name, g, w_, e) in enumerate(zip(names, grads, want_grads,
+                                             exact_grads)):
         rel = (g - w_).abs().max().item() / max(1.0, w_.abs().max().item())
         err64 = [(t.double() - e).abs().max().item() for t in (g, w_)]
         bwd_errs.append(rel)
         f64[name] = {"kernel": err64[0], "plain": err64[1]}
         bwd_ok &= rel <= rel_tol or (name == "dos" and rel <= 10 * rel_tol
                                      and err64[0] <= 2.0 * err64[1])
-        log(f"{tag} bwd {name}: max|kernel - plain| / max(1, max|plain|) "
-            f"{rel:.3e} (tol {rel_tol:.3e}); vs float64: kernel "
-            f"{err64[0]:.3e}, plain {err64[1]:.3e}")
+        line = (f"{tag} bwd {name}: max|kernel - plain| / max(1, max|plain|) "
+                f"{rel:.3e} (tol {rel_tol:.3e}); vs float64: kernel "
+                f"{err64[0]:.3e}, plain {err64[1]:.3e}")
+        if bf16:
+            k32, p32 = ((t.double() - fp32_fn[i]).abs().max().item()
+                        for t in (g, w_))
+            ks, ps = summed[name]
+            ratios = (_f64_ratio(ks, ps), _f64_ratio(k32, p32))
+            f64[name].update(kernel_summed=ks, plain_summed=ps,
+                             kernel_fp32_function=k32,
+                             plain_fp32_function=p32)
+            bwd_ok &= max(ratios) <= F64_BUDGET_BF16_BWD
+            line += (f"; summed over {F64_DRAWS} draws: kernel {ks:.3e}, "
+                     f"plain {ps:.3e} (kernel / plain {ratios[0]:.3f}); vs "
+                     f"float64 fp32 function: kernel {k32:.3e}, plain "
+                     f"{p32:.3e} (kernel / plain {ratios[1]:.3f}); budget "
+                     f"{F64_BUDGET_BF16_BWD} for both")
+        log(line)
     log(f"{tag}: max|kernel - plain| mean {errs[0]:.3e} (tol {tols[0]:.3e}),"
         f" var {errs[1]:.3e} (tol {tols[1]:.3e})")
     if not (all(e <= t for e, t in zip(errs, tols)) and bwd_ok):
@@ -483,10 +567,11 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
     outs = [torch.empty_like(t) for t in full]  # the gradients' shapes
     scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m, bf16),
                           device=dev)
-    bwd_ptrs = ([a.data_ptr() for a in kernel_args[:7]]
+    bwd_ptrs = ([a.data_ptr() for a in full[:7]]
                 + [c.data_ptr() for c in cot]
                 + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
     chunk = fused_gp.layout(m).chunk
+    bwd_dims = fused_gp.bwd_dims(b * n, d, m, bf16)
     fwd_launch, bwd_launch = fused_gp.launcher(bf16), fused_gp.bwd_launcher(
         bf16)
 
@@ -495,7 +580,7 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
             raise RuntimeError("fused_gp launch failed")
 
     def run_bwd():
-        if bwd_launch(*bwd_ptrs, b * n, d, m, chunk, stream):
+        if bwd_launch(*bwd_ptrs, *bwd_dims, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -522,7 +607,7 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
         bwd_bound = bound(products + bwd_rest, r * m, bwd_bytes)
     log(f"{tag}: fwd kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bwd kernel {bwd_ms:.4f} ms "
-        f"(4 launches), plain {plain_bwd_ms:.4f} ms, bound "
+        f"({fused_gp.bwd_design(m, bf16)} design), plain {plain_bwd_ms:.4f} ms, bound "
         f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); library: none")
     common = {"route": "cuda", "source": _FUSED_GP_SOURCE,
               "shape": {"rows": r, "d": d, "M": m}, "library_ms": None,
@@ -541,7 +626,10 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
              "max_rel_err": max(bwd_errs), "tolerance": rel_tol,
              "tolerance_is": "relative to max(1, max|plain|) per output; "
                             "dos: or within 10x and no farther from "
-                            "float64 than twice plain",
+                            "float64 than twice plain"
+                            + ("; bf16: every output no farther from the "
+                               "float64 function than twice plain" if bf16
+                               else ""),
              "max_abs_err_vs_float64": f64,
              "ms": bwd_ms, "kernel_ms": bwd_ms, "plain_ms": plain_bwd_ms,
              "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], **common})
@@ -693,15 +781,41 @@ def check_cholesky(gen):
                              ("library_ms", library_ms), ("flops", flops),
                              ("bytes", nbytes)):
                 total[key] += val
-    a = _blur_gram(gen, 4, DEC_LEN)
-    a[2] -= 2.0 * torch.eye(DEC_LEN, device="cuda")
-    got = cholesky.batched_cholesky(a)
-    nan = torch.isnan(got).flatten(1)
-    if not (nan[2].all() and not nan[[0, 1, 3]].any()):
-        raise AssertionError("batched_cholesky: an indefinite matrix must "
-                             "give NaN, and only it")
-    log("batched_cholesky: the indefinite matrix of a batch of 4 came back "
-        "NaN, the others finite")
+    # correctness at the 32-column panel boundaries, a single matrix, and
+    # past 1056, where the panel no longer fits shared memory whole
+    edges = []
+    for b, n in ((1, 1), (3, 31), (3, 32), (3, 33), (2, 97), (5, 191),
+                 (1, ENC_LEN), (2, 241), (1, 1100)):
+        a = _blur_gram(gen, b, n)
+        with torch.inference_mode():
+            got = cholesky.batched_cholesky(a)
+            err, measure = _measure(got, cholesky.batched_cholesky_plain(a),
+                                    TOL_CHOL)
+        upper_zero = bool((torch.triu(got, 1) == 0).all())
+        log(f"batched_cholesky b {b}, n {n}: max|kernel - plain| {err:.3e}, "
+            f"/ (atol + rtol |plain|) {measure:.3e} (limit 1); upper "
+            f"triangle zero: {upper_zero}")
+        if not (measure <= 1.0 and upper_zero):
+            raise AssertionError(f"batched_cholesky b {b}, n {n} disagrees "
+                                 f"with its plain version")
+        err_all, measure_all = max(err_all, err), max(measure_all, measure)
+        edges.append({"b": b, "n": n, "max_abs_err": err,
+                      "measure": measure})
+    # a matrix that fails at the first pivot, and ones that fail inside a
+    # later panel: NaN there, and only there
+    for n, fail_at in ((DEC_LEN, 0), (191, 150), (384, 300)):
+        a = _blur_gram(gen, 4, n)
+        if fail_at == 0:
+            a[2] -= 2.0 * torch.eye(n, device="cuda")
+        else:
+            a[2, fail_at, fail_at] = -1.0
+        got = cholesky.batched_cholesky(a)
+        nan = torch.isnan(got).flatten(1)
+        if not (nan[2].all() and not nan[[0, 1, 3]].any()):
+            raise AssertionError("batched_cholesky: an indefinite matrix must "
+                                 "give NaN, and only it")
+        log(f"batched_cholesky: a matrix of a batch of 4 (n {n}) that fails "
+            f"at pivot {fail_at} came back all NaN, the others finite")
     bound_ms, bound_by = bound(total["flops"], 0.0, total["bytes"])
     # one encoder and one decoder factorization, summed
     return {"name": "cholesky.batched_cholesky (fwd, fp32)", "route": "cuda",
@@ -716,7 +830,8 @@ def check_cholesky(gen):
             "ms": total["ms"], "kernel_ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": total["library_ms"],
-            "library": "torch.linalg.cholesky (cuSOLVER)", "calls": rows}
+            "library": "torch.linalg.cholesky (cuSOLVER)", "calls": rows,
+            "edge_cases": edges}
 
 
 def check_head_folded(gen):
@@ -809,38 +924,62 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             *(a.double() for a in args + cot))
     names = ("dx", "dzs", "du", "dW", "dos", "dinv_ls", "dmean_w",
              "dmean_b")
-    worst = worst_abs = 0.0
+    if bf16:  # the bf16 function in float64, over F64_DRAWS draws
+        def draw():
+            return ((_gp_inputs_large_m if large_m else _gp_inputs)(
+                gen, shape), (torch.randn(b, n, device=dev, generator=gen),
+                              torch.randn(b, n, device=dev, generator=gen)))
+
+        summed = _bf16_function_distances(
+            draw, lambda a, c: fused_gp.backward_kernel(*a, *c, bf16=True),
+            lambda a, c: fused_gp.whitened_marginals_affine_bwd_plain(
+                *a, *c, bf16=True), names, first=(args, cot))
+    worst = worst_abs = worst_f64 = 0.0
     for name, g, w_, e in zip(names, got, want, exact):
         scale = w_.abs().max().item()
         err = (g - w_).abs().max().item()
         tol = rel_tol * max(scale, 1.0)
-        log(f"{tag} {name}: max|kernel - plain| {err:.3e} (tol "
-            f"{tol:.3e} = {rel_tol:.3e} x max(1, max|plain| "
-            f"{scale:.3e})); vs float64 fp32 function: kernel "
-            f"{(g.double() - e).abs().max().item():.3e}, plain "
-            f"{(w_.double() - e).abs().max().item():.3e}")
+        k64 = (g.double() - e).abs().max().item()
+        p64 = (w_.double() - e).abs().max().item()
+        f64_ratio = _f64_ratio(k64, p64)
+        line = (f"{tag} {name}: max|kernel - plain| {err:.3e} (tol "
+                f"{tol:.3e} = {rel_tol:.3e} x max(1, max|plain| "
+                f"{scale:.3e})); vs float64 fp32 function: kernel "
+                f"{k64:.3e}, plain {p64:.3e} (kernel / plain {f64_ratio:.3f}")
+        if bf16:
+            ks, ps = summed[name]
+            f64_ratio = max(f64_ratio, _f64_ratio(ks, ps))
+            line += (f"); vs float64 bf16 function, summed over {F64_DRAWS} "
+                     f"draws: kernel {ks:.3e}, plain {ps:.3e} (kernel / "
+                     f"plain {_f64_ratio(ks, ps):.3f}; budget "
+                     f"{F64_BUDGET_BF16_BWD} for both")
+        log(line + ")")
         if not err <= tol:
             raise AssertionError(f"{tag} {name} disagrees with its "
                                  f"plain version: {err} > {tol}")
+        if bf16 and not f64_ratio <= F64_BUDGET_BF16_BWD:
+            raise AssertionError(f"{tag} {name} is {f64_ratio:.3f} times "
+                                 f"farther from float64 than the plain "
+                                 f"version")
         worst = max(worst, err / max(scale, 1.0))
         worst_abs = max(worst_abs, err)
+        worst_f64 = max(worst_f64, f64_ratio)
     again = fused_gp.backward_kernel(*args, *cot, bf16=bf16)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{tag} differs between two runs")
+    log(f"{tag}: two runs bit-equal in all eight gradients")
 
     launch = fused_gp.bwd_launcher(bf16)
     stream = torch.cuda.current_stream().cuda_stream
     outs = [torch.empty_like(t) for t in got]
     scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m, bf16),
                           device=dev)
-    kernel_args = list(args[:7])
-    if bf16:
-        kernel_args[3] = fused_gp.bf16_wt(args[3])
-    ptrs = ([a.data_ptr() for a in kernel_args] + [c.data_ptr() for c in cot]
+    ptrs = ([a.data_ptr() for a in args[:7]] + [c.data_ptr() for c in cot]
             + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
+    dims = fused_gp.bwd_dims(b * n, d, m, bf16)
 
     def run_kernel():
-        if launch(*ptrs, b * n, d, m, fused_gp.layout(m).chunk, stream):
+        if launch(*ptrs, *dims, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -860,7 +999,7 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
                     + 3 * d + 4)
     bound_ms, bound_by = (bound(rest, r * m, nbytes, products) if bf16
                           else bound(products + rest, r * m, nbytes))
-    log(f"{tag}: kernel {ms:.4f} ms (4 launches), plain "
+    log(f"{tag}: kernel {ms:.4f} ms ({fused_gp.bwd_design(m, bf16)} design), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; K W and dW "
         f"{products / 1e9:.1f} GFLOP, the fp32 rest {rest / 1e9:.1f} GFLOP); "
         f"library: none")
@@ -874,9 +1013,54 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             "max_abs_err": worst_abs, "max_rel_err": worst,
             "tolerance": rel_tol,
             "tolerance_is": "relative to max(1, max|plain|) per output",
+            "design": fused_gp.bwd_design(m, bf16),
+            "f64_dist_over_plain": worst_f64,
             "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
+    """The fused-GP backward's device time by kernel (``torch.profiler``
+    over ``iters`` calls, per call) at (b, n, d, m), the design that ran
+    (``fused_gp.bwd_design``) and the device scratch it allocates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
+
+    b, n, d, m = shape
+    tag = f"fused_gp{'_bf16' if bf16 else ''} bwd (rows {b * n}, d {d}, M {m})"
+    args = _gp_inputs(gen, shape)
+    cot = (torch.randn(b, n, device="cuda", generator=gen),
+           torch.randn(b, n, device="cuda", generator=gen))
+    with torch.inference_mode():
+        for _ in range(2):
+            fused_gp.backward_kernel(*args, *cot, bf16=bf16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fused_gp.backward_kernel(*args, *cot, bf16=bf16)
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    if not kernels:
+        raise AssertionError(f"{tag}: the profiler saw no device time")
+    by_kernel = {e.key: e.self_device_time_total / 1e3 / iters
+                 for e in kernels}
+    scratch = 4 * fused_gp.bwd_scratch_floats(b * n, d, m, bf16)
+    design = fused_gp.bwd_design(m, bf16)
+    log(f"{tag}: design {design}; device scratch {scratch / 2 ** 20:.1f} "
+        f"MiB; device time per call by kernel "
+        f"(sum {sum(by_kernel.values()):.4f} ms):")
+    for key, ms in by_kernel.items():
+        log(f"  {ms:9.4f} ms  {key[:110]}")
+    return {"design": design, "scratch_bytes": scratch,
+            "device_ms_by_kernel": by_kernel}
 
 
 FLASH_CALLS = {"enc_self": P_ENC_LEN, "dec_self": P_DEC_LEN}
@@ -2282,6 +2466,11 @@ def main() -> int:
             kernels[key] = check_fused_gp(gen, shape, bf16, large_m=True)
             kernels[key + "_bwd"] = check_fused_gp_bwd(gen, shape, bf16,
                                                        large_m=True)
+    # the backward's device time by kernel, at both widths it runs on a path
+    kernels["fused_gp_bwd"]["by_kernel"] = fused_gp_bwd_launches(gen,
+                                                                 flagship)
+    kernels["fused_gp_bf16_bwd"]["by_kernel"] = fused_gp_bwd_launches(
+        gen, production, bf16=True)
     kernels["rbf"] = check_rbf(gen)
     kernels["cholesky"] = check_cholesky(gen)
     (kernels["small_head_attention"],

@@ -85,6 +85,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -163,11 +164,15 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_
 
 constexpr int WG = 128;    // threads of a warpgroup
 constexpr int TILE = 64;   // rows of a tile: queries or keys
-constexpr int ROW_BYTES = 128;  // one swizzled row of a slab: 64 bf16
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+using hopper::align1024;
+using hopper::cp_commit;
+using hopper::cp_wait;
+using hopper::fence_async_smem;
+using hopper::kdesc;
+using hopper::mndesc;
+using hopper::pin;
+using hopper::ROW_BYTES;
+using hopper::smem_u32;
 
 // let `kernel` use `bytes` of dynamic shared memory
 template <class K>
@@ -190,38 +195,6 @@ __device__ __forceinline__ Place place(int rows, int per_block) {
   return {(size_t)bh, (int)blockIdx.x - bh * blocks, (int)gridDim.x / blocks};
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-// Descriptor of a 128-byte-swizzled operand whose 8-row groups lie 1024
-// bytes apart.  The leading offset is 1024 as well: for the K-major
-// operands it is not read (a k16 step stays inside a swizzled row), and for
-// the MN-major ones (N = 64, one swizzle atom wide) it is the step between
-// 8-row groups along K.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void wg_wait0() { wg_wait<0>(); }
-// the accumulators are not touched by ordinary code while a product is in
-// flight: pin them around the wait
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // A fragments that a product in flight still reads: kept in their
 // registers until the wait that follows
 __device__ __forceinline__ void keep(const uint32_t (&a)[4][4]) {
@@ -229,26 +202,6 @@ __device__ __forceinline__ void keep(const uint32_t (&a)[4][4]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(a[i][e]) : "memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16) * B (16 x 64), both from shared
-// memory, K-major
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers: warp w of
@@ -272,19 +225,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// ordinary and cp.async writes of shared memory made visible to `wgmma`
-// (the async proxy); a barrier follows
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Rows [0, n) of the (., d) bf16 matrix at src into the swizzled tile at
 // dst (ROWS rows, DP columns: DP / 64 slabs of ROWS x 128 bytes), zeros past
 // n rows and d columns.  vec (d % 8 == 0, 16-byte aligned rows): cp.async,
@@ -298,8 +238,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NT) {
     const int r = i / CHUNKS;
     const int c = i - r * CHUNKS;
-    const uint32_t off = (c >> 3) * (ROWS * ROW_BYTES) + r * ROW_BYTES +
-                         (((c & 7) ^ (r & 7)) << 4);
+    const uint32_t off = hopper::swizzled(ROWS, r, c);
     const int col = c * 8;
     if (vec) {
       const bool ok = r < n && col < d;
@@ -324,20 +263,6 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
                    : "memory");
     }
   }
-}
-
-// K-major descriptor of the k16 step kk of the 64-row tile at `tile`
-// (shared address) inside a tile of `rows` rows: slab kk / 4, 32 bytes a
-// step inside the swizzled row
-__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int rows, int kk) {
-  return desc(tile + (kk >> 2) * (rows * ROW_BYTES) + (kk & 3) * 32);
-}
-
-// MN-major descriptor of rows 16 kk.. and columns 64 nt.. of a tile of
-// `rows` rows
-__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int rows, int nt,
-                                           int kk) {
-  return desc(tile + nt * (rows * ROW_BYTES) + kk * 16 * ROW_BYTES);
 }
 
 // An accumulator element i of a 64 x 64 product: row (in the warpgroup's
@@ -496,12 +421,12 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t kt = smem_u32(ks(st));
     const uint32_t vt = smem_u32(vs(st));
     const int n = Lk - j * BC;
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(s, kdesc(q_wg, BQ, kk), kdesc(kt, BC, kk), kk > 0);
-    wg_commit();
-    wg_wait0();
+      hopper::mma<0>(s, kdesc(q_wg, BQ, kk), kdesc(kt, BC, kk), kk > 0);
+    hopper::commit();
+    hopper::wait<0>();
     pin(s);
 
     uint32_t pa[4][4], pl[LO2 ? 4 : 1][4];
@@ -583,7 +508,7 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     }
 
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -591,8 +516,8 @@ flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wgmma_rs(acc[nt], pa[kk], mndesc(vt, BC, slab0 + nt, kk));
         if constexpr (LO2) wgmma_rs(acc_lo[nt], pl[kk], mndesc(vt, BC, slab0 + nt, kk));
       }
-    wg_commit();
-    wg_wait0();
+    hopper::commit();
+    hopper::wait<0>();
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       pin(acc[nt]);
@@ -779,16 +704,16 @@ flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const uint32_t kt = smem_u32(ks(st));
     const uint32_t vt = smem_u32(vs(st));
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(s, kdesc(q_wg, BQ, kk), kdesc(kt, TILE, kk), kk > 0);
-    wg_commit();
+      hopper::mma<0>(s, kdesc(q_wg, BQ, kk), kdesc(kt, TILE, kk), kk > 0);
+    hopper::commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(dp, kdesc(do_wg, BQ, kk), kdesc(vt, TILE, kk), kk > 0);
-    wg_commit();
-    wg_wait<1>();  // S is in; dP may still be in flight
+      hopper::mma<0>(dp, kdesc(do_wg, BQ, kk), kdesc(vt, TILE, kk), kk > 0);
+    hopper::commit();
+    hopper::wait<1>();  // S is in; dP may still be in flight
     pin(s);
 
     const int n = Lk - j * TILE;
@@ -803,7 +728,7 @@ flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 32; ++i)
         if (acc_col(i, t) >= n) s[i] = 0.f;
     }
-    wg_wait0();
+    hopper::wait<0>();
     pin(dp);
 #pragma unroll
     for (int i = 0; i < 32; ++i)
@@ -812,14 +737,14 @@ flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) a_frag(da[kk], dp, kk);
 
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
         wgmma_rs(acc[nt], da[kk], mndesc(kt, TILE, nt, kk));
-    wg_commit();
-    wg_wait0();
+    hopper::commit();
+    hopper::wait<0>();
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) pin(acc[nt]);
   }
@@ -906,16 +831,16 @@ flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const uint32_t qt = smem_u32(qs(st));
     const uint32_t dot = smem_u32(dos(st));
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(s, kdesc(k_wg, BK, kk), kdesc(qt, TILE, kk), kk > 0);
-    wg_commit();
+      hopper::mma<0>(s, kdesc(k_wg, BK, kk), kdesc(qt, TILE, kk), kk > 0);
+    hopper::commit();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss(dp, kdesc(v_wg, BK, kk), kdesc(dot, TILE, kk), kk > 0);
-    wg_commit();
-    wg_wait<1>();  // S^T is in; dP^T may still be in flight
+      hopper::mma<0>(dp, kdesc(v_wg, BK, kk), kdesc(dot, TILE, kk), kk > 0);
+    hopper::commit();
+    hopper::wait<1>();  // S^T is in; dP^T may still be in flight
     pin(s);
 
     const float* ls = lse_s(st);
@@ -941,27 +866,27 @@ flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) a_frag(pa[kk], s, kk);
     // dV += P^T dO runs while dS^T is formed
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nt = 0; nt < NV; ++nt)
         wgmma_rs(acc_v[nt], pa[kk], mndesc(dot, TILE, blockIdx.z * NV + nt, kk));
-    wg_commit();
-    wg_wait<1>();  // dP^T is in
+    hopper::commit();
+    hopper::wait<1>();  // dP^T is in
     pin(dp);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dcol[2 * (i >> 2) + (i & 1)]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) a_frag(da[kk], dp, kk);
-    wg_fence();
+    hopper::fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nt = 0; nt < NV; ++nt)
         wgmma_rs(acc_k[nt], da[kk], mndesc(qt, TILE, blockIdx.z * NV + nt, kk));
-    wg_commit();
-    wg_wait0();
+    hopper::commit();
+    hopper::wait<0>();
     keep(pa);
     keep(da);
 #pragma unroll

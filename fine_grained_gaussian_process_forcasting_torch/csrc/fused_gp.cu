@@ -29,10 +29,11 @@
 // 2*M*M flops per row and the distance 3*M*d, all on the CUDA cores
 // (67 TFLOP/s peak; the 2e-5 parity rules out TF32).  At the flagship (73,728
 // rows, d 32, M 512) K W is 39 GFLOP, ~0.6 ms; at the production width
-// (40,960 rows, d 512, M 512) the distance (32 GFLOP) outweighs it.  In bf16
-// the two products move to the tensor cores (`mma.sync.m16n8k16`, 989 TFLOP/s
-// peak) and the fp32 distance is what remains.  The bytes (x in, two vectors
-// out, W once) take microseconds.
+// (40,960 rows, d 512, M 512) the distance (32 GFLOP) outweighs it.  In the
+// bf16 forward the K W product moves to the tensor cores
+// (`mma.sync.m16n8k16`, 989 TFLOP/s peak) and the fp32 distance is what
+// remains; the bf16 backward puts every product there (see its section).
+// The bytes (x in, two vectors out, W once) take microseconds.
 //
 // Forward design: one block of 256 threads per tile of 64 rows.  The TPU
 // kernel held a 2048-row tile, all of W and the (tile, M) K in VMEM and
@@ -66,7 +67,8 @@
 // sequential grid; CUDA blocks run concurrently and in no order.  The port
 // instead splits the work so that every sum over rows is taken by one thread
 // in a fixed order -- no atomics, so the gradients are equal bit for bit
-// from run to run -- in four launches:
+// from run to run.  The bf16 backward is the `wgmma` design at the end of
+// this file; the fp32 one runs in four launches:
 //   1. rows (as the forward, one block per 64-row tile): recompute K^T into
 //      shared memory and (K W) panel by panel; at each panel's end form E in
 //      registers.  Per row: rowsum(E), then dxs = E zs - rowsum(E) xs from an
@@ -74,18 +76,14 @@
 //      per thread; wider: the product is as large as K W and runs through
 //      the same register-tiled panels, zs streamed like W), x re-read from
 //      device memory, and dx.  Per tile: partial du = K^T dmean and colsum(E) (M each) and the
-//      partial scalar sums.  K and E are written to device memory for the
-//      two column products (fp32: K as R x M floats; bf16: K and dvar o K
-//      rounded to bf16 and transposed, M x R, so that the product reads both
-//      operands as pairs along the summed index): those bytes take ~0.1 ms
+//      partial scalar sums.  K and E are written to device memory (R x M
+//      floats each) for the two column products: those bytes take ~0.1 ms
 //      at 3.35 TB/s, where recomputing K inside a tiled product would cost
 //      one exponential and 2d flops per element for every output tile.
 //   2. dW partials: (K^T diag(dvar) K) over S contiguous row ranges, one
-//      (S, M, M) slab.  fp32: a 128 x 128 output tile per block with an
-//      8 x 8 register tile per thread; dW is symmetric, so only the tiles on
-//      and above the diagonal are computed (10 of 16 at M = 512).  bf16:
-//      `mma` tiles, every output tile (rounding dvar o K makes the product
-//      asymmetric in the last bits, as the Pallas product is);
+//      (S, M, M) slab: a 128 x 128 output tile per block with an 8 x 8
+//      register tile per thread; dW is symmetric, so only the tiles on and
+//      above the diagonal are computed (10 of 16 at M = 512);
 //   3. dzs partials: E^T x over row ranges the same way, (S', M, d);
 //   4. a reduction that sums the partials in a fixed order and applies the
 //      column terms: dW, du, dzs = inv_ls o (E^T x) - colsum(E) o zs, and
@@ -99,6 +97,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -122,8 +121,6 @@ constexpr int CBM = 128;           // output rows (m) per block
 constexpr int DW_TILE = 128;       // dW output tile: 16 x 8 per side
 constexpr int TARGET_BLOCKS = 264; // two blocks per SM on 132 SMs
 constexpr int SMALL_D = 64;        // up to here dxs is taken row by row
-constexpr int GK = 32;             // bf16 dW product: summed rows per stage
-constexpr int GS = GK + 8;         // its padded shared-memory row (bf16)
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -427,38 +424,6 @@ struct EEpilogue {
   }
 };
 
-// the same for the `mma` layout: dm, dv, part[2 mt + h] of row 16 mt + 8 h + g
-struct EEpilogueMma {
-  const float* kt;
-  const float* __restrict__ u;
-  float* emat;
-  int M, R, g, t, row0;
-  float dm[8], dv[8], part[8];
-
-  __device__ __forceinline__ void operator()(int n0, float (&c)[4][4][4]) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + nt * 8 + 2 * t + e;
-        if (n < M) {
-          const float* kn = kt + n * KT_STRIDE + g;
-          const float un = __ldg(u + n);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int i = 2 * mt + h;
-              const int r = mt * 16 + 8 * h + g;
-              const float ev = (dm[i] * un - 2.f * dv[i] * c[mt][nt][2 * h + e]) * kn[mt * 16 + 8 * h];
-              part[i] += ev;
-              if (row0 + r < R) emat[(size_t)(row0 + r) * M + n] = ev;
-            }
-        }
-      }
-  }
-};
-
 // epilogue of the wide-d (E zs) product: g is E zs of rows 8 warp + i and
 // columns panel_col(p, lane, j) of d.  Writes dx and, per warp, the sums over
 // its 8 rows of dxs o x and dmean o x: part[warp][n] and part[warp][d + n].
@@ -611,14 +576,12 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
 // part_s: [tile][slots * 2d + 3]: per slot (a group of the tile's rows: 2
 //         at d <= SMALL_D, else 8) (sum dxs o x, sum dmean o x), then
 //         (sum E, sum dvar, sum dmean) of the tile.
-// kmat: fp32, K as (R, M) floats; BF16, two (M, Rp) bf16 matrices, K^T and
-// (dvar o K)^T, Rp = 64 * tiles (tail rows carry dvar = 0).
-template <bool BF16>
+// kmat: K as (R, M) floats.
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gp_bwd_rows_kernel(const float* __restrict__ x,
                          const float* __restrict__ zs,
                          const float* __restrict__ u,
-                         const void* __restrict__ w,
+                         const float* __restrict__ w,
                          const float* __restrict__ os_ptr,
                          const float* __restrict__ inv_ls,
                          const float* __restrict__ mean_w,
@@ -653,53 +616,17 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
   for (int m = tid; m < M; m += THREADS) {
     const float* ktm = kt + m * KT_STRIDE;
     float acc = 0.f;
-    if constexpr (BF16) {
-      const size_t rp = (size_t)gridDim.x * TR;
-      uint4* k16 = reinterpret_cast<uint4*>(
-          reinterpret_cast<__nv_bfloat16*>(kmat) + (size_t)m * rp + row0);
-      uint4* dvk16 = reinterpret_cast<uint4*>(
-          reinterpret_cast<__nv_bfloat16*>(kmat) + ((size_t)M + m) * rp + row0);
-#pragma unroll
-      for (int r8 = 0; r8 < TR / 8; ++r8) {
-        uint32_t a[4], b[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = 8 * r8 + 2 * j;
-          const float k0v = ktm[r], k1v = ktm[r + 1];
-          acc = fmaf(k0v, dm_s[r], acc);
-          acc = fmaf(k1v, dm_s[r + 1], acc);
-          a[j] = pack_bf16(k0v, k1v);
-          b[j] = pack_bf16(dv_s[r] * k0v, dv_s[r + 1] * k1v);
-        }
-        k16[r8] = make_uint4(a[0], a[1], a[2], a[3]);
-        dvk16[r8] = make_uint4(b[0], b[1], b[2], b[3]);
-      }
-    } else {
 #pragma unroll 16
-      for (int r = 0; r < TR; ++r) {
-        acc = fmaf(ktm[r], dm_s[r], acc);
-        const int row = row0 + r;
-        if (row < R) kmat[(size_t)row * M + m] = ktm[r];
-      }
+    for (int r = 0; r < TR; ++r) {
+      acc = fmaf(ktm[r], dm_s[r], acc);
+      const int row = row0 + r;
+      if (row < R) kmat[(size_t)row * M + m] = ktm[r];
     }
     part_m[((size_t)tile * 2 + 0) * M + m] = acc;
   }
 
   // E panel by panel
-  if constexpr (BF16) {
-    EEpilogueMma epi;
-    epi.kt = kt; epi.u = u; epi.emat = emat;
-    epi.M = M; epi.R = R; epi.g = lane >> 2; epi.t = lane & 3; epi.row0 = row0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
-      epi.dm[i] = dm_s[r];
-      epi.dv[i] = dv_s[r];
-      epi.part[i] = 0.f;
-    }
-    kw_panels_mma(static_cast<const __nv_bfloat16*>(w), kt, M, m_pad, epi);
-    row_sums_mma(epi.part, wbuf, rse_s);
-  } else {
+  {
     EEpilogue epi;
     epi.kt = kt; epi.u = u; epi.emat = emat;
     epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
@@ -709,7 +636,7 @@ fused_gp_bwd_rows_kernel(const float* __restrict__ x,
       epi.dv[i] = dv_s[warp * 8 + i];
       epi.rowsum[i] = 0.f;
     }
-    kw_panels(static_cast<const float*>(w), kt, wbuf, M, m_pad, M, epi);  // ends with a barrier
+    kw_panels(w, kt, wbuf, M, m_pad, M, epi);  // ends with a barrier
     float mine = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1090,12 +1017,11 @@ __device__ __forceinline__ void load_et(const float* emat, float* kt,
 }
 
 // Backward launch 1 with M in chunks: the outputs of fused_gp_bwd_rows_kernel.
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_gp_bwd_rows_chunked_kernel(const float* __restrict__ x,
                                  const float* __restrict__ zs,
                                  const float* __restrict__ u,
-                                 const void* __restrict__ w,
+                                 const float* __restrict__ w,
                                  const float* __restrict__ os_ptr,
                                  const float* __restrict__ inv_ls,
                                  const float* __restrict__ mean_w,
@@ -1128,35 +1054,20 @@ fused_gp_bwd_rows_chunked_kernel(const float* __restrict__ x,
   __syncthreads();
 
   float g[8][8];
-  float c[4][4][4];
   EEpilogue epi;
   epi.kt = kt; epi.u = u; epi.emat = emat;
   epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
-  EEpilogueMma epi16;
-  epi16.kt = kt; epi16.u = u; epi16.emat = emat;
-  epi16.M = M; epi16.R = R; epi16.g = lane >> 2; epi16.t = lane & 3;
-  epi16.row0 = row0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     epi.dm[i] = dm_s[warp * 8 + i];
     epi.dv[i] = dv_s[warp * 8 + i];
     epi.rowsum[i] = 0.f;
-    const int r = (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
-    epi16.dm[i] = dm_s[r];
-    epi16.dv[i] = dv_s[r];
-    epi16.part[i] = 0.f;
   }
   auto zero = [&]() {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
   };
   zero();
 
@@ -1166,65 +1077,26 @@ fused_gp_bwd_rows_chunked_kernel(const float* __restrict__ x,
         const float* ktm = kt + m * KT_STRIDE;
         const int mg = lo + m;
         float acc = 0.f;
-        if constexpr (BF16) {
-          const size_t rp = (size_t)gridDim.x * TR;
-          uint4* k16 = reinterpret_cast<uint4*>(
-              reinterpret_cast<__nv_bfloat16*>(kmat) + (size_t)mg * rp + row0);
-          uint4* dvk16 = reinterpret_cast<uint4*>(
-              reinterpret_cast<__nv_bfloat16*>(kmat) + ((size_t)M + mg) * rp + row0);
-#pragma unroll
-          for (int r8 = 0; r8 < TR / 8; ++r8) {
-            uint32_t a[4], b[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int r = 8 * r8 + 2 * j;
-              const float k0v = ktm[r], k1v = ktm[r + 1];
-              acc = fmaf(k0v, dm_s[r], acc);
-              acc = fmaf(k1v, dm_s[r + 1], acc);
-              a[j] = pack_bf16(k0v, k1v);
-              b[j] = pack_bf16(dv_s[r] * k0v, dv_s[r + 1] * k1v);
-            }
-            k16[r8] = make_uint4(a[0], a[1], a[2], a[3]);
-            dvk16[r8] = make_uint4(b[0], b[1], b[2], b[3]);
-          }
-        } else {
 #pragma unroll 16
-          for (int r = 0; r < TR; ++r) {
-            acc = fmaf(ktm[r], dm_s[r], acc);
-            const int row = row0 + r;
-            if (row < R) kmat[(size_t)row * M + mg] = ktm[r];
-          }
+        for (int r = 0; r < TR; ++r) {
+          acc = fmaf(ktm[r], dm_s[r], acc);
+          const int row = row0 + r;
+          if (row < R) kmat[(size_t)row * M + mg] = ktm[r];
         }
         part_m[((size_t)tile * 2 + 0) * M + mg] = acc;
       }
     }
-    if constexpr (BF16) {
-      const int n0 = p * PANEL + warp * 32;
-      if (n0 < M)
-        kw_panel_rows_mma(static_cast<const __nv_bfloat16*>(w), m_pad, kt, lo,
-                          cnt_pad, n0, c);
-    } else {
-      kw_panel_rows(static_cast<const float*>(w) + (size_t)lo * M, kt, wbuf,
-                    cnt, cnt_pad, M, p, g);
-    }
+    kw_panel_rows(w + (size_t)lo * M, kt, wbuf, cnt, cnt_pad, M, p, g);
   };
   auto epilogue = [&](int p, int home_lo) {  // E of the panel's columns
-    if constexpr (BF16) {
-      const int n0 = p * PANEL + warp * 32;
-      epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-      if (n0 < M) epi16(n0, c);
-    } else {
-      epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-      epi(p, g);
-    }
+    epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+    epi(p, g);
     zero();
   };
   chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
                  epilogue);
   __syncthreads();  // emat's writes are read back below; wbuf is free
-  if constexpr (BF16) {
-    row_sums_mma(epi16.part, wbuf, rse_s);
-  } else {
+  {
     float mine = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1446,119 +1318,9 @@ fused_gp_bwd_cols_kernel(const float* A, const float* B,
   }
 }
 
-// Backward launch 2 in bf16: for row range s of `rows_per` rows (a multiple
-// of GK),  part[s, m, n] = sum_r A[m, r] * B[n, r]  with A = K^T and
-// B = (dvar o K)^T, both (M, Rp) bf16, so both operands are read as pairs
-// along r.  A 128 x 128 output tile per block of 8 warps (2 x 4), a
-// 64 x 32 tile of 4 x 4 `mma` tiles per warp; chunks of GK rows pass through
-// two shared-memory buffers, the next one's loads in flight in registers.
-__global__ void __launch_bounds__(THREADS)
-fused_gp_bwd_dw_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                           const __nv_bfloat16* __restrict__ B,
-                           float* __restrict__ part, int M, int Rp,
-                           int rows_per) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][DW_TILE][GS];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][DW_TILE][GS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * DW_TILE;
-  const int n0 = blockIdx.x * DW_TILE;
-  const int s = blockIdx.z;
-  const int r0 = s * rows_per;
-  const int r1 = min(Rp, r0 + rows_per);
-
-  // a stage is 128 rows x 32 bf16 = 512 x 16 bytes per operand: two a thread
-  uint4 pa[2], pb[2];
-  auto fetch = [&](int rc) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int i = tid + c * THREADS;
-      const int row = i >> 2;
-      const int seg = (i & 3) * 8;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      pa[c] = m0 + row < M ? __ldg(reinterpret_cast<const uint4*>(
-                                 A + (size_t)(m0 + row) * Rp + rc + seg))
-                           : zero;
-      pb[c] = n0 + row < M ? __ldg(reinterpret_cast<const uint4*>(
-                                 B + (size_t)(n0 + row) * Rp + rc + seg))
-                           : zero;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int i = tid + c * THREADS;
-      const int row = i >> 2;
-      const int seg = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(&as[buf][row][seg]) = pa[c];
-      *reinterpret_cast<uint4*>(&bs[buf][row][seg]) = pb[c];
-    }
-  };
-
-  float c[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
-
-  if (r0 < r1) {
-    fetch(r0);
-    stash(0);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (int rc = r0; rc < r1; rc += GK) {
-    const bool more = rc + GK < r1;
-    if (more) fetch(rc + GK);
-#pragma unroll
-    for (int ks = 0; ks < GK; ks += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* ap = &as[buf][wm + mt * 16 + g][ks + 2 * t];
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * GS);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * GS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* bp = &bs[buf][wn + nt * 8 + g][ks + 2 * t];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
-      }
-    }
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* out = part + (size_t)s * M * M;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + mt * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn + nt * 8 + 2 * t + (e & 1);
-        if (m < M && n < M) out[(size_t)m * M + n] = c[mt][nt][e];
-      }
-}
-
 // Backward launch 4: fixed-order sums of every partial.  Blocks 0..M-1 own
 // inducing point m (du, dzs row, dW row); blocks M.. own one scalar output
-// each: dinv_ls[k], dmean_w[k], dos, dmean_b.  sym: only the dW tiles on and
+// each: dinv_ls[k], dmean_w[k], dos, dmean_b.  Only the dW tiles on and
 // above the diagonal were computed.
 __global__ void __launch_bounds__(THREADS)
 fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
@@ -1573,7 +1335,7 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
                            float* __restrict__ dinv_ls,
                            float* __restrict__ dmean_w,
                            float* __restrict__ dmean_b, int n_tiles, int d,
-                           int M, int s_w, int s_z, int sym) {
+                           int M, int s_w, int s_z) {
   __shared__ float red[THREADS / 32];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -1594,7 +1356,7 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
     }
     // below the diagonal of a symmetric product, read the mirror element
     for (int n = tid; n < M; n += THREADS) {
-      const bool upper = !sym || m / DW_TILE <= n / DW_TILE;
+      const bool upper = m / DW_TILE <= n / DW_TILE;
       const size_t at = upper ? (size_t)m * M + n : (size_t)n * M + m;
       float e = 0.f;
       for (int s = 0; s < s_w; ++s) e += pw[(size_t)s * M * M + at];
@@ -1625,6 +1387,708 @@ fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
   else *dmean_b = a;
 }
 
+// ------------------------------------- bf16 backward on `wgmma` (any M) --
+//
+// The bf16 VJP as five products and two passes around them, every product
+// on Hopper's warpgroup tensor-core instructions (wgmma_bf16.cuh).  The
+// reference's three fp32 products -- the distance's cross term, E zs and
+// E^T xs -- run on bf16 parts: an fp32 operand v is carried as p0 =
+// bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), which hold its 24
+// bits, and a product as the sum of the six part products p_i q_j with
+// i + j < 3, in fp32.  K W and K^T (dvar o K) take bf16-rounded K as the
+// reference specifies; E takes K in fp32.  The tensor cores' fp32 sums are
+// less exact than FFMA's over long runs of the summed index, so E zs and
+// E^T xs add every 16-column sum into the tile's accumulator in fp32, and
+// K W every 512-column one.  (Two parts of K in E, or of E, put dxs, dzs,
+// dinv_ls and dos several times farther from float64 than the plain
+// version; so did long tensor-core sums, and in K W so did short ones
+// where W is ill-conditioned.)  Everything is computed in the orientation
+// that lets both operands of every product be read from rows in device
+// memory (K and E as (M, R)):
+//   prep     xs = x o inv_ls in three parts (R, d) and |xs|^2; zs in three
+//            parts, and transposed; W^T as the bf16 (M, M) tile;
+//   1. K^T   (M, R) = os exp(-(|zs|^2 + |xs|^2 - 2 zs xs^T) / 2); writes K,
+//            bf16(K) and bf16(dvar o K), and per 128-row range the partial
+//            K^T dmean (du);
+//   2. G^T   = W^T bf16(K)^T, then E^T = (u dmean^T - 2 G^T dvar) o K;
+//            writes E's three parts and per range the partial row and
+//            column sums of E;
+//   3. dxs^T = zs^T E^T - rowsum(E) xs^T; dx = dxs o inv_ls + dmean mean_w
+//            through a shared-memory transpose, and per range the partial
+//            sums of dxs o x and dmean o x;
+//   4. E^T xs over slabs of rows: (S, M, d) partials;
+//   5. bf16(K)^T bf16(dvar o K) over slabs of rows: (S, M, M) partials;
+//   reduce   the partials in a fixed order, in float64: du, dzs, dW, dos,
+//            dinv_ls, dmean_w, dmean_b.
+// Each product is one kernel, gemm_kernel: a 128 x 128 output tile per
+// block of two warpgroups (64 rows each, 64 x 128 accumulators), the
+// operands streamed 64 columns of the summed index at a time through a ring
+// of shared-memory stages filled by cp.async.  Scratch arrays are padded to
+// whole tiles (rows and columns to 128) and their pads hold zeros, so the
+// copies need no masks; the inputs and outputs are not padded.  No atomics:
+// two runs give equal gradients bit for bit.
+
+namespace wgb {
+
+using hopper::ROW_BYTES;
+typedef __nv_bfloat16 bf16;
+
+constexpr int GT = 128;          // output tile rows and columns
+constexpr int GKC = 64;          // summed index per stage
+constexpr int GTILE = GT * GKC * 2;  // bytes of one operand part a stage
+constexpr int PARTS = 3;         // bf16 parts of an fp32 operand
+
+// An fp32 operand carried as P bf16 parts (P 1: one bf16 operand): part 0 =
+// bf16(v), part i = bf16(v - parts 0..i-1), rows of `ld` elements.
+struct Operand {
+  const bf16* part[PARTS];
+  int ld;
+};
+
+// stages of the ring: three, two where P = 3 parts leave room for two
+template <int P>
+__host__ __device__ constexpr int stages() { return P == 3 ? 2 : 3; }
+template <int P>
+__host__ __device__ constexpr int stage_bytes() { return 2 * P * GTILE; }
+template <int P>
+__host__ __device__ constexpr int gemm_smem() { return stages<P>() * stage_bytes<P>() + 1024; }
+
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float from_bf16(bf16 v) { return __bfloat162float(v); }
+
+// v split into N bf16 parts: v ~ p[0] + ... + p[N - 1]
+template <int N>
+__device__ __forceinline__ void split(float v, bf16 (&p)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    p[i] = to_bf16(v);
+    v -= from_bf16(p[i]);
+  }
+}
+
+// A block's output tile: row tile rt (rows row0..), column tile ct, and
+// the slab of the summed index.  The tiles run along x, the row tiles
+// fastest, so that the blocks of a column tile, which share its operand
+// rows, run together and x has room for any R; the slabs run along y.
+struct Tile {
+  int rt, ct, slab, row0, col0;
+};
+__device__ __forceinline__ Tile tile(int row_tiles) {
+  const int rt = blockIdx.x % row_tiles, ct = blockIdx.x / row_tiles;
+  return {rt, ct, (int)blockIdx.y, rt * GT, ct * GT};
+}
+
+// one stage: A rows row0.. x columns k0..k0+63 (K-major), and B: K-major
+// rows col0.. x columns k0.., or MN-major rows k0.. x columns col0..col0+127
+template <bool B_MN, int P>
+__device__ __forceinline__ void load_stage(unsigned char* st, const Operand& A,
+                                           const Operand& B, int row0,
+                                           int col0, int k0) {
+  const uint32_t base = hopper::smem_u32(st);
+  for (int i = threadIdx.x; i < P * GT * 8; i += 2 * 128) {
+    const int p = i / (GT * 8);
+    const int j = i - p * (GT * 8);
+    const int r = j >> 3, c = j & 7;
+    const bf16* src = A.part[p] + (size_t)(row0 + r) * A.ld + k0 + c * 8;
+    hopper::cp16(base + p * GTILE + hopper::swizzled(GT, r, c), src);
+  }
+  const uint32_t bbase = base + P * GTILE;
+  for (int i = threadIdx.x; i < P * GT * 8; i += 2 * 128) {
+    const int p = i / (GT * 8);
+    const int j = i - p * (GT * 8);
+    const bf16* b = B.part[p];
+    if (B_MN) {  // 64 rows of 16 chunks
+      const int r = j >> 4, c = j & 15;
+      hopper::cp16(bbase + p * GTILE + hopper::swizzled(GKC, r, c),
+                   b + (size_t)(k0 + r) * B.ld + col0 + c * 8);
+    } else {
+      const int r = j >> 3, c = j & 7;
+      hopper::cp16(bbase + p * GTILE + hopper::swizzled(GT, r, c),
+                   b + (size_t)(col0 + r) * B.ld + k0 + c * 8);
+    }
+  }
+}
+
+// row and column, in the block's 128 x 128 tile, of accumulator element i
+// of slab nt
+__device__ __forceinline__ int acc_row(int i) {
+  return 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) +
+         ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int nt, int i) {
+  return 64 * nt + 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// sums of a thread's values over the 4 lanes that share its rows
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// C (the block's 128 x 128 tile) = sum over the summed index in
+// [k_len slab, min(k_len (slab + 1), k_total)) of A B, then epi(acc, smem,
+// tile).  A and B carry P parts each (1 or PARTS), and the product sums
+// the part products A_i B_j with i + j < P.  SUM: the k16 steps whose products the tensor cores sum in a
+// fresh accumulator before it is added to the tile's in fp32 (0: the
+// tensor cores carry the whole sum; a multiple of 4 steps: whole stages).
+template <int P, bool B_MN, int SUM, class Epi>
+__global__ void __launch_bounds__(256, 1)
+gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
+            Epi epi) {
+  static_assert(SUM == 0 || SUM == 1 || SUM % (GKC / 16) == 0, "SUM");
+  constexpr int GSTAGES = stages<P>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  const Tile t = tile(row_tiles);
+  const int kbeg = t.slab * k_len;
+  const int nk = (min(k_len, k_total - kbeg) + GKC - 1) / GKC;
+  const int wgi = threadIdx.x >> 7;
+  auto stage = [&](int s) { return sm + s * stage_bytes<P>(); };
+  auto load = [&](int j) {
+    if (j < nk)
+      load_stage<B_MN, P>(stage(j % GSTAGES), A, B, t.row0, t.col0, kbeg + j * GKC);
+    hopper::cp_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < GSTAGES - 1; ++j) load(j);
+
+  float acc[2][32], part[2][32];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nt][i] = 0.f;
+  auto add_part = [&] {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nt][i] += part[nt][i];
+  };
+
+  for (int j = 0; j < nk; ++j) {
+    hopper::cp_wait<GSTAGES - 2>();
+    hopper::fence_async_smem();
+    __syncthreads();  // stage j is in; stage j - 1 is read by every warpgroup
+    load(j + GSTAGES - 1);
+    const uint32_t s = hopper::smem_u32(stage(j % GSTAGES));
+    const uint32_t a0 = s + wgi * 64 * ROW_BYTES;
+    const uint32_t b0 = s + P * GTILE;
+    auto bdesc = [&](int j, int nt, int kk) {
+      const uint32_t b = b0 + j * GTILE;
+      return B_MN ? hopper::mndesc(b, GKC, nt, kk)
+                  : hopper::kdesc(b + nt * 64 * ROW_BYTES, GT, kk);
+    };
+    if constexpr (SUM == 1) {
+#pragma unroll
+      for (int kk = 0; kk < GKC / 16; ++kk) {
+        hopper::fence();
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < P; ++i)
+#pragma unroll
+            for (int j = 0; i + j < P; ++j)
+              hopper::mma<B_MN>(part[nt], hopper::kdesc(a0 + i * GTILE, GT, kk),
+                                bdesc(j, nt, kk), i + j > 0);
+        hopper::commit();
+        hopper::wait<0>();
+        hopper::pin(part[0]);
+        hopper::pin(part[1]);
+        add_part();
+      }
+    } else {
+      constexpr int per = SUM ? SUM / (GKC / 16) : 1;  // stages a sum spans
+      const bool fresh = j % per == 0;
+      hopper::fence();
+#pragma unroll
+      for (int kk = 0; kk < GKC / 16; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < P; ++i)
+#pragma unroll
+            for (int j = 0; i + j < P; ++j) {
+              const uint64_t a = hopper::kdesc(a0 + i * GTILE, GT, kk);
+              if constexpr (SUM == 0)
+                hopper::mma<B_MN>(acc[nt], a, bdesc(j, nt, kk));
+              else
+                hopper::mma<B_MN>(part[nt], a, bdesc(j, nt, kk),
+                                  !fresh || kk + i + j > 0);
+            }
+      hopper::commit();
+      hopper::wait<0>();
+      if constexpr (SUM == 0) {
+        hopper::pin(acc[0]);
+        hopper::pin(acc[1]);
+      } else {
+        hopper::pin(part[0]);
+        hopper::pin(part[1]);
+        if (j % per == per - 1 || j == nk - 1) add_part();
+      }
+    }
+  }
+  hopper::cp_wait<0>();
+  __syncthreads();  // the ring is free for the epilogue
+  epi(acc, reinterpret_cast<float*>(sm), t);
+}
+
+// 1. K^T tile: rows m, columns r
+struct KEpi {
+  const float* x2;  // (Rp) |xs|^2, zeros past R
+  const float* z2;  // (Mp)
+  const float* os_ptr;
+  const float* dmean;
+  const float* dvar;
+  bf16 *kh, *dvk;   // (Mp, Rp): bf16(K), bf16(dvar o K)
+  float* kf;        // (Mp, Rp): K
+  float* part_du;   // (Rp / 128, Mp)
+  int M, R, Mp, Rp;
+
+  __device__ void operator()(float (&acc)[2][32], float*, const Tile& t) const {
+    const float os = *os_ptr;
+    float du[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int m = t.row0 + acc_row(i);
+        const int r = t.col0 + acc_col(nt, i);
+        const float zz = z2[m];
+        float k[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = m < M && r + e < R;
+          const float d2 = (x2[r + e] + zz) - 2.f * acc[nt][i + e];
+          k[e] = ok ? os * expf(-0.5f * d2) : 0.f;
+          dv[e] = r + e < R ? dvar[r + e] : 0.f;
+          du[(i >> 1) & 1] = fmaf(k[e], r + e < R ? dmean[r + e] : 0.f, du[(i >> 1) & 1]);
+        }
+        const size_t at = (size_t)m * Rp + r;
+        *reinterpret_cast<float2*>(kf + at) = make_float2(k[0], k[1]);
+        *reinterpret_cast<__nv_bfloat162*>(kh + at) =
+            __halves2bfloat162(to_bf16(k[0]), to_bf16(k[1]));
+        *reinterpret_cast<__nv_bfloat162*>(dvk + at) = __halves2bfloat162(
+            to_bf16(dv[0] * k[0]), to_bf16(dv[1] * k[1]));
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float s = quad_sum(du[h]);
+      if ((threadIdx.x & 3) == 0)
+        part_du[(size_t)t.ct * Mp + t.row0 + acc_row(2 * h)] = s;
+    }
+  }
+};
+
+// 2. G^T tile = W^T K^T: rows m, columns r; E^T = (u dmean - 2 dvar G) o K
+struct EEpi {
+  const float* kf;
+  const float* u;
+  const float* dmean;
+  const float* dvar;
+  bf16* ep;           // PARTS planes (Mp, Rp): E's parts
+  float* part_ce;     // (Rp / 128, Mp): sums over the range's rows
+  float* part_re;     // (Mp / 128, Rp): sums over the tile's inducing points
+  int M, R, Mp, Rp;
+
+  __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const size_t plane = (size_t)Mp * Rp;
+    float ce[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int m = t.row0 + acc_row(i);
+        const int r = t.col0 + acc_col(nt, i);
+        const size_t at = (size_t)m * Rp + r;
+        const float2 k = *reinterpret_cast<const float2*>(kf + at);
+        const float um = m < M ? u[m] : 0.f;
+        bf16 p[2][PARTS];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const bool ok = r + q < R;
+          const float dm = ok ? dmean[r + q] : 0.f;
+          const float dv = ok ? dvar[r + q] : 0.f;
+          const float e = (dm * um - (2.f * dv) * acc[nt][i + q]) * (q ? k.y : k.x);
+          acc[nt][i + q] = e;
+          ce[(i >> 1) & 1] += e;
+          split(e, p[q]);
+        }
+#pragma unroll
+        for (int j = 0; j < PARTS; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(ep + j * plane + at) =
+              __halves2bfloat162(p[0][j], p[1][j]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float s = quad_sum(ce[h]);
+      if ((threadIdx.x & 3) == 0)
+        part_ce[(size_t)t.ct * Mp + t.row0 + acc_row(2 * h)] = s;
+    }
+    // column sums: the two rows of a thread, the 8 row groups of a warp,
+    // then the 8 warps in order
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 4)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float v = acc[nt][i + q] + acc[nt][i + 2 + q];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) red[warp * GT + acc_col(nt, i + q)] = v;
+        }
+    __syncthreads();
+    if (threadIdx.x < GT) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * GT + threadIdx.x];
+      part_re[(size_t)t.rt * Rp + t.col0 + threadIdx.x] = s;
+    }
+  }
+};
+
+// 3. (E zs)^T tile: rows k of d, columns r; dx through shared memory
+struct DxEpi {
+  const float* x;  // (R, d) raw
+  const float* inv_ls;
+  const float* mean_w;
+  const float* dmean;
+  const float* part_re;  // (Mp / 128, Rp)
+  float* dx;             // (R, d)
+  float* part_dx;        // (Rp / 128, 2 Dp): sums of dxs o x, then dmean o x
+  int R, d, Dp, Rp, m_tiles;
+
+  __device__ void operator()(float (&acc)[2][32], float* sm, const Tile& t) const {
+    constexpr int LD = GT + 1;
+    float* xt = sm;              // [128 r][LD]: x, then dx
+    float* rse = sm + GT * LD;   // [128] rowsum(E)
+    float* dms = rse + GT;       // [128] dmean
+    for (int i = threadIdx.x; i < GT * GT; i += 256) {
+      const int rl = i >> 7, kl = i & (GT - 1);
+      const int r = t.col0 + rl, k = t.row0 + kl;
+      xt[rl * LD + kl] = (r < R && k < d) ? x[(size_t)r * d + k] : 0.f;
+    }
+    if (threadIdx.x < GT) {
+      const int r = t.col0 + threadIdx.x;
+      float s = 0.f;
+      for (int m = 0; m < m_tiles; ++m) s += part_re[(size_t)m * Rp + r];
+      rse[threadIdx.x] = s;
+      dms[threadIdx.x] = r < R ? dmean[r] : 0.f;
+    }
+    __syncthreads();
+    float sdx[2] = {0.f, 0.f}, sdm[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kl = acc_row(i), rl = acc_col(nt, i);
+        const int k = t.row0 + kl;
+        const float il = k < d ? inv_ls[k] : 0.f;
+        const float mw = k < d ? mean_w[k] : 0.f;
+        const float xv = xt[rl * LD + kl];
+        const float dxs = acc[nt][i] - rse[rl] * (xv * il);
+        xt[rl * LD + kl] = dxs * il + dms[rl] * mw;
+        sdx[(i >> 1) & 1] = fmaf(dxs, xv, sdx[(i >> 1) & 1]);
+        sdm[(i >> 1) & 1] = fmaf(dms[rl], xv, sdm[(i >> 1) & 1]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a = quad_sum(sdx[h]), b = quad_sum(sdm[h]);
+      if ((threadIdx.x & 3) == 0) {
+        const int k = t.row0 + acc_row(2 * h);
+        part_dx[(size_t)t.ct * 2 * Dp + k] = a;
+        part_dx[(size_t)t.ct * 2 * Dp + Dp + k] = b;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < GT * GT; i += 256) {
+      const int rl = i >> 7, kl = i & (GT - 1);
+      const int r = t.col0 + rl, k = t.row0 + kl;
+      if (r < R && k < d) dx[(size_t)r * d + k] = xt[rl * LD + kl];
+    }
+  }
+};
+
+// 4., 5. partial products, one (., ld) plane a slab
+struct PartEpi {
+  float* out;
+  int ld;
+  size_t slab;
+
+  __device__ void operator()(float (&acc)[2][32], float*, const Tile& t) const {
+    float* o = out + t.slab * slab + (size_t)t.row0 * ld + t.col0;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2)
+        *reinterpret_cast<float2*>(o + (size_t)acc_row(i) * ld + acc_col(nt, i)) =
+            make_float2(acc[nt][i], acc[nt][i + 1]);
+  }
+};
+
+// prep, one warp a row of x: xs = x o inv_ls in three bf16 parts, (Rp, Dp)
+// each, and |xs|^2; zeros past R and d
+__global__ void __launch_bounds__(256)
+prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
+              bf16* __restrict__ xp, float* __restrict__ x2, int R, int d,
+              int Rp, int Dp) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= Rp) return;
+  const size_t plane = (size_t)Rp * Dp;
+  float s = 0.f;
+  for (int k = 2 * lane; k < Dp; k += 64) {
+    bf16 p[2][PARTS];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = (r < R && k + e < d) ? x[(size_t)r * d + k + e] * inv_ls[k + e] : 0.f;
+      s = fmaf(v, v, s);
+      split(v, p[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(xp + i * plane + (size_t)r * Dp + k) =
+          __halves2bfloat162(p[0][i], p[1][i]);
+  }
+  s = warp_sum(s);
+  if (lane == 0) x2[r] = s;
+}
+
+// prep, one block an inducing point m < Mp: zs in three bf16 parts (Mp, Dp)
+// and transposed (Dp, Mp), |zs|^2, and row m of W^T in bf16 (Mp, Mp); zeros
+// past M and d
+__global__ void __launch_bounds__(256)
+prep_z_kernel(const float* __restrict__ zs, const float* __restrict__ w,
+              bf16* __restrict__ zp, bf16* __restrict__ ztp,
+              float* __restrict__ z2, bf16* __restrict__ w16, int M, int d,
+              int Mp, int Dp) {
+  __shared__ float red[8];
+  const int m = blockIdx.x;
+  const size_t plane = (size_t)Mp * Dp;
+  float s = 0.f;
+  for (int k = threadIdx.x; k < Dp; k += 256) {
+    const float v = (m < M && k < d) ? zs[(size_t)m * d + k] : 0.f;
+    s = fmaf(v, v, s);
+    bf16 p[PARTS];
+    split(v, p);
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i) zp[i * plane + (size_t)m * Dp + k] = p[i];
+#pragma unroll
+    for (int i = 0; i < PARTS; ++i) ztp[i * plane + (size_t)k * Mp + m] = p[i];
+  }
+  s = block_sum(s, red);
+  if (threadIdx.x == 0) z2[m] = s;
+  for (int k = threadIdx.x; k < Mp; k += 256)
+    w16[(size_t)m * Mp + k] = to_bf16((m < M && k < M) ? w[(size_t)k * M + m] : 0.f);
+}
+
+// sum of v over the block's threads in a fixed order; every thread gets it
+__device__ double block_sum_f64(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();  // red may still be read from the previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
+  return s;
+}
+
+// fixed-order sums of every partial, in float64 (so that a sum over all
+// the rows, such as dmean_b, carries no more rounding than its result's):
+// blocks 0..M-1 own inducing point m (du, dzs row, dW row); blocks M.. one
+// scalar output each
+__global__ void __launch_bounds__(256)
+reduce_kernel(const float* __restrict__ part_du, const float* __restrict__ part_ce,
+              const float* __restrict__ pz, const float* __restrict__ pw,
+              const float* __restrict__ part_dx, const float* __restrict__ zs,
+              const float* __restrict__ os_ptr, const float* __restrict__ dmean,
+              const float* __restrict__ dvar, float* __restrict__ dzs,
+              float* __restrict__ du, float* __restrict__ dw,
+              float* __restrict__ dos, float* __restrict__ dinv_ls,
+              float* __restrict__ dmean_w, float* __restrict__ dmean_b, int R,
+              int d, int M, int Mp, int Dp, int r_tiles, int s_z, int s_w) {
+  __shared__ double red[8];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  if (b < M) {
+    const int m = b;
+    double a = 0.0, c = 0.0;
+    for (int t = tid; t < r_tiles; t += 256) {
+      a += part_du[(size_t)t * Mp + m];
+      c += part_ce[(size_t)t * Mp + m];
+    }
+    a = block_sum_f64(a, red);
+    c = block_sum_f64(c, red);  // colsum(E)[m]
+    if (tid == 0) du[m] = (float)a;
+    for (int k = tid; k < d; k += 256) {
+      double e = 0.0;
+      for (int s = 0; s < s_z; ++s) e += pz[((size_t)s * Mp + m) * Dp + k];
+      dzs[(size_t)m * d + k] = (float)(e - c * zs[(size_t)m * d + k]);
+    }
+    for (int n = tid; n < M; n += 256) {
+      double e = 0.0;
+      for (int s = 0; s < s_w; ++s) e += pw[((size_t)s * Mp + m) * Mp + n];
+      dw[(size_t)m * M + n] = (float)-e;
+    }
+    return;
+  }
+  const int q = b - M;
+  double a = 0.0, c = 0.0;
+  if (q < 2 * d) {
+    const int col = q < d ? q : Dp + q - d;
+    for (int t = tid; t < r_tiles; t += 256) a += part_dx[(size_t)t * 2 * Dp + col];
+  } else if (q == 2 * d) {
+    for (int i = tid; i < r_tiles * M; i += 256)
+      a += part_ce[(size_t)(i / M) * Mp + i % M];
+    for (int r = tid; r < R; r += 256) c += dvar[r];
+  } else {
+    for (int r = tid; r < R; r += 256) a += dmean[r];
+  }
+  a = block_sum_f64(a, red);
+  if (q == 2 * d) c = block_sum_f64(c, red);
+  if (tid != 0) return;
+  if (q < d) dinv_ls[q] = (float)a;
+  else if (q < 2 * d) dmean_w[q - d] = (float)a;
+  else if (q == 2 * d) *dos = (float)(a / *os_ptr + c);
+  else *dmean_b = (float)a;
+}
+
+// scratch of one call, in bytes from its base (each array 256-byte aligned)
+struct Plan {
+  int Rp, Mp, Dp, r_tiles, s_z, k_z, s_w, k_w;
+  size_t xp, x2, zp, ztp, z2, w16, kh, kf, dvk, e, part_du, part_ce, part_re,
+      part_dx, pz, pw, total;
+};
+
+__host__ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
+
+// slabs of the summed rows so that `tiles` output tiles make about one wave
+__host__ inline void slabs(int Rp, int tiles, int& s, int& k_len) {
+  s = 132 / tiles;
+  if (s < 1) s = 1;
+  if (s > Rp / GKC) s = Rp / GKC;
+  k_len = round_up((Rp + s - 1) / s, GKC);
+  s = (Rp + k_len - 1) / k_len;
+}
+
+__host__ inline Plan plan(int R, int d, int M) {
+  Plan p;
+  p.Rp = round_up(R, GT);
+  p.Mp = round_up(M, GT);
+  p.Dp = round_up(d, GT);
+  p.r_tiles = p.Rp / GT;
+  slabs(p.Rp, (p.Mp / GT) * (p.Dp / GT), p.s_z, p.k_z);
+  slabs(p.Rp, (p.Mp / GT) * (p.Mp / GT), p.s_w, p.k_w);
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 255) / 256 * 256;
+    return at;
+  };
+  const size_t rd = (size_t)p.Rp * p.Dp, md = (size_t)p.Mp * p.Dp,
+               mr = (size_t)p.Mp * p.Rp;
+  p.xp = take(PARTS * rd * 2); p.x2 = take((size_t)p.Rp * 4);
+  p.zp = take(PARTS * md * 2); p.ztp = take(PARTS * md * 2);
+  p.z2 = take((size_t)p.Mp * 4);
+  p.w16 = take((size_t)p.Mp * p.Mp * 2);
+  p.kh = take(mr * 2); p.kf = take(mr * 4); p.dvk = take(mr * 2);
+  p.e = take(PARTS * mr * 2);
+  p.part_du = take((size_t)p.r_tiles * p.Mp * 4);
+  p.part_ce = take((size_t)p.r_tiles * p.Mp * 4);
+  p.part_re = take((size_t)(p.Mp / GT) * p.Rp * 4);
+  p.part_dx = take((size_t)p.r_tiles * 2 * p.Dp * 4);
+  p.pz = take((size_t)p.s_z * md * 4);
+  p.pw = take((size_t)p.s_w * p.Mp * p.Mp * 4);
+  p.total = o;
+  return p;
+}
+
+// the tiles of `row_tiles` x `col_tiles`, `slabs` deep, as gemm_kernel
+// places them
+template <int P, bool B_MN, int SUM, class Epi>
+__host__ int gemm(int row_tiles, int col_tiles, int slabs, Operand A,
+                  Operand B, int k_len, int k_total, const Epi& epi,
+                  cudaStream_t st) {
+  constexpr int smem = gemm_smem<P>();
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<P, B_MN, SUM, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gemm_kernel<P, B_MN, SUM, Epi><<<dim3(row_tiles * col_tiles, slabs), 256, smem, st>>>(
+      A, B, row_tiles, k_len, k_total, epi);
+  return (int)cudaGetLastError();
+}
+
+__host__ int launch_bwd(const float* x, const float* zs, const float* u,
+                        const float* w, const float* os, const float* inv_ls,
+                        const float* mean_w, const float* dmean,
+                        const float* dvar, float* dx, float* dzs, float* du,
+                        float* dw, float* dos, float* dinv_ls, float* dmean_w,
+                        float* dmean_b, void* scratch, int R, int d, int M,
+                        cudaStream_t st) {
+  const Plan p = plan(R, d, M);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
+  auto f32 = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
+  const int mt = p.Mp / GT, rt = p.r_tiles, dt = p.Dp / GT;
+  int err;
+
+  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, b16(p.xp), f32(p.x2),
+                                                R, d, p.Rp, p.Dp);
+  if ((err = (int)cudaGetLastError())) return err;
+  prep_z_kernel<<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp), f32(p.z2),
+                                      b16(p.w16), M, d, p.Mp, p.Dp);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  const size_t rd = (size_t)p.Rp * p.Dp, md = (size_t)p.Mp * p.Dp,
+               mr = (size_t)p.Mp * p.Rp;
+  auto parts = [&](size_t off, size_t plane, int n, int ld) {
+    Operand o{{nullptr, nullptr, nullptr}, ld};
+    for (int i = 0; i < n; ++i) o.part[i] = b16(off) + i * plane;
+    return o;
+  };
+  const Operand xs = parts(p.xp, rd, PARTS, p.Dp);
+  const Operand zsp = parts(p.zp, md, PARTS, p.Dp);
+  const Operand zst = parts(p.ztp, md, PARTS, p.Mp);
+  const Operand kt = parts(p.kh, 0, 1, p.Rp);
+  const Operand et = parts(p.e, mr, PARTS, p.Rp);
+  // 1. K^T: the distance's cross term in three parts, six products
+  err = gemm<PARTS, false, 0>(mt, rt, 1, zsp, xs, p.Dp, p.Dp,
+                       KEpi{f32(p.x2), f32(p.z2), os, dmean, dvar, b16(p.kh),
+                            b16(p.dvk), f32(p.kf), f32(p.part_du), M, R, p.Mp,
+                            p.Rp}, st);
+  if (err) return err;
+  // 2. G^T = W^T K^T in bf16 (sums over 512 inducing points at a time),
+  // E^T in the epilogue
+  err = gemm<1, true, 32>(mt, rt, 1, parts(p.w16, 0, 1, p.Mp), kt, p.Mp, p.Mp,
+                      EEpi{f32(p.kf), u, dmean, dvar, b16(p.e), f32(p.part_ce),
+                           f32(p.part_re), M, R, p.Mp, p.Rp}, st);
+  if (err) return err;
+  // 3. (E zs)^T in three parts (sums over 16 at a time), dx in the epilogue
+  err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp,
+                       DxEpi{x, inv_ls, mean_w, dmean, f32(p.part_re), dx,
+                             f32(p.part_dx), R, d, p.Dp, p.Rp, mt}, st);
+  if (err) return err;
+  // 4. E^T xs in three parts (sums over 16 rows at a time), over slabs
+  err = gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
+                       PartEpi{f32(p.pz), p.Dp, md}, st);
+  if (err) return err;
+  // 5. K^T (dvar o K) in bf16, over slabs of rows
+  err = gemm<1, false, 0>(mt, mt, p.s_w, kt, parts(p.dvk, 0, 1, p.Rp), p.k_w,
+                       p.Rp, PartEpi{f32(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
+  if (err) return err;
+  reduce_kernel<<<M + 2 * d + 2, 256, 0, st>>>(
+      f32(p.part_du), f32(p.part_ce), f32(p.pz), f32(p.pw), f32(p.part_dx), zs,
+      os, dmean, dvar, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, R, d, M,
+      p.Mp, p.Dp, rt, p.s_z, p.s_w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgb
+
 struct BwdPlan {
   int n_tiles, m_pad, s_w, rows_w, s_z, rows_z, z_tile;
   long long kmat, emat, part_m, part_s, pw, pz, total;  // scratch offsets
@@ -1643,19 +2107,18 @@ __host__ void split_rows(int R, int tiles, int chunk, int& s, int& rows_per) {
   s = (R + rows_per - 1) / rows_per;
 }
 
-__host__ BwdPlan plan(int R, int d, int M, bool bf16) {
+__host__ BwdPlan plan(int R, int d, int M) {
   BwdPlan p;
   p.n_tiles = (R + TR - 1) / TR;
   p.m_pad = (M + BK - 1) / BK * BK;
   const int rp = p.n_tiles * TR;
   const int mt = (M + CBM - 1) / CBM;
   const int nt = (M + DW_TILE - 1) / DW_TILE;
-  if (bf16) split_rows(rp, nt * nt, GK, p.s_w, p.rows_w);
-  else split_rows(R, nt * (nt + 1) / 2, CK, p.s_w, p.rows_w);
+  split_rows(R, nt * (nt + 1) / 2, CK, p.s_w, p.rows_w);
   p.z_tile = d > 64 ? 128 : 32;  // columns of d per E^T x block
   split_rows(R, mt * ((d + p.z_tile - 1) / p.z_tile), CK, p.s_z, p.rows_z);
   long long o = 0;
-  p.kmat = o; o += (long long)rp * M;  // fp32 K, or two bf16 (M, rp)
+  p.kmat = o; o += (long long)rp * M;  // K, (R, M)
   p.emat = o; o += (long long)R * M;
   p.part_m = o; o += (long long)p.n_tiles * 2 * M;
   p.part_s = o; o += (long long)p.n_tiles * ((d > SMALL_D ? 8 : 2) * 2 * d + 3);
@@ -1706,15 +2169,14 @@ int launch_fwd(const float* x, const float* zs, const float* u, const void* w,
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
-int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
+int launch_bwd(const float* x, const float* zs, const float* u, const float* w,
                const float* os, const float* inv_ls, const float* mean_w,
                const float* dmean, const float* dvar, float* dx, float* dzs,
                float* du, float* dw, float* dos, float* dinv_ls,
                float* dmean_w, float* dmean_b, float* scratch, int R, int d,
                int M, int chunk, cudaStream_t st) {
   if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
-  const BwdPlan p = plan(R, d, M, BF16);
+  const BwdPlan p = plan(R, d, M);
   float* kmat = scratch + p.kmat;
   float* emat = scratch + p.emat;
   float* part_m = scratch + p.part_m;
@@ -1726,18 +2188,18 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
   if (chunk >= p.m_pad) {
     const int smem = smem_bwd(p.m_pad);
     err = cudaFuncSetAttribute(
-        fused_gp_bwd_rows_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fused_gp_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    fused_gp_bwd_rows_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
+    fused_gp_bwd_rows_kernel<<<p.n_tiles, THREADS, smem, st>>>(
         x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
         part_s, R, d, M, p.m_pad);
   } else {
     const int smem = smem_bwd(chunk);
     err = cudaFuncSetAttribute(
-        fused_gp_bwd_rows_chunked_kernel<BF16>,
+        fused_gp_bwd_rows_chunked_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    fused_gp_bwd_rows_chunked_kernel<BF16><<<p.n_tiles, THREADS, smem, st>>>(
+    fused_gp_bwd_rows_chunked_kernel<<<p.n_tiles, THREADS, smem, st>>>(
         x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
         part_s, R, d, M, p.m_pad, chunk);
   }
@@ -1745,15 +2207,8 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
 
   const int mt = (M + CBM - 1) / CBM;
   const int nt = (M + DW_TILE - 1) / DW_TILE;
-  if (BF16) {
-    const int rp = p.n_tiles * TR;
-    const __nv_bfloat16* k16 = reinterpret_cast<const __nv_bfloat16*>(kmat);
-    fused_gp_bwd_dw_mma_kernel<<<dim3(nt, nt, p.s_w), THREADS, 0, st>>>(
-        k16, k16 + (size_t)M * rp, pw, M, rp, p.rows_w);
-  } else {
-    fused_gp_bwd_cols_kernel<8, 8, true><<<dim3(nt * (nt + 1) / 2, 1, p.s_w), THREADS, 0, st>>>(
-        kmat, kmat, dvar, pw, R, M, M, p.rows_w);
-  }
+  fused_gp_bwd_cols_kernel<8, 8, true><<<dim3(nt * (nt + 1) / 2, 1, p.s_w), THREADS, 0, st>>>(
+      kmat, kmat, dvar, pw, R, M, M, p.rows_w);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 zgrid((d + p.z_tile - 1) / p.z_tile, mt, p.s_z);
   if (p.z_tile == 128)
@@ -1766,7 +2221,7 @@ int launch_bwd(const float* x, const float* zs, const float* u, const void* w,
 
   fused_gp_bwd_reduce_kernel<<<M + 2 * d + 2, THREADS, 0, st>>>(
       part_m, part_s, pw, pz, zs, inv_ls, os, dzs, du, dw, dos, dinv_ls,
-      dmean_w, dmean_b, p.n_tiles, d, M, p.s_w, p.s_z, BF16 ? 0 : 1);
+      dmean_w, dmean_b, p.n_tiles, d, M, p.s_w, p.s_z);
   return (int)cudaGetLastError();
 }
 
@@ -1776,14 +2231,14 @@ extern "C" {
 
 // Floats of device scratch the backward needs (the wrapper allocates it).
 long long fused_gp_bwd_scratch_floats(int R, int d, int M) {
-  return plan(R, d, M, false).total;
+  return plan(R, d, M).total;
 }
 
 long long fused_gp_bf16_bwd_scratch_floats(int R, int d, int M) {
-  return plan(R, d, M, true).total;
+  return (long long)((wgb::plan(R, d, M).total + 3) / 4);
 }
 
-// Rows and columns of the bf16 W^T the bf16 launchers take: wt[n][k] =
+// Rows and columns of the bf16 W^T the bf16 forward takes: wt[n][k] =
 // bf16(W[k][n]), zero beyond M.
 int fused_gp_bf16_wt_rows(int M) { return (M + PANEL - 1) / PANEL * PANEL; }
 int fused_gp_bf16_wt_cols(int M) { return (M + BK - 1) / BK * BK; }
@@ -1823,23 +2278,24 @@ int fused_gp_bwd(const float* x, const float* zs, const float* u, const float* w
                  float* du, float* dw, float* dos, float* dinv_ls,
                  float* dmean_w, float* dmean_b, float* scratch, int R, int d,
                  int M, int chunk, void* stream) {
-  return launch_bwd<false>(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
+  return launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
                            dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
                            scratch, R, d, M, chunk, (cudaStream_t)stream);
 }
 
-// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores; wt as
-// the bf16 forward's; scratch of fused_gp_bf16_bwd_scratch_floats floats.
+// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores, at any
+// M (one design, so no chunk); inputs and outputs as fused_gp_bwd's, w the
+// fp32 (M, M); scratch of fused_gp_bf16_bwd_scratch_floats floats.
 int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
-                      const void* wt, const float* os, const float* inv_ls,
+                      const float* w, const float* os, const float* inv_ls,
                       const float* mean_w, const float* dmean,
                       const float* dvar, float* dx, float* dzs, float* du,
                       float* dw, float* dos, float* dinv_ls, float* dmean_w,
                       float* dmean_b, float* scratch, int R, int d, int M,
-                      int chunk, void* stream) {
-  return launch_bwd<true>(x, zs, u, wt, os, inv_ls, mean_w, dmean, dvar, dx,
-                          dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
-                          scratch, R, d, M, chunk, (cudaStream_t)stream);
+                      void* stream) {
+  return wgb::launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
+                         dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch,
+                         R, d, M, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -83,6 +83,15 @@ def layout(m: int) -> Layout:
     return Layout(chunk, fwd(chunk), bwd(chunk))
 
 
+def bwd_design(m: int, bf16=False) -> str:
+    """Which backward kernels the launcher runs at M inducing points: the
+    bf16 variant's products on `wgmma` at every M; the fp32 one's row
+    kernel over all of M up to ``layout``'s 720, in chunks beyond."""
+    if bf16:
+        return "wgmma"
+    return "single-pass" if layout(m).chunk >= m else "chunked"
+
+
 def _round_bf16(t):
     """``t`` rounded to bf16, kept as fp32, so that a product of two such
     tensors is exact products summed in fp32, as the tensor cores do; the
@@ -198,16 +207,23 @@ def launcher(bf16=False):
 def bwd_launcher(bf16=False):
     """The C backward launcher: (x, zs, u, w, os, inv_ls, mean_w, dmean,
     dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch
-    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16`` as
-    ``launcher``."""
+    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16``:
+    the bf16 variant's, which takes the same fp32 w and no chunk (its one
+    design runs at every M)."""
     return _build.function(
         "fused_gp", "fused_gp_bf16_bwd" if bf16 else "fused_gp_bwd",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * (3 if bf16 else 4)
+        + [ctypes.c_void_p])
+
+
+def bwd_dims(r: int, d: int, m: int, bf16=False) -> tuple:
+    """The integer arguments of ``bwd_launcher(bf16)``."""
+    return (r, d, m) if bf16 else (r, d, m, layout(m).chunk)
 
 
 def bf16_wt(w):
-    """W^T in bf16, zero-padded to the shape the bf16 kernels read: the
-    cast that the bf16 variant makes once per call."""
+    """W^T in bf16, zero-padded to the shape the bf16 forward kernel reads:
+    the cast that it makes once per call."""
     m = w.shape[0]
     rows, cols = (_build.function("fused_gp", name, [ctypes.c_int])(m)
                   for name in ("fused_gp_bf16_wt_rows",
@@ -338,13 +354,12 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     grads = (new(b, n, d), new(m, d), new(m), new(m, m), new(), new(d),
              new(d), new())
     scratch = new(bwd_scratch_floats(b * n, d, m, bf16))
-    w_in = bf16_wt(w) if bf16 else w
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = bwd_launcher(bf16)(
-        *(t.data_ptr() for t in (x, zs, u, w_in, outputscale, inv_ls, mean_w,
+        *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
                                  dmean, dvar)),
-        *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m,
-        layout(m).chunk, stream)
+        *(t.data_ptr() for t in grads), scratch.data_ptr(),
+        *bwd_dims(b * n, d, m, bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_bwd launch failed: cudaError {err}")
     if bf16:

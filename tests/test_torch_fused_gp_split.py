@@ -1,0 +1,138 @@
+"""The bf16 fused-GP backward's split arithmetic, emulated on the CPU.
+
+The card's bf16 backward (``csrc/fused_gp.cu``, the `wgmma` design) runs
+the reference's three fp32 products -- the distance's cross term xs zs^T,
+E zs and E^T xs -- on bf16 tensor cores: each fp32 operand v is carried as
+three bf16 parts p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1),
+and a product as the part products p_i q_j with i + j < 3 (six products)
+summed in fp32.  K enters K W as bf16(K) and E in fp32; dW takes bf16(K)
+and bf16(dvar o K), as the reference does.  ``_split_bwd`` below repeats
+that arithmetic in plain PyTorch (bf16 products of bf16 values are exact in
+fp32, so an fp32 matmul of them is the tensor cores' product up to the
+order of the sum), and the test holds it to the budget the card run is held
+to: for every gradient, its distance from a float64 evaluation of the
+function -- the fp32 function, and the bf16 function rounded at the same
+places -- is no more than twice the plain bf16 version's, summed over
+draws of the inputs.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
+
+NAMES = ("dx", "dzs", "du", "dW", "dos", "dinv_ls", "dmean_w", "dmean_b")
+PARTS = 3
+ROWS, DRAWS = 512, 16
+
+
+def _hi(t):
+    return t.bfloat16().float()
+
+
+def _parts(t, n):
+    out = []
+    for _ in range(n):
+        out.append(_hi(t - sum(out)) if out else _hi(t))
+    return out
+
+
+def _dot(a, b, n=PARTS):
+    """a @ b on n bf16 parts of each operand: the products a_i b_j with
+    i + j < n."""
+    ap, bp = _parts(a, n), _parts(b, n)
+    return sum(ap[i] @ bp[j] for i in range(n) for j in range(n - i))
+
+
+def _split_bwd(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
+               dvar):
+    b, n, d = x.shape
+    xr = x.reshape(-1, d)
+    xs = xr * inv_ls
+    x2 = (xs * xs).sum(-1, keepdim=True)
+    z2 = (zs * zs).sum(-1)
+    k = outputscale * torch.exp(-0.5 * (x2 + z2 - 2.0 * _dot(xs, zs.T)))
+    kh = _hi(k)
+    g = kh @ _hi(w)
+    dm = dmean.reshape(-1, 1)
+    dv = dvar.reshape(-1, 1)
+    e = (dm * u - 2.0 * dv * g) * k
+    dxsc = _dot(e, zs) - e.sum(-1, keepdim=True) * xs
+    dx = dxsc * inv_ls + dm * mean_w
+    dzs = _dot(e.T, xs) - e.sum(0)[:, None] * zs
+    du = (k * dm).sum(0)
+    dw = -(kh.T @ _hi(dv * k))
+    dos = e.sum() / outputscale + dv.sum()
+    return (dx.reshape(b, n, d), dzs, du, dw, dos, (dxsc * xr).sum(0),
+            (dm * xr).sum(0), dm.sum())
+
+
+def _inputs(rows, d, m, affine, seed):
+    """The smoke's fused-GP inputs, from numpy: raw x ~ N(0, 1) and
+    lengthscale sqrt(2 d) (so that xs = x / sqrt(2 d) and K is far from 0);
+    W and u from the fp32 Cholesky factor of the inducing points' Gram
+    matrix with 1e-4 jitter, where W reaches ~100, as on the card.  Not
+    affine: the pre-scaled xs, inv_ls 1, mean_w 0, mean_b 0."""
+    rng = np.random.default_rng(seed)
+    ls = math.sqrt(2.0 * d)
+    x = torch.from_numpy(rng.normal(size=(1, rows, d)).astype(np.float32))
+    zs = torch.from_numpy((rng.normal(size=(m, d)) / ls).astype(np.float32))
+    kzz = math.log(2.0) * torch.exp(-0.5 * torch.cdist(zs, zs) ** 2)
+    chol = torch.linalg.cholesky(kzz + 1e-4 * torch.eye(m))
+    li = torch.linalg.solve_triangular(chol, torch.eye(m), upper=False)
+    u = li.T @ torch.from_numpy((0.3 * rng.normal(size=m)).astype(np.float32))
+    s2 = torch.from_numpy(rng.uniform(size=m).astype(np.float32))
+    w = li.T @ (li * (1.0 - s2)[:, None])
+    os_ = torch.tensor(math.log(2.0))
+    if affine:
+        inv_ls = torch.full((d,), 1.0 / ls)
+        mean_w = torch.from_numpy((rng.normal(size=d) / d).astype(np.float32))
+        mean_b = torch.tensor(0.1)
+    else:
+        x = x / ls
+        inv_ls, mean_w, mean_b = torch.ones(d), torch.zeros(d), torch.tensor(0.0)
+    cot = tuple(torch.from_numpy(rng.normal(size=(1, rows)).astype(np.float32))
+                for _ in range(2))
+    return (x.contiguous(), zs, u.contiguous(), w.contiguous(), os_, inv_ls,
+            mean_w, mean_b), cot
+
+
+@pytest.mark.parametrize("d,m,affine", [(512, 512, True), (512, 512, False),
+                                        (32, 512, True), (32, 512, False)],
+                         ids=["prod_basic", "prod_basic_nonaffine",
+                              "flagship_width", "flagship_width_nonaffine"])
+def test_split_arithmetic_meets_the_float64_budget(d, m, affine):
+    """Distances summed over DRAWS draws of the inputs: from the bf16
+    function, each version's distance comes mostly from the elements where
+    its K and the float64 K round to different bf16 values, a set of its
+    own, so that one draw compares two nearly independent errors."""
+    dist = {(bf16, name): [0.0, 0.0] for bf16 in (False, True)
+            for name in NAMES}
+    for i in range(DRAWS):
+        args, cot = _inputs(ROWS, d, m, affine, seed=1000 * i + d + affine)
+        got = _split_bwd(*args, *cot)
+        plain = fused_gp.whitened_marginals_affine_bwd_plain(*args, *cot,
+                                                             bf16=True)
+        for name, g, p in zip(NAMES, got, plain):
+            # within the smoke's bf16 tolerance of the plain version
+            scale = max(1.0, p.abs().max().item())
+            assert (g - p).abs().max().item() <= 2.0 ** -7 * scale, name
+        wide = [a.double() for a in args + cot]
+        for bf16 in (False, True):
+            exact = fused_gp.whitened_marginals_affine_bwd_plain(*wide,
+                                                                 bf16=bf16)
+            for name, g, p, e in zip(NAMES, got, plain, exact):
+                dist[bf16, name][0] += (g.double() - e).abs().max().item()
+                dist[bf16, name][1] += (p.double() - e).abs().max().item()
+    for key, (split, plain) in dist.items():
+        assert split <= 2.0 * plain, (key, split, plain)
+
+
+def test_bwd_design_by_m():
+    for m in (7, 512, 720, 721, 2048):
+        assert fused_gp.bwd_design(m, bf16=True) == "wgmma"
+    assert fused_gp.bwd_design(720) == "single-pass"
+    assert fused_gp.bwd_design(721) == "chunked"

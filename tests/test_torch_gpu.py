@@ -166,8 +166,11 @@ def test_fused_gp_kernel_takes_grad(cuda):
                         GP_GRADS)
 
 
+# the last two: prod_basic's 40,960 rows at d 512, and M 720, the largest
+# the single-pass forward takes (721 is in LARGE_M)
 GP_SHAPES_BF16 = [(4, 36, 16, 32), (3, 77, 32, 512), (2, 5, 7, 300),
-                  (3, 50, 96, 512), (2, 101, 512, 512), *LARGE_M]
+                  (3, 50, 96, 512), (2, 101, 512, 512), *LARGE_M,
+                  (64, 640, 512, 512), (3, 40, 32, 720)]
 
 
 @pytest.mark.gpu
@@ -206,6 +209,63 @@ def test_fused_gp_bf16_bwd_kernel_matches_plain(cuda, b, n, d, m):
     again = fused_gp.backward_kernel(*args, *cot, bf16=True)
     for g, a in zip(got, again):  # no atomics: equal bit for bit
         assert torch.equal(g, a)
+
+
+def _gp_like_inputs(rows, d, m, seed, device):
+    """Inputs shaped as the GP layer makes them: lengthscale sqrt(2 d), W
+    and u from the Cholesky factor of the inducing points' jittered Gram
+    matrix (W reaches ~10 in magnitude, as in training)."""
+    rng = np.random.default_rng(seed)
+    ls = np.sqrt(2.0 * d)
+    zs = torch.from_numpy(rng.normal(size=(m, d)) / ls)
+    kzz = np.log(2.0) * torch.exp(-0.5 * torch.cdist(zs, zs) ** 2)
+    chol = torch.linalg.cholesky(kzz + 1e-4 * torch.eye(m, dtype=torch.float64))
+    li = torch.linalg.solve_triangular(chol, torch.eye(m, dtype=torch.float64),
+                                       upper=False)
+    s2 = torch.from_numpy(rng.uniform(size=m))
+    arrays = (rng.normal(size=(1, rows, d)), zs.numpy(),
+              (li.T @ torch.from_numpy(0.3 * rng.normal(size=m))).numpy(),
+              (li.T @ (li * (1.0 - s2)[:, None])).numpy(), np.log(2.0),
+              np.full(d, 1.0 / ls), rng.normal(size=d) / d, 0.1)
+    cot = (rng.normal(size=(1, rows)), rng.normal(size=(1, rows)))
+    return [torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+            for a in arrays + cot]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,m,affine",
+                         [(40960, 512, 512, True), (18432, 32, 512, True),
+                          (18432, 32, 512, False), (999, 96, 200, True)],
+                         ids=["prod_basic", "d32", "d32_nonaffine", "ragged"])
+def test_fused_gp_bf16_bwd_meets_the_float64_budget(cuda, rows, d, m, affine):
+    """The `wgmma` backward runs the reference's fp32 products on bf16
+    parts: every gradient is no farther from the float64 function -- the
+    fp32 function, and the bf16 function rounded at the same places -- than
+    twice the plain bf16 version is, the distances summed over 16 draws of
+    the inputs (from the bf16 function, each version's distance comes mostly
+    from the elements where its K and the float64 K round to different bf16
+    values, a set of its own, so one draw compares two nearly independent
+    errors).  Not affine: the kernel at the pre-scaled xs, inv_ls 1,
+    mean_w 0, mean_b 0, as ``whitened_marginals_bf16`` runs it."""
+    dist = {}
+    for i in range(16):
+        *args, dmean, dvar = _gp_like_inputs(rows, d, m, seed=1000 * i + d,
+                                             device=cuda)
+        if not affine:
+            args = fused_gp._affine_args(args[0] * args[5], *args[1:5])
+        got = fused_gp.backward_kernel(*args, dmean, dvar, bf16=True)
+        plain = fused_gp.whitened_marginals_affine_bf16_bwd_plain(
+            *args, dmean, dvar)
+        wide = [a.double() for a in (*args, dmean, dvar)]
+        for bf16 in (False, True):
+            exact = fused_gp.whitened_marginals_affine_bwd_plain(*wide,
+                                                                 bf16=bf16)
+            for g, p, e, name in zip(got, plain, exact, GP_GRADS):
+                sums = dist.setdefault((bf16, name), [0.0, 0.0])
+                sums[0] += (g.double() - e).abs().max().item()
+                sums[1] += (p.double() - e).abs().max().item()
+    for key, (kernel, plain) in dist.items():
+        assert kernel <= 2.0 * plain, (key, kernel, plain)
 
 
 @pytest.mark.gpu
@@ -330,10 +390,12 @@ def _spd(b, n, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n", [(8, 96), (4, 192), (3, 240), (2, 241),
-                                 (2, 384), (5, 1), (3, 33)])
+                                 (2, 384), (5, 1), (3, 33), (1, 31), (2, 97),
+                                 (2, 191), (256, 192), (1, 1100)])
 def test_cholesky_kernel_matches_plain(cuda, b, n):
-    """n <= 240 in shared memory, above it in device memory (n 384: the
-    true sequence length)."""
+    """Around the 32-column panels (n 31, 33, 97, 191, 241), one matrix and
+    the exact blur's batch of 256, n 384 (the true sequence length), and
+    past 1056, where the panel is staged from device memory."""
     a = _spd(b, n, seed=n, device=cuda)
     before = cholesky.launches
     got = cholesky.batched_cholesky(a)
@@ -359,6 +421,19 @@ def test_cholesky_kernel_gives_nan_where_not_positive_definite(cuda, n):
     torch.testing.assert_close(got[[0, 2]], want[[0, 2]], rtol=TOL_CHOL,
                                atol=TOL_CHOL)
     assert torch.isnan(want[1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,fail_at", [(97, 64), (191, 150), (384, 300)])
+def test_cholesky_kernel_gives_nan_when_a_later_panel_fails(cuda, n,
+                                                            fail_at):
+    a = _spd(4, n, seed=2, device=cuda)
+    a[2, fail_at, fail_at] = -1.0  # the pivot of a later panel goes negative
+    got = cholesky.batched_cholesky(a)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[2]).all()
+    assert torch.isfinite(got[[0, 1, 3]]).all()
+    assert torch.isnan(cholesky.batched_cholesky_plain(a)[2]).all()
 
 
 @pytest.mark.gpu
