@@ -26,13 +26,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    SDPA and the head-folded kernel, and at d 2 and d 8, with two backward
    runs bit-equal; the flash kernels at the head dims they pad in their
    tiles (60, 72, 128, 256), both dtypes; the fused GP at M 1024 and 2048,
-   where the fp32 kernels take M in chunks, both dtypes (these on no
+   where the bf16 forward takes M in chunks, both dtypes (these on no
    path).  The bf16 backward (the `wgmma` design) is also held to float64:
    each gradient no farther from it than twice the plain version, and two
-   runs bit-equal.  The fused-GP backward's device time by kernel is read
-   under ``torch.profiler`` at the flagship (fp32) and production (bf16)
-   shapes, with the scratch it allocates.  The library's backward is timed
-   on the device alone, from its kernels under ``torch.profiler``.
+   runs bit-equal.  So are the fp32 forward and backward (every product on
+   bf16 parts but the forward's K W): each output's distance from the
+   float64 fp32 function, summed over 16 draws from a generator of their
+   own, at most twice the plain fp32 version's (cuBLAS, TF32 off), at the
+   flagship, at d 512, non-affine and at M 1024 and 2048.  The fused-GP
+   backward's device time by kernel is read under ``torch.profiler`` at the
+   flagship and d 512 (fp32, beside the forward's) and production (bf16)
+   shapes, with the scratch it allocates and the bytes it writes between
+   its launches.  The library's backward is timed on the device alone,
+   from its kernels under ``torch.profiler``.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -165,6 +171,15 @@ F64_BUDGET_BF16_BWD = 2.0
 # draws.  That comparison is made on the distances summed over F64_DRAWS
 # draws (a ratio above 2 in about 0.6 % of runs for two equal errors).
 F64_DRAWS = 16
+# the fp32 fused GP runs every product on bf16 parts too (three parts of
+# each fp32 operand): each output's distance from the float64 fp32 function,
+# summed over F64_DRAWS draws, may be at most twice the plain fp32 version's
+# (cuBLAS, TF32 off)
+F64_BUDGET_FP32 = 2.0
+# those fp32 draws, and the fp32 backward's profile at d 512, come from a
+# generator of their own, so that the other checks' inputs do not depend on
+# them
+F64_SEED = 1
 TOL_ATTENTION_BWD = 1e-5
 # one training step on the card against the CPU: the loss, and each
 # parameter's gradient relative to its largest magnitude
@@ -322,9 +337,10 @@ def _gp_inputs(gen, shape):
             torch.tensor(0.1, device=dev))
 
 
-# M past the single-pass kernels' 720, where the kernels take M in chunks
-# of 512 (fused_gp.layout): the flagship's windows and width at 1024 and
-# 2048 inducing points, on a quarter of its batch
+# M past 720, where the bf16 forward takes M in chunks of 512
+# (fused_gp.layout) and the other kernels tile M as they do at any M: the
+# flagship's windows and width at 1024 and 2048 inducing points, on a
+# quarter of its batch
 LARGE_M_SHAPES = [(64, ENC_LEN + DEC_LEN, D_MODEL, m) for m in (1024, 2048)]
 
 
@@ -344,6 +360,58 @@ def _gp_inputs_large_m(gen, shape):
     w = (0.5 * (w + w.T)).contiguous()
     u = (0.3 * torch.randn(m, device="cuda", generator=gen)).contiguous()
     return (x, zs, u, w, os_, inv_ls, mean_w, mean_b)
+
+
+def _fwd_runner(fused_gp, args, bf16):
+    """A closure that launches the forward kernels alone on ``args`` (the
+    affine function's eight inputs), as the wrapper would: the bf16 variant
+    on the cast W^T and its layout's chunk, the fp32 one on its scratch;
+    ``forward_kernel``'s allocations and the bf16 cast are made once here and
+    not timed."""
+    b, n, d = args[0].shape
+    m = args[1].shape[0]
+    mean = torch.empty(b, n, device="cuda")
+    var = torch.empty(b, n, device="cuda")
+    kept = list(args)
+    if bf16:
+        kept[3] = fused_gp.bf16_wt(args[3])
+        dims = (b * n, d, m, fused_gp.layout(m).chunk)
+    else:
+        kept.append(torch.empty(fused_gp.fwd_scratch_floats(b * n, d, m),
+                                device="cuda"))
+        dims = (b * n, d, m)
+    ptrs = [a.data_ptr() for a in kept[:8]] + [mean.data_ptr(),
+                                                var.data_ptr()]
+    if not bf16:
+        ptrs.append(kept[8].data_ptr())
+    launch = fused_gp.launcher(bf16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if launch(*ptrs, *dims, stream):
+            raise RuntimeError("fused_gp launch failed")
+    return run
+
+
+# the fp32 float64 gates' generator (F64_SEED), made in main()
+_F64_GEN = [None]
+
+
+def _gate_f64(tag, summed, budget):
+    """Logs each output's summed distance from float64 beside plain's;
+    raises if one is more than ``budget`` times plain's.  The largest
+    ratio."""
+    worst = 0.0
+    for name, (ks, ps) in summed.items():
+        ratio = _f64_ratio(ks, ps)
+        worst = max(worst, ratio)
+        log(f"{tag} {name}: vs float64 fp32 function, summed over "
+            f"{F64_DRAWS} draws: kernel {ks:.3e}, plain {ps:.3e} (kernel / "
+            f"plain {ratio:.3f}; budget {budget})")
+        if not ratio <= budget:
+            raise AssertionError(f"{tag} {name} is {ratio:.3f} times farther "
+                                 f"from float64 than the plain version")
+    return worst
 
 
 def check_fused_gp(gen, shape, bf16=False, large_m=False):
@@ -379,21 +447,16 @@ def check_fused_gp(gen, shape, bf16=False, large_m=False):
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f"{tag} disagrees with its plain version: "
                              f"{errs} > {tols}")
+    f64_ratio = None
+    if not bf16:  # the fp32 forward's products on bf16 parts
+        inputs = _gp_inputs_large_m if large_m else _gp_inputs
+        f64_ratio = _gate_f64(tag, _f64_distances(
+            lambda: (inputs(_F64_GEN[0], shape), ()),
+            lambda a, c: fused_gp.whitened_marginals_affine(*a),
+            lambda a, c: fused_gp.whitened_marginals_affine_plain(*a),
+            ("mean", "var"), first=(args, ())), F64_BUDGET_FP32)
 
-    mean = torch.empty(b, n, device=dev)
-    var = torch.empty(b, n, device=dev)
-    launch = fused_gp.launcher(bf16)
-    stream = torch.cuda.current_stream().cuda_stream
-    kernel_args = list(args)
-    if bf16:
-        kernel_args[3] = fused_gp.bf16_wt(w)
-    ptrs = [a.data_ptr() for a in kernel_args] + [mean.data_ptr(),
-                                                  var.data_ptr()]
-
-    def run_kernel():
-        if launch(*ptrs, b * n, d, m, fused_gp.layout(m).chunk, stream):
-            raise RuntimeError("fused_gp launch failed")
-
+    run_kernel = _fwd_runner(fused_gp, args, bf16)
     with torch.inference_mode():
         ms = time_ms(run_kernel, 20)
         plain_ms = time_ms(
@@ -410,20 +473,29 @@ def check_fused_gp(gen, shape, bf16=False, large_m=False):
     nbytes = 4.0 * (r * d + m * d + m + m * m + 2 * d + 2 + 2 * r)
     bound_ms, bound_by = (bound(rest, r * m, nbytes, kw_flops) if bf16
                           else bound(kw_flops + rest, r * m, nbytes))
+    # the fp32 design's own bound: its two products (the distance's cross
+    # term and K W) as six bf16 part products each at the tensor cores' peak
+    tc_ms = None if bf16 else bound(r * (7.0 * m + 2.0 * d), r * m, nbytes,
+                                    6.0 * (r * 2.0 * m * d + kw_flops))[0]
     log(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); K W {kw_flops / 1e9:.1f} GFLOP, "
         f"the fp32 rest {rest / 1e9:.1f} GFLOP"
-        + (f"; W cast and transpose {cast_ms:.4f} ms" if bf16 else ""))
+        + (f"; W cast and transpose {cast_ms:.4f} ms" if bf16 else
+           f"; the design's tensor-core bound (six bf16 part products a "
+           f"product) {tc_ms:.4f} ms"))
     return {"name": "fused_gp.whitened_marginals_affine"
                     + ("_bf16 (fwd" if bf16 else " (fwd, fp32")
-                    + (f", M {m} in chunks of {fused_gp.layout(m).chunk})"
-                       if large_m else ")"),
+                    + (f", M {m}" + (f" in chunks of "
+                                     f"{fused_gp.layout(m).chunk}" if bf16
+                                     else "") + ")" if large_m else ")"),
             "route": "cuda", "source": _FUSED_GP_SOURCE,
             "replaces": _FUSED_GP_PALLAS + ":222", "on_path": not large_m,
             "shape": {"rows": r, "d": d, "M": m},
             "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            **({} if bf16 else {"tc_bound_ms": tc_ms,
+                                "f64_dist_over_plain": f64_ratio})}
 
 
 def _measure(got, want, rtol_atol):
@@ -441,12 +513,13 @@ def _f64_ratio(kernel, plain):
     return 0.0 if kernel == 0 else math.inf
 
 
-def _bf16_function_distances(draw, kernel, plain, names, first=None):
-    """Each gradient's max distance from the bf16 function in float64
-    (rounded to bf16 where the plain bf16 version rounds), for the kernel
-    and for the plain version, summed over ``F64_DRAWS`` draws of the
-    inputs: ``first`` (args, cot) and then ``draw()``.  ``kernel(args,
-    cot)`` and ``plain(args, cot)`` give the gradients."""
+def _f64_distances(draw, kernel, plain, names, first=None):
+    """Each output's max distance from the plain version's function in
+    float64 (the bf16 one rounded to bf16 where the plain bf16 version
+    rounds), for the kernel and for the plain version, summed over
+    ``F64_DRAWS`` draws of the inputs: ``first`` (args, cot) and then
+    ``draw()``.  ``kernel(args, cot)`` and ``plain(args, cot)`` give the
+    outputs."""
     sums = {name: [0.0, 0.0] for name in names}
     for i in range(F64_DRAWS):
         args, cot = first if i == 0 and first is not None else draw()
@@ -501,7 +574,9 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
     # function than twice the plain version is, and within 10x the tolerance.
     # bf16: besides, every gradient within F64_BUDGET_BF16_BWD times plain's
     # distance from that float64 function (summed over F64_DRAWS draws) and
-    # from the fp32 function in float64
+    # from the fp32 function in float64.  fp32: every output, forward and
+    # backward, within F64_BUDGET_FP32 times plain's distance from the
+    # float64 function, summed over F64_DRAWS draws
     tols = [TOL_FUSED_GP, TOL_BF16 * max(1.0, want[1].abs().max().item())
             if bf16 else TOL_FUSED_GP]
     errs = [(g - w_).abs().max().item() for g, w_ in zip(got, want)]
@@ -512,18 +587,27 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
             fp32_fn = fused_gp.whitened_marginals_bwd_plain(
                 *(a.double() for a in args + cot))
 
-        def draw():
-            x, zs_, u_, w_, os__, inv = _gp_inputs(gen, shape)[:6]
-            return (((x * inv).contiguous(), zs_, u_, w_, os__),
-                    (torch.randn(b, n, device=dev, generator=gen),
-                     torch.randn(b, n, device=dev, generator=gen)))
+    draw_gen = gen if bf16 else _F64_GEN[0]
 
-        summed = _bf16_function_distances(
-            draw, lambda a, c: fused_gp.backward_kernel(
-                *fused_gp._affine_args(*a), *c, bf16=True)[:5],
-            lambda a, c: fused_gp.whitened_marginals_bwd_plain(*a, *c,
-                                                               bf16=True),
-            names, first=(args, cot))
+    def draw():
+        x, zs_, u_, w_, os__, inv = _gp_inputs(draw_gen, shape)[:6]
+        return (((x * inv).contiguous(), zs_, u_, w_, os__),
+                (torch.randn(b, n, device=dev, generator=draw_gen),
+                 torch.randn(b, n, device=dev, generator=draw_gen)))
+
+    summed = _f64_distances(
+        draw, lambda a, c: fused_gp.backward_kernel(
+            *fused_gp._affine_args(*a), *c, bf16=bf16)[:5],
+        lambda a, c: fused_gp.whitened_marginals_bwd_plain(*a, *c,
+                                                           bf16=bf16),
+        names, first=(args, cot))
+    fwd_f64 = None
+    if not bf16:
+        fwd_f64 = _gate_f64(tag, _f64_distances(
+            lambda: (draw()[0], ()),
+            lambda a, c: fused_gp.whitened_marginals(*a),
+            lambda a, c: fused_gp.whitened_marginals_plain(*a),
+            ("K u", "var"), first=(args, ())), F64_BUDGET_FP32)
     bwd_errs, bwd_ok, f64 = [], True, {}
     for i, (name, g, w_, e) in enumerate(zip(names, grads, want_grads,
                                              exact_grads)):
@@ -550,37 +634,32 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
                      f"float64 fp32 function: kernel {k32:.3e}, plain "
                      f"{p32:.3e} (kernel / plain {ratios[1]:.3f}); budget "
                      f"{F64_BUDGET_BF16_BWD} for both")
+        else:
+            ks, ps = summed[name]
+            ratio = _f64_ratio(ks, ps)
+            f64[name].update(kernel_summed=ks, plain_summed=ps)
+            bwd_ok &= ratio <= F64_BUDGET_FP32
+            line += (f"; summed over {F64_DRAWS} draws: kernel {ks:.3e}, "
+                     f"plain {ps:.3e} (kernel / plain {ratio:.3f}; budget "
+                     f"{F64_BUDGET_FP32})")
         log(line)
     log(f"{tag}: max|kernel - plain| mean {errs[0]:.3e} (tol {tols[0]:.3e}),"
         f" var {errs[1]:.3e} (tol {tols[1]:.3e})")
     if not (all(e <= t for e, t in zip(errs, tols)) and bwd_ok):
         raise AssertionError(f"{tag} disagrees with its plain version")
 
-    mean = torch.empty(b, n, device=dev)
-    var = torch.empty(b, n, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    kernel_args = list(full)
-    if bf16:
-        kernel_args[3] = fused_gp.bf16_wt(w)
-    fwd_ptrs = [a.data_ptr() for a in kernel_args] + [mean.data_ptr(),
-                                                      var.data_ptr()]
+    run_fwd = _fwd_runner(fused_gp, full, bf16)
     outs = [torch.empty_like(t) for t in full]  # the gradients' shapes
     scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m, bf16),
                           device=dev)
     bwd_ptrs = ([a.data_ptr() for a in full[:7]]
                 + [c.data_ptr() for c in cot]
                 + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
-    chunk = fused_gp.layout(m).chunk
-    bwd_dims = fused_gp.bwd_dims(b * n, d, m, bf16)
-    fwd_launch, bwd_launch = fused_gp.launcher(bf16), fused_gp.bwd_launcher(
-        bf16)
-
-    def run_fwd():
-        if fwd_launch(*fwd_ptrs, b * n, d, m, chunk, stream):
-            raise RuntimeError("fused_gp launch failed")
+    bwd_launch = fused_gp.bwd_launcher(bf16)
 
     def run_bwd():
-        if bwd_launch(*bwd_ptrs, *bwd_dims, stream):
+        if bwd_launch(*bwd_ptrs, b * n, d, m, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -617,7 +696,8 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
              "replaces": _FUSED_GP_PALLAS + (":367" if bf16 else ":363"),
              "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
              "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_bound[0],
-             "bound_by": fwd_bound[1], **common},
+             "bound_by": fwd_bound[1],
+             **({} if bf16 else {"f64_dist_over_plain": fwd_f64}), **common},
             {"name": f"fused_gp.whitened_marginals{v} (bwd"
                      + ("" if bf16 else ", fp32") + ")",
              "replaces": _FUSED_GP_PALLAS + ":290",
@@ -629,7 +709,9 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
                             "float64 than twice plain"
                             + ("; bf16: every output no farther from the "
                                "float64 function than twice plain" if bf16
-                               else ""),
+                               else "; every output no farther from the "
+                               "float64 function than twice plain, summed "
+                               "over F64_DRAWS draws"),
              "max_abs_err_vs_float64": f64,
              "ms": bwd_ms, "kernel_ms": bwd_ms, "plain_ms": plain_bwd_ms,
              "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], **common})
@@ -924,16 +1006,21 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             *(a.double() for a in args + cot))
     names = ("dx", "dzs", "du", "dW", "dos", "dinv_ls", "dmean_w",
              "dmean_b")
-    if bf16:  # the bf16 function in float64, over F64_DRAWS draws
-        def draw():
-            return ((_gp_inputs_large_m if large_m else _gp_inputs)(
-                gen, shape), (torch.randn(b, n, device=dev, generator=gen),
-                              torch.randn(b, n, device=dev, generator=gen)))
+    # the variant's own function in float64 (bf16: rounded to bf16 where
+    # plain rounds), over F64_DRAWS draws
+    draw_gen = gen if bf16 else _F64_GEN[0]
 
-        summed = _bf16_function_distances(
-            draw, lambda a, c: fused_gp.backward_kernel(*a, *c, bf16=True),
-            lambda a, c: fused_gp.whitened_marginals_affine_bwd_plain(
-                *a, *c, bf16=True), names, first=(args, cot))
+    def draw():
+        return ((_gp_inputs_large_m if large_m else _gp_inputs)(
+            draw_gen, shape),
+            (torch.randn(b, n, device=dev, generator=draw_gen),
+             torch.randn(b, n, device=dev, generator=draw_gen)))
+
+    summed = _f64_distances(
+        draw, lambda a, c: fused_gp.backward_kernel(*a, *c, bf16=bf16),
+        lambda a, c: fused_gp.whitened_marginals_affine_bwd_plain(
+            *a, *c, bf16=bf16), names, first=(args, cot))
+    budget = F64_BUDGET_BF16_BWD if bf16 else F64_BUDGET_FP32
     worst = worst_abs = worst_f64 = 0.0
     for name, g, w_, e in zip(names, got, want, exact):
         scale = w_.abs().max().item()
@@ -946,18 +1033,23 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
                 f"{tol:.3e} = {rel_tol:.3e} x max(1, max|plain| "
                 f"{scale:.3e})); vs float64 fp32 function: kernel "
                 f"{k64:.3e}, plain {p64:.3e} (kernel / plain {f64_ratio:.3f}")
-        if bf16:
-            ks, ps = summed[name]
+        ks, ps = summed[name]
+        if bf16:  # the one draw from the fp32 function, and the summed
             f64_ratio = max(f64_ratio, _f64_ratio(ks, ps))
             line += (f"); vs float64 bf16 function, summed over {F64_DRAWS} "
                      f"draws: kernel {ks:.3e}, plain {ps:.3e} (kernel / "
                      f"plain {_f64_ratio(ks, ps):.3f}; budget "
-                     f"{F64_BUDGET_BF16_BWD} for both")
+                     f"{budget} for both")
+        else:  # summed over the draws
+            f64_ratio = _f64_ratio(ks, ps)
+            line += (f"); summed over {F64_DRAWS} draws: kernel {ks:.3e}, "
+                     f"plain {ps:.3e} (kernel / plain {f64_ratio:.3f}; "
+                     f"budget {budget}")
         log(line + ")")
         if not err <= tol:
             raise AssertionError(f"{tag} {name} disagrees with its "
                                  f"plain version: {err} > {tol}")
-        if bf16 and not f64_ratio <= F64_BUDGET_BF16_BWD:
+        if not f64_ratio <= budget:
             raise AssertionError(f"{tag} {name} is {f64_ratio:.3f} times "
                                  f"farther from float64 than the plain "
                                  f"version")
@@ -976,10 +1068,8 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
                           device=dev)
     ptrs = ([a.data_ptr() for a in args[:7]] + [c.data_ptr() for c in cot]
             + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
-    dims = fused_gp.bwd_dims(b * n, d, m, bf16)
-
     def run_kernel():
-        if launch(*ptrs, *dims, stream):
+        if launch(*ptrs, b * n, d, m, stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -999,14 +1089,20 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
                     + 3 * d + 4)
     bound_ms, bound_by = (bound(rest, r * m, nbytes, products) if bf16
                           else bound(products + rest, r * m, nbytes))
+    # the fp32 design's own bound: its five products (the cross term, K W,
+    # E zs, E^T xs, dW) as six bf16 part products each at the tensor cores'
+    # peak, the rest (8 an (R, M) element, 2 d a row) at the fp32 peak
+    tc_ms = None if bf16 else bound(
+        r * (10.0 * m + 2.0 * d), r * m, nbytes,
+        6.0 * (products + r * 6.0 * m * d))[0]
     log(f"{tag}: kernel {ms:.4f} ms ({fused_gp.bwd_design(m, bf16)} design), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; K W and dW "
-        f"{products / 1e9:.1f} GFLOP, the fp32 rest {rest / 1e9:.1f} GFLOP); "
-        f"library: none")
+        f"{products / 1e9:.1f} GFLOP, the fp32 rest {rest / 1e9:.1f} GFLOP"
+        + ("" if bf16 else f"; the design's tensor-core bound {tc_ms:.4f} "
+           f"ms") + "); library: none")
     return {"name": "fused_gp.whitened_marginals_affine"
                     + ("_bf16 (bwd" if bf16 else " (bwd, fp32")
-                    + (f", M {m} in chunks of {fused_gp.layout(m).chunk})"
-                       if large_m else ")"),
+                    + (f", M {m})" if large_m else ")"),
             "route": "cuda", "source": _FUSED_GP_SOURCE,
             "replaces": _FUSED_GP_PALLAS + ":290", "on_path": not large_m,
             "shape": {"rows": r, "d": d, "M": m},
@@ -1015,18 +1111,41 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             "tolerance_is": "relative to max(1, max|plain|) per output",
             "design": fused_gp.bwd_design(m, bf16),
             "f64_dist_over_plain": worst_f64,
+            **({} if bf16 else {"tc_bound_ms": tc_ms}),
             "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
 
 
-def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
-    """The fused-GP backward's device time by kernel (``torch.profiler``
-    over ``iters`` calls, per call) at (b, n, d, m), the design that ran
-    (``fused_gp.bwd_design``) and the device scratch it allocates."""
+def _by_kernel(fn, iters):
+    """Device ms per call of ``fn`` by kernel name, from ``torch.profiler``
+    over ``iters`` calls after two warm-up calls, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with torch.inference_mode():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in kernels}
+
+
+def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
+    """The fused-GP backward's device time by kernel (``torch.profiler``
+    over ``iters`` calls, per call) at (b, n, d, m), the design that ran
+    (``fused_gp.bwd_design``), the device scratch it allocates and the bytes
+    it writes between its launches for later ones to read; fp32, the
+    forward's device time by kernel too."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     b, n, d, m = shape
@@ -1034,33 +1153,36 @@ def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
     args = _gp_inputs(gen, shape)
     cot = (torch.randn(b, n, device="cuda", generator=gen),
            torch.randn(b, n, device="cuda", generator=gen))
-    with torch.inference_mode():
-        for _ in range(2):
-            fused_gp.backward_kernel(*args, *cot, bf16=bf16)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fused_gp.backward_kernel(*args, *cot, bf16=bf16)
-            torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation
-                      and e.self_device_time_total > 0),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    if not kernels:
+    by_kernel = _by_kernel(
+        lambda: fused_gp.backward_kernel(*args, *cot, bf16=bf16), iters)
+    if not by_kernel:
         raise AssertionError(f"{tag}: the profiler saw no device time")
-    by_kernel = {e.key: e.self_device_time_total / 1e3 / iters
-                 for e in kernels}
     scratch = 4 * fused_gp.bwd_scratch_floats(b * n, d, m, bf16)
     design = fused_gp.bwd_design(m, bf16)
+    # written by one launch for later ones (the scratch's (M, R) planes and
+    # x's three bf16 parts, padded to whole 128 x 128 tiles as the kernels
+    # write them): fp32 K and E (4 bytes an element each); bf16 K, bf16(K),
+    # bf16(dvar o K) and E's three parts (14)
+    rp, mp, dp = (-(-v // 128) * 128 for v in (b * n, m, d))
+    between = (8 if not bf16 else 14) * mp * rp + 6 * rp * dp
     log(f"{tag}: design {design}; device scratch {scratch / 2 ** 20:.1f} "
-        f"MiB; device time per call by kernel "
-        f"(sum {sum(by_kernel.values()):.4f} ms):")
+        f"MiB; written between launches {between / 1e6:.1f} MB; device "
+        f"time per call by kernel (sum {sum(by_kernel.values()):.4f} ms):")
     for key, ms in by_kernel.items():
-        log(f"  {ms:9.4f} ms  {key[:110]}")
-    return {"design": design, "scratch_bytes": scratch,
-            "device_ms_by_kernel": by_kernel}
+        log(f"  {ms:9.4f} ms  {key[:150]}")
+    out = {"design": design, "scratch_bytes": scratch,
+           "between_launches_bytes": between,
+           "device_ms_by_kernel": by_kernel}
+    if not bf16:
+        fwd = _by_kernel(lambda: fused_gp.forward_kernel(*args), iters)
+        log(f"fused_gp fwd (rows {b * n}, d {d}, M {m}): scratch "
+            f"{4 * fused_gp.fwd_scratch_floats(b * n, d, m) / 2 ** 20:.1f} "
+            f"MiB; device time per call by kernel (sum "
+            f"{sum(fwd.values()):.4f} ms):")
+        for key, ms in fwd.items():
+            log(f"  {ms:9.4f} ms  {key[:150]}")
+        out["fwd_device_ms_by_kernel"] = fwd
+    return out
 
 
 FLASH_CALLS = {"enc_self": P_ENC_LEN, "dec_self": P_DEC_LEN}
@@ -2423,8 +2545,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # plain fp32 products in full fp32 on cuBLAS: the yardstick of every
+    # fp32 kernel's distance from float64
+    torch.backends.cuda.matmul.allow_tf32 = False
     name, count, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _F64_GEN[0] = torch.Generator(device="cuda").manual_seed(F64_SEED)
     flagship, production = GP_SHAPES["flagship"], GP_SHAPES["production"]
     kernels = {"fused_gp": check_fused_gp(gen, flagship),
                "fused_gp_bwd": check_fused_gp_bwd(gen, flagship),
@@ -2469,6 +2595,8 @@ def main() -> int:
     # the backward's device time by kernel, at both widths it runs on a path
     kernels["fused_gp_bwd"]["by_kernel"] = fused_gp_bwd_launches(gen,
                                                                  flagship)
+    kernels["fused_gp_bwd"]["at_production_width"]["by_kernel"] = (
+        fused_gp_bwd_launches(_F64_GEN[0], production))
     kernels["fused_gp_bf16_bwd"]["by_kernel"] = fused_gp_bwd_launches(
         gen, production, bf16=True)
     kernels["rbf"] = check_rbf(gen)

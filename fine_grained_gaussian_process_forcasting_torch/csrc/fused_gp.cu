@@ -25,71 +25,49 @@
 // fp32; the distance, the exponential, E, E zs, E^T x, every sum and every
 // output stay fp32.
 //
-// What bounds it on an H100: arithmetic.  In fp32 the (K W) product is
-// 2*M*M flops per row and the distance 3*M*d, all on the CUDA cores
-// (67 TFLOP/s peak; the 2e-5 parity rules out TF32).  At the flagship (73,728
-// rows, d 32, M 512) K W is 39 GFLOP, ~0.6 ms; at the production width
-// (40,960 rows, d 512, M 512) the distance (32 GFLOP) outweighs it.  In the
-// bf16 forward the K W product moves to the tensor cores
-// (`mma.sync.m16n8k16`, 989 TFLOP/s peak) and the fp32 distance is what
-// remains; the bf16 backward puts every product there (see its section).
-// The bytes (x in, two vectors out, W once) take microseconds.
+// What bounds it on an H100: arithmetic.  The fp32 function's products --
+// the distance's cross term xs zs^T (2 M d a row), K W (2 M^2), and in the
+// VJP E zs, E^T xs (2 M d each) and dW (M (M + 1), symmetric) -- are
+// 39-58 GFLOP a call at the flagship (73,728 rows, d 32, M 512), 0.6-0.9 ms
+// at the CUDA cores' 67 TFLOP/s.  They run on the tensor cores (`wgmma`,
+// 989 TFLOP/s in bf16), as products of bf16 parts that keep the fp32
+// operand's 24 bits: the `wgb::` engine at the end of this file, which both
+// variants' backward and the fp32 forward use -- all but the fp32 forward's
+// K W, which stays an FFMA chain in the plain version's order (see
+// kw_var_kernel: at the ill-conditioned W of a 512-point Gram matrix the
+// variance's rounding is that chain's).  The bytes (x in, two vectors out,
+// W once; between launches K and E) take a fraction of that.
 //
-// Forward design: one block of 256 threads per tile of 64 rows.  The TPU
-// kernel held a 2048-row tile, all of W and the (tile, M) K in VMEM and
-// shrank the row tile for wide d; here W alone (1 MiB at M=512) exceeds a
-// block's shared memory, so
+// The bf16 forward (`fused_gp_bf16_fwd_kernel`): one block of 256 threads
+// per tile of 64 rows.  The TPU kernel held a 2048-row tile, all of W and
+// the (tile, M) K in VMEM; here W alone (1 MiB at M=512) exceeds a block's
+// shared memory, so
 //   1. the tile's K is computed once into shared memory, transposed
 //      (K^T, M x 64, 136 KB at M=512), with the direct difference
 //      |xs - zs|^2 (no cancellation, never negative).  x and zs stream
 //      through shared memory 16 columns of d at a time while each thread
 //      keeps the 64 partial distances of its inducing point in registers,
 //      so the shared memory a block needs does not grow with d;
-//   2. fp32: W streams through shared memory in 16 x 256 chunks,
-//      double-buffered through registers, and each thread accumulates an
-//      8 x 8 register tile of K W (warp w owns rows 8w..8w+7, lane c owns
-//      columns 4c..4c+3 and 128+4c..128+4c+3 of each 256-column panel);
-//      bf16: each warp owns the 64 rows x 32 columns of a panel as 4 x 4
-//      `mma` tiles, K rounded to bf16 as it leaves shared memory, W^T read
-//      as bf16 pairs from device memory (cast and transposed once per call
-//      by the wrapper; 512 KB, resident in L2);
+//   2. each warp owns the 64 rows x 32 columns of a 256-column panel of
+//      K W as 4 x 4 `mma` tiles, K rounded to bf16 as it leaves shared
+//      memory, W^T read as bf16 pairs from device memory (cast and
+//      transposed once per call by the wrapper; 512 KB, resident in L2);
 //   3. at the end of each panel the accumulators are multiplied by K and
 //      summed into per-row partial variances.  K and K W never reach device
 //      memory.
 // Rows past the end are zero inputs whose results are never stored (no
 // padding in device memory).  K^T over all of M fits a block up to M 720;
-// beyond, the chunked kernels further down hold one chunk of 512 inducing
-// points and recompute K^T chunk by chunk for each panel (the wrapper's
-// `layout` picks the chunk and passes it to the launchers).
+// beyond, the chunked kernel further down holds one chunk of 512 inducing
+// points and recomputes K^T chunk by chunk for each panel (the wrapper's
+// `layout` picks the chunk and passes it to the launcher).
 //
-// Backward design.  The Pallas backward sums the parameter cotangents across
-// its grid with init-at-step-0-then-add, which is right only on the TPU's
-// sequential grid; CUDA blocks run concurrently and in no order.  The port
-// instead splits the work so that every sum over rows is taken by one thread
-// in a fixed order -- no atomics, so the gradients are equal bit for bit
-// from run to run.  The bf16 backward is the `wgmma` design at the end of
-// this file; the fp32 one runs in four launches:
-//   1. rows (as the forward, one block per 64-row tile): recompute K^T into
-//      shared memory and (K W) panel by panel; at each panel's end form E in
-//      registers.  Per row: rowsum(E), then dxs = E zs - rowsum(E) xs from an
-//      E^T tile re-read into the K^T buffer (d <= 64: a row and 8 columns
-//      per thread; wider: the product is as large as K W and runs through
-//      the same register-tiled panels, zs streamed like W), x re-read from
-//      device memory, and dx.  Per tile: partial du = K^T dmean and colsum(E) (M each) and the
-//      partial scalar sums.  K and E are written to device memory (R x M
-//      floats each) for the two column products: those bytes take ~0.1 ms
-//      at 3.35 TB/s, where recomputing K inside a tiled product would cost
-//      one exponential and 2d flops per element for every output tile.
-//   2. dW partials: (K^T diag(dvar) K) over S contiguous row ranges, one
-//      (S, M, M) slab: a 128 x 128 output tile per block with an 8 x 8
-//      register tile per thread; dW is symmetric, so only the tiles on and
-//      above the diagonal are computed (10 of 16 at M = 512);
-//   3. dzs partials: E^T x over row ranges the same way, (S', M, d);
-//   4. a reduction that sums the partials in a fixed order and applies the
-//      column terms: dW, du, dzs = inv_ls o (E^T x) - colsum(E) o zs, and
-//      the scalars.
-// Tail rows are masked as in the forward: their cotangents count as zero and
-// nothing is written for them.
+// The fp32 forward and both backwards are the `wgb::` sequences described
+// at the engine: a handful of GEMM launches with fixed-order sums and no
+// atomics, so the gradients are equal bit for bit from run to run, at any
+// M.  (The Pallas backward sums the parameter cotangents across its grid
+// with init-at-step-0-then-add, which is right only on the TPU's sequential
+// grid; CUDA blocks run concurrently and in no order, so every sum over
+// rows is taken in partials that a last launch adds in a fixed order.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,23 +82,15 @@ namespace {
 constexpr int TR = 64;             // rows per block
 constexpr int THREADS = 256;       // 8 warps x 8 rows
 constexpr int PANEL = 256;         // W columns per panel
-constexpr int BK = 16;             // W rows per shared-memory chunk
+constexpr int BK = 16;             // K^T rows are padded to a multiple of this
 constexpr int KT_STRIDE = TR + 4;  // padded K^T row, keeps float4 alignment
-constexpr int PREFETCH = BK * PANEL / THREADS;  // 16 W values per thread
-constexpr int WBUF = 2 * BK * PANEL;            // floats of the W buffers
+constexpr int WBUF = 2 * BK * PANEL;  // floats of staging and reduction space
 
-// distance staging (aliases the W buffers, which are idle until K is done)
+// distance staging
 constexpr int DC = 16;             // columns of d per chunk
 constexpr int XC_STRIDE = TR + 4;  // x chunk [DC][XC_STRIDE]
 constexpr int ZC_STRIDE = DC + 1;  // zs chunk [THREADS][ZC_STRIDE]
 static_assert(DC * XC_STRIDE + THREADS * ZC_STRIDE <= WBUF, "staging fits");
-
-// column products (launches 2 and 3)
-constexpr int CK = 8;              // rows per shared-memory chunk
-constexpr int CBM = 128;           // output rows (m) per block
-constexpr int DW_TILE = 128;       // dW output tile: 16 x 8 per side
-constexpr int TARGET_BLOCKS = 264; // two blocks per SM on 132 SMs
-constexpr int SMALL_D = 64;        // up to here dxs is taken row by row
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -139,21 +109,6 @@ __device__ float block_sum(float v, float* red) {
   float s = 0.f;
   for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
   return s;
-}
-
-// chunk c = (panel p, row chunk kc); element (i, tid) = W[k0 + i, n0 + tid]
-// of the (M, ncols) row-major W
-__device__ __forceinline__ void load_w_chunk(const float* __restrict__ w, int M,
-                                             int ncols, int n_chunks, int c,
-                                             int tid, float (&regs)[PREFETCH]) {
-  const int p = c / n_chunks;
-  const int k0 = (c - p * n_chunks) * BK;
-  const int n = p * PANEL + tid;
-#pragma unroll
-  for (int i = 0; i < PREFETCH; ++i) {
-    const int k = k0 + i;
-    regs[i] = (k < M && n < ncols) ? __ldg(w + (size_t)k * ncols + n) : 0.f;
-  }
 }
 
 // K^T of the tile into kt [m_pad][KT_STRIDE] (columns m >= M are zeros, rows
@@ -225,77 +180,6 @@ __device__ __forceinline__ void tile_kt(const float* __restrict__ x,
   }
   __syncthreads();
 }
-
-// column of the thread's register tile j within panel p
-__device__ __forceinline__ int panel_col(int p, int lane, int j) {
-  return p * PANEL + (j < 4 ? 4 * lane + j : PANEL / 2 + 4 * lane + (j - 4));
-}
-
-// fp32 (K W) of the tile, panel by panel, for the (M, ncols) row-major W
-// streamed through shared memory and K^T in kt; at the end of panel p calls
-// epi(p, g) with the thread's 8 x 8 tile g of
-// (K W)[8 warp + i, panel_col(p, lane, j)], then zeroes g.
-template <class Epilogue>
-__device__ __forceinline__ void kw_panels(const float* __restrict__ w,
-                                          const float* kt, float* wbuf, int M,
-                                          int m_pad, int ncols, Epilogue& epi) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_panels = (ncols + PANEL - 1) / PANEL;
-  const int n_chunks = m_pad / BK;
-  const int total = n_panels * n_chunks;
-
-  float g[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
-
-  float pre[PREFETCH];
-  load_w_chunk(w, M, ncols, n_chunks, 0, tid, pre);
-#pragma unroll
-  for (int i = 0; i < PREFETCH; ++i) wbuf[i * PANEL + tid] = pre[i];
-  __syncthreads();
-
-  for (int c = 0; c < total; ++c) {
-    const int p = c / n_chunks;
-    const int kc = c - p * n_chunks;
-    if (c + 1 < total) load_w_chunk(w, M, ncols, n_chunks, c + 1, tid, pre);
-
-    const float* wb = wbuf + (c & 1) * (BK * PANEL);
-    const float* ktk = kt + kc * BK * KT_STRIDE + warp * 8;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4* kr = reinterpret_cast<const float4*>(ktk + kk * KT_STRIDE);
-      const float4 ka = kr[0], kb = kr[1];
-      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-      const float4 wa = reinterpret_cast<const float4*>(wb + kk * PANEL)[lane];
-      const float4 wc = reinterpret_cast<const float4*>(wb + kk * PANEL + PANEL / 2)[lane];
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[i][j] = fmaf(kv[i], wv[j], g[i][j]);
-    }
-
-    if (kc == n_chunks - 1) {
-      epi(p, g);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
-    }
-
-    if (c + 1 < total) {
-      float* nb = wbuf + ((c + 1) & 1) * (BK * PANEL);
-#pragma unroll
-      for (int i = 0; i < PREFETCH; ++i) nb[i * PANEL + tid] = pre[i];
-    }
-    __syncthreads();
-  }
-}
-
 // bf16 (K W) of the tile on the tensor cores.  wt is W^T in bf16,
 // (n_panels * PANEL) x m_pad, zero-padded: wt[n][k] = bf16(W[k][n]).  Warp w
 // owns the 64 rows x 32 columns [32 w, 32 w + 32) of each panel as 4 x 4
@@ -349,27 +233,6 @@ __device__ __forceinline__ void kw_panels_mma(const __nv_bfloat16* __restrict__ 
   }
 }
 
-// forward epilogue: var_part[i] += sum_j (K W)[r_i, n_j] * K[r_i, n_j]
-struct VarEpilogue {
-  const float* kt;
-  int M, lane, warp;
-  float var_part[8];
-
-  __device__ __forceinline__ void operator()(int p, float (&g)[8][8]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = panel_col(p, lane, j);
-      if (n < M) {
-        const float4* kn = reinterpret_cast<const float4*>(kt + n * KT_STRIDE + warp * 8);
-        const float4 a = kn[0], b = kn[1];
-        const float kv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) var_part[i] = fmaf(g[i][j], kv[i], var_part[i]);
-      }
-    }
-  }
-};
-
 // the same for the `mma` layout: part[2 mt + h] belongs to row 16 mt + 8 h + g
 struct VarEpilogueMma {
   const float* kt;
@@ -391,76 +254,6 @@ struct VarEpilogueMma {
           }
         }
       }
-  }
-};
-
-// backward epilogue: E[r_i, n_j] = (dm_i u_j - 2 dv_i (K W)_ij) K_ij, stored
-// to device memory, and summed per row
-struct EEpilogue {
-  const float* kt;
-  const float* __restrict__ u;
-  float* emat;
-  int M, R, lane, warp, row0;
-  float dm[8], dv[8], rowsum[8];
-
-  __device__ __forceinline__ void operator()(int p, float (&g)[8][8]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = panel_col(p, lane, j);
-      if (n < M) {
-        const float4* kn = reinterpret_cast<const float4*>(kt + n * KT_STRIDE + warp * 8);
-        const float4 a = kn[0], b = kn[1];
-        const float kv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-        const float un = __ldg(u + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float e = (dm[i] * un - 2.f * dv[i] * g[i][j]) * kv[i];
-          rowsum[i] += e;
-          const int row = row0 + warp * 8 + i;
-          if (row < R) emat[(size_t)row * M + n] = e;
-        }
-      }
-    }
-  }
-};
-
-// epilogue of the wide-d (E zs) product: g is E zs of rows 8 warp + i and
-// columns panel_col(p, lane, j) of d.  Writes dx and, per warp, the sums over
-// its 8 rows of dxs o x and dmean o x: part[warp][n] and part[warp][d + n].
-struct DxEpilogue {
-  const float* __restrict__ x;
-  const float* __restrict__ inv_ls;
-  const float* __restrict__ mean_w;
-  float* __restrict__ dx;
-  float* __restrict__ part;  // the tile's [8][2 d]
-  const float* rse_s;
-  const float* dm_s;
-  int R, d, lane, warp, row0;
-
-  __device__ __forceinline__ void operator()(int p, float (&g)[8][8]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = panel_col(p, lane, j);
-      if (n < d) {
-        const float il = inv_ls[n];
-        const float mw = mean_w[n];
-        float s_dx = 0.f, s_dm = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = warp * 8 + i;
-          const int row = row0 + r;
-          if (row < R) {
-            const float xv = x[(size_t)row * d + n];
-            const float dxs = g[i][j] - rse_s[r] * (xv * il);
-            dx[(size_t)row * d + n] = fmaf(dxs, il, dm_s[r] * mw);
-            s_dx = fmaf(dxs, xv, s_dx);
-            s_dm = fmaf(dm_s[r], xv, s_dm);
-          }
-        }
-        part[(size_t)warp * 2 * d + n] = s_dx;
-        part[(size_t)warp * 2 * d + d + n] = s_dm;
-      }
-    }
   }
 };
 
@@ -490,20 +283,20 @@ __device__ __forceinline__ void row_sums_mma(float (&part)[8], float* red,
   __syncthreads();
 }
 
-// BF16: w is W^T in bf16 (see kw_panels_mma), else W in fp32, M x M.
-template <bool BF16>
+// The bf16 forward; wt is W^T in bf16 (see kw_panels_mma).
 __global__ void __launch_bounds__(THREADS, 1)
-fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
-                    const float* __restrict__ u, const void* __restrict__ w,
-                    const float* __restrict__ os_ptr,
-                    const float* __restrict__ inv_ls,
-                    const float* __restrict__ mean_w,
-                    const float* __restrict__ mean_b_ptr,
-                    float* __restrict__ mean_out, float* __restrict__ var_out,
-                    int R, int d, int M, int m_pad) {
+fused_gp_bf16_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
+                         const float* __restrict__ u,
+                         const __nv_bfloat16* __restrict__ wt,
+                         const float* __restrict__ os_ptr,
+                         const float* __restrict__ inv_ls,
+                         const float* __restrict__ mean_w,
+                         const float* __restrict__ mean_b_ptr,
+                         float* __restrict__ mean_out, float* __restrict__ var_out,
+                         int R, int d, int M, int m_pad) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                     // [m_pad][KT_STRIDE]  K^T of the tile
-  float* wbuf = kt + m_pad * KT_STRIDE; // [2][BK][PANEL] W chunks; staging
+  float* wbuf = kt + m_pad * KT_STRIDE; // staging; reduction
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -548,264 +341,27 @@ fused_gp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
   }
 
   // 2.-3. var: (K W) panel by panel, each panel's tile met with K
-  if constexpr (BF16) {
-    VarEpilogueMma epi{kt, M, lane >> 2, lane & 3,
-                       {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-    kw_panels_mma(static_cast<const __nv_bfloat16*>(w), kt, M, m_pad, epi);
-    float* red = wbuf;             // [8][TR]
-    float* sums = wbuf + 8 * TR;   // [TR]
-    row_sums_mma(epi.part, red, sums);
-    if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
-  } else {
-    VarEpilogue epi{kt, M, lane, warp, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-    kw_panels(static_cast<const float*>(w), kt, wbuf, M, m_pad, M, epi);
-
-    float mine = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float s = warp_sum(epi.var_part[i]);
-      if (lane == i) mine = s;
-    }
-    const int row = row0 + warp * 8 + lane;
-    if (lane < 8 && row < R) var_out[row] = os - mine;
-  }
-}
-
-// Backward launch 1: per-row cotangents, per-tile partial sums, K and E.
-// part_m: [tile][2][M] = (K^T dmean, colsum E) of the tile;
-// part_s: [tile][slots * 2d + 3]: per slot (a group of the tile's rows: 2
-//         at d <= SMALL_D, else 8) (sum dxs o x, sum dmean o x), then
-//         (sum E, sum dvar, sum dmean) of the tile.
-// kmat: K as (R, M) floats.
-__global__ void __launch_bounds__(THREADS, 1)
-fused_gp_bwd_rows_kernel(const float* __restrict__ x,
-                         const float* __restrict__ zs,
-                         const float* __restrict__ u,
-                         const float* __restrict__ w,
-                         const float* __restrict__ os_ptr,
-                         const float* __restrict__ inv_ls,
-                         const float* __restrict__ mean_w,
-                         const float* __restrict__ dmean,
-                         const float* __restrict__ dvar,
-                         float* __restrict__ dx, float* kmat, float* emat,
-                         float* __restrict__ part_m,
-                         float* __restrict__ part_s, int R, int d, int M,
-                         int m_pad) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                     // [m_pad][KT_STRIDE]  K^T, then E^T
-  float* wbuf = kt + m_pad * KT_STRIDE; // [2][BK][PANEL] W chunks; staging
-  float* dm_s = wbuf + WBUF;            // [TR]
-  float* dv_s = dm_s + TR;              // [TR]
-  float* rse_s = dv_s + TR;             // [TR]                rowsum(E)
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int row0 = tile * TR;
-  const float os = *os_ptr;
-
-  if (tid < TR) {
-    const int row = row0 + tid;
-    dm_s[tid] = row < R ? dmean[row] : 0.f;  // tail rows: zero cotangents
-    dv_s[tid] = row < R ? dvar[row] : 0.f;
-  }
-  tile_kt(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, m_pad);
-
-  // K to device memory, and the tile's K^T dmean
-  for (int m = tid; m < M; m += THREADS) {
-    const float* ktm = kt + m * KT_STRIDE;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int r = 0; r < TR; ++r) {
-      acc = fmaf(ktm[r], dm_s[r], acc);
-      const int row = row0 + r;
-      if (row < R) kmat[(size_t)row * M + m] = ktm[r];
-    }
-    part_m[((size_t)tile * 2 + 0) * M + m] = acc;
-  }
-
-  // E panel by panel
-  {
-    EEpilogue epi;
-    epi.kt = kt; epi.u = u; epi.emat = emat;
-    epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      epi.dm[i] = dm_s[warp * 8 + i];
-      epi.dv[i] = dv_s[warp * 8 + i];
-      epi.rowsum[i] = 0.f;
-    }
-    kw_panels(w, kt, wbuf, M, m_pad, M, epi);  // ends with a barrier
-    float mine = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float s = warp_sum(epi.rowsum[i]);
-      if (lane == i) mine = s;
-    }
-    if (lane < 8) rse_s[warp * 8 + lane] = mine;
-  }
-
-  // E^T of the tile back into the K^T buffer (this block's own writes,
-  // visible after the barrier), and the tile's colsum(E)
-  __syncthreads();
-  for (int m = tid; m < m_pad; m += THREADS) {
-    float* ktm = kt + m * KT_STRIDE;
-    float acc = 0.f;
-#pragma unroll 16  // independent loads in flight together
-    for (int r = 0; r < TR; ++r) {
-      const int row = row0 + r;
-      const float e = (m < M && row < R) ? emat[(size_t)row * M + m] : 0.f;
-      ktm[r] = e;
-      acc += e;
-    }
-    if (m < M) part_m[((size_t)tile * 2 + 1) * M + m] = acc;
-  }
-  __syncthreads();
-
-  // dxs[r, k] = sum_m E[r, m] zs[m, k] - rowsum(E)[r] xs[r, k], dx, and per
-  // slot (a group of the tile's rows) the sums of dxs o x and dmean o x
-  const int slots = d > SMALL_D ? 8 : 2;
-  float* part_t = part_s + (size_t)tile * (slots * 2 * d + 3);
-  if (d > SMALL_D) {
-    // wide d: the product is as large as K W; the same register-tiled
-    // panels, E^T in the place of K^T and zs (M, d) in the place of W
-    DxEpilogue epi{x, inv_ls, mean_w, dx, part_t, rse_s, dm_s, R, d, lane,
-                   warp, row0};
-    kw_panels(zs, kt, wbuf, M, m_pad, d, epi);
-  } else {
-    // narrow d: thread (r, grp) takes row r and 8 columns of each
-    // 32-column pass; a warp's 32 rows are one slot
-    const int r = tid & (TR - 1);
-    const int grp = tid >> 6;  // 0..3
-    const int row = row0 + r;
-    const bool vec = (d & 3) == 0 && ((size_t)zs & 15) == 0;
-    for (int kb = 0; kb < d; kb += 32) {
-      const int k0 = kb + grp * 8;
-      const int nk = min(8, d - k0);  // <= 0: no column of its own
-      float acc[8];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[jj] = 0.f;
-      if (nk == 8 && vec) {
-#pragma unroll 4
-        for (int m = 0; m < M; ++m) {
-          const float e = kt[m * KT_STRIDE + r];
-          const float4* zm = reinterpret_cast<const float4*>(zs + (size_t)m * d + k0);
-          const float4 za = __ldg(zm), zb = __ldg(zm + 1);
-          acc[0] = fmaf(e, za.x, acc[0]); acc[1] = fmaf(e, za.y, acc[1]);
-          acc[2] = fmaf(e, za.z, acc[2]); acc[3] = fmaf(e, za.w, acc[3]);
-          acc[4] = fmaf(e, zb.x, acc[4]); acc[5] = fmaf(e, zb.y, acc[5]);
-          acc[6] = fmaf(e, zb.z, acc[6]); acc[7] = fmaf(e, zb.w, acc[7]);
-        }
-      } else if (nk > 0) {
-        for (int m = 0; m < M; ++m) {
-          const float e = kt[m * KT_STRIDE + r];
-          const float* zm = zs + (size_t)m * d + k0;
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            if (jj < nk) acc[jj] = fmaf(e, __ldg(zm + jj), acc[jj]);
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        float s_dx = 0.f, s_dm = 0.f;
-        if (jj < nk && row < R) {
-          const int k = k0 + jj;
-          const float xv = x[(size_t)row * d + k];
-          const float il = inv_ls[k];
-          const float dxs = acc[jj] - rse_s[r] * (xv * il);
-          dx[(size_t)row * d + k] = fmaf(dxs, il, dm_s[r] * mean_w[k]);
-          s_dx = dxs * xv;
-          s_dm = dm_s[r] * xv;
-        }
-        s_dx = warp_sum(s_dx);
-        s_dm = warp_sum(s_dm);
-        if (lane == 0 && jj < nk) {
-          part_t[(size_t)(warp & 1) * 2 * d + k0 + jj] = s_dx;
-          part_t[(size_t)(warp & 1) * 2 * d + d + k0 + jj] = s_dm;
-        }
-      }
-    }
-  }
-  // the tile's scalar sums
-  if (tid < 3) {
-    const float* src = tid == 0 ? rse_s : (tid == 1 ? dv_s : dm_s);
-    float acc = 0.f;
-    for (int r = 0; r < TR; ++r) acc += src[r];
-    part_t[slots * 2 * d + tid] = acc;
-  }
+  VarEpilogueMma epi{kt, M, lane >> 2, lane & 3,
+                     {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+  kw_panels_mma(wt, kt, M, m_pad, epi);
+  float* red = wbuf;             // [8][TR]
+  float* sums = wbuf + 8 * TR;   // [TR]
+  row_sums_mma(epi.part, red, sums);
+  if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
 }
 
 // ------------------------------------------------ M in chunks (M > 720) --
 //
 // At M > 720 the tile's K^T over all of M (m_pad x 68 floats) no longer fits
-// a block's shared memory.  The chunked kernels below hold K^T for one
+// a block's shared memory.  The chunked bf16 forward holds K^T for one
 // chunk of `chunk` inducing points (a multiple of the 256-column panel) and
-// recompute it as the panels need it: for each panel p of W's columns, the
+// recomputes it as the panels need it: for each panel p of W's columns, the
 // chunks are computed in turn, each multiplied into the panel's register
 // tile, the chunk that holds the panel's own columns last, so that the
 // panel's epilogue finds K[r, n] of its columns in shared memory.  K is
 // computed n_panels times instead of once: 3 M d flops a row per panel
 // against the panel's 512 M of K W, d / 170 of the product.  Rows, warps
-// and register tiles are those of the single-pass kernels above.
-
-// W rows k0.. (of `rows`) and columns n0 + tid of the row-major (rows,
-// ncols) w into registers
-__device__ __forceinline__ void load_w_rows(const float* __restrict__ w,
-                                            int rows, int ncols, int k0,
-                                            int n0, int tid,
-                                            float (&regs)[PREFETCH]) {
-  const int n = n0 + tid;
-#pragma unroll
-  for (int i = 0; i < PREFETCH; ++i) {
-    const int k = k0 + i;
-    regs[i] = (k < rows && n < ncols) ? __ldg(w + (size_t)k * ncols + n) : 0.f;
-  }
-}
-
-// g += the fp32 (K W) tile of panel p over the chunk's rows: kt holds K^T
-// of the chunk (rows_pad rows, zeros past `rows`), w the chunk's W rows.
-// Begins and ends with a barrier.
-__device__ __forceinline__ void kw_panel_rows(const float* __restrict__ w,
-                                              const float* kt, float* wbuf,
-                                              int rows, int rows_pad,
-                                              int ncols, int p,
-                                              float (&g)[8][8]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_chunks = rows_pad / BK;
-  float pre[PREFETCH];
-  load_w_rows(w, rows, ncols, 0, p * PANEL, tid, pre);
-  __syncthreads();  // wbuf is free
-#pragma unroll
-  for (int i = 0; i < PREFETCH; ++i) wbuf[i * PANEL + tid] = pre[i];
-  __syncthreads();
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks) load_w_rows(w, rows, ncols, (c + 1) * BK, p * PANEL, tid, pre);
-    const float* wb = wbuf + (c & 1) * (BK * PANEL);
-    const float* ktk = kt + c * BK * KT_STRIDE + warp * 8;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4* kr = reinterpret_cast<const float4*>(ktk + kk * KT_STRIDE);
-      const float4 ka = kr[0], kb = kr[1];
-      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-      const float4 wa = reinterpret_cast<const float4*>(wb + kk * PANEL)[lane];
-      const float4 wc = reinterpret_cast<const float4*>(wb + kk * PANEL + PANEL / 2)[lane];
-      const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wc.x, wc.y, wc.z, wc.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[i][j] = fmaf(kv[i], wv[j], g[i][j]);
-    }
-    if (c + 1 < n_chunks) {
-      float* nb = wbuf + ((c + 1) & 1) * (BK * PANEL);
-#pragma unroll
-      for (int i = 0; i < PREFETCH; ++i) nb[i * PANEL + tid] = pre[i];
-    }
-    __syncthreads();
-  }
-}
+// and register tiles are those of the single-pass kernel above.
 
 // c += the bf16 (K W) tile of the warp's 32 columns n0.. over the chunk's
 // rows k_lo.. (rows_pad of them; kt holds their K^T); wt as kw_panels_mma's,
@@ -872,23 +428,21 @@ __device__ __forceinline__ void chunked_sweeps(const float* __restrict__ x,
     epilogue(p, (p * PANEL) / chunk * chunk);
   }
 }
-
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_gp_fwd_chunked_kernel(const float* __restrict__ x,
-                            const float* __restrict__ zs,
-                            const float* __restrict__ u,
-                            const void* __restrict__ w,
-                            const float* __restrict__ os_ptr,
-                            const float* __restrict__ inv_ls,
-                            const float* __restrict__ mean_w,
-                            const float* __restrict__ mean_b_ptr,
-                            float* __restrict__ mean_out,
-                            float* __restrict__ var_out, int R, int d, int M,
-                            int m_pad, int chunk) {
+fused_gp_bf16_fwd_chunked_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ zs,
+                                 const float* __restrict__ u,
+                                 const __nv_bfloat16* __restrict__ wt,
+                                 const float* __restrict__ os_ptr,
+                                 const float* __restrict__ inv_ls,
+                                 const float* __restrict__ mean_w,
+                                 const float* __restrict__ mean_b_ptr,
+                                 float* __restrict__ mean_out,
+                                 float* __restrict__ var_out, int R, int d,
+                                 int M, int m_pad, int chunk) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                      // [chunk][KT_STRIDE]
-  float* wbuf = kt + chunk * KT_STRIDE;  // [2][BK][PANEL]; staging
+  float* wbuf = kt + chunk * KT_STRIDE;  // staging; reduction
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -899,17 +453,11 @@ fused_gp_fwd_chunked_kernel(const float* __restrict__ x,
   float macc[8];  // K u of the warp's 8 rows, this lane's share
 #pragma unroll
   for (int i = 0; i < 8; ++i) macc[i] = 0.f;
-  float g[8][8];
   float c[4][4][4];
-  VarEpilogue epi{kt, M, lane, warp, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
   VarEpilogueMma epi16{kt, M, lane >> 2, lane & 3,
                        {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
 
   auto zero = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -930,26 +478,14 @@ fused_gp_fwd_chunked_kernel(const float* __restrict__ x,
         macc[6] = fmaf(b.z, um, macc[6]); macc[7] = fmaf(b.w, um, macc[7]);
       }
     }
-    if constexpr (BF16) {
-      const int n0 = p * PANEL + warp * 32;
-      if (n0 < M)
-        kw_panel_rows_mma(static_cast<const __nv_bfloat16*>(w), m_pad, kt, lo,
-                          cnt_pad, n0, c);
-    } else {
-      kw_panel_rows(static_cast<const float*>(w) + (size_t)lo * M, kt, wbuf,
-                    cnt, cnt_pad, M, p, g);
-    }
+    const int n0 = p * PANEL + warp * 32;
+    if (n0 < M) kw_panel_rows_mma(wt, m_pad, kt, lo, cnt_pad, n0, c);
   };
   auto epilogue = [&](int p, int home_lo) {
     // kt holds the rows home_lo..: K[r, n] of the panel's columns n
-    if constexpr (BF16) {
-      const int n0 = p * PANEL + warp * 32;
-      epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-      if (n0 < M) epi16(n0, c);
-    } else {
-      epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-      epi(p, g);
-    }
+    const int n0 = p * PANEL + warp * 32;
+    epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
+    if (n0 < M) epi16(n0, c);
     zero();
   };
   chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
@@ -975,458 +511,68 @@ fused_gp_fwd_chunked_kernel(const float* __restrict__ x,
     if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
   }
 
-  if constexpr (BF16) {
-    __syncthreads();  // wbuf: the last product is done
-    float* red = wbuf;            // [8][TR]
-    float* sums = wbuf + 8 * TR;  // [TR]
-    row_sums_mma(epi16.part, red, sums);
-    if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
-  } else {
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float s = warp_sum(epi.var_part[i]);
-      if (lane == i) v = s;
-    }
-    const int row = row0 + warp * 8 + lane;
-    if (lane < 8 && row < R) var_out[row] = os - v;
-  }
+  __syncthreads();  // wbuf: the last product is done
+  float* red = wbuf;            // [8][TR]
+  float* sums = wbuf + 8 * TR;  // [TR]
+  row_sums_mma(epi16.part, red, sums);
+  if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
 }
 
-// E^T of the tile's rows for inducing points lo.. (cnt of them, cnt_pad
-// rows) from emat into kt; colsum (if not null) gets each column's sum at
-// lo + m.  Begins and ends with a barrier.
-__device__ __forceinline__ void load_et(const float* emat, float* kt,
-                                        float* __restrict__ colsum, int lo,
-                                        int cnt, int cnt_pad, int row0, int R,
-                                        int M) {
-  __syncthreads();
-  for (int m = threadIdx.x; m < cnt_pad; m += THREADS) {
-    float* ktm = kt + m * KT_STRIDE;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int r = 0; r < TR; ++r) {
-      const int row = row0 + r;
-      const float e = (m < cnt && row < R) ? emat[(size_t)row * M + lo + m] : 0.f;
-      ktm[r] = e;
-      acc += e;
-    }
-    if (colsum != nullptr && m < cnt) colsum[lo + m] = acc;
-  }
-  __syncthreads();
-}
-
-// Backward launch 1 with M in chunks: the outputs of fused_gp_bwd_rows_kernel.
-__global__ void __launch_bounds__(THREADS, 1)
-fused_gp_bwd_rows_chunked_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ zs,
-                                 const float* __restrict__ u,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ os_ptr,
-                                 const float* __restrict__ inv_ls,
-                                 const float* __restrict__ mean_w,
-                                 const float* __restrict__ dmean,
-                                 const float* __restrict__ dvar,
-                                 float* __restrict__ dx, float* kmat,
-                                 float* emat, float* __restrict__ part_m,
-                                 float* __restrict__ part_s, int R, int d,
-                                 int M, int m_pad, int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                      // [chunk][KT_STRIDE]  K^T, then E^T
-  float* wbuf = kt + chunk * KT_STRIDE;  // [2][BK][PANEL]; staging
-  float* dm_s = wbuf + WBUF;             // [TR]
-  float* dv_s = dm_s + TR;               // [TR]
-  float* rse_s = dv_s + TR;              // [TR]                rowsum(E)
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tile = blockIdx.x;
-  const int row0 = tile * TR;
-  const float os = *os_ptr;
-  const int n_chunks = (M + chunk - 1) / chunk;
-
-  if (tid < TR) {
-    const int row = row0 + tid;
-    dm_s[tid] = row < R ? dmean[row] : 0.f;  // tail rows: zero cotangents
-    dv_s[tid] = row < R ? dvar[row] : 0.f;
-  }
-  __syncthreads();
-
-  float g[8][8];
-  EEpilogue epi;
-  epi.kt = kt; epi.u = u; epi.emat = emat;
-  epi.M = M; epi.R = R; epi.lane = lane; epi.warp = warp; epi.row0 = row0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    epi.dm[i] = dm_s[warp * 8 + i];
-    epi.dv[i] = dv_s[warp * 8 + i];
-    epi.rowsum[i] = 0.f;
-  }
-  auto zero = [&]() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
-  };
-  zero();
-
-  auto on_chunk = [&](int p, int lo, int cnt, int cnt_pad) {
-    if (p == 0) {  // K to device memory, and the tile's K^T dmean
-      for (int m = tid; m < cnt; m += THREADS) {
-        const float* ktm = kt + m * KT_STRIDE;
-        const int mg = lo + m;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int r = 0; r < TR; ++r) {
-          acc = fmaf(ktm[r], dm_s[r], acc);
-          const int row = row0 + r;
-          if (row < R) kmat[(size_t)row * M + mg] = ktm[r];
-        }
-        part_m[((size_t)tile * 2 + 0) * M + mg] = acc;
-      }
-    }
-    kw_panel_rows(w + (size_t)lo * M, kt, wbuf, cnt, cnt_pad, M, p, g);
-  };
-  auto epilogue = [&](int p, int home_lo) {  // E of the panel's columns
-    epi.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-    epi(p, g);
-    zero();
-  };
-  chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
-                 epilogue);
-  __syncthreads();  // emat's writes are read back below; wbuf is free
-  {
-    float mine = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float s = warp_sum(epi.rowsum[i]);
-      if (lane == i) mine = s;
-    }
-    if (lane < 8) rse_s[warp * 8 + lane] = mine;
-  }
-
-  // dxs = E zs - rowsum(E) xs, dx and the slots' sums, E^T chunk by chunk;
-  // colsum(E) with the first sweep over the chunks
-  float* colsum = part_m + ((size_t)tile * 2 + 1) * M;
-  const int slots = d > SMALL_D ? 8 : 2;
-  float* part_t = part_s + (size_t)tile * (slots * 2 * d + 3);
-  if (d > SMALL_D) {
-    DxEpilogue dxe{x, inv_ls, mean_w, dx, part_t, rse_s, dm_s, R, d, lane,
-                   warp, row0};
-    const int n_panels = (d + PANEL - 1) / PANEL;
-    for (int p = 0; p < n_panels; ++p) {
-      zero();
-      for (int ci = 0; ci < n_chunks; ++ci) {
-        const int lo = ci * chunk;
-        const int cnt = min(chunk, M - lo);
-        load_et(emat, kt, p == 0 ? colsum : nullptr, lo, cnt, pad16(cnt), row0,
-                R, M);
-        kw_panel_rows(zs + (size_t)lo * d, kt, wbuf, cnt, pad16(cnt), d, p, g);
-      }
-      dxe(p, g);
-    }
-  } else {
-    const int r = tid & (TR - 1);
-    const int grp = tid >> 6;  // 0..3
-    const int row = row0 + r;
-    for (int kb = 0; kb < d; kb += 32) {
-      const int k0 = kb + grp * 8;
-      const int nk = min(8, d - k0);  // <= 0: no column of its own
-      float acc[8];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[jj] = 0.f;
-      for (int ci = 0; ci < n_chunks; ++ci) {
-        const int lo = ci * chunk;
-        const int cnt = min(chunk, M - lo);
-        load_et(emat, kt, kb == 0 ? colsum : nullptr, lo, cnt, pad16(cnt),
-                row0, R, M);
-        if (nk > 0) {
-          for (int m = 0; m < cnt; ++m) {
-            const float e = kt[m * KT_STRIDE + r];
-            const float* zm = zs + (size_t)(lo + m) * d + k0;
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              if (jj < nk) acc[jj] = fmaf(e, __ldg(zm + jj), acc[jj]);
-          }
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        float s_dx = 0.f, s_dm = 0.f;
-        if (jj < nk && row < R) {
-          const int k = k0 + jj;
-          const float xv = x[(size_t)row * d + k];
-          const float il = inv_ls[k];
-          const float dxs = acc[jj] - rse_s[r] * (xv * il);
-          dx[(size_t)row * d + k] = fmaf(dxs, il, dm_s[r] * mean_w[k]);
-          s_dx = dxs * xv;
-          s_dm = dm_s[r] * xv;
-        }
-        s_dx = warp_sum(s_dx);
-        s_dm = warp_sum(s_dm);
-        if (lane == 0 && jj < nk) {
-          part_t[(size_t)(warp & 1) * 2 * d + k0 + jj] = s_dx;
-          part_t[(size_t)(warp & 1) * 2 * d + d + k0 + jj] = s_dm;
-        }
-      }
-    }
-  }
-  // the tile's scalar sums
-  if (tid < 3) {
-    const float* src = tid == 0 ? rse_s : (tid == 1 ? dv_s : dm_s);
-    float acc = 0.f;
-    for (int r = 0; r < TR; ++r) acc += src[r];
-    part_t[slots * 2 * d + tid] = acc;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void frag(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-// Backward launches 2 and 3 in fp32: for row range s of `rows_per` rows,
-//   part[s, m, n] = sum_r A[r, m] * (rw ? rw[r] : 1) * B[r, n]
-// with A (R, Mdim) and B (R, Ndim) row-major.  256 threads as 16 x 16; a
-// block owns a (16 TM) x (16 TN) output tile and a thread a TM x TN register
-// tile (rows ty*TM/2.. and BM/2 + ty*TM/2.., columns likewise).  Row chunks
-// of CK stream through two shared-memory buffers: the next chunk's loads are
-// in flight in registers while the current one is multiplied.  SYM (A = B,
-// the product symmetric): blockIdx.x enumerates only the tiles on and above
-// the diagonal, and the reduction reads the others transposed.
-template <int TM, int TN, bool SYM>
-__global__ void __launch_bounds__(THREADS)
-fused_gp_bwd_cols_kernel(const float* A, const float* B,
-                         const float* __restrict__ rw,
-                         float* __restrict__ part, int R, int Mdim, int Ndim,
-                         int rows_per) {
-  constexpr int BM = 16 * TM;
-  constexpr int BN = 16 * TN;
-  constexpr int HM = TM / 2;
-  constexpr int HN = TN / 2;
-  constexpr int LA = (CK * BM + THREADS - 1) / THREADS;
-  constexpr int LB = (CK * BN + THREADS - 1) / THREADS;
-  __shared__ __align__(16) float as[2][CK][BM];
-  __shared__ __align__(16) float bs[2][CK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  int bm = blockIdx.y, bn = blockIdx.x;
-  if (SYM) {  // the t-th tile of the upper triangle, row by row
-    const int nt = (Ndim + BN - 1) / BN;
-    int t = blockIdx.x, len = nt;
-    bm = 0;
-    while (t >= len) { t -= len; ++bm; --len; }
-    bn = bm + t;
-  }
-  const int m0 = bm * BM;
-  const int n0 = bn * BN;
-  const int s = blockIdx.z;
-  const int r0 = s * rows_per;
-  const int r1 = min(R, r0 + rows_per);
-
-  float pa[LA], pb[LB];
-  auto fetch = [&](int rc) {
-#pragma unroll
-    for (int c = 0; c < LA; ++c) {
-      const int i = tid + c * THREADS;
-      const int rr = i / BM;
-      const int r = rc + rr;
-      const int m = m0 + (i - rr * BM);
-      float a = 0.f;
-      if (i < CK * BM && r < r1 && m < Mdim) {
-        a = A[(size_t)r * Mdim + m];
-        if (rw != nullptr) a *= rw[r];
-      }
-      pa[c] = a;
-    }
-#pragma unroll
-    for (int c = 0; c < LB; ++c) {
-      const int i = tid + c * THREADS;
-      const int rr = i / BN;
-      const int r = rc + rr;
-      const int n = n0 + (i - rr * BN);
-      pb[c] = (i < CK * BN && r < r1 && n < Ndim) ? B[(size_t)r * Ndim + n] : 0.f;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int c = 0; c < LA; ++c) {
-      const int i = tid + c * THREADS;
-      if (i < CK * BM) as[buf][i / BM][i % BM] = pa[c];
-    }
-#pragma unroll
-    for (int c = 0; c < LB; ++c) {
-      const int i = tid + c * THREADS;
-      if (i < CK * BN) bs[buf][i / BN][i % BN] = pb[c];
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  fetch(r0);
-  stash(0);
-  __syncthreads();
-  int buf = 0;
-  for (int rc = r0; rc < r1; rc += CK) {
-    const bool more = rc + CK < r1;
-    if (more) fetch(rc + CK);
-#pragma unroll
-    for (int kk = 0; kk < CK; ++kk) {
-      float a[TM], b[TN];
-      float lo[HM], hi[HM], bl[HN], bh[HN];
-      frag<HM>(&as[buf][kk][ty * HM], lo);
-      frag<HM>(&as[buf][kk][BM / 2 + ty * HM], hi);
-      frag<HN>(&bs[buf][kk][tx * HN], bl);
-      frag<HN>(&bs[buf][kk][BN / 2 + tx * HN], bh);
-#pragma unroll
-      for (int i = 0; i < HM; ++i) { a[i] = lo[i]; a[HM + i] = hi[i]; }
-#pragma unroll
-      for (int j = 0; j < HN; ++j) { b[j] = bl[j]; b[HN + j] = bh[j]; }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* out = part + (size_t)s * Mdim * Ndim;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i < HM ? ty * HM + i : BM / 2 + ty * HM + (i - HM));
-    if (m >= Mdim) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j < HN ? tx * HN + j : BN / 2 + tx * HN + (j - HN));
-      if (n < Ndim) out[(size_t)m * Ndim + n] = acc[i][j];
-    }
-  }
-}
-
-// Backward launch 4: fixed-order sums of every partial.  Blocks 0..M-1 own
-// inducing point m (du, dzs row, dW row); blocks M.. own one scalar output
-// each: dinv_ls[k], dmean_w[k], dos, dmean_b.  Only the dW tiles on and
-// above the diagonal were computed.
-__global__ void __launch_bounds__(THREADS)
-fused_gp_bwd_reduce_kernel(const float* __restrict__ part_m,
-                           const float* __restrict__ part_s,
-                           const float* __restrict__ pw,
-                           const float* __restrict__ pz,
-                           const float* __restrict__ zs,
-                           const float* __restrict__ inv_ls,
-                           const float* __restrict__ os_ptr,
-                           float* __restrict__ dzs, float* __restrict__ du,
-                           float* __restrict__ dw, float* __restrict__ dos,
-                           float* __restrict__ dinv_ls,
-                           float* __restrict__ dmean_w,
-                           float* __restrict__ dmean_b, int n_tiles, int d,
-                           int M, int s_w, int s_z) {
-  __shared__ float red[THREADS / 32];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
-  if (b < M) {
-    const int m = b;
-    float a = 0.f, c = 0.f;
-    for (int t = tid; t < n_tiles; t += THREADS) {
-      a += part_m[((size_t)t * 2 + 0) * M + m];
-      c += part_m[((size_t)t * 2 + 1) * M + m];
-    }
-    a = block_sum(a, red);
-    c = block_sum(c, red);  // colsum(E)[m]
-    if (tid == 0) du[m] = a;
-    for (int k = tid; k < d; k += THREADS) {
-      float e = 0.f;
-      for (int s = 0; s < s_z; ++s) e += pz[((size_t)s * M + m) * d + k];
-      dzs[(size_t)m * d + k] = e * inv_ls[k] - c * zs[(size_t)m * d + k];
-    }
-    // below the diagonal of a symmetric product, read the mirror element
-    for (int n = tid; n < M; n += THREADS) {
-      const bool upper = m / DW_TILE <= n / DW_TILE;
-      const size_t at = upper ? (size_t)m * M + n : (size_t)n * M + m;
-      float e = 0.f;
-      for (int s = 0; s < s_w; ++s) e += pw[(size_t)s * M * M + at];
-      dw[(size_t)m * M + n] = -e;
-    }
-    return;
-  }
-  const int q = b - M;
-  const int slots = d > SMALL_D ? 8 : 2;
-  const int ns = slots * 2 * d + 3;
-  float a = 0.f, c = 0.f;
-  if (q < 2 * d) {
-    for (int t = tid; t < n_tiles * slots; t += THREADS)
-      a += part_s[(size_t)(t / slots) * ns + (size_t)(t % slots) * 2 * d + q];
-  } else {
-    const int qa = q == 2 * d ? 0 : 2;
-    for (int t = tid; t < n_tiles; t += THREADS) {
-      a += part_s[(size_t)t * ns + slots * 2 * d + qa];
-      if (q == 2 * d) c += part_s[(size_t)t * ns + slots * 2 * d + 1];
-    }
-  }
-  a = block_sum(a, red);
-  if (q == 2 * d) c = block_sum(c, red);
-  if (tid != 0) return;
-  if (q < d) dinv_ls[q] = a;
-  else if (q < 2 * d) dmean_w[q - d] = a;
-  else if (q == 2 * d) *dos = a / *os_ptr + c;
-  else *dmean_b = a;
-}
-
-// ------------------------------------- bf16 backward on `wgmma` (any M) --
+// ---------------------------------- products on `wgmma` (any M): `wgb::` --
 //
-// The bf16 VJP as five products and two passes around them, every product
-// on Hopper's warpgroup tensor-core instructions (wgmma_bf16.cuh).  The
-// reference's three fp32 products -- the distance's cross term, E zs and
-// E^T xs -- run on bf16 parts: an fp32 operand v is carried as p0 =
-// bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), which hold its 24
+// The fp32 forward, and both backwards, as a few products and passes around
+// them, every product on Hopper's warpgroup tensor-core instructions
+// (wgmma_bf16.cuh).  An fp32 operand v is carried as three bf16 parts
+// p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), which hold its 24
 // bits, and a product as the sum of the six part products p_i q_j with
-// i + j < 3, in fp32.  K W and K^T (dvar o K) take bf16-rounded K as the
-// reference specifies; E takes K in fp32.  The tensor cores' fp32 sums are
-// less exact than FFMA's over long runs of the summed index, so E zs and
-// E^T xs add every 16-column sum into the tile's accumulator in fp32, and
-// K W every 512-column one.  (Two parts of K in E, or of E, put dxs, dzs,
-// dinv_ls and dos several times farther from float64 than the plain
-// version; so did long tensor-core sums, and in K W so did short ones
-// where W is ill-conditioned.)  Everything is computed in the orientation
-// that lets both operands of every product be read from rows in device
-// memory (K and E as (M, R)):
+// i + j < 3, in fp32.  The tensor cores' fp32 sums are less exact than
+// FFMA's over long runs of the summed index (their errors lean one way and
+// add up over the rows that E's column sums and dW take), so E zs and E^T
+// xs add every 16-column sum into the tile's accumulator in fp32, the fp32
+// K W and dW every 64-column one, and the bf16 K W every 512-column one.
+// (Two parts of K in E, or of E, put dxs, dzs, dinv_ls and dos several
+// times farther from float64 than the plain version; so did long
+// tensor-core sums -- 512-column ones in the fp32 K W put dzs 7x as far,
+// unbroken ones in dW put dW 8x -- and in the bf16 K W so did short ones
+// where W is ill-conditioned.)  An operand enters shared memory in
+// one of two ways: its parts stored in device memory and copied by
+// cp.async (`Operand`), or as fp32, split into its parts on the way
+// (`F32Operand`): each thread loads its share of the next stage into
+// registers before the current stage's products are issued, and splits and
+// stores it while they run.  Everything is computed in the orientation that
+// lets both operands of every product be read from rows in device memory
+// (K and E as (M, R)):
 //   prep     xs = x o inv_ls in three parts (R, d) and |xs|^2; zs in three
-//            parts, and transposed; W^T as the bf16 (M, M) tile;
-//   1. K^T   (M, R) = os exp(-(|zs|^2 + |xs|^2 - 2 zs xs^T) / 2); writes K,
-//            bf16(K) and bf16(dvar o K), and per 128-row range the partial
-//            K^T dmean (du);
-//   2. G^T   = W^T bf16(K)^T, then E^T = (u dmean^T - 2 G^T dvar) o K;
-//            writes E's three parts and per range the partial row and
-//            column sums of E;
+//            parts, and transposed; W^T in three parts (fp32) or as bf16;
+//   1. K^T   (M, R) = os exp(-(|zs|^2 + |xs|^2 - 2 zs xs^T) / 2), the cross
+//            term summed over d in steps of 64; writes K in fp32 and
+//            (forward) per 128-inducing-point range the partial K u, or
+//            (backward) per 128-row range the partial K^T dmean (du) and,
+//            bf16, bf16(K) and bf16(dvar o K);
+//   2. G^T   = W^T K^T, the backward's: fp32, K split on load; bf16, from
+//            bf16(K); E^T = (u dmean^T - 2 G^T dvar) o K in the epilogue,
+//            written (fp32: as fp32, bf16: in three parts), and per range
+//            the partial row and column sums of E.  The fp32 forward's K W
+//            is one FFMA chain an element instead, in the plain version's
+//            order (kw_var_kernel), its epilogue the partial sums of
+//            (K W o K);
 //   3. dxs^T = zs^T E^T - rowsum(E) xs^T; dx = dxs o inv_ls + dmean mean_w
 //            through a shared-memory transpose, and per range the partial
 //            sums of dxs o x and dmean o x;
 //   4. E^T xs over slabs of rows: (S, M, d) partials;
-//   5. bf16(K)^T bf16(dvar o K) over slabs of rows: (S, M, M) partials;
-//   reduce   the partials in a fixed order, in float64: du, dzs, dW, dos,
-//            dinv_ls, dmean_w, dmean_b.
+//   5. dW    fp32: K^T diag(dvar) K over slabs of rows, both operands split
+//            from K on load (the second scaled by dvar), only the tiles on
+//            and above the diagonal; bf16: bf16(K)^T bf16(dvar o K);
+//   reduce   the partials in a fixed order: forward, mean and var a row;
+//            backward, in float64, du, dzs, dW, dos, dinv_ls, dmean_w,
+//            dmean_b.
 // Each product is one kernel, gemm_kernel: a 128 x 128 output tile per
 // block of two warpgroups (64 rows each, 64 x 128 accumulators), the
 // operands streamed 64 columns of the summed index at a time through a ring
-// of shared-memory stages filled by cp.async.  Scratch arrays are padded to
-// whole tiles (rows and columns to 128) and their pads hold zeros, so the
-// copies need no masks; the inputs and outputs are not padded.  No atomics:
-// two runs give equal gradients bit for bit.
+// of shared-memory stages.  Scratch arrays are padded to whole tiles (rows
+// and columns to 128) and their pads hold zeros, so the copies need no
+// masks; the inputs and outputs are not padded.  No atomics: two runs give
+// equal results bit for bit.
 
 namespace wgb {
 
@@ -1437,11 +583,25 @@ constexpr int GT = 128;          // output tile rows and columns
 constexpr int GKC = 64;          // summed index per stage
 constexpr int GTILE = GT * GKC * 2;  // bytes of one operand part a stage
 constexpr int PARTS = 3;         // bf16 parts of an fp32 operand
+// k16 steps of the tensor cores' sums, each added into the tile's in fp32
+constexpr int SUM_KW_BF16 = 32;  // bf16 K W: 512 inducing points
+constexpr int SUM_F32 = 4;       // fp32 K W and dW: 64 of the summed index
 
 // An fp32 operand carried as P bf16 parts (P 1: one bf16 operand): part 0 =
 // bf16(v), part i = bf16(v - parts 0..i-1), rows of `ld` elements.
 struct Operand {
+  static constexpr bool f32 = false;
   const bf16* part[PARTS];
+  int ld;
+};
+
+// An fp32 operand split into its parts on the way into shared memory: rows
+// of `ld` floats; where `scale` is not null (K-major operands only),
+// element k of a row is first multiplied by scale[k], in fp32.
+struct F32Operand {
+  static constexpr bool f32 = true;
+  const float* v;
+  const float* scale;
   int ld;
 };
 
@@ -1466,6 +626,11 @@ __device__ __forceinline__ void split(float v, bf16 (&p)[N]) {
   }
 }
 
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // A block's output tile: row tile rt (rows row0..), column tile ct, and
 // the slab of the summed index.  The tiles run along x, the row tiles
 // fastest, so that the blocks of a column tile, which share its operand
@@ -1476,6 +641,17 @@ struct Tile {
 __device__ __forceinline__ Tile tile(int row_tiles) {
   const int rt = blockIdx.x % row_tiles, ct = blockIdx.x / row_tiles;
   return {rt, ct, (int)blockIdx.y, rt * GT, ct * GT};
+}
+// a symmetric product's: the x-th tile on and above the diagonal of
+// row_tiles x row_tiles, row by row
+__device__ __forceinline__ Tile sym_tile(int row_tiles) {
+  int t = blockIdx.x, len = row_tiles, rt = 0;
+  while (t >= len) {
+    t -= len;
+    ++rt;
+    --len;
+  }
+  return {rt, rt + t, (int)blockIdx.y, rt * GT, (rt + t) * GT};
 }
 
 // one stage: A rows row0.. x columns k0..k0+63 (K-major), and B: K-major
@@ -1509,6 +685,81 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const Operand& A,
   }
 }
 
+// The same for one operand of a stage whose other operand is split on
+// load: its parts by cp.async into the operand's planes at `base`; MN:
+// rows k0.. x columns rc0..rc0+127, else rows rc0.. x columns k0..
+template <bool MN, int P>
+__device__ __forceinline__ void copy_operand(uint32_t base, const Operand& o,
+                                             int rc0, int k0) {
+  for (int i = threadIdx.x; i < P * GT * 8; i += 2 * 128) {
+    const int p = i / (GT * 8);
+    const int j = i - p * (GT * 8);
+    if (MN) {
+      const int r = j >> 4, c = j & 15;
+      hopper::cp16(base + p * GTILE + hopper::swizzled(GKC, r, c),
+                   o.part[p] + (size_t)(k0 + r) * o.ld + rc0 + c * 8);
+    } else {
+      const int r = j >> 3, c = j & 7;
+      hopper::cp16(base + p * GTILE + hopper::swizzled(GT, r, c),
+                   o.part[p] + (size_t)(rc0 + r) * o.ld + k0 + c * 8);
+    }
+  }
+}
+
+// A thread's share of one fp32 operand tile of a stage, in registers: 8
+// float4 of the 128 x 64 (K-major: rows (tid >> 4) + 16 c, columns
+// 4 (tid & 15)..) or 64 x 128 (MN-major: rows (tid >> 5) + 8 c, columns
+// 4 (tid & 31)..) floats, and (K-major, scaled) its four columns' scale.
+struct Staged {
+  float4 v[8];
+  float4 s;
+};
+
+template <bool MN>
+__device__ __forceinline__ void fetch(Staged& st, const F32Operand& o, int rc0,
+                                      int k0) {
+  const int tid = threadIdx.x;
+  const float* src = MN ? o.v + (size_t)(k0 + (tid >> 5)) * o.ld + rc0 + 4 * (tid & 31)
+                        : o.v + (size_t)(rc0 + (tid >> 4)) * o.ld + k0 + 4 * (tid & 15);
+  const size_t step = (size_t)(MN ? 8 : 16) * o.ld;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    st.v[c] = __ldg(reinterpret_cast<const float4*>(src + c * step));
+  if (!MN && o.scale != nullptr)
+    st.s = __ldg(reinterpret_cast<const float4*>(o.scale + k0 + 4 * (tid & 15)));
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a), "r"(b)
+               : "memory");
+}
+
+// the fetched share, split into P parts, into the operand's planes at base
+// (the layout cp.async gives Operand's parts)
+template <bool MN, int P>
+__device__ __forceinline__ void store_split(uint32_t base, const Staged& st,
+                                            bool scaled) {
+  const int tid = threadIdx.x;
+  const int c4 = MN ? tid & 31 : tid & 15;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float4 v = st.v[c];
+    if (scaled) {
+      v.x *= st.s.x; v.y *= st.s.y; v.z *= st.s.z; v.w *= st.s.w;
+    }
+    const int r = MN ? (tid >> 5) + 8 * c : (tid >> 4) + 16 * c;
+    const uint32_t at = base + hopper::swizzled(MN ? GKC : GT, r, c4 >> 1) + (c4 & 1) * 8;
+    bf16 p[4][P];
+    split(v.x, p[0]);
+    split(v.y, p[1]);
+    split(v.z, p[2]);
+    split(v.w, p[3]);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      st_shared_v2(at + i * GTILE, pack2(p[0][i], p[1][i]), pack2(p[2][i], p[3][i]));
+  }
+}
+
 // row and column, in the block's 128 x 128 tile, of accumulator element i
 // of slab nt
 __device__ __forceinline__ int acc_row(int i) {
@@ -1525,32 +776,64 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// sums over the tile's 128 rows of each column of acc, in a fixed order:
+// the two rows of a thread, the 8 row groups of a warp, then the 8 warps in
+// order; out[c] for the 128 columns c.  red is 8 x 128 floats of shared
+// memory.
+__device__ __forceinline__ void col_sums(float (&acc)[2][32], float* red,
+                                         float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 32; i += 4)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = acc[nt][i + q] + acc[nt][i + 2 + q];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4) red[warp * GT + acc_col(nt, i + q)] = v;
+      }
+  __syncthreads();
+  if (threadIdx.x < GT) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += red[w * GT + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+}
+
 // C (the block's 128 x 128 tile) = sum over the summed index in
 // [k_len slab, min(k_len (slab + 1), k_total)) of A B, then epi(acc, smem,
 // tile).  A and B carry P parts each (1 or PARTS), and the product sums
-// the part products A_i B_j with i + j < P.  SUM: the k16 steps whose products the tensor cores sum in a
-// fresh accumulator before it is added to the tile's in fp32 (0: the
-// tensor cores carry the whole sum; a multiple of 4 steps: whole stages).
-template <int P, bool B_MN, int SUM, class Epi>
-__global__ void __launch_bounds__(256, 1)
-gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
-            Epi epi) {
+// the part products A_i B_j with i + j < P.  SUM: the k16 steps whose
+// products the tensor cores sum in a fresh accumulator before it is added
+// to the tile's in fp32 (0: the tensor cores carry the whole sum; a
+// multiple of 4 steps: whole stages).  SYM: the tiles on and above the
+// diagonal of a square product (sym_tile).  OA, OB: Operand or F32Operand.
+// NT: the tile's 64-column halves that hold data (1: the second is
+// padding, and no product is issued for it).  MINB 2: two blocks an SM, for
+// a sum of one stage (k_total <= GKC), which needs one buffer of the ring.
+template <int P, bool B_MN, int SUM, class Epi, bool SYM = false,
+          class OA = Operand, class OB = Operand, int NT = 2, int MINB = 1>
+__global__ void __launch_bounds__(256, MINB)
+gemm_kernel(OA A, OB B, int row_tiles, int k_len, int k_total, Epi epi) {
   static_assert(SUM == 0 || SUM == 1 || SUM % (GKC / 16) == 0, "SUM");
+  constexpr bool SPLIT = OA::f32 || OB::f32;
+  static_assert(!SPLIT || P == PARTS, "an operand is split into PARTS parts");
+  // the fp32 products (an operand split on load, or 64-column sums) issue
+  // one m64n128k16 for both halves of the tile, which reads A from shared
+  // memory once instead of twice
+  constexpr bool N128 = (SPLIT || SUM == SUM_F32) && NT == 2;
   constexpr int GSTAGES = stages<P>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hopper::align1024(smem_raw);
-  const Tile t = tile(row_tiles);
+  const Tile t = SYM ? sym_tile(row_tiles) : tile(row_tiles);
   const int kbeg = t.slab * k_len;
   const int nk = (min(k_len, k_total - kbeg) + GKC - 1) / GKC;
   const int wgi = threadIdx.x >> 7;
   auto stage = [&](int s) { return sm + s * stage_bytes<P>(); };
-  auto load = [&](int j) {
-    if (j < nk)
-      load_stage<B_MN, P>(stage(j % GSTAGES), A, B, t.row0, t.col0, kbeg + j * GKC);
-    hopper::cp_commit();
-  };
-#pragma unroll
-  for (int j = 0; j < GSTAGES - 1; ++j) load(j);
 
   float acc[2][32], part[2][32];
 #pragma unroll
@@ -1564,12 +847,10 @@ gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
       for (int i = 0; i < 32; ++i) acc[nt][i] += part[nt][i];
   };
 
-  for (int j = 0; j < nk; ++j) {
-    hopper::cp_wait<GSTAGES - 2>();
-    hopper::fence_async_smem();
-    __syncthreads();  // stage j is in; stage j - 1 is read by every warpgroup
-    load(j + GSTAGES - 1);
-    const uint32_t s = hopper::smem_u32(stage(j % GSTAGES));
+  // the products of stage j (in buffer j % GSTAGES); between() runs while
+  // the first group of them is in flight
+  auto products = [&](int js, auto&& between) {
+    const uint32_t s = hopper::smem_u32(stage(js % GSTAGES));
     const uint32_t a0 = s + wgi * 64 * ROW_BYTES;
     const uint32_t b0 = s + P * GTILE;
     auto bdesc = [&](int j, int nt, int kk) {
@@ -1577,44 +858,68 @@ gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
       return B_MN ? hopper::mndesc(b, GKC, nt, kk)
                   : hopper::kdesc(b + nt * 64 * ROW_BYTES, GT, kk);
     };
+    // both halves of part j's B at step kk, for mma128
+    auto bdesc128 = [&](int j, int kk) {
+      const uint32_t b = b0 + j * GTILE;
+      return B_MN ? hopper::desc_mn(b + kk * 16 * ROW_BYTES, GKC * ROW_BYTES)
+                  : hopper::kdesc(b, GT, kk);
+    };
+    // the part products smallest first (i + j from P - 1 down to 0): the
+    // tensor cores truncate each sum to the accumulator's exponent, so the
+    // largest product is added last, once
     if constexpr (SUM == 1) {
 #pragma unroll
       for (int kk = 0; kk < GKC / 16; ++kk) {
         hopper::fence();
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int q = P - 1; q >= 0; --q)
 #pragma unroll
-          for (int i = 0; i < P; ++i)
+          for (int i = 0; i <= q; ++i) {
+            const uint64_t a = hopper::kdesc(a0 + i * GTILE, GT, kk);
+            const int keep = q < P - 1 || i > 0;
+            if constexpr (N128) {
+              hopper::mma128<B_MN>(part[0], part[1], a, bdesc128(q - i, kk), keep);
+            } else {
 #pragma unroll
-            for (int j = 0; i + j < P; ++j)
-              hopper::mma<B_MN>(part[nt], hopper::kdesc(a0 + i * GTILE, GT, kk),
-                                bdesc(j, nt, kk), i + j > 0);
+              for (int nt = 0; nt < NT; ++nt)
+                hopper::mma<B_MN>(part[nt], a, bdesc(q - i, nt, kk), keep);
+            }
+          }
         hopper::commit();
+        if (kk == 0) between();
         hopper::wait<0>();
         hopper::pin(part[0]);
         hopper::pin(part[1]);
         add_part();
       }
     } else {
-      constexpr int per = SUM ? SUM / (GKC / 16) : 1;  // stages a sum spans
-      const bool fresh = j % per == 0;
+      [[maybe_unused]] constexpr int per = SUM ? SUM / (GKC / 16) : 1;  // stages a sum spans
       hopper::fence();
 #pragma unroll
-      for (int kk = 0; kk < GKC / 16; ++kk)
+      for (int q = P - 1; q >= 0; --q)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int kk = 0; kk < GKC / 16; ++kk)
 #pragma unroll
-          for (int i = 0; i < P; ++i)
-#pragma unroll
-            for (int j = 0; i + j < P; ++j) {
-              const uint64_t a = hopper::kdesc(a0 + i * GTILE, GT, kk);
+          for (int i = 0; i <= q; ++i) {
+            const uint64_t a = hopper::kdesc(a0 + i * GTILE, GT, kk);
+            const int keep = js % per != 0 || q < P - 1 || kk > 0 || i > 0;
+            if constexpr (N128) {
               if constexpr (SUM == 0)
-                hopper::mma<B_MN>(acc[nt], a, bdesc(j, nt, kk));
+                hopper::mma128<B_MN>(acc[0], acc[1], a, bdesc128(q - i, kk));
               else
-                hopper::mma<B_MN>(part[nt], a, bdesc(j, nt, kk),
-                                  !fresh || kk + i + j > 0);
+                hopper::mma128<B_MN>(part[0], part[1], a, bdesc128(q - i, kk), keep);
+            } else {
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                if constexpr (SUM == 0)
+                  hopper::mma<B_MN>(acc[nt], a, bdesc(q - i, nt, kk));
+                else
+                  hopper::mma<B_MN>(part[nt], a, bdesc(q - i, nt, kk), keep);
+              }
             }
+          }
       hopper::commit();
+      between();
       hopper::wait<0>();
       if constexpr (SUM == 0) {
         hopper::pin(acc[0]);
@@ -1622,8 +927,58 @@ gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
       } else {
         hopper::pin(part[0]);
         hopper::pin(part[1]);
-        if (j % per == per - 1 || j == nk - 1) add_part();
+        if (js % per == per - 1 || js == nk - 1) add_part();
       }
+    }
+  };
+
+  if constexpr (SPLIT) {
+    // two buffers: stage j + 1 is fetched before stage j's products are
+    // issued, and split into the other buffer while they run
+    Staged sa, sb;
+    auto fetch_stage = [&](int j) {
+      const int k0 = kbeg + j * GKC;
+      const uint32_t base = hopper::smem_u32(stage(j % GSTAGES));
+      if constexpr (OA::f32) fetch<false>(sa, A, t.row0, k0);
+      else copy_operand<false, P>(base, A, t.row0, k0);
+      if constexpr (OB::f32) fetch<B_MN>(sb, B, t.col0, k0);
+      else copy_operand<B_MN, P>(base + P * GTILE, B, t.col0, k0);
+      hopper::cp_commit();
+    };
+    auto store_stage = [&](int j) {
+      const uint32_t base = hopper::smem_u32(stage(j % GSTAGES));
+      if constexpr (OA::f32) store_split<false, P>(base, sa, A.scale != nullptr);
+      if constexpr (OB::f32)
+        store_split<B_MN, P>(base + P * GTILE, sb, !B_MN && B.scale != nullptr);
+    };
+    if (nk > 0) {
+      fetch_stage(0);
+      store_stage(0);
+    }
+    for (int j = 0; j < nk; ++j) {
+      hopper::cp_wait<0>();
+      hopper::fence_async_smem();
+      __syncthreads();  // stage j is in; the other buffer is read by no one
+      const bool more = j + 1 < nk;
+      if (more) fetch_stage(j + 1);
+      products(j, [&] {
+        if (more) store_stage(j + 1);
+      });
+    }
+  } else {
+    auto load = [&](int j) {
+      if (j < nk)
+        load_stage<B_MN, P>(stage(j % GSTAGES), A, B, t.row0, t.col0, kbeg + j * GKC);
+      hopper::cp_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < GSTAGES - 1; ++j) load(j);
+    for (int j = 0; j < nk; ++j) {
+      hopper::cp_wait<GSTAGES - 2>();
+      hopper::fence_async_smem();
+      __syncthreads();  // stage j is in; stage j - 1 is read by every warpgroup
+      load(j + GSTAGES - 1);
+      products(j, [] {});
     }
   }
   hopper::cp_wait<0>();
@@ -1631,14 +986,14 @@ gemm_kernel(Operand A, Operand B, int row_tiles, int k_len, int k_total,
   epi(acc, reinterpret_cast<float*>(sm), t);
 }
 
-// 1. K^T tile: rows m, columns r
+// 1. K^T tile: rows m, columns r; the backward's
 struct KEpi {
   const float* x2;  // (Rp) |xs|^2, zeros past R
   const float* z2;  // (Mp)
   const float* os_ptr;
   const float* dmean;
   const float* dvar;
-  bf16 *kh, *dvk;   // (Mp, Rp): bf16(K), bf16(dvar o K)
+  bf16 *kh, *dvk;   // (Mp, Rp): bf16(K), bf16(dvar o K); null in fp32
   float* kf;        // (Mp, Rp): K
   float* part_du;   // (Rp / 128, Mp)
   int M, R, Mp, Rp;
@@ -1664,10 +1019,12 @@ struct KEpi {
         }
         const size_t at = (size_t)m * Rp + r;
         *reinterpret_cast<float2*>(kf + at) = make_float2(k[0], k[1]);
-        *reinterpret_cast<__nv_bfloat162*>(kh + at) =
-            __halves2bfloat162(to_bf16(k[0]), to_bf16(k[1]));
-        *reinterpret_cast<__nv_bfloat162*>(dvk + at) = __halves2bfloat162(
-            to_bf16(dv[0] * k[0]), to_bf16(dv[1] * k[1]));
+        if (kh != nullptr) {
+          *reinterpret_cast<__nv_bfloat162*>(kh + at) =
+              __halves2bfloat162(to_bf16(k[0]), to_bf16(k[1]));
+          *reinterpret_cast<__nv_bfloat162*>(dvk + at) = __halves2bfloat162(
+              to_bf16(dv[0] * k[0]), to_bf16(dv[1] * k[1]));
+        }
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1678,19 +1035,146 @@ struct KEpi {
   }
 };
 
+// 1. K^T tile, the forward's: K, and K^T u summed over the tile's rows m
+struct FwdKEpi {
+  const float* x2;  // (Rp)
+  const float* z2;  // (Mp)
+  const float* os_ptr;
+  const float* u;
+  float* kf;        // (Mp, Rp): K
+  float* part_mu;   // (Mp / 128, Rp)
+  int M, R, Rp;
+
+  __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
+    const float os = *os_ptr;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int m = t.row0 + acc_row(i);
+        const int r = t.col0 + acc_col(nt, i);
+        const float zz = z2[m];
+        const float um = m < M ? u[m] : 0.f;
+        float k[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d2 = (x2[r + e] + zz) - 2.f * acc[nt][i + e];
+          k[e] = m < M && r + e < R ? os * expf(-0.5f * d2) : 0.f;
+          acc[nt][i + e] = k[e] * um;
+        }
+        *reinterpret_cast<float2*>(kf + (size_t)m * Rp + r) = make_float2(k[0], k[1]);
+      }
+    col_sums(acc, red, part_mu + (size_t)t.rt * Rp + t.col0);
+  }
+};
+
+// 2. (forward) the variance's sums, (K W o K) over a range of 128 of W's
+// columns, per row: FFMA, each (K W)[r, n] one fma chain over m = 0, 1, ...
+// in order -- the order of cuBLAS's fp32 product, so that the variance,
+// whose rounding at an ill-conditioned W is that chain's (W ~ 100 against
+// a variance ~ 0.4), stays within 1e-4 of the plain version's, as no other
+// order of the sum can.  256 threads as 16 x 16 own a 128 (n) x 128 (r)
+// tile of (K W)^T, a thread 8 x 8 of it; W and K^T stream through shared
+// memory FK inducing points at a time, the next chunk's loads in flight in
+// registers; two blocks an SM.  The x blocks run along n, so that the
+// blocks of one row range, which share its K^T, run together.
+constexpr int FK = 8;
+
+__global__ void __launch_bounds__(256, 2)
+kw_var_kernel(const float* __restrict__ w, const float* __restrict__ kf,
+              float* __restrict__ part_v, int M, int Rp) {
+  __shared__ __align__(16) float ws[2][FK][GT];  // W rows m, columns n0..
+  __shared__ __align__(16) float ks[2][FK][GT];  // K^T rows m, columns r0..
+  __shared__ float red[8][GT];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * GT, r0 = blockIdx.y * GT;
+  const int lr = tid >> 5, lc = 4 * (tid & 31);  // this thread's loads
+  float pw[4];
+  float4 pk;
+  auto fetch = [&](int m0) {
+    const int m = m0 + lr;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pw[e] = m < M && n0 + lc + e < M ? __ldg(w + (size_t)m * M + n0 + lc + e) : 0.f;
+    pk = *reinterpret_cast<const float4*>(kf + (size_t)m * Rp + r0 + lc);
+  };
+  auto stash = [&](int buf) {
+    *reinterpret_cast<float4*>(&ws[buf][lr][lc]) = make_float4(pw[0], pw[1], pw[2], pw[3]);
+    *reinterpret_cast<float4*>(&ks[buf][lr][lc]) = pk;
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int chunks = (M + FK - 1) / FK;  // K^T's rows past M are zeros
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < chunks) fetch((c + 1) * FK);
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      const float4 wl = *reinterpret_cast<const float4*>(&ws[buf][kk][ty * 4]);
+      const float4 wh = *reinterpret_cast<const float4*>(&ws[buf][kk][64 + ty * 4]);
+      const float4 kl = *reinterpret_cast<const float4*>(&ks[buf][kk][tx * 4]);
+      const float4 kh = *reinterpret_cast<const float4*>(&ks[buf][kk][64 + tx * 4]);
+      const float a[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+      const float b[8] = {kl.x, kl.y, kl.z, kl.w, kh.x, kh.y, kh.z, kh.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(b[j], a[i], acc[i][j]);
+    }
+    if (c + 1 < chunks) stash(buf ^ 1);
+    __syncthreads();
+  }
+  // v[j]: sum over the thread's 8 columns n of (K W)[r_j, n] K[r_j, n]
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = n0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const float* kn = kf + (size_t)n * Rp + r0 + tx * 4;
+    const float4 lo = *reinterpret_cast<const float4*>(kn);
+    const float4 hi = *reinterpret_cast<const float4*>(kn + 64);
+    const float k[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = fmaf(acc[i][j], k[j], v[j]);
+  }
+  // over the 16 ty of a column in a fixed order: the two of a warp, then
+  // the 8 warps
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], 16);
+  if (lane < 16) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[warp][j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4] = v[j];
+  }
+  __syncthreads();
+  if (tid < GT) {
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) sum += red[q][tid];
+    part_v[(size_t)blockIdx.x * Rp + r0 + tid] = sum;
+  }
+}
+
 // 2. G^T tile = W^T K^T: rows m, columns r; E^T = (u dmean - 2 dvar G) o K
 struct EEpi {
   const float* kf;
   const float* u;
   const float* dmean;
   const float* dvar;
-  bf16* ep;           // PARTS planes (Mp, Rp): E's parts
+  bf16* ep;           // bf16: PARTS planes (Mp, Rp), E's parts
+  float* ef;          // fp32: (Mp, Rp), E
   float* part_ce;     // (Rp / 128, Mp): sums over the range's rows
   float* part_re;     // (Mp / 128, Rp): sums over the tile's inducing points
   int M, R, Mp, Rp;
 
   __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const size_t plane = (size_t)Mp * Rp;
     float ce[2] = {0.f, 0.f};
 #pragma unroll
@@ -1711,12 +1195,16 @@ struct EEpi {
           const float e = (dm * um - (2.f * dv) * acc[nt][i + q]) * (q ? k.y : k.x);
           acc[nt][i + q] = e;
           ce[(i >> 1) & 1] += e;
-          split(e, p[q]);
+          if (ef == nullptr) split(e, p[q]);
         }
+        if (ef != nullptr) {
+          *reinterpret_cast<float2*>(ef + at) = make_float2(acc[nt][i], acc[nt][i + 1]);
+        } else {
 #pragma unroll
-        for (int j = 0; j < PARTS; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(ep + j * plane + at) =
-              __halves2bfloat162(p[0][j], p[1][j]);
+          for (int j = 0; j < PARTS; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(ep + j * plane + at) =
+                __halves2bfloat162(p[0][j], p[1][j]);
+        }
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1724,27 +1212,7 @@ struct EEpi {
       if ((threadIdx.x & 3) == 0)
         part_ce[(size_t)t.ct * Mp + t.row0 + acc_row(2 * h)] = s;
     }
-    // column sums: the two rows of a thread, the 8 row groups of a warp,
-    // then the 8 warps in order
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 32; i += 4)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          float v = acc[nt][i + q] + acc[nt][i + 2 + q];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (lane < 4) red[warp * GT + acc_col(nt, i + q)] = v;
-        }
-    __syncthreads();
-    if (threadIdx.x < GT) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) s += red[w * GT + threadIdx.x];
-      part_re[(size_t)t.rt * Rp + t.col0 + threadIdx.x] = s;
-    }
+    col_sums(acc, red, part_re + (size_t)t.rt * Rp + t.col0);
   }
 };
 
@@ -1828,10 +1296,12 @@ struct PartEpi {
 };
 
 // prep, one warp a row of x: xs = x o inv_ls in three bf16 parts, (Rp, Dp)
-// each, and |xs|^2; zeros past R and d
+// each, and |xs|^2; zeros past R and d.  dvp (if not null): dvar padded
+// with zeros to Rp.
 __global__ void __launch_bounds__(256)
 prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
-              bf16* __restrict__ xp, float* __restrict__ x2, int R, int d,
+              const float* __restrict__ dvar, bf16* __restrict__ xp,
+              float* __restrict__ x2, float* __restrict__ dvp, int R, int d,
               int Rp, int Dp) {
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -1852,16 +1322,20 @@ prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
           __halves2bfloat162(p[0][i], p[1][i]);
   }
   s = warp_sum(s);
-  if (lane == 0) x2[r] = s;
+  if (lane == 0) {
+    x2[r] = s;
+    if (dvp != nullptr) dvp[r] = r < R ? dvar[r] : 0.f;
+  }
 }
 
 // prep, one block an inducing point m < Mp: zs in three bf16 parts (Mp, Dp)
-// and transposed (Dp, Mp), |zs|^2, and row m of W^T in bf16 (Mp, Mp); zeros
-// past M and d
+// and (if ztp is not null) transposed (Dp, Mp), |zs|^2, and (if wp is not
+// null) row m of W^T in WP bf16 parts (Mp, Mp) each; zeros past M and d
+template <int WP>
 __global__ void __launch_bounds__(256)
 prep_z_kernel(const float* __restrict__ zs, const float* __restrict__ w,
               bf16* __restrict__ zp, bf16* __restrict__ ztp,
-              float* __restrict__ z2, bf16* __restrict__ w16, int M, int d,
+              float* __restrict__ z2, bf16* __restrict__ wp, int M, int d,
               int Mp, int Dp) {
   __shared__ float red[8];
   const int m = blockIdx.x;
@@ -1874,13 +1348,21 @@ prep_z_kernel(const float* __restrict__ zs, const float* __restrict__ w,
     split(v, p);
 #pragma unroll
     for (int i = 0; i < PARTS; ++i) zp[i * plane + (size_t)m * Dp + k] = p[i];
+    if (ztp != nullptr) {
 #pragma unroll
-    for (int i = 0; i < PARTS; ++i) ztp[i * plane + (size_t)k * Mp + m] = p[i];
+      for (int i = 0; i < PARTS; ++i) ztp[i * plane + (size_t)k * Mp + m] = p[i];
+    }
   }
   s = block_sum(s, red);
   if (threadIdx.x == 0) z2[m] = s;
-  for (int k = threadIdx.x; k < Mp; k += 256)
-    w16[(size_t)m * Mp + k] = to_bf16((m < M && k < M) ? w[(size_t)k * M + m] : 0.f);
+  if (wp == nullptr) return;
+  const size_t wplane = (size_t)Mp * Mp;
+  for (int k = threadIdx.x; k < Mp; k += 256) {
+    bf16 p[WP];
+    split((m < M && k < M) ? w[(size_t)k * M + m] : 0.f, p);
+#pragma unroll
+    for (int i = 0; i < WP; ++i) wp[i * wplane + (size_t)m * Mp + k] = p[i];
+  }
 }
 
 // sum of v over the block's threads in a fixed order; every thread gets it
@@ -1898,18 +1380,20 @@ __device__ double block_sum_f64(double v, double* red) {
 
 // fixed-order sums of every partial, in float64 (so that a sum over all
 // the rows, such as dmean_b, carries no more rounding than its result's):
-// blocks 0..M-1 own inducing point m (du, dzs row, dW row); blocks M.. one
-// scalar output each
+// blocks 0..M-1 own inducing point m (du, dzs row, dW row, and colsum(E)[m]
+// into cem[m]); blocks M.. one scalar output each (sum(dvar) into cem[Mp],
+// for dos_kernel).  sym: only pw's tiles on and above the diagonal were
+// computed, the others are read transposed.
 __global__ void __launch_bounds__(256)
 reduce_kernel(const float* __restrict__ part_du, const float* __restrict__ part_ce,
               const float* __restrict__ pz, const float* __restrict__ pw,
               const float* __restrict__ part_dx, const float* __restrict__ zs,
-              const float* __restrict__ os_ptr, const float* __restrict__ dmean,
-              const float* __restrict__ dvar, float* __restrict__ dzs,
-              float* __restrict__ du, float* __restrict__ dw,
-              float* __restrict__ dos, float* __restrict__ dinv_ls,
-              float* __restrict__ dmean_w, float* __restrict__ dmean_b, int R,
-              int d, int M, int Mp, int Dp, int r_tiles, int s_z, int s_w) {
+              const float* __restrict__ dmean, const float* __restrict__ dvar,
+              float* __restrict__ dzs, float* __restrict__ du,
+              float* __restrict__ dw, float* __restrict__ dinv_ls,
+              float* __restrict__ dmean_w, float* __restrict__ dmean_b,
+              double* __restrict__ cem, int R, int d, int M, int Mp, int Dp,
+              int r_tiles, int s_z, int s_w, int sym) {
   __shared__ double red[8];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -1922,48 +1406,100 @@ reduce_kernel(const float* __restrict__ part_du, const float* __restrict__ part_
     }
     a = block_sum_f64(a, red);
     c = block_sum_f64(c, red);  // colsum(E)[m]
-    if (tid == 0) du[m] = (float)a;
+    if (tid == 0) {
+      du[m] = (float)a;
+      cem[m] = c;
+    }
     for (int k = tid; k < d; k += 256) {
       double e = 0.0;
       for (int s = 0; s < s_z; ++s) e += pz[((size_t)s * Mp + m) * Dp + k];
       dzs[(size_t)m * d + k] = (float)(e - c * zs[(size_t)m * d + k]);
     }
     for (int n = tid; n < M; n += 256) {
+      const bool upper = !sym || m / GT <= n / GT;
+      const size_t at = upper ? (size_t)m * Mp + n : (size_t)n * Mp + m;
       double e = 0.0;
-      for (int s = 0; s < s_w; ++s) e += pw[((size_t)s * Mp + m) * Mp + n];
+      for (int s = 0; s < s_w; ++s) e += pw[(size_t)s * Mp * Mp + at];
       dw[(size_t)m * M + n] = (float)-e;
     }
     return;
   }
   const int q = b - M;
-  double a = 0.0, c = 0.0;
+  double a = 0.0;
   if (q < 2 * d) {
     const int col = q < d ? q : Dp + q - d;
     for (int t = tid; t < r_tiles; t += 256) a += part_dx[(size_t)t * 2 * Dp + col];
   } else if (q == 2 * d) {
-    for (int i = tid; i < r_tiles * M; i += 256)
-      a += part_ce[(size_t)(i / M) * Mp + i % M];
-    for (int r = tid; r < R; r += 256) c += dvar[r];
+    for (int r = tid; r < R; r += 256) a += dvar[r];
   } else {
     for (int r = tid; r < R; r += 256) a += dmean[r];
   }
   a = block_sum_f64(a, red);
-  if (q == 2 * d) c = block_sum_f64(c, red);
   if (tid != 0) return;
   if (q < d) dinv_ls[q] = (float)a;
   else if (q < 2 * d) dmean_w[q - d] = (float)a;
-  else if (q == 2 * d) *dos = (float)(a / *os_ptr + c);
+  else if (q == 2 * d) cem[Mp] = a;
   else *dmean_b = (float)a;
 }
 
-// scratch of one call, in bytes from its base (each array 256-byte aligned)
-struct Plan {
-  int Rp, Mp, Dp, r_tiles, s_z, k_z, s_w, k_w;
-  size_t xp, x2, zp, ztp, z2, w16, kh, kf, dvk, e, part_du, part_ce, part_re,
-      part_dx, pz, pw, total;
-};
+// dos = sum(E) / os + sum(dvar), from reduce_kernel's colsum(E)[m] and
+// sum(dvar) in cem; one block
+__global__ void __launch_bounds__(256)
+dos_kernel(const double* __restrict__ cem, const float* __restrict__ os_ptr,
+           float* __restrict__ dos, int M, int Mp) {
+  __shared__ double red[8];
+  double a = 0.0;
+  for (int m = threadIdx.x; m < M; m += 256) a += cem[m];
+  a = block_sum_f64(a, red);
+  if (threadIdx.x == 0) *dos = (float)(a / *os_ptr + cem[Mp]);
+}
+
+// the forward's last pass, one warp a row: mean = x . mean_w + mean_b + the
+// K u partials, var = os - the (G o K) partials, each summed over the
+// inducing-point ranges in order
+__global__ void __launch_bounds__(256)
+fwd_finish_kernel(const float* __restrict__ x, const float* __restrict__ mean_w,
+                  const float* __restrict__ mean_b, const float* __restrict__ os_ptr,
+                  const float* __restrict__ part_mu, const float* __restrict__ part_v,
+                  float* __restrict__ mean, float* __restrict__ var, int R, int d,
+                  int Rp, int m_tiles) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;
+  float s = 0.f;
+  for (int k = lane; k < d; k += 32) s = fmaf(x[(size_t)r * d + k], mean_w[k], s);
+  s = warp_sum(s);
+  if (lane != 0) return;
+  float mu = 0.f, v = 0.f;
+  for (int t = 0; t < m_tiles; ++t) {
+    mu += part_mu[(size_t)t * Rp + r];
+    v += part_v[(size_t)t * Rp + r];
+  }
+  mean[r] = s + *mean_b + mu;
+  var[r] = *os_ptr - v;
+}
 
 __host__ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
+
+// scratch arrays of one call, as byte offsets from its base (each 256-byte
+// aligned)
+struct Arena {
+  size_t total = 0;
+  size_t take(size_t bytes) {
+    const size_t at = total;
+    total += (bytes + 255) / 256 * 256;
+    return at;
+  }
+};
+
+// the backward's scratch.  Dp: d padded to whole output tiles (E zs and
+// E^T xs have tiles along d); Dk: d padded to the stage (the cross term sums
+// over it)
+struct Plan {
+  int Rp, Mp, Dp, Dk, r_tiles, s_z, k_z, s_w, k_w;
+  size_t xp, x2, dvp, zp, ztp, z2, wp, kh, kf, dvk, e, part_du, part_ce,
+      part_re, part_dx, pz, pw, cem, total;
+};
 
 // slabs of the summed rows so that `tiles` output tiles make about one wave
 __host__ inline void slabs(int Rp, int tiles, int& s, int& k_len) {
@@ -1974,51 +1510,125 @@ __host__ inline void slabs(int Rp, int tiles, int& s, int& k_len) {
   s = (Rp + k_len - 1) / k_len;
 }
 
-__host__ inline Plan plan(int R, int d, int M) {
+// f32: the fp32 backward (W^T, K and E split into three parts, dW
+// symmetric), else the bf16 one
+__host__ inline Plan plan(int R, int d, int M, bool f32) {
   Plan p;
   p.Rp = round_up(R, GT);
   p.Mp = round_up(M, GT);
   p.Dp = round_up(d, GT);
+  p.Dk = round_up(d, GKC);
   p.r_tiles = p.Rp / GT;
-  slabs(p.Rp, (p.Mp / GT) * (p.Dp / GT), p.s_z, p.k_z);
-  slabs(p.Rp, (p.Mp / GT) * (p.Mp / GT), p.s_w, p.k_w);
-  size_t o = 0;
-  auto take = [&](size_t bytes) {
-    const size_t at = o;
-    o += (bytes + 255) / 256 * 256;
-    return at;
-  };
+  const int mt = p.Mp / GT;
+  slabs(p.Rp, mt * (p.Dp / GT), p.s_z, p.k_z);
+  slabs(p.Rp, f32 ? mt * (mt + 1) / 2 : mt * mt, p.s_w, p.k_w);
+  Arena a;
   const size_t rd = (size_t)p.Rp * p.Dp, md = (size_t)p.Mp * p.Dp,
                mr = (size_t)p.Mp * p.Rp;
-  p.xp = take(PARTS * rd * 2); p.x2 = take((size_t)p.Rp * 4);
-  p.zp = take(PARTS * md * 2); p.ztp = take(PARTS * md * 2);
-  p.z2 = take((size_t)p.Mp * 4);
-  p.w16 = take((size_t)p.Mp * p.Mp * 2);
-  p.kh = take(mr * 2); p.kf = take(mr * 4); p.dvk = take(mr * 2);
-  p.e = take(PARTS * mr * 2);
-  p.part_du = take((size_t)p.r_tiles * p.Mp * 4);
-  p.part_ce = take((size_t)p.r_tiles * p.Mp * 4);
-  p.part_re = take((size_t)(p.Mp / GT) * p.Rp * 4);
-  p.part_dx = take((size_t)p.r_tiles * 2 * p.Dp * 4);
-  p.pz = take((size_t)p.s_z * md * 4);
-  p.pw = take((size_t)p.s_w * p.Mp * p.Mp * 4);
-  p.total = o;
+  p.xp = a.take(PARTS * rd * 2); p.x2 = a.take((size_t)p.Rp * 4);
+  p.dvp = a.take(f32 ? (size_t)p.Rp * 4 : 0);
+  p.zp = a.take(PARTS * md * 2); p.ztp = a.take(PARTS * md * 2);
+  p.z2 = a.take((size_t)p.Mp * 4);
+  p.wp = a.take((f32 ? PARTS : 1) * (size_t)p.Mp * p.Mp * 2);
+  p.kh = a.take(f32 ? 0 : mr * 2); p.kf = a.take(mr * 4);
+  p.dvk = a.take(f32 ? 0 : mr * 2);
+  p.e = a.take(f32 ? mr * 4 : PARTS * mr * 2);
+  p.part_du = a.take((size_t)p.r_tiles * p.Mp * 4);
+  p.part_ce = a.take((size_t)p.r_tiles * p.Mp * 4);
+  p.part_re = a.take((size_t)mt * p.Rp * 4);
+  p.part_dx = a.take((size_t)p.r_tiles * 2 * p.Dp * 4);
+  p.pz = a.take((size_t)p.s_z * md * 4);
+  p.pw = a.take((size_t)p.s_w * p.Mp * p.Mp * 4);
+  p.cem = a.take(((size_t)p.Mp + 1) * 8);
+  p.total = a.total;
   return p;
 }
 
-// the tiles of `row_tiles` x `col_tiles`, `slabs` deep, as gemm_kernel
-// places them
-template <int P, bool B_MN, int SUM, class Epi>
-__host__ int gemm(int row_tiles, int col_tiles, int slabs, Operand A,
-                  Operand B, int k_len, int k_total, const Epi& epi,
-                  cudaStream_t st) {
-  constexpr int smem = gemm_smem<P>();
+// the fp32 forward's scratch
+struct FwdPlan {
+  int Rp, Mp, Dk;
+  size_t xp, x2, zp, z2, kf, part_mu, part_v, total;
+};
+
+__host__ inline FwdPlan fwd_plan(int R, int d, int M) {
+  FwdPlan p;
+  p.Rp = round_up(R, GT);
+  p.Mp = round_up(M, GT);
+  p.Dk = round_up(d, GKC);
+  Arena a;
+  p.xp = a.take(PARTS * (size_t)p.Rp * p.Dk * 2); p.x2 = a.take((size_t)p.Rp * 4);
+  p.zp = a.take(PARTS * (size_t)p.Mp * p.Dk * 2); p.z2 = a.take((size_t)p.Mp * 4);
+  p.kf = a.take((size_t)p.Mp * p.Rp * 4);
+  p.part_mu = a.take((size_t)(p.Mp / GT) * p.Rp * 4);
+  p.part_v = a.take((size_t)(p.Mp / GT) * p.Rp * 4);
+  p.total = a.total;
+  return p;
+}
+
+// the tiles of `row_tiles` x `col_tiles` (SYM: those on and above the
+// diagonal of row_tiles x row_tiles), `slabs` deep, as gemm_kernel places
+// them
+template <int P, bool B_MN, int SUM, bool SYM = false, int NT = 2,
+          int MINB = 1, class OA, class OB, class Epi>
+__host__ int gemm(int row_tiles, int col_tiles, int slabs, OA A, OB B,
+                  int k_len, int k_total, const Epi& epi, cudaStream_t st) {
+  if (MINB == 2 && k_total > GKC) return (int)cudaErrorInvalidValue;
+  constexpr int smem = MINB == 2 ? stage_bytes<P>() + 1024 : gemm_smem<P>();
+  auto kernel = gemm_kernel<P, B_MN, SUM, Epi, SYM, OA, OB, NT, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<P, B_MN, SUM, Epi>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  gemm_kernel<P, B_MN, SUM, Epi><<<dim3(row_tiles * col_tiles, slabs), 256, smem, st>>>(
-      A, B, row_tiles, k_len, k_total, epi);
+  const int tiles = SYM ? row_tiles * (row_tiles + 1) / 2 : row_tiles * col_tiles;
+  kernel<<<dim3(tiles, slabs), 256, smem, st>>>(A, B, row_tiles, k_len,
+                                                k_total, epi);
+  return (int)cudaGetLastError();
+}
+
+// P planes of bf16 parts, `plane` elements apart, rows of ld
+__host__ inline Operand parts(unsigned char* base, size_t off, size_t plane,
+                              int n, int ld) {
+  Operand o{{nullptr, nullptr, nullptr}, ld};
+  for (int i = 0; i < n; ++i)
+    o.part[i] = reinterpret_cast<bf16*>(base + off) + i * plane;
+  return o;
+}
+
+__host__ int launch_fwd(const float* x, const float* zs, const float* u,
+                        const float* w, const float* os, const float* inv_ls,
+                        const float* mean_w, const float* mean_b, float* mean,
+                        float* var, void* scratch, int R, int d, int M,
+                        cudaStream_t st) {
+  const FwdPlan p = fwd_plan(R, d, M);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  auto f32 = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
+  auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
+  const int mt = p.Mp / GT, rt = p.Rp / GT;
+  int err;
+  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, nullptr, b16(p.xp),
+                                                f32(p.x2), nullptr, R, d, p.Rp,
+                                                p.Dk);
+  if ((err = (int)cudaGetLastError())) return err;
+  prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr, f32(p.z2),
+                                             nullptr, M, d, p.Mp, p.Dk);
+  if ((err = (int)cudaGetLastError())) return err;
+  // 1. K^T, and the partial K u (a sum of one stage at d <= 64: two blocks
+  // an SM, whose loads and epilogues overlap)
+  const Operand zsp = parts(base, p.zp, (size_t)p.Mp * p.Dk, PARTS, p.Dk);
+  const Operand xs = parts(base, p.xp, (size_t)p.Rp * p.Dk, PARTS, p.Dk);
+  const FwdKEpi kepi{f32(p.x2), f32(p.z2), os, u, f32(p.kf), f32(p.part_mu),
+                     M, R, p.Rp};
+  err = p.Dk <= GKC
+            ? gemm<PARTS, false, 0, false, 2, 2>(mt, rt, 1, zsp, xs, p.Dk, p.Dk,
+                                                 kepi, st)
+            : gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dk, p.Dk, kepi, st);
+  if (err) return err;
+  // 2. the partial (K W o K) sums, K W on FFMA in the plain version's order
+  kw_var_kernel<<<dim3(mt, rt), 256, 0, st>>>(w, f32(p.kf), f32(p.part_v), M,
+                                              p.Rp);
+  if ((err = (int)cudaGetLastError())) return err;
+  fwd_finish_kernel<<<(R + 7) / 8, 256, 0, st>>>(x, mean_w, mean_b, os,
+                                                 f32(p.part_mu), f32(p.part_v),
+                                                 mean, var, R, d, p.Rp, mt);
   return (int)cudaGetLastError();
 }
 
@@ -2028,200 +1638,148 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
                         const float* dvar, float* dx, float* dzs, float* du,
                         float* dw, float* dos, float* dinv_ls, float* dmean_w,
                         float* dmean_b, void* scratch, int R, int d, int M,
-                        cudaStream_t st) {
-  const Plan p = plan(R, d, M);
+                        bool f32, cudaStream_t st) {
+  const Plan p = plan(R, d, M, f32);
   unsigned char* base = static_cast<unsigned char*>(scratch);
   auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
-  auto f32 = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
+  auto fp = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
   const int mt = p.Mp / GT, rt = p.r_tiles, dt = p.Dp / GT;
   int err;
 
-  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, b16(p.xp), f32(p.x2),
-                                                R, d, p.Rp, p.Dp);
+  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(
+      x, inv_ls, dvar, b16(p.xp), fp(p.x2), f32 ? fp(p.dvp) : nullptr, R, d,
+      p.Rp, p.Dp);
   if ((err = (int)cudaGetLastError())) return err;
-  prep_z_kernel<<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp), f32(p.z2),
-                                      b16(p.w16), M, d, p.Mp, p.Dp);
+  if (f32)
+    prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp),
+                                               fp(p.z2), b16(p.wp), M, d, p.Mp,
+                                               p.Dp);
+  else
+    prep_z_kernel<1><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp),
+                                           fp(p.z2), b16(p.wp), M, d, p.Mp,
+                                           p.Dp);
   if ((err = (int)cudaGetLastError())) return err;
 
   const size_t rd = (size_t)p.Rp * p.Dp, md = (size_t)p.Mp * p.Dp,
                mr = (size_t)p.Mp * p.Rp;
-  auto parts = [&](size_t off, size_t plane, int n, int ld) {
-    Operand o{{nullptr, nullptr, nullptr}, ld};
-    for (int i = 0; i < n; ++i) o.part[i] = b16(off) + i * plane;
-    return o;
-  };
-  const Operand xs = parts(p.xp, rd, PARTS, p.Dp);
-  const Operand zsp = parts(p.zp, md, PARTS, p.Dp);
-  const Operand zst = parts(p.ztp, md, PARTS, p.Mp);
-  const Operand kt = parts(p.kh, 0, 1, p.Rp);
-  const Operand et = parts(p.e, mr, PARTS, p.Rp);
-  // 1. K^T: the distance's cross term in three parts, six products
-  err = gemm<PARTS, false, 0>(mt, rt, 1, zsp, xs, p.Dp, p.Dp,
-                       KEpi{f32(p.x2), f32(p.z2), os, dmean, dvar, b16(p.kh),
-                            b16(p.dvk), f32(p.kf), f32(p.part_du), M, R, p.Mp,
-                            p.Rp}, st);
+  const Operand xs = parts(base, p.xp, rd, PARTS, p.Dp);
+  const Operand zsp = parts(base, p.zp, md, PARTS, p.Dp);
+  const Operand zst = parts(base, p.ztp, md, PARTS, p.Mp);
+  // 1. K^T: the distance's cross term in three parts, six products (fp32:
+  // summed 64 columns at a time; at d <= 64 a sum of one stage, two blocks
+  // an SM)
+  const KEpi kepi{fp(p.x2), fp(p.z2), os, dmean, dvar,
+                  f32 ? nullptr : b16(p.kh), f32 ? nullptr : b16(p.dvk),
+                  fp(p.kf), fp(p.part_du), M, R, p.Mp, p.Rp};
+  if (!f32)
+    err = gemm<PARTS, false, 0>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, st);
+  else if (p.Dk <= GKC)
+    err = gemm<PARTS, false, 0, false, 2, 2>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi,
+                                             st);
+  else
+    err = gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, st);
   if (err) return err;
-  // 2. G^T = W^T K^T in bf16 (sums over 512 inducing points at a time),
-  // E^T in the epilogue
-  err = gemm<1, true, 32>(mt, rt, 1, parts(p.w16, 0, 1, p.Mp), kt, p.Mp, p.Mp,
-                      EEpi{f32(p.kf), u, dmean, dvar, b16(p.e), f32(p.part_ce),
-                           f32(p.part_re), M, R, p.Mp, p.Rp}, st);
-  if (err) return err;
-  // 3. (E zs)^T in three parts (sums over 16 at a time), dx in the epilogue
-  err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp,
-                       DxEpi{x, inv_ls, mean_w, dmean, f32(p.part_re), dx,
-                             f32(p.part_dx), R, d, p.Dp, p.Rp, mt}, st);
-  if (err) return err;
-  // 4. E^T xs in three parts (sums over 16 rows at a time), over slabs
-  err = gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
-                       PartEpi{f32(p.pz), p.Dp, md}, st);
-  if (err) return err;
-  // 5. K^T (dvar o K) in bf16, over slabs of rows
-  err = gemm<1, false, 0>(mt, mt, p.s_w, kt, parts(p.dvk, 0, 1, p.Rp), p.k_w,
-                       p.Rp, PartEpi{f32(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
-  if (err) return err;
+  const DxEpi dxe{x, inv_ls, mean_w, dmean, fp(p.part_re), dx, fp(p.part_dx),
+                  R, d, p.Dp, p.Rp, mt};
+  if (f32) {
+    const F32Operand kt{fp(p.kf), nullptr, p.Rp}, et{fp(p.e), nullptr, p.Rp};
+    // 2. G^T = W^T K^T, both in three parts (K split on load), E^T in the
+    // epilogue
+    err = gemm<PARTS, true, SUM_F32>(
+        mt, rt, 1, parts(base, p.wp, (size_t)p.Mp * p.Mp, PARTS, p.Mp), kt,
+        p.Mp, p.Mp,
+        EEpi{fp(p.kf), u, dmean, dvar, nullptr, fp(p.e), fp(p.part_ce),
+             fp(p.part_re), M, R, p.Mp, p.Rp}, st);
+    if (err) return err;
+    // 3. (E zs)^T, E split on load, dx in the epilogue
+    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, st);
+    if (err) return err;
+    // 4. E^T xs over slabs, E split on load; at d <= 64 the tile's second
+    // 64 columns are padding
+    const PartEpi pze{fp(p.pz), p.Dp, md};
+    err = d <= 64 ? gemm<PARTS, true, 1, false, 1>(mt, dt, p.s_z, et, xs, p.k_z,
+                                                   p.Rp, pze, st)
+                  : gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
+                                         pze, st);
+    if (err) return err;
+    // 5. K^T (dvar o K) over slabs, both split from K on load, the tiles
+    // on and above the diagonal
+    err = gemm<PARTS, false, SUM_F32, true>(
+        mt, mt, p.s_w, kt, F32Operand{fp(p.kf), fp(p.dvp), p.Rp}, p.k_w, p.Rp,
+        PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
+    if (err) return err;
+  } else {
+    const Operand kt = parts(base, p.kh, 0, 1, p.Rp);
+    const Operand et = parts(base, p.e, mr, PARTS, p.Rp);
+    // 2. G^T = W^T K^T in bf16 (sums over 512 inducing points at a time),
+    // E^T in the epilogue
+    err = gemm<1, true, SUM_KW_BF16>(mt, rt, 1, parts(base, p.wp, 0, 1, p.Mp), kt,
+                                p.Mp, p.Mp,
+                                EEpi{fp(p.kf), u, dmean, dvar, b16(p.e),
+                                     nullptr, fp(p.part_ce), fp(p.part_re),
+                                     M, R, p.Mp, p.Rp}, st);
+    if (err) return err;
+    // 3. (E zs)^T in three parts (sums over 16 at a time), dx in the epilogue
+    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, st);
+    if (err) return err;
+    // 4. E^T xs in three parts (sums over 16 rows at a time), over slabs
+    err = gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
+                               PartEpi{fp(p.pz), p.Dp, md}, st);
+    if (err) return err;
+    // 5. K^T (dvar o K) in bf16, over slabs of rows
+    err = gemm<1, false, 0>(mt, mt, p.s_w, kt, parts(base, p.dvk, 0, 1, p.Rp),
+                            p.k_w, p.Rp,
+                            PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
+    if (err) return err;
+  }
+  double* cem = reinterpret_cast<double*>(base + p.cem);
   reduce_kernel<<<M + 2 * d + 2, 256, 0, st>>>(
-      f32(p.part_du), f32(p.part_ce), f32(p.pz), f32(p.pw), f32(p.part_dx), zs,
-      os, dmean, dvar, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, R, d, M,
-      p.Mp, p.Dp, rt, p.s_z, p.s_w);
+      fp(p.part_du), fp(p.part_ce), fp(p.pz), fp(p.pw), fp(p.part_dx), zs,
+      dmean, dvar, dzs, du, dw, dinv_ls, dmean_w, dmean_b, cem, R, d,
+      M, p.Mp, p.Dp, rt, p.s_z, p.s_w, f32 ? 1 : 0);
+  if ((err = (int)cudaGetLastError())) return err;
+  dos_kernel<<<1, 256, 0, st>>>(cem, os, dos, M, p.Mp);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wgb
 
-struct BwdPlan {
-  int n_tiles, m_pad, s_w, rows_w, s_z, rows_z, z_tile;
-  long long kmat, emat, part_m, part_s, pw, pz, total;  // scratch offsets
-};
-
-// splits over rows so that each column product fills one wave of at most
-// TARGET_BLOCKS blocks (rounding up would start a second, nearly empty wave);
-// rows_per is a multiple of `chunk`
-__host__ void split_rows(int R, int tiles, int chunk, int& s, int& rows_per) {
-  s = TARGET_BLOCKS / tiles;
-  const int max_s = (R + chunk - 1) / chunk;
-  if (s > max_s) s = max_s;
-  if (s < 1) s = 1;
-  rows_per = (R + s - 1) / s;
-  rows_per = (rows_per + chunk - 1) / chunk * chunk;
-  s = (R + rows_per - 1) / rows_per;
-}
-
-__host__ BwdPlan plan(int R, int d, int M) {
-  BwdPlan p;
-  p.n_tiles = (R + TR - 1) / TR;
-  p.m_pad = (M + BK - 1) / BK * BK;
-  const int rp = p.n_tiles * TR;
-  const int mt = (M + CBM - 1) / CBM;
-  const int nt = (M + DW_TILE - 1) / DW_TILE;
-  split_rows(R, nt * (nt + 1) / 2, CK, p.s_w, p.rows_w);
-  p.z_tile = d > 64 ? 128 : 32;  // columns of d per E^T x block
-  split_rows(R, mt * ((d + p.z_tile - 1) / p.z_tile), CK, p.s_z, p.rows_z);
-  long long o = 0;
-  p.kmat = o; o += (long long)rp * M;  // K, (R, M)
-  p.emat = o; o += (long long)R * M;
-  p.part_m = o; o += (long long)p.n_tiles * 2 * M;
-  p.part_s = o; o += (long long)p.n_tiles * ((d > SMALL_D ? 8 : 2) * 2 * d + 3);
-  p.pw = o; o += (long long)p.s_w * M * M;
-  p.pz = o; o += (long long)p.s_z * M * d;
-  p.total = o;
-  return p;
-}
-
-// Shared memory of a forward block that holds K^T for `rows` inducing
-// points (all of M, padded, or one chunk); the backward's row launch needs
-// 3 TR floats more.  The wrapper's layout() mirrors these two.
+// Shared memory of a bf16 forward block that holds K^T for `rows` inducing
+// points (all of M, padded, or one chunk).  The wrapper's layout() mirrors
+// it.
 int smem_fwd(int rows) {
   return (int)(((long long)rows * KT_STRIDE + WBUF) * (long long)sizeof(float));
 }
 
-int smem_bwd(int rows) { return smem_fwd(rows) + 3 * TR * (int)sizeof(float); }
-
-// chunk >= m_pad: the single-pass kernels; else a multiple of PANEL
+// chunk >= m_pad: the single-pass kernel; else a multiple of PANEL
 bool chunk_ok(int M, int chunk) {
   const int m_pad = (M + BK - 1) / BK * BK;
   return chunk >= m_pad || (chunk > 0 && chunk % PANEL == 0);
 }
 
-template <bool BF16>
-int launch_fwd(const float* x, const float* zs, const float* u, const void* w,
-               const float* os, const float* inv_ls, const float* mean_w,
-               const float* mean_b, float* mean, float* var, int R, int d,
-               int M, int chunk, cudaStream_t stream) {
+int launch_bf16_fwd(const float* x, const float* zs, const float* u,
+                    const __nv_bfloat16* wt, const float* os,
+                    const float* inv_ls, const float* mean_w,
+                    const float* mean_b, float* mean, float* var, int R, int d,
+                    int M, int chunk, cudaStream_t stream) {
   if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
   const int m_pad = (M + BK - 1) / BK * BK;
   const int blocks = (R + TR - 1) / TR;
   if (chunk >= m_pad) {
     const int smem = smem_fwd(m_pad);
     cudaError_t err = cudaFuncSetAttribute(
-        fused_gp_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fused_gp_bf16_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    fused_gp_fwd_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
-        x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
+    fused_gp_bf16_fwd_kernel<<<blocks, THREADS, smem, stream>>>(
+        x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
     return (int)cudaGetLastError();
   }
   const int smem = smem_fwd(chunk);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_fwd_chunked_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_gp_bf16_fwd_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_gp_fwd_chunked_kernel<BF16><<<blocks, THREADS, smem, stream>>>(
-      x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad, chunk);
-  return (int)cudaGetLastError();
-}
-
-int launch_bwd(const float* x, const float* zs, const float* u, const float* w,
-               const float* os, const float* inv_ls, const float* mean_w,
-               const float* dmean, const float* dvar, float* dx, float* dzs,
-               float* du, float* dw, float* dos, float* dinv_ls,
-               float* dmean_w, float* dmean_b, float* scratch, int R, int d,
-               int M, int chunk, cudaStream_t st) {
-  if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
-  const BwdPlan p = plan(R, d, M);
-  float* kmat = scratch + p.kmat;
-  float* emat = scratch + p.emat;
-  float* part_m = scratch + p.part_m;
-  float* part_s = scratch + p.part_s;
-  float* pw = scratch + p.pw;
-  float* pz = scratch + p.pz;
-
-  cudaError_t err;
-  if (chunk >= p.m_pad) {
-    const int smem = smem_bwd(p.m_pad);
-    err = cudaFuncSetAttribute(
-        fused_gp_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_gp_bwd_rows_kernel<<<p.n_tiles, THREADS, smem, st>>>(
-        x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
-        part_s, R, d, M, p.m_pad);
-  } else {
-    const int smem = smem_bwd(chunk);
-    err = cudaFuncSetAttribute(
-        fused_gp_bwd_rows_chunked_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_gp_bwd_rows_chunked_kernel<<<p.n_tiles, THREADS, smem, st>>>(
-        x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx, kmat, emat, part_m,
-        part_s, R, d, M, p.m_pad, chunk);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int mt = (M + CBM - 1) / CBM;
-  const int nt = (M + DW_TILE - 1) / DW_TILE;
-  fused_gp_bwd_cols_kernel<8, 8, true><<<dim3(nt * (nt + 1) / 2, 1, p.s_w), THREADS, 0, st>>>(
-      kmat, kmat, dvar, pw, R, M, M, p.rows_w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 zgrid((d + p.z_tile - 1) / p.z_tile, mt, p.s_z);
-  if (p.z_tile == 128)
-    fused_gp_bwd_cols_kernel<8, 8, false><<<zgrid, THREADS, 0, st>>>(
-        emat, x, nullptr, pz, R, M, d, p.rows_z);
-  else
-    fused_gp_bwd_cols_kernel<8, 2, false><<<zgrid, THREADS, 0, st>>>(
-        emat, x, nullptr, pz, R, M, d, p.rows_z);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  fused_gp_bwd_reduce_kernel<<<M + 2 * d + 2, THREADS, 0, st>>>(
-      part_m, part_s, pw, pz, zs, inv_ls, os, dzs, du, dw, dos, dinv_ls,
-      dmean_w, dmean_b, p.n_tiles, d, M, p.s_w, p.s_z);
+  fused_gp_bf16_fwd_chunked_kernel<<<blocks, THREADS, smem, stream>>>(
+      x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -2229,13 +1787,18 @@ int launch_bwd(const float* x, const float* zs, const float* u, const float* w,
 
 extern "C" {
 
-// Floats of device scratch the backward needs (the wrapper allocates it).
+// Floats of device scratch the fp32 forward and the two backwards need (the
+// wrapper allocates it).
+long long fused_gp_fwd_scratch_floats(int R, int d, int M) {
+  return (long long)((wgb::fwd_plan(R, d, M).total + 3) / 4);
+}
+
 long long fused_gp_bwd_scratch_floats(int R, int d, int M) {
-  return plan(R, d, M).total;
+  return (long long)((wgb::plan(R, d, M, true).total + 3) / 4);
 }
 
 long long fused_gp_bf16_bwd_scratch_floats(int R, int d, int M) {
-  return (long long)((wgb::plan(R, d, M).total + 3) / 4);
+  return (long long)((wgb::plan(R, d, M, false).total + 3) / 4);
 }
 
 // Rows and columns of the bf16 W^T the bf16 forward takes: wt[n][k] =
@@ -2244,48 +1807,50 @@ int fused_gp_bf16_wt_rows(int M) { return (M + PANEL - 1) / PANEL * PANEL; }
 int fused_gp_bf16_wt_cols(int M) { return (M + BK - 1) / BK * BK; }
 
 // x (R, d) raw rows; zs (M, d) = Z / lengthscale; u (M,); w (M, M) row-major;
-// os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs.
-// chunk: the inducing points a block holds K^T for (the wrapper's layout():
-// M padded to 16 for the single-pass kernels, else a multiple of 256).
-// Returns the cudaError_t of the launch.
+// os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs;
+// scratch of fused_gp_fwd_scratch_floats(R, d, M) floats.  Five launches on
+// `stream`; returns the first failure's cudaError_t.
 int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w,
                  const float* os, const float* inv_ls, const float* mean_w,
-                 const float* mean_b, float* mean, float* var, int R, int d,
-                 int M, int chunk, void* stream) {
-  return launch_fwd<false>(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
-                           R, d, M, chunk, (cudaStream_t)stream);
+                 const float* mean_b, float* mean, float* var, float* scratch,
+                 int R, int d, int M, void* stream) {
+  return wgb::launch_fwd(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
+                         scratch, R, d, M, (cudaStream_t)stream);
 }
 
 // The same with the K W product in bf16 on the tensor cores; wt is the bf16
-// W^T described at fused_gp_bf16_wt_rows.
+// W^T described at fused_gp_bf16_wt_rows.  chunk: the inducing points a
+// block holds K^T for (the wrapper's layout(): M padded to 16 for the
+// single-pass kernel, else a multiple of 256).
 int fused_gp_bf16_fwd(const float* x, const float* zs, const float* u,
                       const void* wt, const float* os, const float* inv_ls,
                       const float* mean_w, const float* mean_b, float* mean,
                       float* var, int R, int d, int M, int chunk,
                       void* stream) {
-  return launch_fwd<true>(x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var,
-                          R, d, M, chunk, (cudaStream_t)stream);
+  return launch_bf16_fwd(x, zs, u, static_cast<const __nv_bfloat16*>(wt), os,
+                         inv_ls, mean_w, mean_b, mean, var, R, d, M, chunk,
+                         (cudaStream_t)stream);
 }
 
 // The VJP.  Inputs as the forward's, plus dmean, dvar (R,); outputs dx
 // (R, d), dzs (M, d), du (M,), dw (M, M), and device scalars / vectors dos,
 // dinv_ls (d,), dmean_w (d,), dmean_b; scratch of
-// fused_gp_bwd_scratch_floats(R, d, M) floats.  Four launches on `stream`;
+// fused_gp_bwd_scratch_floats(R, d, M) floats.  Nine launches on `stream`;
 // returns the first failure.
 int fused_gp_bwd(const float* x, const float* zs, const float* u, const float* w,
                  const float* os, const float* inv_ls, const float* mean_w,
                  const float* dmean, const float* dvar, float* dx, float* dzs,
                  float* du, float* dw, float* dos, float* dinv_ls,
                  float* dmean_w, float* dmean_b, float* scratch, int R, int d,
-                 int M, int chunk, void* stream) {
-  return launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
-                           dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
-                           scratch, R, d, M, chunk, (cudaStream_t)stream);
+                 int M, void* stream) {
+  return wgb::launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
+                         dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch,
+                         R, d, M, true, (cudaStream_t)stream);
 }
 
-// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores, at any
-// M (one design, so no chunk); inputs and outputs as fused_gp_bwd's, w the
-// fp32 (M, M); scratch of fused_gp_bf16_bwd_scratch_floats floats.
+// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores; inputs
+// and outputs as fused_gp_bwd's, w the fp32 (M, M); scratch of
+// fused_gp_bf16_bwd_scratch_floats floats.
 int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
                       const float* w, const float* os, const float* inv_ls,
                       const float* mean_w, const float* dmean,
@@ -2295,7 +1860,7 @@ int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
                       void* stream) {
   return wgb::launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
                          dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch,
-                         R, d, M, (cudaStream_t)stream);
+                         R, d, M, false, (cudaStream_t)stream);
 }
 
 }  // extern "C"

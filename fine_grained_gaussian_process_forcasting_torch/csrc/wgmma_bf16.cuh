@@ -30,8 +30,10 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // Descriptor of a 128-byte-swizzled operand whose 8-row groups lie 1024
-// bytes apart (leading offset 1024 too: unread for K-major operands, the
-// step between 8-row groups along K for MN-major ones one atom wide).
+// bytes apart (the stride byte offset: along M or N for a K-major operand,
+// along K for an MN-major one).  The leading byte offset, the step between
+// the 64-column slabs of an MN-major operand, is unread for one slab wide
+// and for K-major operands; it is set to 1024 too.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -93,6 +95,45 @@ __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+// The same as two `mma` on the 64-column halves of a 128-column B, in one
+// m64n128k16 instruction that reads A once: d0 and d1 are the halves'
+// accumulators.  b: a K-major B's descriptor (128 rows), or an MN-major B's
+// of its first 64 columns, the next 64 `mn_step` bytes on.
+template <int TB>
+__device__ __forceinline__ void mma128(float (&d0)[32], float (&d1)[32],
+                                       uint64_t a, uint64_t b,
+                                       int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]), "+f"(d0[4]),
+        "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]), "+f"(d0[8]), "+f"(d0[9]),
+        "+f"(d0[10]), "+f"(d0[11]), "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]),
+        "+f"(d0[15]), "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]), "+f"(d0[24]),
+        "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]), "+f"(d0[28]), "+f"(d0[29]),
+        "+f"(d0[30]), "+f"(d0[31]), "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]),
+        "+f"(d1[3]), "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]), "+f"(d1[12]),
+        "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]), "+f"(d1[16]), "+f"(d1[17]),
+        "+f"(d1[18]), "+f"(d1[19]), "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]),
+        "+f"(d1[23]), "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
+}
+
+// An MN-major operand's descriptor whose 64-column slabs lie `mn_step`
+// bytes apart (the leading byte offset), for `mma128`
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t mn_step) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(mn_step >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // 16 bytes from device to shared memory, in flight until cp_wait

@@ -21,6 +21,11 @@ at inv_ls = 1, mean_w = 0, mean_b = 0, so they run on the same kernels with
 those inputs, add to the same launch counters, and return the gradients of
 their five inputs.
 
+On the card the fp32 forward and backward run their products on the tensor
+cores as products of three bf16 parts of each fp32 operand (``csrc/fused_gp.cu``,
+the `wgb::` engine), all but the forward's K W, an FFMA chain in the plain
+version's order: five launches forward, nine backward, at any M.
+
 ``whitened_marginals_affine_bf16`` takes and returns the same fp32 tensors;
 only the two products K W and K^T (dvar o K) round their inputs to bf16 and
 sum in fp32, everything else stays fp32.  Its VJP is the Pallas kernel's own
@@ -42,54 +47,49 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
 
 #: forward kernel launches since the counter was last set to 0
 launches = 0
-#: backward launches (one per backward call, four kernels) since last set to 0
+#: backward launches (one per backward call, nine kernels) since last set
+#: to 0
 bwd_launches = 0
 #: the same two counts for the bf16 variant
 bf16_launches = 0
 bf16_bwd_launches = 0
 
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block can use
-# the kernels' shared-memory arithmetic (csrc/fused_gp.cu: TR, KT_STRIDE,
-# WBUF, BK)
+# the bf16 forward kernels' shared-memory arithmetic (csrc/fused_gp.cu: TR,
+# KT_STRIDE, WBUF, BK)
 _TR, _KT_STRIDE, _WBUF, _BK = 64, 68, 2 * 16 * 256, 16
-#: inducing points a block holds K^T for when all of M does not fit (a
-#: multiple of the kernels' 256-column panel)
+#: inducing points a bf16 forward block holds K^T for when all of M does
+#: not fit (a multiple of the kernel's 256-column panel)
 CHUNK = 512
 
 
 class Layout(NamedTuple):
-    """How the kernels split M: ``chunk`` inducing points of K^T in a
-    block's shared memory (M padded to 16 when all of it fits, the single
-    pass; else ``CHUNK``), and the bytes the forward and the backward's row
-    launch need for it."""
+    """How the bf16 forward kernels split M: ``chunk`` inducing points of
+    K^T in a block's shared memory (M padded to 16 when all of it fits, the
+    single pass; else ``CHUNK``), and the bytes a block needs for it."""
     chunk: int
     fwd_smem: int
-    bwd_smem: int
 
 
 def layout(m: int) -> Layout:
-    """The kernels' split of M inducing points, which the launchers take:
-    one pass over all of M up to M 720, chunks of ``CHUNK`` beyond (the
-    counterpart of the Pallas kernel's ``_row_layout``, which shrinks its
-    row tile instead)."""
+    """The bf16 forward kernels' split of M inducing points, which their
+    launcher takes: one pass over all of M up to M 720, chunks of ``CHUNK``
+    beyond (the counterpart of the Pallas kernel's ``_row_layout``, which
+    shrinks its row tile instead)."""
     def fwd(rows):
         return (rows * _KT_STRIDE + _WBUF) * 4
 
-    def bwd(rows):
-        return fwd(rows) + 3 * _TR * 4
-
     m_pad = -(-m // _BK) * _BK
-    chunk = m_pad if bwd(m_pad) <= _MAX_SMEM else CHUNK
-    return Layout(chunk, fwd(chunk), bwd(chunk))
+    chunk = m_pad if fwd(m_pad) <= _MAX_SMEM else CHUNK
+    return Layout(chunk, fwd(chunk))
 
 
 def bwd_design(m: int, bf16=False) -> str:
-    """Which backward kernels the launcher runs at M inducing points: the
-    bf16 variant's products on `wgmma` at every M; the fp32 one's row
-    kernel over all of M up to ``layout``'s 720, in chunks beyond."""
-    if bf16:
-        return "wgmma"
-    return "single-pass" if layout(m).chunk >= m else "chunked"
+    """Which backward kernels the launcher runs at M inducing points: both
+    variants on `wgmma` at every M; the fp32 one with every product on three
+    bf16 parts of each fp32 operand, K and E split into their parts on their
+    way into shared memory."""
+    return "wgmma" if bf16 else "wgmma-split"
 
 
 def _round_bf16(t):
@@ -196,29 +196,28 @@ def whitened_marginals_bf16_bwd_plain(*args):
 
 
 def launcher(bf16=False):
-    """The C launcher: (x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var
-    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16``:
-    the bf16 variant's, which takes ``bf16_wt(w)`` in the place of w."""
+    """The C forward launcher.  fp32: (x, zs, u, w, os, inv_ls, mean_w,
+    mean_b, mean, var, scratch pointers, R, d, M, stream), scratch of
+    ``fwd_scratch_floats``; ``bf16``: (the same ten pointers with
+    ``bf16_wt(w)`` in the place of w, R, d, M, layout(M).chunk, stream).
+    Returns the cudaError_t."""
+    if bf16:
+        return _build.function(
+            "fused_gp", "fused_gp_bf16_fwd",
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return _build.function(
-        "fused_gp", "fused_gp_bf16_fwd" if bf16 else "fused_gp_fwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        "fused_gp", "fused_gp_fwd",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def bwd_launcher(bf16=False):
     """The C backward launcher: (x, zs, u, w, os, inv_ls, mean_w, dmean,
     dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch
-    pointers, R, d, M, layout(M).chunk, stream) -> cudaError_t.  ``bf16``:
-    the bf16 variant's, which takes the same fp32 w and no chunk (its one
-    design runs at every M)."""
+    pointers, R, d, M, stream) -> cudaError_t, for either variant (both
+    take the fp32 w)."""
     return _build.function(
         "fused_gp", "fused_gp_bf16_bwd" if bf16 else "fused_gp_bwd",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * (3 if bf16 else 4)
-        + [ctypes.c_void_p])
-
-
-def bwd_dims(r: int, d: int, m: int, bf16=False) -> tuple:
-    """The integer arguments of ``bwd_launcher(bf16)``."""
-    return (r, d, m) if bf16 else (r, d, m, layout(m).chunk)
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def bf16_wt(w):
@@ -231,6 +230,12 @@ def bf16_wt(w):
     wt = torch.zeros((rows, cols), device=w.device, dtype=torch.bfloat16)
     wt[:m, :m] = w.T
     return wt
+
+
+def fwd_scratch_floats(r: int, d: int, m: int) -> int:
+    """Floats of device scratch one fp32 forward call needs at R rows."""
+    return _build.function("fused_gp", "fused_gp_fwd_scratch_floats",
+                           [ctypes.c_int] * 3, ctypes.c_longlong)(r, d, m)
 
 
 def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
@@ -324,13 +329,18 @@ def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
     m = zs.shape[0]
     mean = torch.empty((b, n), device=x.device, dtype=torch.float32)
     var = torch.empty((b, n), device=x.device, dtype=torch.float32)
-    w_in = bf16_wt(w) if bf16 else w
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launcher(bf16)(
-        x.data_ptr(), zs.data_ptr(), u.data_ptr(), w_in.data_ptr(),
-        outputscale.data_ptr(), inv_ls.data_ptr(), mean_w.data_ptr(),
-        mean_b.data_ptr(), mean.data_ptr(), var.data_ptr(), b * n, d, m,
-        layout(m).chunk, stream)
+    ptrs = [t.data_ptr() for t in (x, zs, u, bf16_wt(w) if bf16 else w,
+                                   outputscale, inv_ls, mean_w, mean_b, mean,
+                                   var)]
+    if bf16:
+        dims = (b * n, d, m, layout(m).chunk)
+    else:
+        scratch = torch.empty(fwd_scratch_floats(b * n, d, m),
+                              device=x.device, dtype=torch.float32)
+        ptrs.append(scratch.data_ptr())
+        dims = (b * n, d, m)
+    err = launcher(bf16)(*ptrs, *dims, stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_fwd launch failed: cudaError {err}")
     if bf16:
@@ -358,8 +368,8 @@ def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     err = bwd_launcher(bf16)(
         *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
                                  dmean, dvar)),
-        *(t.data_ptr() for t in grads), scratch.data_ptr(),
-        *bwd_dims(b * n, d, m, bf16), stream)
+        *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m,
+        stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_bwd launch failed: cudaError {err}")
     if bf16:

@@ -1,19 +1,28 @@
-"""The bf16 fused-GP backward's split arithmetic, emulated on the CPU.
+"""The fused GP's split arithmetic, emulated on the CPU.
 
-The card's bf16 backward (``csrc/fused_gp.cu``, the `wgmma` design) runs
-the reference's three fp32 products -- the distance's cross term xs zs^T,
-E zs and E^T xs -- on bf16 tensor cores: each fp32 operand v is carried as
-three bf16 parts p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1),
+On the card every fp32 product of the fused GP runs on bf16 tensor cores
+(``csrc/fused_gp.cu``, the `wgmma` engine): each fp32 operand v is carried
+as three bf16 parts p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1),
 and a product as the part products p_i q_j with i + j < 3 (six products)
-summed in fp32.  K enters K W as bf16(K) and E in fp32; dW takes bf16(K)
-and bf16(dvar o K), as the reference does.  ``_split_bwd`` below repeats
-that arithmetic in plain PyTorch (bf16 products of bf16 values are exact in
-fp32, so an fp32 matmul of them is the tensor cores' product up to the
-order of the sum), and the test holds it to the budget the card run is held
-to: for every gradient, its distance from a float64 evaluation of the
-function -- the fp32 function, and the bf16 function rounded at the same
-places -- is no more than twice the plain bf16 version's, summed over
-draws of the inputs.
+summed in fp32.
+
+- The bf16 backward runs so the reference's three fp32 products -- the
+  distance's cross term xs zs^T, E zs and E^T xs; K enters K W as bf16(K)
+  and E in fp32, and dW takes bf16(K) and bf16(dvar o K), as the reference
+  does (``_split_bwd``).
+- The fp32 backward runs so every product: the cross term, K W (K and W
+  in three parts each), E zs, E^T xs and dW = -K^T (dvar o K); the fp32
+  forward its cross term, and K W as one fp32 FFMA chain an element in the
+  plain version's order, which an fp32 matmul stands for here
+  (``_split_fp32``).
+
+The functions below repeat that arithmetic in plain PyTorch (bf16 products
+of bf16 values are exact in fp32, so an fp32 matmul of them is the tensor
+cores' product up to the order of the sum), and the tests hold them to the
+budgets the card runs are held to: for every output, its distance from a
+float64 evaluation of the function (bf16: the fp32 function, and the bf16
+function rounded at the same places) is no more than twice the plain
+version's, summed over draws of the inputs.
 """
 
 import math
@@ -68,6 +77,34 @@ def _split_bwd(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     dos = e.sum() / outputscale + dv.sum()
     return (dx.reshape(b, n, d), dzs, du, dw, dos, (dxsc * xr).sum(0),
             (dm * xr).sum(0), dm.sum())
+
+
+def _split_fp32(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
+                dvar):
+    """The fp32 forward's (mean, var) and the fp32 backward's eight
+    gradients, every product on three bf16 parts of each operand but the
+    forward's K W, which stays fp32."""
+    b, n, d = x.shape
+    xr = x.reshape(-1, d)
+    xs = xr * inv_ls
+    x2 = (xs * xs).sum(-1, keepdim=True)
+    z2 = (zs * zs).sum(-1)
+    k = outputscale * torch.exp(-0.5 * (x2 + z2 - 2.0 * _dot(xs, zs.T)))
+    g = _dot(k, w)
+    mean = xr @ mean_w + mean_b + k @ u
+    var = outputscale - ((k @ w) * k).sum(-1)
+    dm = dmean.reshape(-1, 1)
+    dv = dvar.reshape(-1, 1)
+    e = (dm * u - 2.0 * dv * g) * k
+    dxsc = _dot(e, zs) - e.sum(-1, keepdim=True) * xs
+    dx = dxsc * inv_ls + dm * mean_w
+    dzs = _dot(e.T, xs) - e.sum(0)[:, None] * zs
+    du = (k * dm).sum(0)
+    dw = -_dot(k.T, dv * k)
+    dos = e.sum() / outputscale + dv.sum()
+    return ((mean.reshape(b, n), var.reshape(b, n)),
+            (dx.reshape(b, n, d), dzs, du, dw, dos, (dxsc * xr).sum(0),
+             (dm * xr).sum(0), dm.sum()))
 
 
 def _inputs(rows, d, m, affine, seed):
@@ -131,8 +168,42 @@ def test_split_arithmetic_meets_the_float64_budget(d, m, affine):
         assert split <= 2.0 * plain, (key, split, plain)
 
 
+@pytest.mark.parametrize("d,m,affine", [(512, 512, True), (512, 512, False),
+                                        (32, 512, True), (32, 512, False)],
+                         ids=["d512", "d512_nonaffine", "flagship_width",
+                              "flagship_width_nonaffine"])
+def test_fp32_split_arithmetic_meets_the_float64_budget(d, m, affine):
+    """The fp32 forward and backward as the card splits their products'
+    operands: each output within 1e-3 of max(1, its largest magnitude) of
+    the plain version (the smoke's backward tolerance; at these inputs the
+    CPU's plain fp32 variance itself lies up to 1.6e-4 from float64, so the
+    card's 1e-4 for the forward is no yardstick here; dos, a sum of R M
+    terms that nearly cancel, within 10x that, as the smoke's non-affine
+    check allows it) and, summed over DRAWS draws, no farther from the
+    float64 function than twice the plain fp32 version."""
+    fwd_names = ("mean", "var")
+    dist = {name: [0.0, 0.0] for name in fwd_names + NAMES}
+    for i in range(DRAWS):
+        args, cot = _inputs(ROWS, d, m, affine, seed=1000 * i + d + affine + 7)
+        fwd, bwd = _split_fp32(*args, *cot)
+        plain = (fused_gp.whitened_marginals_affine_plain(*args)
+                 + fused_gp.whitened_marginals_affine_bwd_plain(*args, *cot))
+        wide = [a.double() for a in args + cot]
+        exact = (fused_gp.whitened_marginals_affine_plain(*wide[:8])
+                 + fused_gp.whitened_marginals_affine_bwd_plain(*wide))
+        for name, g, p, e in zip(fwd_names + NAMES, fwd + bwd, plain, exact):
+            tol = (10.0 if name == "dos" else 1.0) * 1e-3 * max(
+                1.0, p.abs().max().item())
+            assert (g - p).abs().max().item() <= tol, name
+            dist[name][0] += (g.double() - e).abs().max().item()
+            dist[name][1] += (p.double() - e).abs().max().item()
+    for name, (split, plain) in dist.items():
+        assert split <= 2.0 * plain, (name, split, plain)
+
+
 def test_bwd_design_by_m():
+    """One design a variant at every M: both on `wgmma`, the fp32 one with
+    K and E split into their parts on the way into shared memory."""
     for m in (7, 512, 720, 721, 2048):
         assert fused_gp.bwd_design(m, bf16=True) == "wgmma"
-    assert fused_gp.bwd_design(720) == "single-pass"
-    assert fused_gp.bwd_design(721) == "chunked"
+        assert fused_gp.bwd_design(m) == "wgmma-split"

@@ -106,13 +106,13 @@ def test_fused_gp_plain_matches_jax_pallas(b, n):
 
 @pytest.mark.parametrize("m", [512, 720, 721, 1024, 2048, 4096])
 def test_fused_gp_layout_fits_a_block_at_any_m(m):
-    """The layout the kernels take: all of M in one pass up to M 720 (the
-    flagship's M 512 keeps its single-pass kernels), chunks of 512 inducing
-    points beyond, and a forward and backward block's shared memory within
-    the H100's 232,448 bytes either way.  d streams through a fixed buffer
-    and does not enter."""
+    """The layout the bf16 forward kernels take: all of M in one pass up to
+    M 720 (prod_basic's M 512 keeps its single-pass kernel), chunks of 512
+    inducing points beyond, and a block's shared memory within the H100's
+    232,448 bytes either way.  d streams through a fixed buffer and does not
+    enter."""
     lay = tfused.layout(m)
-    assert lay.fwd_smem <= 232_448 and lay.bwd_smem <= 232_448
+    assert lay.fwd_smem <= 232_448
     m_pad = -(-m // 16) * 16
     if m <= 720:
         assert lay.chunk == m_pad

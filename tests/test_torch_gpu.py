@@ -88,7 +88,7 @@ def _assert_close_bf16(got, want, name="", scale=None, rel=TOL_BF16):
     assert err <= rel * max(scale, 1e-6), (name, err, scale)
 
 
-# M past the single-pass kernels' 720: the chunked kernels (fused_gp.layout)
+# M past 720, where the bf16 forward takes M in chunks (fused_gp.layout)
 LARGE_M = [(3, 77, 32, 721), (2, 60, 32, 1024), (2, 35, 8, 2048)]
 
 
@@ -266,6 +266,61 @@ def test_fused_gp_bf16_bwd_meets_the_float64_budget(cuda, rows, d, m, affine):
                 sums[1] += (p.double() - e).abs().max().item()
     for key, (kernel, plain) in dist.items():
         assert kernel <= 2.0 * plain, (key, kernel, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,m,affine",
+                         [(18432, 32, 512, True), (18432, 32, 512, False),
+                          (40960, 512, 512, True), (999, 96, 200, True),
+                          (4608, 32, 1024, True)],
+                         ids=["d32", "d32_nonaffine", "d512", "ragged",
+                              "m1024"])
+def test_fused_gp_fp32_meets_the_float64_budget(cuda, rows, d, m, affine):
+    """The fp32 forward and backward run every product on three bf16 parts
+    of its fp32 operands (`wgmma`): every output, forward and backward, is
+    no farther from the float64 function than twice the plain fp32 version
+    (cuBLAS, TF32 off), the distances summed over 16 draws of the inputs.
+    Not affine: the kernels at the pre-scaled xs, inv_ls 1, mean_w 0,
+    mean_b 0, as ``whitened_marginals`` runs them."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    names = ("mean", "var") + GP_GRADS
+    dist = {name: [0.0, 0.0] for name in names}
+    for i in range(16):
+        *args, dmean, dvar = _gp_like_inputs(rows, d, m, seed=1000 * i + d + 5,
+                                             device=cuda)
+        if not affine:
+            args = fused_gp._affine_args(args[0] * args[5], *args[1:5])
+        got = (fused_gp.forward_kernel(*args)
+               + fused_gp.backward_kernel(*args, dmean, dvar))
+        plain = (fused_gp.whitened_marginals_affine_plain(*args)
+                 + fused_gp.whitened_marginals_affine_bwd_plain(*args, dmean,
+                                                                dvar))
+        wide = [a.double() for a in (*args, dmean, dvar)]
+        exact = (fused_gp.whitened_marginals_affine_plain(*wide[:8])
+                 + fused_gp.whitened_marginals_affine_bwd_plain(*wide))
+        for g, p, e, name in zip(got, plain, exact, names):
+            dist[name][0] += (g.double() - e).abs().max().item()
+            dist[name][1] += (p.double() - e).abs().max().item()
+    for name, (kernel, plain) in dist.items():
+        assert kernel <= 2.0 * plain, (name, kernel, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,m", [(3, 77, 32, 512), (2, 101, 512, 512),
+                                     (2, 60, 32, 1024)])
+def test_fused_gp_fp32_kernels_rerun_bit_equal(cuda, b, n, d, m):
+    """Fixed-order sums and no atomics: two runs of the fp32 forward, and two
+    of the fp32 backward, give equal outputs bit for bit."""
+    args = _fused_inputs(b, n, d, m, seed=m + 11, device=cuda)
+    rng = np.random.default_rng(m)
+    cot = [torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)).to(
+        cuda) for _ in range(2)]
+    first = (fused_gp.forward_kernel(*args)
+             + fused_gp.backward_kernel(*args, *cot))
+    again = (fused_gp.forward_kernel(*args)
+             + fused_gp.backward_kernel(*args, *cot))
+    for g, a, name in zip(first, again, ("mean", "var") + GP_GRADS):
+        assert torch.equal(g, a), name
 
 
 @pytest.mark.gpu
