@@ -26,19 +26,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    SDPA and the head-folded kernel, and at d 2 and d 8, with two backward
    runs bit-equal; the flash kernels at the head dims they pad in their
    tiles (60, 72, 128, 256), both dtypes; the fused GP at M 1024 and 2048,
-   where the bf16 forward takes M in chunks, both dtypes (these on no
-   path).  The bf16 backward (the `wgmma` design) is also held to float64:
-   each gradient no farther from it than twice the plain version, and two
-   runs bit-equal.  So are the fp32 forward and backward (every product on
-   bf16 parts but the forward's K W): each output's distance from the
-   float64 fp32 function, summed over 16 draws from a generator of their
-   own, at most twice the plain fp32 version's (cuBLAS, TF32 off), at the
-   flagship, at d 512, non-affine and at M 1024 and 2048.  The fused-GP
+   both dtypes (these on no path).  The bf16 backward (the `wgmma` design)
+   is also held to float64: each gradient no farther from it than twice the
+   plain version, and two runs bit-equal; so is the bf16 forward (its cross
+   term on bf16 parts, K W on bf16(K) and bf16(W)): mean and var, summed
+   over 16 draws, no farther than twice the plain bf16 version from the
+   fp32 and from the bf16 function in float64, at prod_basic's shape, at
+   d 32 non-affine and at M 1024 and 2048, and two runs bit-equal.  So
+   are the fp32 forward and backward (every product on bf16 parts but the
+   forward's K W): each output's distance from the float64 fp32 function,
+   summed over 16 draws from a generator of their own, at most twice the
+   plain fp32 version's (cuBLAS, TF32 off), at the flagship, at d 512,
+   non-affine and at M 1024 and 2048.  The fused-GP
    backward's device time by kernel is read under ``torch.profiler`` at the
-   flagship and d 512 (fp32, beside the forward's) and production (bf16)
-   shapes, with the scratch it allocates and the bytes it writes between
-   its launches.  The library's backward is timed on the device alone,
-   from its kernels under ``torch.profiler``.
+   flagship and d 512 (fp32) and production (bf16) shapes, with the scratch
+   it allocates and the bytes it writes between its launches, each beside
+   its forward's device time by kernel and scratch (the bf16 forward at the
+   flagship's d 32 too).  The rbf kernel is also held to K in float64 beside
+   the plain version, rerun bit-equal, and timed at the served ragged batch
+   with the store bandwidth it reached.  The library's backward is timed on
+   the device alone, from its kernels under ``torch.profiler``.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -176,8 +183,14 @@ F64_DRAWS = 16
 # summed over F64_DRAWS draws, may be at most twice the plain fp32 version's
 # (cuBLAS, TF32 off)
 F64_BUDGET_FP32 = 2.0
-# those fp32 draws, and the fp32 backward's profile at d 512, come from a
-# generator of their own, so that the other checks' inputs do not depend on
+# the bf16 forward runs the distance's cross term on bf16 parts too: its
+# mean and var each no farther than twice the plain bf16 version from the
+# fp32 function in float64 and from the bf16 function in float64 (K and W
+# rounded to bf16 where they enter K W, the products exact), the distances
+# summed over F64_DRAWS draws
+F64_BUDGET_BF16_FWD = 2.0
+# those fp32 and bf16-forward draws, and the fp32 backward's profile at d
+# 512, come from a generator of their own, so that the other checks' inputs do not depend on
 # them
 F64_SEED = 1
 TOL_ATTENTION_BWD = 1e-5
@@ -337,10 +350,9 @@ def _gp_inputs(gen, shape):
             torch.tensor(0.1, device=dev))
 
 
-# M past 720, where the bf16 forward takes M in chunks of 512
-# (fused_gp.layout) and the other kernels tile M as they do at any M: the
-# flagship's windows and width at 1024 and 2048 inducing points, on a
-# quarter of its batch
+# M past 720, where an earlier bf16 forward took M in chunks and every
+# kernel now tiles M as it tiles rows: the flagship's windows and width at 1024
+# and 2048 inducing points, on a quarter of its batch
 LARGE_M_SHAPES = [(64, ENC_LEN + DEC_LEN, D_MODEL, m) for m in (1024, 2048)]
 
 
@@ -364,48 +376,39 @@ def _gp_inputs_large_m(gen, shape):
 
 def _fwd_runner(fused_gp, args, bf16):
     """A closure that launches the forward kernels alone on ``args`` (the
-    affine function's eight inputs), as the wrapper would: the bf16 variant
-    on the cast W^T and its layout's chunk, the fp32 one on its scratch;
-    ``forward_kernel``'s allocations and the bf16 cast are made once here and
-    not timed."""
+    affine function's eight inputs), as the wrapper would, on their scratch;
+    ``forward_kernel``'s allocations are made once here and not timed."""
     b, n, d = args[0].shape
     m = args[1].shape[0]
-    mean = torch.empty(b, n, device="cuda")
-    var = torch.empty(b, n, device="cuda")
-    kept = list(args)
-    if bf16:
-        kept[3] = fused_gp.bf16_wt(args[3])
-        dims = (b * n, d, m, fused_gp.layout(m).chunk)
-    else:
-        kept.append(torch.empty(fused_gp.fwd_scratch_floats(b * n, d, m),
-                                device="cuda"))
-        dims = (b * n, d, m)
-    ptrs = [a.data_ptr() for a in kept[:8]] + [mean.data_ptr(),
-                                                var.data_ptr()]
-    if not bf16:
-        ptrs.append(kept[8].data_ptr())
+    outs = [torch.empty(b, n, device="cuda") for _ in range(2)]
+    scratch = torch.empty(fused_gp.fwd_scratch_floats(b * n, d, m, bf16),
+                          device="cuda")
+    ptrs = [a.data_ptr() for a in (*args, *outs, scratch)]
     launch = fused_gp.launcher(bf16)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        if launch(*ptrs, *dims, stream):
+        if launch(*ptrs, b * n, d, m, stream):
             raise RuntimeError("fused_gp launch failed")
     return run
 
 
-# the fp32 float64 gates' generator (F64_SEED), made in main()
+# the fp32 float64 gates' generator (F64_SEED), and the bf16 forward's (the
+# same seed, a generator of its own so that the fp32 gates' draws stay
+# those they were), made in main()
 _F64_GEN = [None]
+_F64_BF16_GEN = [None]
 
 
-def _gate_f64(tag, summed, budget):
-    """Logs each output's summed distance from float64 beside plain's;
-    raises if one is more than ``budget`` times plain's.  The largest
-    ratio."""
+def _gate_f64(tag, summed, budget, ref="fp32 function"):
+    """Logs each output's summed distance from float64 (``ref``, the
+    function evaluated there) beside plain's; raises if one is more than
+    ``budget`` times plain's.  The largest ratio."""
     worst = 0.0
     for name, (ks, ps) in summed.items():
         ratio = _f64_ratio(ks, ps)
         worst = max(worst, ratio)
-        log(f"{tag} {name}: vs float64 fp32 function, summed over "
+        log(f"{tag} {name}: vs float64 {ref}, summed over "
             f"{F64_DRAWS} draws: kernel {ks:.3e}, plain {ps:.3e} (kernel / "
             f"plain {ratio:.3f}; budget {budget})")
         if not ratio <= budget:
@@ -414,10 +417,33 @@ def _gate_f64(tag, summed, budget):
     return worst
 
 
+def _gate_bf16_fwd_f64(tag, draw, kernel, plain, names, first):
+    """The bf16 forward's float64 gate: each output's distance from the fp32
+    function and from the bf16 function, both evaluated in float64
+    (``plain(args, bf16)`` on float64 args), summed over ``F64_DRAWS`` draws
+    (``first``, then ``draw()``), at most ``F64_BUDGET_BF16_FWD`` times the
+    plain bf16 version's.  The largest ratio."""
+    sums = {bf16: {name: [0.0, 0.0] for name in names} for bf16 in (0, 1)}
+    for i in range(F64_DRAWS):
+        args = first if i == 0 else draw()
+        with torch.inference_mode():
+            got, want = kernel(args), plain(args, True)
+            wide = [a.double() for a in args]
+            for bf16 in (0, 1):
+                for name, g, w_, e in zip(names, got, want, plain(wide, bf16)):
+                    sums[bf16][name][0] += (g.double() - e).abs().max().item()
+                    sums[bf16][name][1] += (w_.double() - e).abs().max().item()
+        del got, want
+    return max(_gate_f64(tag, sums[bf16], F64_BUDGET_BF16_FWD,
+                         ("bf16" if bf16 else "fp32") + " function")
+               for bf16 in (0, 1))
+
+
 def check_fused_gp(gen, shape, bf16=False, large_m=False):
     """The forward kernel against its plain version at (b, n, d, m), and
-    its time beside the plain version's and its bound.  ``large_m``: the
-    chunked kernels' inputs (``_gp_inputs_large_m``); an entry on no path."""
+    its time beside the plain version's and its bound; each variant held to
+    float64 too, and two runs bit-equal.  ``large_m``: the inputs of
+    ``_gp_inputs_large_m``; an entry on no path."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     dev = "cuda"
@@ -447,14 +473,25 @@ def check_fused_gp(gen, shape, bf16=False, large_m=False):
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f"{tag} disagrees with its plain version: "
                              f"{errs} > {tols}")
-    f64_ratio = None
-    if not bf16:  # the fp32 forward's products on bf16 parts
-        inputs = _gp_inputs_large_m if large_m else _gp_inputs
+    # the products on bf16 parts (all of the fp32 forward's but K W)
+    inputs = _gp_inputs_large_m if large_m else _gp_inputs
+    if bf16:
+        f64_ratio = _gate_bf16_fwd_f64(
+            tag, lambda: inputs(_F64_BF16_GEN[0], shape), lambda a: wrapper(*a),
+            lambda a, bf: fused_gp.whitened_marginals_affine_plain(*a,
+                                                                   bf16=bf),
+            ("mean", "var"), args)
+    else:
         f64_ratio = _gate_f64(tag, _f64_distances(
             lambda: (inputs(_F64_GEN[0], shape), ()),
             lambda a, c: fused_gp.whitened_marginals_affine(*a),
             lambda a, c: fused_gp.whitened_marginals_affine_plain(*a),
             ("mean", "var"), first=(args, ())), F64_BUDGET_FP32)
+    with torch.inference_mode():
+        again = wrapper(*args)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{tag} differs between two runs")
+    log(f"{tag}: two runs bit-equal in mean and var")
 
     run_kernel = _fwd_runner(fused_gp, args, bf16)
     with torch.inference_mode():
@@ -462,40 +499,34 @@ def check_fused_gp(gen, shape, bf16=False, large_m=False):
         plain_ms = time_ms(
             lambda: fused_gp.whitened_marginals_affine_plain(*args,
                                                              bf16=bf16), 10)
-        cast_ms = time_ms(lambda: fused_gp.bf16_wt(w), 10) if bf16 else 0.0
     r = b * n
     kw_flops = r * 2.0 * m * m  # the K W product
     # the rest: the distance as |x|^2 + |z|^2 - 2 x.z (one product, 2 M d a
     # row, and 3 M for the norms and the add), K u and K.(K W) (4 M), the
-    # mean (2 d).  The kernel's own subtract-and-FMA difference costs 3 M d,
-    # which is its choice and not the function's work
+    # mean (2 d)
     rest = r * (2.0 * m * d + 7.0 * m + 2.0 * d)
     nbytes = 4.0 * (r * d + m * d + m + m * m + 2 * d + 2 + 2 * r)
     bound_ms, bound_by = (bound(rest, r * m, nbytes, kw_flops) if bf16
                           else bound(kw_flops + rest, r * m, nbytes))
-    # the fp32 design's own bound: its two products (the distance's cross
-    # term and K W) as six bf16 part products each at the tensor cores' peak
-    tc_ms = None if bf16 else bound(r * (7.0 * m + 2.0 * d), r * m, nbytes,
-                                    6.0 * (r * 2.0 * m * d + kw_flops))[0]
+    # the design's own bound: the distance's cross term as six bf16 part
+    # products and K W (fp32: six again; bf16: one bf16 product) at the
+    # tensor cores' peak
+    tc_ms = bound(r * (7.0 * m + 2.0 * d), r * m, nbytes,
+                  6.0 * r * 2.0 * m * d + (1.0 if bf16 else 6.0) * kw_flops)[0]
     log(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); K W {kw_flops / 1e9:.1f} GFLOP, "
-        f"the fp32 rest {rest / 1e9:.1f} GFLOP"
-        + (f"; W cast and transpose {cast_ms:.4f} ms" if bf16 else
-           f"; the design's tensor-core bound (six bf16 part products a "
-           f"product) {tc_ms:.4f} ms"))
+        f"the fp32 rest {rest / 1e9:.1f} GFLOP; the design's tensor-core "
+        f"bound {tc_ms:.4f} ms")
     return {"name": "fused_gp.whitened_marginals_affine"
                     + ("_bf16 (fwd" if bf16 else " (fwd, fp32")
-                    + (f", M {m}" + (f" in chunks of "
-                                     f"{fused_gp.layout(m).chunk}" if bf16
-                                     else "") + ")" if large_m else ")"),
+                    + (f", M {m})" if large_m else ")"),
             "route": "cuda", "source": _FUSED_GP_SOURCE,
             "replaces": _FUSED_GP_PALLAS + ":222", "on_path": not large_m,
             "shape": {"rows": r, "d": d, "M": m},
             "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            **({} if bf16 else {"tc_bound_ms": tc_ms,
-                                "f64_dist_over_plain": f64_ratio})}
+            "bound_by": bound_by, "library_ms": None, "tc_bound_ms": tc_ms,
+            "f64_dist_over_plain": f64_ratio}
 
 
 def _measure(got, want, rtol_atol):
@@ -601,8 +632,16 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
         lambda a, c: fused_gp.whitened_marginals_bwd_plain(*a, *c,
                                                            bf16=bf16),
         names, first=(args, cot))
-    fwd_f64 = None
-    if not bf16:
+    if bf16:
+        def draw_f64():
+            x, zs_, u_, w_, os__, inv = _gp_inputs(_F64_BF16_GEN[0], shape)[:6]
+            return ((x * inv).contiguous(), zs_, u_, w_, os__)
+
+        fwd_f64 = _gate_bf16_fwd_f64(
+            tag, draw_f64, lambda a: fused_gp.whitened_marginals_bf16(*a),
+            lambda a, bf: fused_gp.whitened_marginals_plain(*a, bf16=bf),
+            ("K u", "var"), args)
+    else:
         fwd_f64 = _gate_f64(tag, _f64_distances(
             lambda: (draw()[0], ()),
             lambda a, c: fused_gp.whitened_marginals(*a),
@@ -696,8 +735,8 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
              "replaces": _FUSED_GP_PALLAS + (":367" if bf16 else ":363"),
              "max_abs_err": max(errs), "tolerance": max(tols), "ms": ms,
              "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_bound[0],
-             "bound_by": fwd_bound[1],
-             **({} if bf16 else {"f64_dist_over_plain": fwd_f64}), **common},
+             "bound_by": fwd_bound[1], "f64_dist_over_plain": fwd_f64,
+             **common},
             {"name": f"fused_gp.whitened_marginals{v} (bwd"
                      + ("" if bf16 else ", fp32") + ")",
              "replaces": _FUSED_GP_PALLAS + ":290",
@@ -731,10 +770,21 @@ def _rbf_inputs(gen, h, rows, m, d):
     return x, z, ls, os_
 
 
+RBF_DESIGN = ("FFMA, a block of 256 threads a 128-row tile of one GP over "
+              "all of M in 128-column tiles, two blocks an SM; x staged and "
+              "scaled once, z copied by cp.async during the epilogue; the "
+              "norms and clamp folded into ex2; float4 streaming stores, "
+              "whole 128-byte lines, draining while the next tile's products "
+              "run")
+
+
 def check_rbf(gen):
     """The rbf cross-covariance at the multi-layer flagship's hidden layer
     (8 GPs over the 256 x 288 joint positions, 512 inducing points, d 32)
-    against its plain version; one launch for all the GPs."""
+    against its plain version; one launch for all the GPs.  Also: the
+    kernel's and plain's distance from K in float64, two runs bit-equal,
+    the store bandwidth it reaches, and its time at the served ragged batch
+    (the first 88 x 288 rows)."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import rbf
 
     h, rows, m, d = ML_HIDDEN, B * (ENC_LEN + DEC_LEN), INDUCING, D_MODEL
@@ -748,16 +798,28 @@ def check_rbf(gen):
             raise AssertionError(f"{tag}: expected one launch")
         want = rbf.rbf_cross_kernel_plain(x, z, ls, os_)
         err, measure = _measure(got, want, TOL_RBF)
-        del want
+        exact = rbf.rbf_cross_kernel_plain(*(t.double() for t in
+                                             (x, z, ls, os_)))
+        err64 = [(t.double() - exact).abs().max().item() for t in (got, want)]
+        del want, exact
+        again = rbf.rbf_cross_kernel(x, z, ls, os_)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag} differs between two runs")
+        del again
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [t.data_ptr() for t in (x, z, ls, os_, got)]
         launch = rbf.launcher()
 
-        def run_kernel():
-            if launch(*ptrs, rows, m, d, h, stream):
-                raise RuntimeError("rbf launch failed")
+        def runner(r):
+            ptrs = [t.data_ptr() for t in (x, z, ls, os_, got)]
 
-        ms = time_ms(run_kernel, 20)
+            def run():
+                if launch(*ptrs, r, m, d, h, stream):
+                    raise RuntimeError("rbf launch failed")
+            return run
+
+        ms = time_ms(runner(rows), 20)
+        served_rows = 88 * (ENC_LEN + DEC_LEN)
+        served_ms = time_ms(runner(served_rows), 20)
         plain_ms = time_ms(lambda: rbf.rbf_cross_kernel_plain(x, z, ls, os_),
                            5)
     pairs = float(h * rows * m)
@@ -766,11 +828,16 @@ def check_rbf(gen):
     flops = pairs * (2.0 * d + 6.0) + 2.0 * d * h * (rows + m)
     nbytes = 4.0 * (pairs + rows * d + h * (m * d + d + 1))
     bound_ms, bound_by = bound(flops, pairs, nbytes)
-    log(f"{tag}: max|kernel - plain| {err:.3e}, / (atol + rtol |plain|) "
-        f"{measure:.3e} (limit 1; rtol {TOL_RBF[0]}, atol {TOL_RBF[1]}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); "
-        f"library: none (no one PyTorch call computes it)")
+    store_tb_s = 4.0 * pairs / ms / 1e9
+    log(f"{tag}: design: {RBF_DESIGN}; max|kernel - plain| {err:.3e}, / "
+        f"(atol + rtol |plain|) {measure:.3e} (limit 1; rtol {TOL_RBF[0]}, "
+        f"atol {TOL_RBF[1]}); vs K in float64: kernel {err64[0]:.3e}, plain "
+        f"{err64[1]:.3e}; two runs bit-equal; kernel {ms:.4f} ms (K written "
+        f"at {store_tb_s:.3f} TB/s), at the served ragged batch ({served_rows}"
+        f" rows) {served_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e9:.3f} GB); library: none (no one PyTorch call computes"
+        f" it)")
     if not measure <= 1.0:
         raise AssertionError(f"{tag} disagrees with its plain version")
     return {"name": "rbf.rbf_cross_kernel (fwd, fp32, h GPs)",
@@ -779,13 +846,18 @@ def check_rbf(gen):
                       "rbf.cu",
             "replaces": "fine_grained_gaussian_process_forcasting_tpu/ops/"
                         "pallas/rbf.py:52",
+            "design": RBF_DESIGN,
             "shape": {"h": h, "rows": rows, "M": m, "d": d},
             "max_abs_err": err, "measure": measure,
             "tolerance": {"rtol": TOL_RBF[0], "atol": TOL_RBF[1]},
             "tolerance_is": "measure = max|kernel - plain| / (atol + rtol "
                             "|plain|) <= 1",
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err_vs_float64": {"kernel": err64[0],
+                                       "plain": err64[1]},
+            "ms": ms, "kernel_ms": ms, "store_tb_per_s": store_tb_s,
+            "served_ragged_rows": served_rows, "served_ragged_ms": served_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _blur_gram(gen, b, n, d=D_MODEL):
@@ -1144,8 +1216,8 @@ def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
     """The fused-GP backward's device time by kernel (``torch.profiler``
     over ``iters`` calls, per call) at (b, n, d, m), the design that ran
     (``fused_gp.bwd_design``), the device scratch it allocates and the bytes
-    it writes between its launches for later ones to read; fp32, the
-    forward's device time by kernel too."""
+    it writes between its launches for later ones to read; and the same
+    variant's forward by kernel (``fused_gp_fwd_by_kernel``)."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
 
     b, n, d, m = shape
@@ -1173,16 +1245,30 @@ def fused_gp_bwd_launches(gen, shape, bf16=False, iters=5):
     out = {"design": design, "scratch_bytes": scratch,
            "between_launches_bytes": between,
            "device_ms_by_kernel": by_kernel}
-    if not bf16:
-        fwd = _by_kernel(lambda: fused_gp.forward_kernel(*args), iters)
-        log(f"fused_gp fwd (rows {b * n}, d {d}, M {m}): scratch "
-            f"{4 * fused_gp.fwd_scratch_floats(b * n, d, m) / 2 ** 20:.1f} "
-            f"MiB; device time per call by kernel (sum "
-            f"{sum(fwd.values()):.4f} ms):")
-        for key, ms in fwd.items():
-            log(f"  {ms:9.4f} ms  {key[:150]}")
-        out["fwd_device_ms_by_kernel"] = fwd
+    out.update(fused_gp_fwd_by_kernel(args, bf16, iters))
     return out
+
+
+def fused_gp_fwd_by_kernel(args, bf16=False, iters=5):
+    """The forward's device time by kernel on ``args`` (``torch.profiler``
+    over ``iters`` calls, per call) and the scratch it allocates, which must
+    be what ``fused_gp.fwd_plan`` lays out."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
+
+    b, n, d = args[0].shape
+    m = args[1].shape[0]
+    scratch = 4 * fused_gp.fwd_scratch_floats(b * n, d, m, bf16)
+    plan = fused_gp.fwd_plan(b * n, d, m, bf16)
+    if scratch != plan.total:
+        raise AssertionError(f"the forward's scratch is {scratch} bytes, "
+                             f"fwd_plan lays out {plan.total}")
+    fwd = _by_kernel(lambda: fused_gp.forward_kernel(*args, bf16=bf16), iters)
+    log(f"fused_gp{'_bf16' if bf16 else ''} fwd (rows {b * n}, d {d}, M {m}):"
+        f" scratch {scratch / 2 ** 20:.1f} MiB; device time per call by "
+        f"kernel (sum {sum(fwd.values()):.4f} ms):")
+    for key, ms in fwd.items():
+        log(f"  {ms:9.4f} ms  {key[:150]}")
+    return {"fwd_scratch_bytes": scratch, "fwd_device_ms_by_kernel": fwd}
 
 
 FLASH_CALLS = {"enc_self": P_ENC_LEN, "dec_self": P_DEC_LEN}
@@ -2551,6 +2637,7 @@ def main() -> int:
     name, count, smi = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     _F64_GEN[0] = torch.Generator(device="cuda").manual_seed(F64_SEED)
+    _F64_BF16_GEN[0] = torch.Generator(device="cuda").manual_seed(F64_SEED)
     flagship, production = GP_SHAPES["flagship"], GP_SHAPES["production"]
     kernels = {"fused_gp": check_fused_gp(gen, flagship),
                "fused_gp_bwd": check_fused_gp_bwd(gen, flagship),
@@ -2599,6 +2686,9 @@ def main() -> int:
         fused_gp_bwd_launches(_F64_GEN[0], production))
     kernels["fused_gp_bf16_bwd"]["by_kernel"] = fused_gp_bwd_launches(
         gen, production, bf16=True)
+    # the bf16 forward by kernel at the flagship's d 32 too
+    kernels["fused_gp_bf16"]["by_kernel_d32"] = fused_gp_fwd_by_kernel(
+        _gp_inputs(_F64_BF16_GEN[0], flagship), bf16=True)
     kernels["rbf"] = check_rbf(gen)
     kernels["cholesky"] = check_cholesky(gen)
     (kernels["small_head_attention"],

@@ -31,66 +31,37 @@
 // 39-58 GFLOP a call at the flagship (73,728 rows, d 32, M 512), 0.6-0.9 ms
 // at the CUDA cores' 67 TFLOP/s.  They run on the tensor cores (`wgmma`,
 // 989 TFLOP/s in bf16), as products of bf16 parts that keep the fp32
-// operand's 24 bits: the `wgb::` engine at the end of this file, which both
-// variants' backward and the fp32 forward use -- all but the fp32 forward's
-// K W, which stays an FFMA chain in the plain version's order (see
-// kw_var_kernel: at the ill-conditioned W of a 512-point Gram matrix the
-// variance's rounding is that chain's).  The bytes (x in, two vectors out,
-// W once; between launches K and E) take a fraction of that.
+// operand's 24 bits: the `wgb::` engine below, which every entry uses --
+// all but the fp32 forward's K W, which stays an FFMA chain in the plain
+// version's order (see kw_var_kernel: at the ill-conditioned W of a
+// 512-point Gram matrix the variance's rounding is that chain's).  The
+// bytes (x in, two vectors out, W once; between launches K and E) take a
+// fraction of that.
 //
-// The bf16 forward (`fused_gp_bf16_fwd_kernel`): one block of 256 threads
-// per tile of 64 rows.  The TPU kernel held a 2048-row tile, all of W and
-// the (tile, M) K in VMEM; here W alone (1 MiB at M=512) exceeds a block's
-// shared memory, so
-//   1. the tile's K is computed once into shared memory, transposed
-//      (K^T, M x 64, 136 KB at M=512), with the direct difference
-//      |xs - zs|^2 (no cancellation, never negative).  x and zs stream
-//      through shared memory 16 columns of d at a time while each thread
-//      keeps the 64 partial distances of its inducing point in registers,
-//      so the shared memory a block needs does not grow with d;
-//   2. each warp owns the 64 rows x 32 columns of a 256-column panel of
-//      K W as 4 x 4 `mma` tiles, K rounded to bf16 as it leaves shared
-//      memory, W^T read as bf16 pairs from device memory (cast and
-//      transposed once per call by the wrapper; 512 KB, resident in L2);
-//   3. at the end of each panel the accumulators are multiplied by K and
-//      summed into per-row partial variances.  K and K W never reach device
-//      memory.
-// Rows past the end are zero inputs whose results are never stored (no
-// padding in device memory).  K^T over all of M fits a block up to M 720;
-// beyond, the chunked kernel further down holds one chunk of 512 inducing
-// points and recomputes K^T chunk by chunk for each panel (the wrapper's
-// `layout` picks the chunk and passes it to the launcher).
-//
-// The fp32 forward and both backwards are the `wgb::` sequences described
-// at the engine: a handful of GEMM launches with fixed-order sums and no
-// atomics, so the gradients are equal bit for bit from run to run, at any
-// M.  (The Pallas backward sums the parameter cotangents across its grid
-// with init-at-step-0-then-add, which is right only on the TPU's sequential
+// Every entry is a `wgb::` sequence of a handful of launches with
+// fixed-order sums and no atomics, so the outputs are equal bit for bit
+// from run to run, at any M (the Pallas kernels sum across their grid with
+// init-at-step-0-then-add, which is right only on the TPU's sequential
 // grid; CUDA blocks run concurrently and in no order, so every sum over
-// rows is taken in partials that a last launch adds in a fixed order.)
+// rows or inducing points is taken in partials that a last launch adds in
+// a fixed order).  The bf16 forward is the fp32 forward's sequence with
+// its K W on the tensor cores: the parts of x (and x . mean_w), zs and
+// bf16(W^T); K^T from the cross term in three parts, as the reference's
+// fp32 distance needs, written in fp32 with the partial K u; G^T = W^T K^T
+// from bf16(W) and bf16(K), K rounded on its way into shared memory (a
+// bf16(K) written by the K^T launch measured slower at every shape), its
+// epilogue the partial sums of (K W o K) with K in fp32; the last pass a
+// row.  K goes from the K^T launch to the next through device memory once,
+// in fp32; K W never does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
-
-constexpr int TR = 64;             // rows per block
-constexpr int THREADS = 256;       // 8 warps x 8 rows
-constexpr int PANEL = 256;         // W columns per panel
-constexpr int BK = 16;             // K^T rows are padded to a multiple of this
-constexpr int KT_STRIDE = TR + 4;  // padded K^T row, keeps float4 alignment
-constexpr int WBUF = 2 * BK * PANEL;  // floats of staging and reduction space
-
-// distance staging
-constexpr int DC = 16;             // columns of d per chunk
-constexpr int XC_STRIDE = TR + 4;  // x chunk [DC][XC_STRIDE]
-constexpr int ZC_STRIDE = DC + 1;  // zs chunk [THREADS][ZC_STRIDE]
-static_assert(DC * XC_STRIDE + THREADS * ZC_STRIDE <= WBUF, "staging fits");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -111,416 +82,9 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-// K^T of the tile into kt [m_pad][KT_STRIDE] (columns m >= M are zeros, rows
-// past R are those of a zero x).  `stage` is WBUF floats of scratch: chunks
-// of DC columns of the scaled x^T and of zs pass through it.
-__device__ __forceinline__ void tile_kt(const float* __restrict__ x,
-                                        const float* __restrict__ zs,
-                                        const float* __restrict__ inv_ls,
-                                        float os, float* kt, float* stage,
-                                        int row0, int R, int d, int M,
-                                        int m_pad) {
-  const int tid = threadIdx.x;
-  float* xc = stage;                   // [DC][XC_STRIDE]
-  float* zc = stage + DC * XC_STRIDE;  // [THREADS][ZC_STRIDE]
-
-  // thread owns whole columns m, rows accumulate in registers
-  for (int mb = 0; mb < m_pad; mb += THREADS) {
-    const int m = mb + tid;
-    float d2[TR];
-#pragma unroll
-    for (int r = 0; r < TR; ++r) d2[r] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += DC) {
-      __syncthreads();  // the previous chunk is consumed
-      for (int i = tid; i < TR * DC; i += THREADS) {
-        const int r = i / DC;
-        const int k = i - r * DC;
-        const int row = row0 + r;
-        const int kk = k0 + k;
-        xc[k * XC_STRIDE + r] =
-            (row < R && kk < d) ? x[(size_t)row * d + kk] * inv_ls[kk] : 0.f;
-      }
-      for (int i = tid; i < THREADS * DC; i += THREADS) {
-        const int mm = i / DC;
-        const int k = i - mm * DC;
-        const int kk = k0 + k;
-        zc[mm * ZC_STRIDE + k] =
-            (mb + mm < M && kk < d) ? __ldg(zs + (size_t)(mb + mm) * d + kk) : 0.f;
-      }
-      __syncthreads();
-      if (m < M) {
-        const float* zr = zc + tid * ZC_STRIDE;
-#pragma unroll
-        for (int k = 0; k < DC; ++k) {  // columns past d hold zeros in both
-          const float z = zr[k];
-          const float4* xk = reinterpret_cast<const float4*>(xc + k * XC_STRIDE);
-#pragma unroll
-          for (int r4 = 0; r4 < TR / 4; ++r4) {
-            const float4 xv = xk[r4];
-            float a;
-            a = xv.x - z; d2[4 * r4 + 0] = fmaf(a, a, d2[4 * r4 + 0]);
-            a = xv.y - z; d2[4 * r4 + 1] = fmaf(a, a, d2[4 * r4 + 1]);
-            a = xv.z - z; d2[4 * r4 + 2] = fmaf(a, a, d2[4 * r4 + 2]);
-            a = xv.w - z; d2[4 * r4 + 3] = fmaf(a, a, d2[4 * r4 + 3]);
-          }
-        }
-      }
-    }
-    if (m < m_pad) {
-      float4* ktm = reinterpret_cast<float4*>(kt + m * KT_STRIDE);
-#pragma unroll
-      for (int r4 = 0; r4 < TR / 4; ++r4) {
-        ktm[r4] = m < M ? make_float4(os * expf(-0.5f * d2[4 * r4 + 0]),
-                                      os * expf(-0.5f * d2[4 * r4 + 1]),
-                                      os * expf(-0.5f * d2[4 * r4 + 2]),
-                                      os * expf(-0.5f * d2[4 * r4 + 3]))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  }
-  __syncthreads();
-}
-// bf16 (K W) of the tile on the tensor cores.  wt is W^T in bf16,
-// (n_panels * PANEL) x m_pad, zero-padded: wt[n][k] = bf16(W[k][n]).  Warp w
-// owns the 64 rows x 32 columns [32 w, 32 w + 32) of each panel as 4 x 4
-// `mma` tiles; K leaves shared memory as fp32 and is rounded to bf16 on the
-// way into the A fragments.  At the end of each panel calls
-// epi(n0, c) with c[mt][nt] the tile of rows 16 mt.. and columns
-// n0 + 8 nt.. (the `mma` accumulator layout).
-template <class Epilogue>
-__device__ __forceinline__ void kw_panels_mma(const __nv_bfloat16* __restrict__ wt,
-                                              const float* kt, int M, int m_pad,
-                                              Epilogue& epi) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n_panels = (M + PANEL - 1) / PANEL;
-
-  for (int p = 0; p < n_panels; ++p) {
-    const int n0 = p * PANEL + warp * 32;
-    if (n0 >= M) continue;  // the whole warp: no column of its own here
-    float c[4][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
-
-    for (int k0 = 0; k0 < m_pad; k0 += 16) {
-      const float* kk = kt + (k0 + 2 * t) * KT_STRIDE + g;
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const float* km = kk + mt * 16;
-        a[mt][0] = pack_bf16(km[0], km[KT_STRIDE]);
-        a[mt][1] = pack_bf16(km[8], km[KT_STRIDE + 8]);
-        a[mt][2] = pack_bf16(km[8 * KT_STRIDE], km[9 * KT_STRIDE]);
-        a[mt][3] = pack_bf16(km[8 * KT_STRIDE + 8], km[9 * KT_STRIDE + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-            wt + (size_t)(n0 + nt * 8 + g) * m_pad + k0 + 2 * t);
-        const uint32_t b0 = __ldg(wr);
-        const uint32_t b1 = __ldg(wr + 4);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
-      }
-    }
-    epi(n0, c);
-  }
-}
-
-// the same for the `mma` layout: part[2 mt + h] belongs to row 16 mt + 8 h + g
-struct VarEpilogueMma {
-  const float* kt;
-  int M, g, t;
-  float part[8];
-
-  __device__ __forceinline__ void operator()(int n0, float (&c)[4][4][4]) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + nt * 8 + 2 * t + e;
-        if (n < M) {
-          const float* kn = kt + n * KT_STRIDE + g;
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            part[2 * mt] = fmaf(c[mt][nt][e], kn[mt * 16], part[2 * mt]);
-            part[2 * mt + 1] = fmaf(c[mt][nt][2 + e], kn[mt * 16 + 8], part[2 * mt + 1]);
-          }
-        }
-      }
-  }
-};
-
-// per-row sums of the `mma` epilogues' partials: over the four lanes that
-// share a row, then over the warps in a fixed order; out[r] for r < TR.
-// red is 8 x TR floats of shared memory.  Ends with a barrier.
-__device__ __forceinline__ void row_sums_mma(float (&part)[8], float* red,
-                                             float* out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = part[i];
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    if (t == 0) red[warp * TR + (i >> 1) * 16 + (i & 1) * 8 + g] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < TR) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red[w * TR + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-// The bf16 forward; wt is W^T in bf16 (see kw_panels_mma).
-__global__ void __launch_bounds__(THREADS, 1)
-fused_gp_bf16_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
-                         const float* __restrict__ u,
-                         const __nv_bfloat16* __restrict__ wt,
-                         const float* __restrict__ os_ptr,
-                         const float* __restrict__ inv_ls,
-                         const float* __restrict__ mean_w,
-                         const float* __restrict__ mean_b_ptr,
-                         float* __restrict__ mean_out, float* __restrict__ var_out,
-                         int R, int d, int M, int m_pad) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                     // [m_pad][KT_STRIDE]  K^T of the tile
-  float* wbuf = kt + m_pad * KT_STRIDE; // staging; reduction
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TR;
-  const float os = *os_ptr;
-
-  // 1. K^T of the tile
-  tile_kt(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, m_pad);
-
-  // mean: warp w sums K[r, :] u over its 8 rows, lanes stride over m
-  {
-    float acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    for (int m = lane; m < M; m += 32) {
-      const float um = __ldg(u + m);
-      const float4* km = reinterpret_cast<const float4*>(kt + m * KT_STRIDE + warp * 8);
-      const float4 a = km[0], b = km[1];
-      acc[0] = fmaf(a.x, um, acc[0]); acc[1] = fmaf(a.y, um, acc[1]);
-      acc[2] = fmaf(a.z, um, acc[2]); acc[3] = fmaf(a.w, um, acc[3]);
-      acc[4] = fmaf(b.x, um, acc[4]); acc[5] = fmaf(b.y, um, acc[5]);
-      acc[6] = fmaf(b.z, um, acc[6]); acc[7] = fmaf(b.w, um, acc[7]);
-    }
-    // x . mean_w of the warp's rows, lanes stride over d
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = row0 + warp * 8 + i;
-      if (row < R) {
-        const float* xr = x + (size_t)row * d;
-        for (int k = lane; k < d; k += 32) acc[i] = fmaf(xr[k], mean_w[k], acc[i]);
-      }
-    }
-    float mine = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float s = warp_sum(acc[i]);
-      if (lane == i) mine = s;
-    }
-    const int row = row0 + warp * 8 + lane;
-    if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
-  }
-
-  // 2.-3. var: (K W) panel by panel, each panel's tile met with K
-  VarEpilogueMma epi{kt, M, lane >> 2, lane & 3,
-                     {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-  kw_panels_mma(wt, kt, M, m_pad, epi);
-  float* red = wbuf;             // [8][TR]
-  float* sums = wbuf + 8 * TR;   // [TR]
-  row_sums_mma(epi.part, red, sums);
-  if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
-}
-
-// ------------------------------------------------ M in chunks (M > 720) --
-//
-// At M > 720 the tile's K^T over all of M (m_pad x 68 floats) no longer fits
-// a block's shared memory.  The chunked bf16 forward holds K^T for one
-// chunk of `chunk` inducing points (a multiple of the 256-column panel) and
-// recomputes it as the panels need it: for each panel p of W's columns, the
-// chunks are computed in turn, each multiplied into the panel's register
-// tile, the chunk that holds the panel's own columns last, so that the
-// panel's epilogue finds K[r, n] of its columns in shared memory.  K is
-// computed n_panels times instead of once: 3 M d flops a row per panel
-// against the panel's 512 M of K W, d / 170 of the product.  Rows, warps
-// and register tiles are those of the single-pass kernel above.
-
-// c += the bf16 (K W) tile of the warp's 32 columns n0.. over the chunk's
-// rows k_lo.. (rows_pad of them; kt holds their K^T); wt as kw_panels_mma's,
-// wt_cols columns
-__device__ __forceinline__ void kw_panel_rows_mma(const __nv_bfloat16* __restrict__ wt,
-                                                  int wt_cols, const float* kt,
-                                                  int k_lo, int rows_pad, int n0,
-                                                  float (&c)[4][4][4]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  for (int k0 = 0; k0 < rows_pad; k0 += 16) {
-    const float* kk = kt + (k0 + 2 * t) * KT_STRIDE + g;
-    uint32_t a[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const float* km = kk + mt * 16;
-      a[mt][0] = pack_bf16(km[0], km[KT_STRIDE]);
-      a[mt][1] = pack_bf16(km[8], km[KT_STRIDE + 8]);
-      a[mt][2] = pack_bf16(km[8 * KT_STRIDE], km[9 * KT_STRIDE]);
-      a[mt][3] = pack_bf16(km[8 * KT_STRIDE + 8], km[9 * KT_STRIDE + 8]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-          wt + (size_t)(n0 + nt * 8 + g) * wt_cols + k_lo + k0 + 2 * t);
-      const uint32_t b0 = __ldg(wr);
-      const uint32_t b1 = __ldg(wr + 4);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
-    }
-  }
-}
-
-// chunk i of panel p's sweep: all chunks, the one holding the panel's
-// columns last
-__device__ __forceinline__ int sweep_chunk(int p, int i, int chunk, int n_chunks) {
-  return ((p * PANEL) / chunk + 1 + i) % n_chunks;
-}
-
-__device__ __forceinline__ int pad16(int n) { return (n + BK - 1) / BK * BK; }
-
-// For each panel p (n_panels of them over M columns) computes K^T chunk by
-// chunk into kt and calls on_chunk(p, lo, cnt, cnt_pad) after each; then
-// epilogue(p, home_lo) with the panel's home chunk in kt.
-template <class OnChunk, class Epilogue>
-__device__ __forceinline__ void chunked_sweeps(const float* __restrict__ x,
-                                               const float* __restrict__ zs,
-                                               const float* __restrict__ inv_ls,
-                                               float os, float* kt, float* wbuf,
-                                               int row0, int R, int d, int M,
-                                               int chunk, OnChunk& on_chunk,
-                                               Epilogue& epilogue) {
-  const int n_chunks = (M + chunk - 1) / chunk;
-  const int n_panels = (M + PANEL - 1) / PANEL;
-  for (int p = 0; p < n_panels; ++p) {
-    for (int i = 0; i < n_chunks; ++i) {
-      const int lo = sweep_chunk(p, i, chunk, n_chunks) * chunk;
-      const int cnt = min(chunk, M - lo);
-      tile_kt(x, zs + (size_t)lo * d, inv_ls, os, kt, wbuf, row0, R, d, cnt,
-              pad16(cnt));
-      on_chunk(p, lo, cnt, pad16(cnt));
-    }
-    epilogue(p, (p * PANEL) / chunk * chunk);
-  }
-}
-__global__ void __launch_bounds__(THREADS, 1)
-fused_gp_bf16_fwd_chunked_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ zs,
-                                 const float* __restrict__ u,
-                                 const __nv_bfloat16* __restrict__ wt,
-                                 const float* __restrict__ os_ptr,
-                                 const float* __restrict__ inv_ls,
-                                 const float* __restrict__ mean_w,
-                                 const float* __restrict__ mean_b_ptr,
-                                 float* __restrict__ mean_out,
-                                 float* __restrict__ var_out, int R, int d,
-                                 int M, int m_pad, int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                      // [chunk][KT_STRIDE]
-  float* wbuf = kt + chunk * KT_STRIDE;  // staging; reduction
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TR;
-  const float os = *os_ptr;
-
-  float macc[8];  // K u of the warp's 8 rows, this lane's share
-#pragma unroll
-  for (int i = 0; i < 8; ++i) macc[i] = 0.f;
-  float c[4][4][4];
-  VarEpilogueMma epi16{kt, M, lane >> 2, lane & 3,
-                       {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
-
-  auto zero = [&]() {
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
-  };
-  zero();
-  auto on_chunk = [&](int p, int lo, int cnt, int cnt_pad) {
-    if (p == 0) {
-      for (int m = lane; m < cnt; m += 32) {
-        const float um = __ldg(u + lo + m);
-        const float4* km = reinterpret_cast<const float4*>(kt + m * KT_STRIDE + warp * 8);
-        const float4 a = km[0], b = km[1];
-        macc[0] = fmaf(a.x, um, macc[0]); macc[1] = fmaf(a.y, um, macc[1]);
-        macc[2] = fmaf(a.z, um, macc[2]); macc[3] = fmaf(a.w, um, macc[3]);
-        macc[4] = fmaf(b.x, um, macc[4]); macc[5] = fmaf(b.y, um, macc[5]);
-        macc[6] = fmaf(b.z, um, macc[6]); macc[7] = fmaf(b.w, um, macc[7]);
-      }
-    }
-    const int n0 = p * PANEL + warp * 32;
-    if (n0 < M) kw_panel_rows_mma(wt, m_pad, kt, lo, cnt_pad, n0, c);
-  };
-  auto epilogue = [&](int p, int home_lo) {
-    // kt holds the rows home_lo..: K[r, n] of the panel's columns n
-    const int n0 = p * PANEL + warp * 32;
-    epi16.kt = kt - (ptrdiff_t)home_lo * KT_STRIDE;
-    if (n0 < M) epi16(n0, c);
-    zero();
-  };
-  chunked_sweeps(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, chunk, on_chunk,
-                 epilogue);
-
-  // mean: x . mean_w of the warp's rows, lanes stride over d
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + warp * 8 + i;
-    if (row < R) {
-      const float* xr = x + (size_t)row * d;
-      for (int k = lane; k < d; k += 32) macc[i] = fmaf(xr[k], mean_w[k], macc[i]);
-    }
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float s = warp_sum(macc[i]);
-    if (lane == i) mine = s;
-  }
-  {
-    const int row = row0 + warp * 8 + lane;
-    if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
-  }
-
-  __syncthreads();  // wbuf: the last product is done
-  float* red = wbuf;            // [8][TR]
-  float* sums = wbuf + 8 * TR;  // [TR]
-  row_sums_mma(epi16.part, red, sums);
-  if (tid < TR && row0 + tid < R) var_out[row0 + tid] = os - sums[tid];
-}
-
 // ---------------------------------- products on `wgmma` (any M): `wgb::` --
 //
-// The fp32 forward, and both backwards, as a few products and passes around
+// Both forwards and both backwards, as a few products and passes around
 // them, every product on Hopper's warpgroup tensor-core instructions
 // (wgmma_bf16.cuh).  An fp32 operand v is carried as three bf16 parts
 // p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), which hold its 24
@@ -552,10 +116,11 @@ fused_gp_bf16_fwd_chunked_kernel(const float* __restrict__ x,
 //   2. G^T   = W^T K^T, the backward's: fp32, K split on load; bf16, from
 //            bf16(K); E^T = (u dmean^T - 2 G^T dvar) o K in the epilogue,
 //            written (fp32: as fp32, bf16: in three parts), and per range
-//            the partial row and column sums of E.  The fp32 forward's K W
-//            is one FFMA chain an element instead, in the plain version's
-//            order (kw_var_kernel), its epilogue the partial sums of
-//            (K W o K);
+//            the partial row and column sums of E.  The bf16 forward's the
+//            same with K rounded to bf16 on load, its epilogue the partial
+//            sums of (G o K) per range (VarEpi); the fp32 forward's K W is
+//            one FFMA chain an element instead, in the plain version's
+//            order (kw_var_kernel), its epilogue the same sums;
 //   3. dxs^T = zs^T E^T - rowsum(E) xs^T; dx = dxs o inv_ls + dmean mean_w
 //            through a shared-memory transpose, and per range the partial
 //            sums of dxs o x and dmean o x;
@@ -813,15 +378,17 @@ __device__ __forceinline__ void col_sums(float (&acc)[2][32], float* red,
 // multiple of 4 steps: whole stages).  SYM: the tiles on and above the
 // diagonal of a square product (sym_tile).  OA, OB: Operand or F32Operand.
 // NT: the tile's 64-column halves that hold data (1: the second is
-// padding, and no product is issued for it).  MINB 2: two blocks an SM, for
-// a sum of one stage (k_total <= GKC), which needs one buffer of the ring.
+// padding, and no product is issued for it).  MINB 2: two blocks an SM: of
+// three parts, for a sum of one stage (k_total <= GKC), which needs one
+// buffer of the ring; of one part (P 1), the whole ring fits twice.
 template <int P, bool B_MN, int SUM, class Epi, bool SYM = false,
           class OA = Operand, class OB = Operand, int NT = 2, int MINB = 1>
 __global__ void __launch_bounds__(256, MINB)
 gemm_kernel(OA A, OB B, int row_tiles, int k_len, int k_total, Epi epi) {
   static_assert(SUM == 0 || SUM == 1 || SUM % (GKC / 16) == 0, "SUM");
   constexpr bool SPLIT = OA::f32 || OB::f32;
-  static_assert(!SPLIT || P == PARTS, "an operand is split into PARTS parts");
+  static_assert(!SPLIT || P == PARTS || P == 1,
+                "an operand is split into PARTS parts, or rounded to one");
   // the fp32 products (an operand split on load, or 64-column sums) issue
   // one m64n128k16 for both halves of the tile, which reads A from shared
   // memory once instead of twice
@@ -1068,6 +635,28 @@ struct FwdKEpi {
   }
 };
 
+// 2. (bf16 forward) G^T tile = W^T K^T from bf16(W) and bf16(K): rows n,
+// columns r; (G o K) summed over the tile's 128 inducing points n, per row
+// r, K in fp32 as the plain version meets K W with it
+struct VarEpi {
+  const float* kf;  // (Mp, Rp): K
+  float* part_v;    // (Mp / 128, Rp)
+  int Rp;
+
+  __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const float2 k = *reinterpret_cast<const float2*>(
+            kf + (size_t)(t.row0 + acc_row(i)) * Rp + t.col0 + acc_col(nt, i));
+        acc[nt][i] *= k.x;
+        acc[nt][i + 1] *= k.y;
+      }
+    col_sums(acc, red, part_v + (size_t)t.rt * Rp + t.col0);
+  }
+};
+
 // 2. (forward) the variance's sums, (K W o K) over a range of 128 of W's
 // columns, per row: FFMA, each (K W)[r, n] one fma chain over m = 0, 1, ...
 // in order -- the order of cuBLAS's fp32 product, so that the variance,
@@ -1297,23 +886,27 @@ struct PartEpi {
 
 // prep, one warp a row of x: xs = x o inv_ls in three bf16 parts, (Rp, Dp)
 // each, and |xs|^2; zeros past R and d.  dvp (if not null): dvar padded
-// with zeros to Rp.
+// with zeros to Rp.  xw (if not null, the forward's): x . mean_w a row.
 __global__ void __launch_bounds__(256)
 prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
-              const float* __restrict__ dvar, bf16* __restrict__ xp,
-              float* __restrict__ x2, float* __restrict__ dvp, int R, int d,
+              const float* __restrict__ dvar, const float* __restrict__ mean_w,
+              bf16* __restrict__ xp, float* __restrict__ x2,
+              float* __restrict__ dvp, float* __restrict__ xw, int R, int d,
               int Rp, int Dp) {
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= Rp) return;
   const size_t plane = (size_t)Rp * Dp;
-  float s = 0.f;
+  float s = 0.f, sw = 0.f;
   for (int k = 2 * lane; k < Dp; k += 64) {
     bf16 p[2][PARTS];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float v = (r < R && k + e < d) ? x[(size_t)r * d + k + e] * inv_ls[k + e] : 0.f;
+      const bool ok = r < R && k + e < d;
+      const float raw = ok ? x[(size_t)r * d + k + e] : 0.f;
+      const float v = ok ? raw * inv_ls[k + e] : 0.f;
       s = fmaf(v, v, s);
+      if (xw != nullptr && ok) sw = fmaf(raw, mean_w[k + e], sw);
       split(v, p[e]);
     }
 #pragma unroll
@@ -1322,9 +915,11 @@ prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
           __halves2bfloat162(p[0][i], p[1][i]);
   }
   s = warp_sum(s);
+  if (xw != nullptr) sw = warp_sum(sw);
   if (lane == 0) {
     x2[r] = s;
     if (dvp != nullptr) dvp[r] = r < R ? dvar[r] : 0.f;
+    if (xw != nullptr) xw[r] = sw;
   }
 }
 
@@ -1454,22 +1049,18 @@ dos_kernel(const double* __restrict__ cem, const float* __restrict__ os_ptr,
   if (threadIdx.x == 0) *dos = (float)(a / *os_ptr + cem[Mp]);
 }
 
-// the forward's last pass, one warp a row: mean = x . mean_w + mean_b + the
-// K u partials, var = os - the (G o K) partials, each summed over the
-// inducing-point ranges in order
+// the forward's last pass, a thread a row: mean = x . mean_w (prep_x's) +
+// mean_b + the K u partials, var = os - the (G o K) partials, each summed
+// over the inducing-point ranges in order
 __global__ void __launch_bounds__(256)
-fwd_finish_kernel(const float* __restrict__ x, const float* __restrict__ mean_w,
-                  const float* __restrict__ mean_b, const float* __restrict__ os_ptr,
+fwd_finish_kernel(const float* __restrict__ xw, const float* __restrict__ mean_b,
+                  const float* __restrict__ os_ptr,
                   const float* __restrict__ part_mu, const float* __restrict__ part_v,
-                  float* __restrict__ mean, float* __restrict__ var, int R, int d,
+                  float* __restrict__ mean, float* __restrict__ var, int R,
                   int Rp, int m_tiles) {
-  const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * 256 + threadIdx.x;
   if (r >= R) return;
-  float s = 0.f;
-  for (int k = lane; k < d; k += 32) s = fmaf(x[(size_t)r * d + k], mean_w[k], s);
-  s = warp_sum(s);
-  if (lane != 0) return;
+  const float s = xw[r];
   float mu = 0.f, v = 0.f;
   for (int t = 0; t < m_tiles; ++t) {
     mu += part_mu[(size_t)t * Rp + r];
@@ -1544,21 +1135,24 @@ __host__ inline Plan plan(int R, int d, int M, bool f32) {
   return p;
 }
 
-// the fp32 forward's scratch
+// the forward's scratch; kw16 (the bf16 forward): W^T in bf16 besides
 struct FwdPlan {
   int Rp, Mp, Dk;
-  size_t xp, x2, zp, z2, kf, part_mu, part_v, total;
+  size_t xp, x2, xw, zp, z2, wp, kf, part_mu, part_v, total;
 };
 
-__host__ inline FwdPlan fwd_plan(int R, int d, int M) {
+__host__ inline FwdPlan fwd_plan(int R, int d, int M, bool kw16) {
   FwdPlan p;
   p.Rp = round_up(R, GT);
   p.Mp = round_up(M, GT);
   p.Dk = round_up(d, GKC);
+  const size_t mr = (size_t)p.Mp * p.Rp;
   Arena a;
   p.xp = a.take(PARTS * (size_t)p.Rp * p.Dk * 2); p.x2 = a.take((size_t)p.Rp * 4);
+  p.xw = a.take((size_t)p.Rp * 4);
   p.zp = a.take(PARTS * (size_t)p.Mp * p.Dk * 2); p.z2 = a.take((size_t)p.Mp * 4);
-  p.kf = a.take((size_t)p.Mp * p.Rp * 4);
+  p.wp = a.take(kw16 ? (size_t)p.Mp * p.Mp * 2 : 0);
+  p.kf = a.take(mr * 4);
   p.part_mu = a.take((size_t)(p.Mp / GT) * p.Rp * 4);
   p.part_v = a.take((size_t)(p.Mp / GT) * p.Rp * 4);
   p.total = a.total;
@@ -1572,8 +1166,8 @@ template <int P, bool B_MN, int SUM, bool SYM = false, int NT = 2,
           int MINB = 1, class OA, class OB, class Epi>
 __host__ int gemm(int row_tiles, int col_tiles, int slabs, OA A, OB B,
                   int k_len, int k_total, const Epi& epi, cudaStream_t st) {
-  if (MINB == 2 && k_total > GKC) return (int)cudaErrorInvalidValue;
-  constexpr int smem = MINB == 2 ? stage_bytes<P>() + 1024 : gemm_smem<P>();
+  if (MINB == 2 && P != 1 && k_total > GKC) return (int)cudaErrorInvalidValue;
+  constexpr int smem = MINB == 2 && P != 1 ? stage_bytes<P>() + 1024 : gemm_smem<P>();
   auto kernel = gemm_kernel<P, B_MN, SUM, Epi, SYM, OA, OB, NT, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1597,19 +1191,24 @@ __host__ int launch_fwd(const float* x, const float* zs, const float* u,
                         const float* w, const float* os, const float* inv_ls,
                         const float* mean_w, const float* mean_b, float* mean,
                         float* var, void* scratch, int R, int d, int M,
-                        cudaStream_t st) {
-  const FwdPlan p = fwd_plan(R, d, M);
+                        bool kw16, cudaStream_t st) {
+  const FwdPlan p = fwd_plan(R, d, M, kw16);
   unsigned char* base = static_cast<unsigned char*>(scratch);
   auto f32 = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
   auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
   const int mt = p.Mp / GT, rt = p.Rp / GT;
   int err;
-  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, nullptr, b16(p.xp),
-                                                f32(p.x2), nullptr, R, d, p.Rp,
-                                                p.Dk);
+  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, nullptr, mean_w,
+                                                b16(p.xp), f32(p.x2), nullptr,
+                                                f32(p.xw), R, d, p.Rp, p.Dk);
   if ((err = (int)cudaGetLastError())) return err;
-  prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr, f32(p.z2),
-                                             nullptr, M, d, p.Mp, p.Dk);
+  if (kw16)  // and W^T in bf16
+    prep_z_kernel<1><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr, f32(p.z2),
+                                           b16(p.wp), M, d, p.Mp, p.Dk);
+  else
+    prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr,
+                                               f32(p.z2), nullptr, M, d, p.Mp,
+                                               p.Dk);
   if ((err = (int)cudaGetLastError())) return err;
   // 1. K^T, and the partial K u (a sum of one stage at d <= 64: two blocks
   // an SM, whose loads and epilogues overlap)
@@ -1622,13 +1221,29 @@ __host__ int launch_fwd(const float* x, const float* zs, const float* u,
                                                  kepi, st)
             : gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dk, p.Dk, kepi, st);
   if (err) return err;
-  // 2. the partial (K W o K) sums, K W on FFMA in the plain version's order
-  kw_var_kernel<<<dim3(mt, rt), 256, 0, st>>>(w, f32(p.kf), f32(p.part_v), M,
-                                              p.Rp);
-  if ((err = (int)cudaGetLastError())) return err;
-  fwd_finish_kernel<<<(R + 7) / 8, 256, 0, st>>>(x, mean_w, mean_b, os,
-                                                 f32(p.part_mu), f32(p.part_v),
-                                                 mean, var, R, d, p.Rp, mt);
+  // 2. the partial (K W o K) sums.  bf16: G^T = W^T K^T on the tensor
+  // cores, K rounded to bf16 on its way into shared memory; up to M 512 one
+  // tensor-core sum at two blocks an SM, beyond it sums of 64 inducing
+  // points added in fp32 (512-point sums put M 2048's variance 2.9 times
+  // as far from the bf16 function in float64 as the plain version, past
+  // the card test's budget of 2).
+  // fp32: K W on FFMA in the plain version's order
+  if (kw16) {
+    const Operand wt = parts(base, p.wp, 0, 1, p.Mp);
+    const F32Operand kt{f32(p.kf), nullptr, p.Rp};
+    const VarEpi ve{f32(p.kf), f32(p.part_v), p.Rp};
+    err = p.Mp <= 512
+              ? gemm<1, true, 0, false, 2, 2>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve, st)
+              : gemm<1, true, SUM_F32>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve, st);
+    if (err) return err;
+  } else {
+    kw_var_kernel<<<dim3(mt, rt), 256, 0, st>>>(w, f32(p.kf), f32(p.part_v), M,
+                                                p.Rp);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  fwd_finish_kernel<<<(R + 255) / 256, 256, 0, st>>>(
+      f32(p.xw), mean_b, os, f32(p.part_mu), f32(p.part_v), mean, var, R,
+      p.Rp, mt);
   return (int)cudaGetLastError();
 }
 
@@ -1647,8 +1262,8 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
   int err;
 
   prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(
-      x, inv_ls, dvar, b16(p.xp), fp(p.x2), f32 ? fp(p.dvp) : nullptr, R, d,
-      p.Rp, p.Dp);
+      x, inv_ls, dvar, nullptr, b16(p.xp), fp(p.x2), f32 ? fp(p.dvp) : nullptr,
+      nullptr, R, d, p.Rp, p.Dp);
   if ((err = (int)cudaGetLastError())) return err;
   if (f32)
     prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp),
@@ -1744,53 +1359,18 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
 
 }  // namespace wgb
 
-// Shared memory of a bf16 forward block that holds K^T for `rows` inducing
-// points (all of M, padded, or one chunk).  The wrapper's layout() mirrors
-// it.
-int smem_fwd(int rows) {
-  return (int)(((long long)rows * KT_STRIDE + WBUF) * (long long)sizeof(float));
-}
-
-// chunk >= m_pad: the single-pass kernel; else a multiple of PANEL
-bool chunk_ok(int M, int chunk) {
-  const int m_pad = (M + BK - 1) / BK * BK;
-  return chunk >= m_pad || (chunk > 0 && chunk % PANEL == 0);
-}
-
-int launch_bf16_fwd(const float* x, const float* zs, const float* u,
-                    const __nv_bfloat16* wt, const float* os,
-                    const float* inv_ls, const float* mean_w,
-                    const float* mean_b, float* mean, float* var, int R, int d,
-                    int M, int chunk, cudaStream_t stream) {
-  if (!chunk_ok(M, chunk)) return (int)cudaErrorInvalidValue;
-  const int m_pad = (M + BK - 1) / BK * BK;
-  const int blocks = (R + TR - 1) / TR;
-  if (chunk >= m_pad) {
-    const int smem = smem_fwd(m_pad);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_gp_bf16_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_gp_bf16_fwd_kernel<<<blocks, THREADS, smem, stream>>>(
-        x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad);
-    return (int)cudaGetLastError();
-  }
-  const int smem = smem_fwd(chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gp_bf16_fwd_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_gp_bf16_fwd_chunked_kernel<<<blocks, THREADS, smem, stream>>>(
-      x, zs, u, wt, os, inv_ls, mean_w, mean_b, mean, var, R, d, M, m_pad, chunk);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Floats of device scratch the fp32 forward and the two backwards need (the
+// Floats of device scratch the two forwards and the two backwards need (the
 // wrapper allocates it).
 long long fused_gp_fwd_scratch_floats(int R, int d, int M) {
-  return (long long)((wgb::fwd_plan(R, d, M).total + 3) / 4);
+  return (long long)((wgb::fwd_plan(R, d, M, false).total + 3) / 4);
+}
+
+long long fused_gp_bf16_fwd_scratch_floats(int R, int d, int M) {
+  return (long long)((wgb::fwd_plan(R, d, M, true).total + 3) / 4);
 }
 
 long long fused_gp_bwd_scratch_floats(int R, int d, int M) {
@@ -1801,11 +1381,6 @@ long long fused_gp_bf16_bwd_scratch_floats(int R, int d, int M) {
   return (long long)((wgb::plan(R, d, M, false).total + 3) / 4);
 }
 
-// Rows and columns of the bf16 W^T the bf16 forward takes: wt[n][k] =
-// bf16(W[k][n]), zero beyond M.
-int fused_gp_bf16_wt_rows(int M) { return (M + PANEL - 1) / PANEL * PANEL; }
-int fused_gp_bf16_wt_cols(int M) { return (M + BK - 1) / BK * BK; }
-
 // x (R, d) raw rows; zs (M, d) = Z / lengthscale; u (M,); w (M, M) row-major;
 // os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs;
 // scratch of fused_gp_fwd_scratch_floats(R, d, M) floats.  Five launches on
@@ -1815,21 +1390,19 @@ int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w
                  const float* mean_b, float* mean, float* var, float* scratch,
                  int R, int d, int M, void* stream) {
   return wgb::launch_fwd(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
-                         scratch, R, d, M, (cudaStream_t)stream);
+                         scratch, R, d, M, false, (cudaStream_t)stream);
 }
 
-// The same with the K W product in bf16 on the tensor cores; wt is the bf16
-// W^T described at fused_gp_bf16_wt_rows.  chunk: the inducing points a
-// block holds K^T for (the wrapper's layout(): M padded to 16 for the
-// single-pass kernel, else a multiple of 256).
+// The same with the K W product in bf16 on the tensor cores: inputs and
+// outputs as fused_gp_fwd's, w the fp32 (M, M); scratch of
+// fused_gp_bf16_fwd_scratch_floats(R, d, M) floats.  Five launches.
 int fused_gp_bf16_fwd(const float* x, const float* zs, const float* u,
-                      const void* wt, const float* os, const float* inv_ls,
+                      const float* w, const float* os, const float* inv_ls,
                       const float* mean_w, const float* mean_b, float* mean,
-                      float* var, int R, int d, int M, int chunk,
+                      float* var, float* scratch, int R, int d, int M,
                       void* stream) {
-  return launch_bf16_fwd(x, zs, u, static_cast<const __nv_bfloat16*>(wt), os,
-                         inv_ls, mean_w, mean_b, mean, var, R, d, M, chunk,
-                         (cudaStream_t)stream);
+  return wgb::launch_fwd(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
+                         scratch, R, d, M, true, (cudaStream_t)stream);
 }
 
 // The VJP.  Inputs as the forward's, plus dmean, dvar (R,); outputs dx

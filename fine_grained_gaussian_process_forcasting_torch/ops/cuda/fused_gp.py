@@ -21,14 +21,18 @@ at inv_ls = 1, mean_w = 0, mean_b = 0, so they run on the same kernels with
 those inputs, add to the same launch counters, and return the gradients of
 their five inputs.
 
-On the card the fp32 forward and backward run their products on the tensor
-cores as products of three bf16 parts of each fp32 operand (``csrc/fused_gp.cu``,
-the `wgb::` engine), all but the forward's K W, an FFMA chain in the plain
-version's order: five launches forward, nine backward, at any M.
+On the card every entry runs its products on the tensor cores as products
+of three bf16 parts of each fp32 operand (``csrc/fused_gp.cu``, the `wgb::`
+engine), all but the fp32 forward's K W, an FFMA chain in the plain
+version's order: five launches forward, nine backward, at any M, each on
+a device scratch buffer that the wrapper allocates (``fwd_scratch_floats``,
+``bwd_scratch_floats``).
 
 ``whitened_marginals_affine_bf16`` takes and returns the same fp32 tensors;
 only the two products K W and K^T (dvar o K) round their inputs to bf16 and
-sum in fp32, everything else stays fp32.  Its VJP is the Pallas kernel's own
+sum in fp32, everything else stays fp32.  Its forward is the fp32 forward's
+sequence with K W on the tensor cores from bf16(K), rounded as it is
+loaded, and bf16(W).  Its VJP is the Pallas kernel's own
 rule (``E`` from the bf16 ``K W``, ``dW`` from rounded ``K`` and
 ``dvar o K``), not the derivative of the rounded forward, so on the CPU too
 it is a ``torch.autograd.Function``, over the plain forward and the plain
@@ -54,34 +58,38 @@ bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
 
-_MAX_SMEM = 232_448  # bytes of shared memory one H100 block can use
-# the bf16 forward kernels' shared-memory arithmetic (csrc/fused_gp.cu: TR,
-# KT_STRIDE, WBUF, BK)
-_TR, _KT_STRIDE, _WBUF, _BK = 64, 68, 2 * 16 * 256, 16
-#: inducing points a bf16 forward block holds K^T for when all of M does
-#: not fit (a multiple of the kernel's 256-column panel)
-CHUNK = 512
+_GT, _GKC = 128, 64  # the engine's output tile and summed-index stage
 
 
-class Layout(NamedTuple):
-    """How the bf16 forward kernels split M: ``chunk`` inducing points of
-    K^T in a block's shared memory (M padded to 16 when all of it fits, the
-    single pass; else ``CHUNK``), and the bytes a block needs for it."""
-    chunk: int
-    fwd_smem: int
+class FwdPlan(NamedTuple):
+    """The forward's device scratch, as ``csrc/fused_gp.cu`` ``wgb::fwd_plan``
+    lays it out: rows and inducing points padded to whole 128 x 128 tiles
+    (``rp``, ``mp``), d to whole 64-column stages (``dk``), and the bytes of
+    each array, every one of them 256-byte aligned."""
+    rp: int
+    mp: int
+    dk: int
+    arrays: dict
+
+    @property
+    def total(self) -> int:
+        return sum(self.arrays.values())
 
 
-def layout(m: int) -> Layout:
-    """The bf16 forward kernels' split of M inducing points, which their
-    launcher takes: one pass over all of M up to M 720, chunks of ``CHUNK``
-    beyond (the counterpart of the Pallas kernel's ``_row_layout``, which
-    shrinks its row tile instead)."""
-    def fwd(rows):
-        return (rows * _KT_STRIDE + _WBUF) * 4
+def fwd_plan(r: int, d: int, m: int, bf16=False) -> FwdPlan:
+    """The forward's scratch at R rows: x's three bf16 parts, |xs|^2 and
+    x . mean_w, zs's parts and |zs|^2, K (fp32), the partial sums of K u and
+    of (K W o K) per 128 inducing points; bf16, W^T in bf16 besides.  The
+    library's ``fused_gp_(bf16_)fwd_scratch_floats`` gives the same total."""
+    def up(v, to):
+        return -(-v // to) * to
 
-    m_pad = -(-m // _BK) * _BK
-    chunk = m_pad if fwd(m_pad) <= _MAX_SMEM else CHUNK
-    return Layout(chunk, fwd(chunk))
+    rp, mp, dk = up(r, _GT), up(m, _GT), up(d, _GKC)
+    sizes = {"x_parts": 3 * rp * dk * 2, "x2": rp * 4, "x_mean_w": rp * 4,
+             "zs_parts": 3 * mp * dk * 2, "z2": mp * 4,
+             "w_bf16": mp * mp * 2 if bf16 else 0, "k": mp * rp * 4,
+             "part_mean": mp // _GT * rp * 4, "part_var": mp // _GT * rp * 4}
+    return FwdPlan(rp, mp, dk, {k: up(v, 256) for k, v in sizes.items()})
 
 
 def bwd_design(m: int, bf16=False) -> str:
@@ -196,17 +204,11 @@ def whitened_marginals_bf16_bwd_plain(*args):
 
 
 def launcher(bf16=False):
-    """The C forward launcher.  fp32: (x, zs, u, w, os, inv_ls, mean_w,
-    mean_b, mean, var, scratch pointers, R, d, M, stream), scratch of
-    ``fwd_scratch_floats``; ``bf16``: (the same ten pointers with
-    ``bf16_wt(w)`` in the place of w, R, d, M, layout(M).chunk, stream).
-    Returns the cudaError_t."""
-    if bf16:
-        return _build.function(
-            "fused_gp", "fused_gp_bf16_fwd",
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    """The C forward launcher, either variant: (x, zs, u, w, os, inv_ls,
+    mean_w, mean_b, mean, var, scratch pointers, R, d, M, stream) ->
+    cudaError_t, scratch of ``fwd_scratch_floats(R, d, M, bf16)``."""
     return _build.function(
-        "fused_gp", "fused_gp_fwd",
+        "fused_gp", "fused_gp_bf16_fwd" if bf16 else "fused_gp_fwd",
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -220,22 +222,12 @@ def bwd_launcher(bf16=False):
         [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def bf16_wt(w):
-    """W^T in bf16, zero-padded to the shape the bf16 forward kernel reads:
-    the cast that it makes once per call."""
-    m = w.shape[0]
-    rows, cols = (_build.function("fused_gp", name, [ctypes.c_int])(m)
-                  for name in ("fused_gp_bf16_wt_rows",
-                               "fused_gp_bf16_wt_cols"))
-    wt = torch.zeros((rows, cols), device=w.device, dtype=torch.bfloat16)
-    wt[:m, :m] = w.T
-    return wt
-
-
-def fwd_scratch_floats(r: int, d: int, m: int) -> int:
-    """Floats of device scratch one fp32 forward call needs at R rows."""
-    return _build.function("fused_gp", "fused_gp_fwd_scratch_floats",
-                           [ctypes.c_int] * 3, ctypes.c_longlong)(r, d, m)
+def fwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
+    """Floats of device scratch one forward call needs at R rows."""
+    symbol = ("fused_gp_bf16_fwd_scratch_floats" if bf16
+              else "fused_gp_fwd_scratch_floats")
+    return _build.function("fused_gp", symbol, [ctypes.c_int] * 3,
+                           ctypes.c_longlong)(r, d, m)
 
 
 def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
@@ -329,18 +321,13 @@ def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
     m = zs.shape[0]
     mean = torch.empty((b, n), device=x.device, dtype=torch.float32)
     var = torch.empty((b, n), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(fwd_scratch_floats(b * n, d, m, bf16),
+                          device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (x, zs, u, bf16_wt(w) if bf16 else w,
-                                   outputscale, inv_ls, mean_w, mean_b, mean,
-                                   var)]
-    if bf16:
-        dims = (b * n, d, m, layout(m).chunk)
-    else:
-        scratch = torch.empty(fwd_scratch_floats(b * n, d, m),
-                              device=x.device, dtype=torch.float32)
-        ptrs.append(scratch.data_ptr())
-        dims = (b * n, d, m)
-    err = launcher(bf16)(*ptrs, *dims, stream)
+    err = launcher(bf16)(
+        *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
+                                 mean_b, mean, var, scratch)),
+        b * n, d, m, stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_fwd launch failed: cudaError {err}")
     if bf16:

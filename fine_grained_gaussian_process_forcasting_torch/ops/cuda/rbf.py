@@ -11,6 +11,11 @@ deep GP's hidden layer over the same x: z (h, M, d), lengthscale (h, d),
 outputscale (h,) -> (h, ..., N, M), which the JAX layer gets by vmapping
 the op.
 
+On the card one launch of ``csrc/rbf.cu`` computes the h GPs' K: a kernel
+bound by its stores (K is written once, as whole 128-byte lines), whose
+fp32 cross products on the CUDA cores and exponentials run while the stores
+drain; each block stages and scales its rows of x once and walks all of M.
+
 The JAX op's VJP is plain XLA over the saved K (``rbf.py:92-113``); here it
 is the same closed form in plain PyTorch.  So the op is a
 ``torch.autograd.Function`` on both devices: its forward launches

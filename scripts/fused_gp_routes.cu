@@ -1,7 +1,9 @@
-// Three ways to run the fp32 fused-GP backward's two large products on an
-// H100 -- G = K W (2 M^2 a row) and dW = K^T diag(dvar) K (symmetric) -- for
+// Probes of the fused GP's and the rbf kernel's products on an H100, for
 // scripts/fused_gp_routes.py, which times them and holds what each gives
 // against float64.  Built by that script with nvcc for sm_90a.
+//
+// Three ways to run the fp32 fused-GP backward's two large products -- G =
+// K W (2 M^2 a row) and dW = K^T diag(dvar) K (symmetric):
 //
 //   (a) three bf16 parts of each fp32 operand, six part products, on the
 //       port's own `wgb::gemm_kernel` (csrc/fused_gp.cu, included below),
@@ -16,8 +18,19 @@
 //   (c) FFMA on the CUDA cores: the register-tiled A^T B kernel of the
 //       port's earlier fp32 backward (128 x 128 tiles, an 8 x 8 register
 //       tile a thread), here at two blocks an SM.
+//
+// The direct-difference bf16 forward (one fused kernel a 64-row tile: the
+// distance by direct difference on FFMA into a shared-memory K^T, then K W
+// on `mma.sync`), kept here as the baseline that the redesigned forward is
+// timed against, phase by phase (`legacy`).
+//
+// The rbf cross-covariance's route (a): the cross term of one GP on the
+// `wgb::` engine in three bf16 parts, x split and scaled on load, K written
+// from the accumulators (`rbf_a`); and a kernel that only writes an rbf
+// output, the ceiling of a kernel bound by its stores (`store_only`).
 
 #include "../fine_grained_gaussian_process_forcasting_torch/csrc/fused_gp.cu"
+#include "../fine_grained_gaussian_process_forcasting_torch/csrc/mma_bf16.cuh"
 
 namespace probe {
 
@@ -238,6 +251,257 @@ ffma_kernel(const float* A, const float* B, const float* __restrict__ rw,
 
 }  // namespace probe
 
+// ------------------------------- the direct-difference bf16 forward --
+//
+// One block of 256 threads a tile of 64 rows: (1) the tile's K^T over all
+// of M into shared memory by the direct difference |xs - zs|^2 on FFMA, x
+// and zs streamed 16 columns of d at a time, and the mean from it; (2) K W
+// panel by panel on `mma.sync`, K rounded to bf16 as it leaves shared
+// memory, W^T read as bf16 from device memory, each panel's tile met with
+// K into per-row partial variances.  PHASES 1 stops after (1): the time of
+// (2) is the whole kernel's less that.  M up to 720 (K^T in one block's
+// shared memory).
+namespace legacy {
+
+constexpr int TR = 64;             // rows per block
+constexpr int THREADS = 256;       // 8 warps x 8 rows
+constexpr int PANEL = 256;         // W columns per panel
+constexpr int BK = 16;             // K^T rows are padded to a multiple of this
+constexpr int KT_STRIDE = TR + 4;  // padded K^T row, keeps float4 alignment
+constexpr int WBUF = 2 * BK * PANEL;  // floats of staging and reduction space
+constexpr int DC = 16;             // columns of d per chunk
+constexpr int XC_STRIDE = TR + 4;  // x chunk [DC][XC_STRIDE]
+constexpr int ZC_STRIDE = DC + 1;  // zs chunk [THREADS][ZC_STRIDE]
+
+__device__ __forceinline__ void tile_kt(const float* __restrict__ x,
+                                        const float* __restrict__ zs,
+                                        const float* __restrict__ inv_ls,
+                                        float os, float* kt, float* stage,
+                                        int row0, int R, int d, int M,
+                                        int m_pad) {
+  const int tid = threadIdx.x;
+  float* xc = stage;
+  float* zc = stage + DC * XC_STRIDE;
+  for (int mb = 0; mb < m_pad; mb += THREADS) {
+    const int m = mb + tid;
+    float d2[TR];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) d2[r] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += DC) {
+      __syncthreads();
+      for (int i = tid; i < TR * DC; i += THREADS) {
+        const int r = i / DC, k = i - r * DC, row = row0 + r, kk = k0 + k;
+        xc[k * XC_STRIDE + r] =
+            (row < R && kk < d) ? x[(size_t)row * d + kk] * inv_ls[kk] : 0.f;
+      }
+      for (int i = tid; i < THREADS * DC; i += THREADS) {
+        const int mm = i / DC, k = i - mm * DC, kk = k0 + k;
+        zc[mm * ZC_STRIDE + k] =
+            (mb + mm < M && kk < d) ? __ldg(zs + (size_t)(mb + mm) * d + kk) : 0.f;
+      }
+      __syncthreads();
+      if (m < M) {
+        const float* zr = zc + tid * ZC_STRIDE;
+#pragma unroll
+        for (int k = 0; k < DC; ++k) {
+          const float z = zr[k];
+          const float4* xk = reinterpret_cast<const float4*>(xc + k * XC_STRIDE);
+#pragma unroll
+          for (int r4 = 0; r4 < TR / 4; ++r4) {
+            const float4 xv = xk[r4];
+            float a;
+            a = xv.x - z; d2[4 * r4 + 0] = fmaf(a, a, d2[4 * r4 + 0]);
+            a = xv.y - z; d2[4 * r4 + 1] = fmaf(a, a, d2[4 * r4 + 1]);
+            a = xv.z - z; d2[4 * r4 + 2] = fmaf(a, a, d2[4 * r4 + 2]);
+            a = xv.w - z; d2[4 * r4 + 3] = fmaf(a, a, d2[4 * r4 + 3]);
+          }
+        }
+      }
+    }
+    if (m < m_pad) {
+      float4* ktm = reinterpret_cast<float4*>(kt + m * KT_STRIDE);
+#pragma unroll
+      for (int r4 = 0; r4 < TR / 4; ++r4)
+        ktm[r4] = m < M ? make_float4(os * expf(-0.5f * d2[4 * r4 + 0]),
+                                      os * expf(-0.5f * d2[4 * r4 + 1]),
+                                      os * expf(-0.5f * d2[4 * r4 + 2]),
+                                      os * expf(-0.5f * d2[4 * r4 + 3]))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+}
+
+template <int PHASES>
+__global__ void __launch_bounds__(THREADS, 1)
+bf16_fwd_kernel(const float* __restrict__ x, const float* __restrict__ zs,
+                const float* __restrict__ u, const __nv_bfloat16* __restrict__ wt,
+                const float* __restrict__ os_ptr, const float* __restrict__ inv_ls,
+                const float* __restrict__ mean_w, const float* __restrict__ mean_b_ptr,
+                float* __restrict__ mean_out, float* __restrict__ var_out, int R,
+                int d, int M, int m_pad) {
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;
+  float* wbuf = kt + m_pad * KT_STRIDE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * TR;
+  const float os = *os_ptr;
+  tile_kt(x, zs, inv_ls, os, kt, wbuf, row0, R, d, M, m_pad);
+  {  // mean: warp w sums K[r, :] u over its 8 rows, lanes stride over m
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    for (int m = lane; m < M; m += 32) {
+      const float um = __ldg(u + m);
+      const float4* km = reinterpret_cast<const float4*>(kt + m * KT_STRIDE + warp * 8);
+      const float4 a = km[0], b = km[1];
+      acc[0] = fmaf(a.x, um, acc[0]); acc[1] = fmaf(a.y, um, acc[1]);
+      acc[2] = fmaf(a.z, um, acc[2]); acc[3] = fmaf(a.w, um, acc[3]);
+      acc[4] = fmaf(b.x, um, acc[4]); acc[5] = fmaf(b.y, um, acc[5]);
+      acc[6] = fmaf(b.z, um, acc[6]); acc[7] = fmaf(b.w, um, acc[7]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + warp * 8 + i;
+      if (row < R) {
+        const float* xr = x + (size_t)row * d;
+        for (int k = lane; k < d; k += 32) acc[i] = fmaf(xr[k], mean_w[k], acc[i]);
+      }
+    }
+    float mine = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float s = warp_sum(acc[i]);
+      if (lane == i) mine = s;
+    }
+    const int row = row0 + warp * 8 + lane;
+    if (lane < 8 && row < R) mean_out[row] = *mean_b_ptr + mine;
+  }
+  if (PHASES == 1) return;
+  // K W panel by panel on `mma.sync`, each panel's tile met with K
+  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int n_panels = (M + PANEL - 1) / PANEL;
+  for (int p = 0; p < n_panels; ++p) {
+    const int n0 = p * PANEL + warp * 32;
+    if (n0 >= M) continue;
+    float c[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.f;
+    for (int k0 = 0; k0 < m_pad; k0 += 16) {
+      const float* kk = kt + (k0 + 2 * t) * KT_STRIDE + g;
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* km = kk + mt * 16;
+        a[mt][0] = pack_bf16(km[0], km[KT_STRIDE]);
+        a[mt][1] = pack_bf16(km[8], km[KT_STRIDE + 8]);
+        a[mt][2] = pack_bf16(km[8 * KT_STRIDE], km[9 * KT_STRIDE]);
+        a[mt][3] = pack_bf16(km[8 * KT_STRIDE + 8], km[9 * KT_STRIDE + 8]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+            wt + (size_t)(n0 + nt * 8 + g) * m_pad + k0 + 2 * t);
+        const uint32_t b0 = __ldg(wr), b1 = __ldg(wr + 4);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma_bf16(c[mt][nt], a[mt], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + nt * 8 + 2 * t + e;
+        if (n < M) {
+          const float* kn = kt + n * KT_STRIDE + g;
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            part[2 * mt] = fmaf(c[mt][nt][e], kn[mt * 16], part[2 * mt]);
+            part[2 * mt + 1] = fmaf(c[mt][nt][2 + e], kn[mt * 16 + 8], part[2 * mt + 1]);
+          }
+        }
+      }
+  }
+  // per-row sums: the four lanes of a row, then the warps in order
+  float* red = wbuf;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v = part[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (t == 0) red[warp * TR + (i >> 1) * 16 + (i & 1) * 8 + g] = v;
+  }
+  __syncthreads();
+  if (tid < TR && row0 + tid < R) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) s += red[w * TR + tid];
+    var_out[row0 + tid] = os - s;
+  }
+}
+
+}  // namespace legacy
+
+// ------------------------------------------------------- rbf probes --
+namespace rbf_a {
+
+// K of one GP from the (r, m) tile of xs zs^T: os exp(-max(0, |xs|^2 +
+// |zs|^2 - 2 xs.zs) / 2), written to out (R, M) from the accumulators
+struct RbfEpi {
+  const float* x2;  // (Rp) |xs|^2
+  const float* z2;  // (Mp) |zs|^2
+  const float* os;
+  float* out;
+  int R, M;
+
+  __device__ void operator()(float (&acc)[2][32], float*, const wgb::Tile& t) const {
+    const float o = *os;
+    const bool pairs = (M & 1) == 0;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = t.row0 + wgb::acc_row(i);
+        const int m = t.col0 + wgb::acc_col(nt, i);
+        if (r >= R || m >= M) continue;
+        const float xx = x2[r];
+        float k[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          k[e] = o * expf(-0.5f * fmaxf(xx + z2[m + e] - 2.f * acc[nt][i + e], 0.f));
+        float* at = out + (size_t)r * M + m;
+        if (pairs) {
+          *reinterpret_cast<float2*>(at) = make_float2(k[0], k[1]);
+        } else {
+          at[0] = k[0];
+          if (m + 1 < M) at[1] = k[1];
+        }
+      }
+  }
+};
+
+// out[g] = os[g] exp(-1/2) over (G, per_gp) floats, as float4: the stores
+// of an rbf output and nothing else
+__global__ void __launch_bounds__(256)
+store_only_kernel(float* __restrict__ out, const float* __restrict__ os,
+                  long long per_gp) {
+  const int g = blockIdx.y;
+  const float4 v = make_float4(os[g] * 0.60653066f, os[g] * 0.60653066f,
+                               os[g] * 0.60653066f, os[g] * 0.60653066f);
+  float4* o = reinterpret_cast<float4*>(out + (size_t)g * per_gp);
+  const long long n4 = per_gp / 4;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * 256)
+    o[i] = v;
+}
+
+}  // namespace rbf_a
+
 extern "C" {
 
 // (a) G^T (Mp, Rp) = W^T K^T: wp three bf16 planes (Mp, Mp) of W^T, kt K^T
@@ -300,6 +564,53 @@ int probe_ffma(const float* A, const float* B, const float* rw, float* part,
   else
     probe::ffma_kernel<false><<<dim3(nt, mt, s), 256, 0, st>>>(
         A, B, rw, part, R, Mdim, Ndim, rows_per);
+  return (int)cudaGetLastError();
+}
+
+// the direct-difference bf16 forward (legacy::bf16_fwd_kernel): wt is W^T
+// in bf16, (ceil(M / 256) 256, ceil(M / 16) 16), zero-padded; phases 1: the
+// distance, K and the mean only; 2: the whole kernel.  M <= 720.
+int probe_legacy_bf16_fwd(const float* x, const float* zs, const float* u,
+                          const void* wt, const float* os, const float* inv_ls,
+                          const float* mean_w, const float* mean_b, float* mean,
+                          float* var, int R, int d, int M, int phases,
+                          void* stream) {
+  const int m_pad = (M + legacy::BK - 1) / legacy::BK * legacy::BK;
+  const int smem = (m_pad * legacy::KT_STRIDE + legacy::WBUF) * (int)sizeof(float);
+  auto kernel = phases == 1 ? legacy::bf16_fwd_kernel<1> : legacy::bf16_fwd_kernel<2>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(R + legacy::TR - 1) / legacy::TR, legacy::THREADS, smem,
+           (cudaStream_t)stream>>>(
+      x, zs, u, static_cast<const __nv_bfloat16*>(wt), os, inv_ls, mean_w,
+      mean_b, mean, var, R, d, M, m_pad);
+  return (int)cudaGetLastError();
+}
+
+// rbf route (a), one GP: out (R, M) = K from xs zs^T on `wgb::gemm_kernel`,
+// x (Rp, 64) raw and zero-padded, split into three bf16 parts on load after
+// scaling by inv_ls (64, zero-padded); zsp three bf16 planes (Mp, 64) of
+// zs; x2 (Rp), z2 (Mp) the squared norms; d <= 64, one stage at two blocks
+// an SM
+int probe_rbf_a(const float* x, const float* inv_ls, const void* zsp,
+                const float* x2, const float* z2, const float* os, float* out,
+                int R, int M, int Rp, int Mp, void* stream) {
+  using namespace wgb;
+  const bf16* z = static_cast<const bf16*>(zsp);
+  const size_t plane = (size_t)Mp * GKC;
+  const F32Operand a{x, inv_ls, GKC};
+  const Operand b{{z, z + plane, z + 2 * plane}, GKC};
+  const rbf_a::RbfEpi epi{x2, z2, os, out, R, M};
+  return gemm<PARTS, false, 0, false, 2, 2>(Rp / GT, Mp / GT, 1, a, b, GKC, GKC,
+                                            epi, (cudaStream_t)stream);
+}
+
+// out (G, per_gp) written with os[g] exp(-1/2), per_gp a multiple of 4
+int probe_store_only(float* out, const float* os, int G, long long per_gp,
+                     void* stream) {
+  rbf_a::store_only_kernel<<<dim3(132 * 8, G), 256, 0, (cudaStream_t)stream>>>(
+      out, os, per_gp);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Three routes for the fp32 fused-GP backward's two large products, timed
-and held against float64 on an NVIDIA GPU.
+"""Probes of the fused GP's and the rbf kernel's products on an NVIDIA GPU,
+timed and held against float64.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
-    python3 scripts/fused_gp_routes.py [--out DIR]
+    python3 scripts/fused_gp_routes.py [--out DIR] [--sections ...]
 
-The products are G = K W (2 M^2 flops a row) and dW = -K^T diag(dvar) K
+Sections (all by default; ``scripts/fused_gp_routes.cu`` holds the probes'
+kernels):
+
+``kw_dw``: three routes for the fp32 fused-GP backward's two large
+products, G = K W (2 M^2 flops a row) and dW = -K^T diag(dvar) K
 (symmetric: M (M + 1) a row), at the flagship's 73,728 rows (d 32) and the
 production width's 40,960 rows (d 512), M 512, on the inputs
-``chip_smoke.py`` gives the fused GP.  Routes (``scripts/fused_gp_routes.cu``):
+``chip_smoke.py`` gives the fused GP:
 
   (a) three bf16 parts of each operand on the port's ``wgb::gemm_kernel``,
       K split on load, with the tensor cores' sums added in fp32 every
@@ -20,9 +24,27 @@ production width's 40,960 rows (d 512), M 512, on the inputs
 Each route's G and dW replace the plain fp32 version's in the VJP (every
 other term as the plain version computes it), so that each gradient's
 distance from the float64 function, summed over ``DRAWS`` draws, can be
-set beside the plain fp32 version's.  Prints one line a route and shape
-and writes everything, with the probe's build log, to ``DIR`` (by default
-``build/probe``): ``fused_gp_routes.json``.
+set beside the plain fp32 version's.
+
+``bf16_fwd``: the bf16 fused-GP forward at prod_basic's shape (40,960
+rows, d 512, M 512): the direct-difference kernel that the port's forward
+replaced (kept in the probe) whole and its
+first phase alone (the distance by direct difference, K and the mean), and
+the port's forward as the wrapper launches it, each beside its distance
+from the plain bf16 version.
+
+``rbf``: the rbf cross-covariance at the multi-layer flagship's hidden
+layer (8 GPs, 73,728 rows, M 512, d 32) and its served ragged batch (88
+windows, 25,344 rows): (a) the cross term of each GP on the
+``wgb::`` engine in three bf16 parts, x scaled and split on load, K written
+from the accumulators, one launch a GP; (b) the port's kernel
+(``csrc/rbf.cu``); each route's distance from K in float64, summed over
+``DRAWS`` draws, beside the plain version's; and a kernel that only writes
+the output (os exp(-1/2)), the store bandwidth a kernel bound by its stores
+can reach.
+
+Prints one line a route and shape and writes everything, with the probe's
+build log, to ``DIR`` (by default ``build/probe``): ``fused_gp_routes.json``.
 """
 
 from __future__ import annotations
@@ -40,10 +62,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (its fused-GP inputs and timer)
+import chip_smoke  # noqa: E402  (its fused-GP and rbf inputs and timer)
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (  # noqa: E402
     _build,
     fused_gp,
+    rbf,
 )
 
 DRAWS = 4
@@ -72,6 +95,9 @@ def build(log_dir: Path) -> ctypes.CDLL:
     lib.probe_tf32.argtypes = [p, p, p, p, i, p, i, ctypes.c_longlong, i, i,
                                i, i, i, i, i, p]
     lib.probe_ffma.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.probe_legacy_bf16_fwd.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.probe_rbf_a.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.probe_store_only.argtypes = [p, p, i, ctypes.c_longlong, p]
     return lib
 
 
@@ -237,24 +263,9 @@ def label(route, kw_opt, dw_opt):
     return "(c) FFMA, 2 blocks/SM"
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", type=Path, default=ROOT / "build" / "probe",
-                        help="directory for the JSON report and build log")
-    out_dir = parser.parse_args().out
-    out_dir.mkdir(parents=True, exist_ok=True)
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
-          flush=True)
-    lib = build(out_dir)
-    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    report = {"device": smi, "draws": DRAWS, "shapes": {}}
+def kw_dw(lib, gen, report):
+    """The three routes for K W and dW (section ``kw_dw``)."""
+    report["kw_dw"] = {"draws": DRAWS, "shapes": {}}
     for tag, shape in SHAPES.items():
         b, n, d, m = shape
         rows = {}
@@ -315,9 +326,196 @@ def main() -> int:
                   f"float64 over plain's, summed over {DRAWS} draws: "
                   + ", ".join(f"{k_} {v:.3f}" for k_, v in ratios.items())
                   + f"; worst {worst} {ratios[worst]:.3f}", flush=True)
-        report["shapes"][tag] = {"rows": r, "d": d, "M": m,
+        report["kw_dw"]["shapes"][tag] = {"rows": r, "d": d, "M": m,
                                  "plain_dist_summed": dist["plain"],
                                  "routes": rows}
+
+
+def bf16_fwd(lib, gen, report):
+    """The direct-difference bf16 forward whole and its first phase alone,
+    and the port's bf16 forward, at prod_basic's shape (section
+    ``bf16_fwd``)."""
+    shape = chip_smoke.GP_SHAPES["production"]
+    b, n, d, m = shape
+    args = chip_smoke._gp_inputs(gen, shape)
+    x, zs, u, w, os_, inv_ls, mean_w, mean_b = args
+    r = b * n
+    wt = torch.zeros(round_up(m, 256), round_up(m, 16), device="cuda",
+                     dtype=torch.bfloat16)
+    wt[:m, :m] = w.T
+    mean, var = torch.empty(r, device="cuda"), torch.empty(r, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, zs, u, wt, os_, inv_ls, mean_w,
+                                   mean_b, mean, var)]
+
+    def legacy(phases):
+        def run():
+            err = lib.probe_legacy_bf16_fwd(*ptrs, r, d, m, phases, stream)
+            if err:
+                raise RuntimeError(f"legacy bf16 forward: cudaError {err}")
+        return run
+
+    with torch.inference_mode():
+        want = fused_gp.whitened_marginals_affine_bf16_plain(*args)
+        legacy(2)()
+        torch.cuda.synchronize()
+        dist = {"legacy": [(mean - want[0].reshape(-1)).abs().max().item(),
+                           (var - want[1].reshape(-1)).abs().max().item()]}
+        got = fused_gp.forward_kernel(*args, bf16=True)
+        dist["port"] = [(g - w_).abs().max().item()
+                        for g, w_ in zip(got, want)]
+        whole = chip_smoke.time_ms(legacy(2), 20)
+        first = chip_smoke.time_ms(legacy(1), 20)
+        port = chip_smoke.time_ms(chip_smoke._fwd_runner(fused_gp, args,
+                                                         True), 20)
+    line = {"rows": r, "d": d, "M": m, "legacy_ms": whole,
+            "legacy_phase1_ms": first, "legacy_phase2_ms": whole - first,
+            "port_ms": port, "max_abs_vs_plain_mean_var": dist}
+    report["bf16_fwd"] = line
+    print(f"bf16 forward (rows {r}, d {d}, M {m}): the direct-difference "
+          f"kernel {whole:.4f} ms = the distance, K and the mean "
+          f"{first:.4f} + K W and the variance {whole - first:.4f}; the "
+          f"port's forward {port:.4f} ms; max|. - plain| (mean, var): "
+          f"direct difference {dist['legacy'][0]:.3e}, "
+          f"{dist['legacy'][1]:.3e}; the port's {dist['port'][0]:.3e}, "
+          f"{dist['port'][1]:.3e}", flush=True)
+
+
+RBF_SHAPES = {"multilayer": (chip_smoke.ML_HIDDEN,
+                             chip_smoke.B * (chip_smoke.ENC_LEN
+                                             + chip_smoke.DEC_LEN),
+                             chip_smoke.INDUCING, chip_smoke.D_MODEL),
+              "served_ragged": (chip_smoke.ML_HIDDEN,
+                                88 * (chip_smoke.ENC_LEN + chip_smoke.DEC_LEN),
+                                chip_smoke.INDUCING, chip_smoke.D_MODEL)}
+
+
+class RbfRouteA:
+    """Route (a) of one draw: each GP's cross term on ``wgb::gemm_kernel``,
+    x padded to whole tiles and 64 columns (split and scaled on load), zs's
+    parts and both squared norms made here, outside the timed launches."""
+
+    def __init__(self, lib, x, z, ls, os_):
+        self.lib = lib
+        h, m, d = z.shape
+        r = x.shape[0]
+        if d > 64:
+            raise ValueError("route (a) probes d <= 64, one stage")
+        self.r, self.m = r, m
+        self.rp, self.mp = round_up(r, GT), round_up(m, GT)
+        self.x = torch.zeros(self.rp, 64, device="cuda")
+        self.x[:r, :d] = x
+        self.inv = torch.zeros(h, 64, device="cuda")
+        self.inv[:, :d] = 1.0 / ls
+        xs = x[None] * self.inv[:, None, :d]
+        self.x2 = torch.zeros(h, self.rp, device="cuda")
+        self.x2[:, :r] = (xs * xs).sum(-1)
+        zs = z * self.inv[:, None, :d]
+        self.z2 = torch.zeros(h, self.mp, device="cuda")
+        self.z2[:, :m] = (zs * zs).sum(-1)
+        zpad = torch.zeros(h, self.mp, 64, device="cuda")
+        zpad[:, :m, :d] = zs
+        self.zp = [bf16_parts(zpad[g]) for g in range(h)]
+        self.os = os_
+        self.out = torch.empty(h, r, m, device="cuda")
+        self.stream = torch.cuda.current_stream().cuda_stream
+
+    def __call__(self):
+        for g in range(self.out.shape[0]):
+            err = self.lib.probe_rbf_a(
+                self.x.data_ptr(), self.inv[g].data_ptr(),
+                self.zp[g].data_ptr(), self.x2[g].data_ptr(),
+                self.z2[g].data_ptr(), self.os[g:].data_ptr(),
+                self.out[g].data_ptr(), self.r, self.m, self.rp, self.mp,
+                self.stream)
+            if err:
+                raise RuntimeError(f"rbf route (a): cudaError {err}")
+        return self.out
+
+
+def rbf_routes(lib, gen, report):
+    """Routes (a) and (b) for the rbf cross-covariance and the store-only
+    ceiling (section ``rbf``)."""
+    report["rbf"] = {"draws": DRAWS, "shapes": {}}
+    for tag, (h, r, m, d) in RBF_SHAPES.items():
+        dist = {"plain": 0.0, "a": 0.0, "b": 0.0}
+        for i in range(DRAWS):
+            x, z, ls, os_ = chip_smoke._rbf_inputs(gen, h, r, m, d)
+            with torch.inference_mode():
+                exact = rbf.rbf_cross_kernel_plain(
+                    *(t.double() for t in (x, z, ls, os_)))
+                route_a = RbfRouteA(lib, x, z, ls, os_)
+                got = {"plain": rbf.rbf_cross_kernel_plain(x, z, ls, os_),
+                       "a": route_a().clone(),
+                       "b": rbf.forward_kernel(x, z, ls, os_)}
+                for key, k in got.items():
+                    dist[key] += (k.double() - exact).abs().max().item()
+                del got, exact
+                if i == 0:
+                    launch_b = rbf.launcher()
+                    out_b = torch.empty(h, r, m, device="cuda")
+                    stream = torch.cuda.current_stream().cuda_stream
+                    ptrs = [t.data_ptr() for t in (x, z, ls, os_, out_b)]
+
+                    def run_b():
+                        if launch_b(*ptrs, r, m, d, h, stream):
+                            raise RuntimeError("rbf launch failed")
+
+                    def run_store():
+                        if lib.probe_store_only(out_b.data_ptr(),
+                                                os_.data_ptr(), h, r * m,
+                                                stream):
+                            raise RuntimeError("store-only launch failed")
+
+                    ms = {"a": chip_smoke.time_ms(route_a, 20),
+                          "b": chip_smoke.time_ms(run_b, 20),
+                          "store_only": chip_smoke.time_ms(run_store, 20)}
+                    del out_b
+                del route_a
+        gbytes = 4.0 * h * r * m / 1e9
+        ratios = {key: dist[key] / dist["plain"] if dist["plain"] > 0
+                  else math.inf for key in ("a", "b")}
+        report["rbf"]["shapes"][tag] = {
+            "h": h, "rows": r, "M": m, "d": d, "ms": ms,
+            "store_tb_per_s": {key: gbytes / v for key, v in ms.items()},
+            "dist_summed": dist, "dist_over_plain": ratios}
+        print(f"rbf {tag} (h {h}, rows {r}, M {m}, d {d}; K {gbytes:.3f} "
+              f"GB): (a) wgb bf16x3 {ms['a']:.4f} ms "
+              f"({gbytes / ms['a']:.3f} TB/s), (b) the port's kernel "
+              f"{ms['b']:.4f} ms ({gbytes / ms['b']:.3f} TB/s), stores alone "
+              f"{ms['store_only']:.4f} ms ({gbytes / ms['store_only']:.3f} "
+              f"TB/s); max|K - float64| summed over {DRAWS} draws: plain "
+              f"{dist['plain']:.3e}, (a) {dist['a']:.3e} ({ratios['a']:.3f}x"
+              f" plain's), (b) {dist['b']:.3e} ({ratios['b']:.3f}x)",
+              flush=True)
+
+
+SECTIONS = {"kw_dw": kw_dw, "bf16_fwd": bf16_fwd, "rbf": rbf_routes}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", type=Path, default=ROOT / "build" / "probe",
+                        help="directory for the JSON report and build log")
+    parser.add_argument("--sections", nargs="+", choices=list(SECTIONS),
+                        default=list(SECTIONS), help="which probes to run")
+    opts = parser.parse_args()
+    out_dir = opts.out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    lib = build(out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    report = {"device": smi}
+    for name in opts.sections:
+        SECTIONS[name](lib, gen, report)
     out = out_dir / "fused_gp_routes.json"
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}")

@@ -15,6 +15,8 @@ summed in fp32.
   forward its cross term, and K W as one fp32 FFMA chain an element in the
   plain version's order, which an fp32 matmul stands for here
   (``_split_fp32``).
+- The bf16 forward runs so its cross term, and K W on bf16(K) and bf16(W)
+  summed in fp32, as the reference does (``_split_bf16_fwd``).
 
 The functions below repeat that arithmetic in plain PyTorch (bf16 products
 of bf16 values are exact in fp32, so an fp32 matmul of them is the tensor
@@ -105,6 +107,21 @@ def _split_fp32(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
     return ((mean.reshape(b, n), var.reshape(b, n)),
             (dx.reshape(b, n, d), dzs, du, dw, dos, (dxsc * xr).sum(0),
              (dm * xr).sum(0), dm.sum()))
+
+
+def _split_bf16_fwd(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b):
+    """The bf16 forward's (mean, var): the cross term on three bf16 parts of
+    each operand, K W from bf16(K) and bf16(W) summed in fp32, met with K in
+    fp32."""
+    b, n, d = x.shape
+    xr = x.reshape(-1, d)
+    xs = xr * inv_ls
+    x2 = (xs * xs).sum(-1, keepdim=True)
+    z2 = (zs * zs).sum(-1)
+    k = outputscale * torch.exp(-0.5 * (x2 + z2 - 2.0 * _dot(xs, zs.T)))
+    mean = xr @ mean_w + mean_b + k @ u
+    var = outputscale - ((_hi(k) @ _hi(w)) * k).sum(-1)
+    return mean.reshape(b, n), var.reshape(b, n)
 
 
 def _inputs(rows, d, m, affine, seed):
@@ -199,6 +216,37 @@ def test_fp32_split_arithmetic_meets_the_float64_budget(d, m, affine):
             dist[name][1] += (p.double() - e).abs().max().item()
     for name, (split, plain) in dist.items():
         assert split <= 2.0 * plain, (name, split, plain)
+
+
+@pytest.mark.parametrize("d,m,affine", [(512, 512, True), (512, 512, False),
+                                        (32, 512, True), (32, 512, False)],
+                         ids=["d512", "d512_nonaffine", "flagship_width",
+                              "flagship_width_nonaffine"])
+def test_bf16_fwd_split_arithmetic_meets_the_float64_budget(d, m, affine):
+    """The bf16 forward as the card splits its cross term's operands: mean
+    within 1e-4 of the plain bf16 version and var within 2^-7 of max(1, its
+    largest magnitude) (the smoke's tolerances), and, summed over DRAWS
+    draws, each no farther than twice the plain bf16 version from the fp32
+    function in float64 and from the bf16 function in float64 (K and W
+    rounded to bf16 where they enter K W, the products exact)."""
+    names = ("mean", "var")
+    dist = {(bf16, name): [0.0, 0.0] for bf16 in (False, True)
+            for name in names}
+    for i in range(DRAWS):
+        args, _ = _inputs(ROWS, d, m, affine, seed=1000 * i + d + affine + 11)
+        got = _split_bf16_fwd(*args)
+        plain = fused_gp.whitened_marginals_affine_plain(*args, bf16=True)
+        assert (got[0] - plain[0]).abs().max().item() <= 1e-4
+        scale = max(1.0, plain[1].abs().max().item())
+        assert (got[1] - plain[1]).abs().max().item() <= 2.0 ** -7 * scale
+        wide = [a.double() for a in args]
+        for bf16 in (False, True):
+            exact = fused_gp.whitened_marginals_affine_plain(*wide, bf16=bf16)
+            for name, g, p, e in zip(names, got, plain, exact):
+                dist[bf16, name][0] += (g.double() - e).abs().max().item()
+                dist[bf16, name][1] += (p.double() - e).abs().max().item()
+    for key, (split, plain) in dist.items():
+        assert split <= 2.0 * plain, (key, split, plain)
 
 
 def test_bwd_design_by_m():

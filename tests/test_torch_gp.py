@@ -105,25 +105,32 @@ def test_fused_gp_plain_matches_jax_pallas(b, n):
 
 
 @pytest.mark.parametrize("m", [512, 720, 721, 1024, 2048, 4096])
-def test_fused_gp_layout_fits_a_block_at_any_m(m):
-    """The layout the bf16 forward kernels take: all of M in one pass up to
-    M 720 (prod_basic's M 512 keeps its single-pass kernel), chunks of 512
-    inducing points beyond, and a block's shared memory within the H100's
-    232,448 bytes either way.  d streams through a fixed buffer and does not
-    enter."""
-    lay = tfused.layout(m)
-    assert lay.fwd_smem <= 232_448
-    m_pad = -(-m // 16) * 16
-    if m <= 720:
-        assert lay.chunk == m_pad
-    else:
-        assert lay.chunk == tfused.CHUNK and lay.chunk % 256 == 0
-        assert lay.chunk < m_pad
+def test_fused_gp_bf16_fwd_scratch_at_any_m(m):
+    """The bf16 forward's device scratch (``fwd_plan``, the layout of the
+    library's ``wgb::fwd_plan``): one launch sequence at every M, rows and
+    inducing points padded to whole 128 x 128 tiles and d to whole 64-column
+    stages, every array 256-byte aligned; the fp32 forward's arrays (K in
+    fp32, (Mp, Rp), which the K W launch rounds to bf16 as it loads it) and,
+    on top of them, bf16(W^T) (Mp, Mp).  At prod_basic's 40,960 rows and d
+    512."""
+    r, d = 40960, 512
+    plan = tfused.fwd_plan(r, d, m, bf16=True)
+    fp32 = tfused.fwd_plan(r, d, m)
+    assert (plan.rp, plan.dk) == (r, d)
+    assert plan.mp % 128 == 0 and m <= plan.mp < m + 128
+    assert all(v % 256 == 0 for v in plan.arrays.values())
+    assert plan.arrays["w_bf16"] == plan.mp * plan.mp * 2
+    assert plan.arrays["k"] == plan.mp * plan.rp * 4
+    assert fp32.arrays["w_bf16"] == 0
+    assert plan.total == fp32.total + plan.arrays["w_bf16"]
+    # a ragged row count and d pad to the next tile and stage
+    ragged = tfused.fwd_plan(r + 1, d - 1, m, bf16=True)
+    assert (ragged.rp, ragged.dk, ragged.mp) == (r + 128, d, plan.mp)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_fused_gp_plain_matches_jax_pallas_at_m_1024(bf16):
-    """M 1024, where the kernels take M in chunks: the plain forward and VJP
+    """M 1024, past the 720 inducing points: the plain forward and VJP
     against the Pallas kernel (interpret mode)."""
     args = list(_fused_inputs(2, 9, d=8, m=1024, seed=1024 + bf16))
     args[3] = (args[3] * (32 / 1024)).astype(np.float32)  # var of O(1)

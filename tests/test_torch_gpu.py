@@ -88,7 +88,8 @@ def _assert_close_bf16(got, want, name="", scale=None, rel=TOL_BF16):
     assert err <= rel * max(scale, 1e-6), (name, err, scale)
 
 
-# M past 720, where the bf16 forward takes M in chunks (fused_gp.layout)
+# M past 720, where an earlier bf16 forward took M in chunks; every kernel
+# now tiles M as it tiles rows
 LARGE_M = [(3, 77, 32, 721), (2, 60, 32, 1024), (2, 35, 8, 2048)]
 
 
@@ -167,7 +168,7 @@ def test_fused_gp_kernel_takes_grad(cuda):
 
 
 # the last two: prod_basic's 40,960 rows at d 512, and M 720, the largest
-# the single-pass forward takes (721 is in LARGE_M)
+# an earlier single-pass bf16 forward took (721 is in LARGE_M)
 GP_SHAPES_BF16 = [(4, 36, 16, 32), (3, 77, 32, 512), (2, 5, 7, 300),
                   (3, 50, 96, 512), (2, 101, 512, 512), *LARGE_M,
                   (64, 640, 512, 512), (3, 40, 32, 720)]
@@ -306,6 +307,63 @@ def test_fused_gp_fp32_meets_the_float64_budget(cuda, rows, d, m, affine):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,m,affine",
+                         [(40960, 512, 512, True), (18432, 32, 512, False),
+                          (4608, 32, 1024, True), (4608, 32, 2048, True),
+                          (999, 96, 200, True)],
+                         ids=["prod_basic", "d32_nonaffine", "m1024", "m2048",
+                              "ragged"])
+def test_fused_gp_bf16_fwd_meets_the_float64_budget(cuda, rows, d, m, affine):
+    """The bf16 forward runs the distance's cross term on three bf16 parts
+    (`wgmma`) and K W on bf16(K) and bf16(W): mean and var each no farther
+    than twice the plain bf16 version from the fp32 function in float64 and
+    from the bf16 function in float64 (K and W rounded where they enter
+    K W, the products exact), the distances summed over 16 draws."""
+    names = ("mean", "var")
+    dist = {(bf16, name): [0.0, 0.0] for bf16 in (False, True)
+            for name in names}
+    for i in range(16):
+        args = _gp_like_inputs(rows, d, m, seed=1000 * i + d + 7,
+                               device=cuda)[:8]
+        if not affine:
+            args = fused_gp._affine_args(args[0] * args[5], *args[1:5])
+        got = fused_gp.forward_kernel(*args, bf16=True)
+        plain = fused_gp.whitened_marginals_affine_bf16_plain(*args)
+        wide = [a.double() for a in args]
+        for bf16 in (False, True):
+            exact = fused_gp.whitened_marginals_affine_plain(*wide, bf16=bf16)
+            for g, p, e, name in zip(got, plain, exact, names):
+                sums = dist[bf16, name]
+                sums[0] += (g.double() - e).abs().max().item()
+                sums[1] += (p.double() - e).abs().max().item()
+    for key, (kernel, plain) in dist.items():
+        assert kernel <= 2.0 * plain, (key, kernel, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d,m", [(3, 77, 32, 512), (2, 101, 512, 512),
+                                     (2, 60, 32, 1024), (2, 5, 7, 300)])
+def test_fused_gp_bf16_fwd_reruns_bit_equal(cuda, b, n, d, m):
+    """Fixed-order sums and no atomics: two runs of the bf16 forward give
+    equal mean and var bit for bit."""
+    args = _fused_inputs(b, n, d, m, seed=m + 13, device=cuda)
+    first = fused_gp.forward_kernel(*args, bf16=True)
+    again = fused_gp.forward_kernel(*args, bf16=True)
+    for g, a, name in zip(first, again, ("mean", "var")):
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_fwd_plan_is_the_librarys(cuda, bf16):
+    """``fused_gp.fwd_plan`` lays out the scratch the library asks for."""
+    for r, d, m in [(40960, 512, 512), (73728, 32, 512), (999, 7, 300),
+                    (4608, 32, 2048), (1, 1, 1)]:
+        assert (4 * fused_gp.fwd_scratch_floats(r, d, m, bf16)
+                == fused_gp.fwd_plan(r, d, m, bf16).total), (r, d, m)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,n,d,m", [(3, 77, 32, 512), (2, 101, 512, 512),
                                      (2, 60, 32, 1024)])
 def test_fused_gp_fp32_kernels_rerun_bit_equal(cuda, b, n, d, m):
@@ -395,8 +453,9 @@ def _rbf_inputs(h, batch, n, m, d, seed, device):
             for a in arrays]
 
 
-# rows 231 and 65 are no multiple of the kernel's 64-row tile, M 300 and
-# 129 none of its 128 columns, d 7 and 40 none of its 16-column rounds
+# rows 231 and 65 are no multiple of the kernel's 128-row tile, M 300 and
+# 129 none of its 128-column tiles (nor of 4: no float4 rows), d 7 and 40
+# none of its 32-column chunks (40: two chunks, x staged per chunk)
 RBF_SHAPES = [(0, (3,), 77, 300, 7), (8, (4,), 288, 512, 32),
               (3, (2,), 65, 129, 40), (2, (), 1, 1, 1), (0, (), 130, 64, 16)]
 
@@ -412,6 +471,15 @@ def test_rbf_kernel_matches_plain(cuda, h, batch, n, m, d):
     want = rbf.rbf_cross_kernel_plain(x, z, ls, os_)
     assert got.shape == want.shape == ((h,) if h else ()) + batch + (n, m)
     torch.testing.assert_close(got, want, rtol=TOL_RBF, atol=ATOL_RBF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,batch,n,m,d", RBF_SHAPES)
+def test_rbf_kernel_reruns_bit_equal(cuda, h, batch, n, m, d):
+    """No atomics: two runs of the rbf kernel give equal K bit for bit."""
+    args = _rbf_inputs(h, batch, n, m, d, seed=n + m + 1, device=cuda)
+    assert torch.equal(rbf.rbf_cross_kernel(*args),
+                       rbf.rbf_cross_kernel(*args))
 
 
 @pytest.mark.gpu
