@@ -10,7 +10,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    tolerance), timed with CUDA events beside its plain version, its bound
    and, where one exists, the one PyTorch call that computes the same
    function: the fp32 fused GP and head-folded attention at the flagship
-   shapes (the fused GP also at the production width, d 512), the bf16 fused
+   shapes (the fused GP also at the production width, d 512; head-folded
+   attention in both layouts it takes, the (b, h, L, d) views of the
+   projections' (b, L, h, d) buffers and contiguous (b, h, L, d) tensors,
+   with two runs bit-equal), the bf16 fused
    GP and the flash attention (bf16, which the production-width paths take;
    fp32 and the sm_bf16 variant of both, which no path of this script
    takes) at the production-width shapes; the fused GP's non-affine
@@ -101,9 +104,11 @@ ReLU, so that a near-tie broken the other way on one device cannot make the
 two compute different functions; likewise ATA's top-1 scale of every
 (position, channel) and its side of zero; how many differed is printed.
 
-Prints the ``kernels`` JSON line (each kernel's launches summed over the
-serving and training runs, and by run), then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero on any
+Every profile also prints the count and device time of its ``direct_copy``
+kernels (the copies that layout changes cost).  Prints the ``kernels`` JSON
+line (each kernel's launches summed over the serving and training runs, and
+by run), then the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Exits non-zero on any
 failure, without a result line.  Needs one card; imports nothing of JAX.
 """
 
@@ -988,7 +993,29 @@ def check_cholesky(gen):
             "edge_cases": edges}
 
 
+# the head-folded kernels' two layouts: the (b, h, L, d) views of (b, L, h,
+# d) buffers that the transformer hands them (the main path's), and
+# contiguous (b, h, L, d) tensors
+HF_LAYOUTS = ("folded", "contiguous")
+
+
+def _folded_like(t):
+    """t's values as a (b, h, L, d) view of (b, L, h, d) memory."""
+    b, h, n, d = t.shape
+    out = torch.empty(b, n, h, d, device=t.device, dtype=t.dtype)
+    out.copy_(t.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
+def _hf_layout(layout, *ts):
+    return ts if layout == "contiguous" else tuple(map(_folded_like, ts))
+
+
 def check_head_folded(gen):
+    """The head-folded forward against its plain version at the flagship's
+    three calls, in both layouts (1e-5 each), two runs bit-equal; timed in
+    both layouts, serving (no lse) and training (with lse), beside plain
+    and SDPA.  ``ms`` sums the three calls in the main path's layout."""
     from torch.nn.functional import scaled_dot_product_attention
 
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
@@ -999,27 +1026,48 @@ def check_head_folded(gen):
     d = D_MODEL // HEADS
     launch = hfa.launcher()
     stream = torch.cuda.current_stream().cuda_stream
-    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                       "flops": 0.0, "exps": 0.0, "bytes": 0.0}
+    keys = ("ms", "contiguous_ms", "lse_ms", "plain_ms", "library_ms",
+            "flops", "exps", "bytes")
+    rows, total = [], dict.fromkeys(keys, 0.0)
     err_all = 0.0
     for call, (lq, lk) in ATTENTION_CALLS.items():
         q = torch.randn(B, HEADS, lq, d, device=dev, generator=gen)
         k = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
         v = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
+        row = {"call": call, "lq": lq, "lk": lk}
         with torch.inference_mode():
-            got = hfa.head_folded_attention(q, k, v)
-            torch.cuda.synchronize()
-            err = (got - hfa.head_folded_attention_plain(q, k, v)
-                   ).abs().max().item()
-            out = torch.empty_like(q)
-            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    None)
+            want = hfa.head_folded_attention_plain(q, k, v)
+            for layout in HF_LAYOUTS:
+                qq, kk, vv = _hf_layout(layout, q, k, v)
+                got = hfa.head_folded_attention(qq, kk, vv)
+                again = hfa.head_folded_attention(qq, kk, vv)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"head_folded_attention {call} ({layout}): two runs "
+                        f"differ")
+                if not err <= TOL_ATTENTION:
+                    raise AssertionError(
+                        f"head_folded_attention {call} ({layout}) disagrees "
+                        f"with its plain version: {err} > {TOL_ATTENTION}")
+                err_all = max(err_all, err)
+                out = hfa.folded_empty(B, HEADS, lq, d, dev)
+                lse = torch.empty(B, HEADS, lq, device=dev)
+                strides = hfa.launch_strides(qq, kk, vv, out)
+                ptrs = [t.data_ptr() for t in (qq, kk, vv, out)]
 
-            def run_kernel():
-                if launch(*ptrs, B * HEADS, lq, lk, d, stream):
-                    raise RuntimeError("head_folded_attention launch failed")
+                def run_kernel(with_lse):
+                    if launch(*ptrs, lse.data_ptr() if with_lse else None,
+                              strides, B, HEADS, lq, lk, d, stream):
+                        raise RuntimeError(
+                            "head_folded_attention launch failed")
 
-            ms = time_ms(run_kernel, 50)
+                ms = time_ms(lambda: run_kernel(False), 50)
+                row[f"{layout}_err"] = err
+                row[f"{layout}_ms"] = ms
+                if layout == "folded":
+                    row["lse_ms"] = time_ms(lambda: run_kernel(True), 50)
             plain_ms = time_ms(
                 lambda: hfa.head_folded_attention_plain(q, k, v), 20)
             library_ms = time_ms(
@@ -1029,19 +1077,21 @@ def check_head_folded(gen):
         nbytes = 4.0 * B * HEADS * d * (2 * lq + 2 * lk)
         bound_ms, bound_by = bound(flops, exps, nbytes)
         log(f"head_folded_attention {call} (b {B}, h {HEADS}, Lq {lq}, "
-            f"Lk {lk}, d {d}): max|kernel - plain| {err:.3e} "
-            f"(tol {TOL_ATTENTION}); kernel {ms:.4f} ms, plain "
+            f"Lk {lk}, d {d}): max|kernel - plain| {row['folded_err']:.3e} "
+            f"folded, {row['contiguous_err']:.3e} contiguous (tol "
+            f"{TOL_ATTENTION}), two runs bit-equal; kernel "
+            f"{row['folded_ms']:.4f} ms folded ({row['lse_ms']:.4f} with the "
+            f"lse), {row['contiguous_ms']:.4f} contiguous; plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
-        if not err <= TOL_ATTENTION:
-            raise AssertionError(
-                f"head_folded_attention {call} disagrees with its plain "
-                f"version: {err} > {TOL_ATTENTION}")
-        err_all = max(err_all, err)
-        rows.append({"call": call, "lq": lq, "lk": lk, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+        row.update(max_abs_err=max(row["folded_err"], row["contiguous_err"]),
+                   ms=row["folded_ms"], plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        rows.append(row)
+        for key, val in (("ms", row["folded_ms"]),
+                         ("contiguous_ms", row["contiguous_ms"]),
+                         ("lse_ms", row["lse_ms"]), ("plain_ms", plain_ms),
                          ("library_ms", library_ms), ("flops", flops),
                          ("exps", exps), ("bytes", nbytes)):
             total[key] += val
@@ -1054,9 +1104,11 @@ def check_head_folded(gen):
                         "pallas/head_folded_attention.py:108",
             "max_abs_err": err_all, "tolerance": TOL_ATTENTION,
             "ms": total["ms"], "kernel_ms": total["ms"],
+            "contiguous_ms": total["contiguous_ms"],
+            "with_lse_ms": total["lse_ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": total["library_ms"],
-            "calls": rows}
+            "reruns_bit_equal": True, "calls": rows}
 
 
 def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
@@ -1555,6 +1607,10 @@ def check_flash_padded(gen, dtype):
 
 
 def check_head_folded_bwd(gen):
+    """The head-folded backward against its plain version at the flagship's
+    three calls, in both layouts (1e-5 each), two runs bit-equal; timed in
+    both layouts beside plain and SDPA's backward.  ``ms`` sums the three
+    calls in the main path's layout."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
         head_folded_attention as hfa,
     )
@@ -1563,30 +1619,54 @@ def check_head_folded_bwd(gen):
     d = D_MODEL // HEADS
     launch = hfa.bwd_launcher()
     stream = torch.cuda.current_stream().cuda_stream
-    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                       "flops": 0.0, "exps": 0.0, "bytes": 0.0}
+    keys = ("ms", "contiguous_ms", "plain_ms", "library_ms", "flops", "exps",
+            "bytes")
+    rows, total = [], dict.fromkeys(keys, 0.0)
     err_all = 0.0
     for call, (lq, lk) in ATTENTION_CALLS.items():
         q = torch.randn(B, HEADS, lq, d, device=dev, generator=gen)
         k = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
         v = torch.randn(B, HEADS, lk, d, device=dev, generator=gen)
         do = torch.randn(B, HEADS, lq, d, device=dev, generator=gen)
+        hb, wph = hfa.bwd_plan(HEADS, lq, lk, d)
+        row = {"call": call, "lq": lq, "lk": lk,
+               "launches_a_call": 1 if hb else 2,
+               "heads_a_block": hb, "warps_a_head": wph}
         with torch.inference_mode():
-            out, lse = hfa.forward_kernel(q, k, v, with_lse=True)
-            got = hfa.backward_kernel(q, k, v, out, lse, do)
-            torch.cuda.synchronize()
             want = hfa.head_folded_attention_bwd_plain(q, k, v, do)
-            err = max((g - w_).abs().max().item()
-                      for g, w_ in zip(got, want))
-            bufs = [torch.empty_like(t) for t in got] + [torch.empty_like(lse)]
-            ptrs = [t.data_ptr() for t in (q, k, v, out, lse, do)] + [
-                t.data_ptr() for t in bufs]
+            for layout in HF_LAYOUTS:
+                qq, kk, vv, dd = _hf_layout(layout, q, k, v, do)
+                out, lse = hfa.forward_kernel(qq, kk, vv, with_lse=True)
+                got = hfa.backward_kernel(qq, kk, vv, out, lse, dd)
+                again = hfa.backward_kernel(qq, kk, vv, out, lse, dd)
+                torch.cuda.synchronize()
+                err = max((g - w_).abs().max().item()
+                          for g, w_ in zip(got, want))
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                    raise AssertionError(
+                        f"head_folded_attention bwd {call} ({layout}): two "
+                        f"runs differ")
+                if not err <= TOL_ATTENTION_BWD:
+                    raise AssertionError(
+                        f"head_folded_attention bwd {call} ({layout}) "
+                        f"disagrees with its plain version: {err} > "
+                        f"{TOL_ATTENTION_BWD}")
+                err_all = max(err_all, err)
+                bufs = [hfa.folded_empty(B, HEADS, n, d, dev)
+                        for n in (lq, lk, lk)]
+                delta = None if hb else torch.empty_like(lse)
+                strides = hfa.launch_strides(qq, kk, vv, out, dd, *bufs)
+                ptrs = [t.data_ptr() for t in (qq, kk, vv, out, lse, dd,
+                                               *bufs)]
+                ptrs.append(None if delta is None else delta.data_ptr())
 
-            def run_kernel():
-                if launch(*ptrs, B * HEADS, lq, lk, d, stream):
-                    raise RuntimeError("head_folded_attention_bwd failed")
+                def run_kernel():
+                    if launch(*ptrs, strides, B, HEADS, lq, lk, d, hb, wph,
+                              stream):
+                        raise RuntimeError("head_folded_attention_bwd failed")
 
-            ms = time_ms(run_kernel, 50)
+                row[f"{layout}_err"] = err
+                row[f"{layout}_ms"] = time_ms(run_kernel, 50)
             plain_ms = time_ms(
                 lambda: hfa.head_folded_attention_bwd_plain(q, k, v, do), 20)
         library_ms = sdpa_bwd_ms(q, k, v, do, 20)
@@ -1597,21 +1677,23 @@ def check_head_folded_bwd(gen):
         nbytes = 4.0 * B * HEADS * d * (3 * lq + 4 * lk)
         bound_ms, bound_by = bound(flops, exps, nbytes)
         log(f"head_folded_attention bwd {call} (b {B}, h {HEADS}, Lq {lq}, "
-            f"Lk {lk}, d {d}): max|kernel - plain| {err:.3e} (tol "
-            f"{TOL_ATTENTION_BWD}); kernel {ms:.4f} ms (2 launches), plain "
-            f"{plain_ms:.4f} ms, sdpa bwd (its kernels' device time) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not err <= TOL_ATTENTION_BWD:
-            raise AssertionError(
-                f"head_folded_attention bwd {call} disagrees with its plain "
-                f"version: {err} > {TOL_ATTENTION_BWD}")
-        err_all = max(err_all, err)
-        rows.append({"call": call, "lq": lq, "lk": lk, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms), ("flops", flops),
-                         ("exps", exps), ("bytes", nbytes)):
+            f"Lk {lk}, d {d}; {row['launches_a_call']} launch(es), "
+            f"{hb} heads a block, {wph} warps a head): max|kernel - plain| "
+            f"{row['folded_err']:.3e} folded, {row['contiguous_err']:.3e} "
+            f"contiguous (tol {TOL_ATTENTION_BWD}), two runs bit-equal; "
+            f"kernel {row['folded_ms']:.4f} ms folded, "
+            f"{row['contiguous_ms']:.4f} contiguous; plain {plain_ms:.4f} "
+            f"ms, sdpa bwd (its kernels' device time) {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        row.update(max_abs_err=max(row["folded_err"], row["contiguous_err"]),
+                   ms=row["folded_ms"], plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        rows.append(row)
+        for key, val in (("ms", row["folded_ms"]),
+                         ("contiguous_ms", row["contiguous_ms"]),
+                         ("plain_ms", plain_ms), ("library_ms", library_ms),
+                         ("flops", flops), ("exps", exps), ("bytes", nbytes)):
             total[key] += val
     bound_ms, bound_by = bound(total["flops"], total["exps"], total["bytes"])
     # the three calls of one forecaster pass, summed
@@ -1622,11 +1704,12 @@ def check_head_folded_bwd(gen):
                         "pallas/head_folded_attention.py:139",
             "max_abs_err": err_all, "tolerance": TOL_ATTENTION_BWD,
             "ms": total["ms"], "kernel_ms": total["ms"],
+            "contiguous_ms": total["contiguous_ms"],
             "plain_ms": total["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": total["library_ms"],
             "library": "scaled_dot_product_attention's backward kernels, "
                        "device time under torch.profiler",
-            "calls": rows}
+            "reruns_bit_equal": True, "calls": rows}
 
 
 # small-head attention (d <= 8), on no path: the flagship's three calls at
@@ -2095,12 +2178,21 @@ def profile_device(fn, label: str, wall_ms: float):
     log(f"profile {label}: device busy {busy_ms:.4f} ms in {launches} "
         f"kernel launches; idle share of the {wall_ms:.3f} ms median "
         f"{1.0 - busy_ms / wall_ms:.3f}")
+    # the copy kernels (``.contiguous()``, transposes back), on record
+    # beside the kernels around which layouts are changed
+    copies = [e for e in kernels if "direct_copy" in e.key]
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
+    copy_launches = sum(e.count for e in copies)
+    log(f"profile {label}: direct_copy kernels {copy_launches} launches, "
+        f"{copy_ms:.4f} ms")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
             f"{e.key[:100]}")
     return {"busy_ms": busy_ms, "launches": launches,
-            "idle_share": 1.0 - busy_ms / wall_ms}
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "direct_copy_launches": copy_launches,
+            "direct_copy_ms": copy_ms}
 
 
 def _counters():

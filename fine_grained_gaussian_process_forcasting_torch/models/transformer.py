@@ -188,8 +188,10 @@ class MultiHeadAttention(nn.Module):
                 context = fused_attention(
                     q.contiguous(), k.contiguous(), v.contiguous())
             elif route == "head_folded":
-                context = head_folded_attention(
-                    q.contiguous(), k.contiguous(), v.contiguous())
+                # the kernel reads the projections' (b, L, h, d) buffers
+                # in place and writes the context as a view of (b, L, h, d)
+                # memory, so neither way makes a copy
+                context = head_folded_attention(q, k, v)
             else:
                 context, _ = scaled_dot_attention(q, k, v)
         context = context.transpose(1, 2).reshape(b, -1, h * d_v)

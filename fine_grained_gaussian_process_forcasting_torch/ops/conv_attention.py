@@ -105,8 +105,12 @@ def _dot_attention(q, k, v, use_kernel: bool):
     route = conv_attention_route(q.shape[-1], use_kernel)
     if route == "plain":
         return scaled_dot_attention(q, k, v)[0]
-    kernel = head_folded_attention if route == "head_folded" else fused_attention
-    return kernel(q.contiguous(), k.contiguous(), v.contiguous())
+    if route == "flash":
+        return fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    # the head-folded kernel reads (b, h, L, d) views in place; only a head
+    # dim that is not unit-stride (ConvAttn's convolution outputs) is copied
+    return head_folded_attention(*(
+        t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v)))
 
 
 def _merge_heads(x):

@@ -11,6 +11,13 @@ from one to the other.  On the card it is a ``torch.autograd.Function``:
 the forward kernel also writes each row's log-sum-exp when a gradient is
 wanted, and the backward kernel recomputes the probabilities from it.  On
 the CPU, torch's autograd differentiates the plain forward.
+
+Like the TPU kernel, which took its operands as (b, L, h d), the kernels
+read the projections' own layout: q, k and v may be any (b, h, L, d) views
+whose head dim has unit stride (the transposed (b, L, h, d) buffers of the
+transformer), and the outputs (the context; dq, dk and dv) are (b, h, L, d)
+views of fresh (b, L, h, d) memory (``folded_empty``), so that the way back
+into (b, L, h d) rows is a view as well.
 """
 
 from __future__ import annotations
@@ -29,6 +36,23 @@ launches = 0
 bwd_launches = 0
 
 MAX_HEAD_DIM = 63
+
+# The backward's fused route (one launch, each exponential once) holds a
+# head's query rows (q, dO, lse, D and the warps' dQ partials) and its
+# keys' dK and dV in shared memory: at padded head dims up to 16 and up to
+# 256 rows; longer heads and wider head dims take the streamed route (two
+# launches), and so do heads that need more than the card's 227 KB.  A
+# warp owns 32 x keys-a-lane keys of a head, at most MAX_WARPS_A_HEAD warps
+# a head (they loop over the rest), at most _MAX_WARPS warps a block;
+# heads are grouped into a block while their shared memory stays within
+# _SMEM_TARGET (two blocks an SM).
+FUSED_MAX_ROWS = 256
+FUSED_MAX_DP = 16
+MAX_WARPS_A_HEAD = 4
+_KEYS_A_LANE = {4: 3, 8: 2, 16: 1}
+_MAX_WARPS = {4: 16, 8: 8, 16: 8}
+_SMEM_TARGET = 80 * 1024
+_SMEM_MAX = 227 * 1024
 
 
 def head_folded_attention_plain(q, k, v):
@@ -50,20 +74,72 @@ def head_folded_attention_bwd_plain(q, k, v, do):
     return dq, dk, dv
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernels' compile-time head dim for d: 4, 8, 16, 32 or 64."""
+    return next(dp for dp in (4, 8, 16, 32, 64) if d <= dp)
+
+
+def fused_smem_bytes(hb: int, wph: int, lq: int, lk: int, d: int) -> int:
+    """Shared memory of the fused backward's block: q, dO, (lse, D) and the
+    warps' dQ partials of every row, dK and dV of every key."""
+    dp = padded_head_dim(d)
+    rq = 32 // dp
+    rows = -(-lq // rq) * rq
+    return 4 * hb * (rows * (2 * dp + 2 + wph * dp) + 2 * lk * dp)
+
+
+def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple[int, int]:
+    """(heads a block, warps a head) of the backward's fused route, or
+    (0, 0) for the streamed route."""
+    dp = padded_head_dim(d)
+    if dp > FUSED_MAX_DP or lq > FUSED_MAX_ROWS:
+        return 0, 0
+    wph = min(-(-lk // (32 * _KEYS_A_LANE[dp])), MAX_WARPS_A_HEAD)
+    if fused_smem_bytes(1, wph, lq, lk, d) > _SMEM_MAX:
+        return 0, 0
+    for hb in (8, 4, 2):
+        if (hb <= h and hb * wph <= _MAX_WARPS[dp]
+                and fused_smem_bytes(hb, wph, lq, lk, d) <= _SMEM_TARGET):
+            return hb, wph
+    return 1, wph
+
+
+def folded_empty(b: int, h: int, length: int, d: int, device):
+    """An uninitialised fp32 (b, h, L, d) view of (b, L, h, d) memory."""
+    return torch.empty((b, length, h, d), device=device,
+                       dtype=torch.float32).transpose(1, 2)
+
+
+def launch_strides(*tensors):
+    """The (b, h, L) element strides of each (b, h, L, d) tensor, as the C
+    entry points take them."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def launcher():
-    """The C forward launcher: (q, k, v, out, lse-or-null pointers, b*h, Lq,
-    Lk, d, stream) -> cudaError_t."""
+    """The C forward launcher: (q, k, v, out, lse-or-null pointers, the
+    (b, h, L) strides of q, k, v and out, b, h, Lq, Lk, d, stream) ->
+    cudaError_t."""
     return _build.function(
         "head_folded_attention", "head_folded_attention_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def bwd_launcher():
-    """The C backward launcher: (q, k, v, o, lse, dout, dq, dk, dv, delta
-    pointers, b*h, Lq, Lk, d, stream) -> cudaError_t."""
+    """The C backward launcher: (q, k, v, o, lse, dout, dq, dk, dv,
+    delta-or-null pointers, the (b, h, L) strides of q, k, v, o, dout, dq,
+    dk and dv, b, h, Lq, Lk, d, heads a block, warps a head (``bwd_plan``),
+    stream) -> cudaError_t."""
     return _build.function(
         "head_folded_attention", "head_folded_attention_bwd",
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def _unit_head_stride(t) -> bool:
+    return t.shape[-1] == 1 or t.stride(-1) == 1
 
 
 def _check(q, k, v):
@@ -83,8 +159,9 @@ def _check(q, k, v):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not _unit_head_stride(t):
+            raise ValueError(f"{name} must have unit stride in its head "
+                             f"dim, got strides {t.stride()}")
 
 
 def _stream(t):
@@ -92,17 +169,18 @@ def _stream(t):
 
 
 def forward_kernel(q, k, v, with_lse: bool):
-    """Launch the forward kernel: (out, lse or None).  The inputs are
-    checked by the caller."""
+    """Launch the forward kernel: (out, lse or None), out a (b, h, Lq, d)
+    view of (b, Lq, h, d) memory.  The inputs are checked by the caller."""
     b, h, lq, d = q.shape
-    out = torch.empty_like(q)
+    out = folded_empty(b, h, lq, d, q.device)
     lse = (torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
     err = launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     lse.data_ptr() if with_lse else None, b * h, lq,
-                     k.shape[2], d, _stream(q))
+                     lse.data_ptr() if with_lse else None,
+                     launch_strides(q, k, v, out), b, h, lq, k.shape[2], d,
+                     _stream(q))
     if err != 0:
         raise RuntimeError(
             f"head_folded_attention_fwd launch failed: cudaError {err}")
@@ -112,18 +190,23 @@ def forward_kernel(q, k, v, with_lse: bool):
 
 
 def backward_kernel(q, k, v, out, lse, do):
-    """Launch the backward kernel: (dq, dk, dv)."""
+    """Launch the backward kernel: (dq, dk, dv), (b, h, L, d) views of
+    (b, L, h, d) memory.  ``do`` must have unit stride in its head dim."""
     b, h, lq, d = q.shape
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    lk = k.shape[2]
+    dq = folded_empty(b, h, lq, d, q.device)
+    dk = folded_empty(b, h, lk, d, q.device)
+    dv = folded_empty(b, h, lk, d, q.device)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    hb, wph = bwd_plan(h, lq, lk, d)
+    delta = (torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+             if hb == 0 else None)
     err = bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b * h, lq, k.shape[2], d,
+        dv.data_ptr(), None if delta is None else delta.data_ptr(),
+        launch_strides(q, k, v, out, do, dq, dk, dv), b, h, lq, lk, d, hb, wph,
         _stream(q))
     if err != 0:
         raise RuntimeError(
@@ -144,12 +227,15 @@ class _HeadFoldedAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return backward_kernel(q, k, v, out, lse, do.contiguous())
+        if not _unit_head_stride(do):
+            do = do.contiguous()
+        return backward_kernel(q, k, v, out, lse, do)
 
 
 def head_folded_attention(q, k, v):
-    """Context (b, h, Lq, d) of softmax attention; q (b, h, Lq, d),
-    k and v (b, h, Lk, d)."""
+    """Context (b, h, Lq, d) of softmax attention; q (b, h, Lq, d), k and v
+    (b, h, Lk, d).  On the card the inputs may be any views with a unit
+    stride on d, and the context is a view of (b, Lq, h, d) memory."""
     if q.device.type == "cpu":
         return head_folded_attention_plain(q, k, v)
     if q.device.type != "cuda":

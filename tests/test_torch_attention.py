@@ -150,6 +150,86 @@ def test_head_folded_bwd_plain_matches_autograd(lq, lk):
                                    err_msg=name)
 
 
+def _folded(b, h, length, d, seed):
+    """A (b, L, h, d) buffer as the projections write it."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(b, length, h, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [4, 7])
+@pytest.mark.parametrize("lq,lk", [(24, 24), (12, 24)], ids=["self",
+                                                              "cross"])
+def test_head_folded_takes_projection_views_like_jax(lq, lk, d):
+    """The transformer hands the wrapper (b, h, L, d) views of (b, L, h, d)
+    buffers (the projections' own layout, as the TPU kernel took its
+    operands); forward and gradients equal the JAX Pallas kernel's on the
+    same values, and the outputs have the documented shapes."""
+    b, h = 2, 3
+    bufs = [_folded(b, h, n, d, seed=10 * d + i)
+            for i, n in enumerate((lq, lk, lk))]
+    do_buf = _folded(b, h, lq, d, seed=d)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in bufs]
+    views = [t.transpose(1, 2) for t in leaves]
+    assert all(t.stride(-1) == 1 and not t.is_contiguous() for t in views)
+    got = thfa.head_folded_attention(*views)
+    assert tuple(got.shape) == (b, h, lq, d)
+    jargs = [jnp.asarray(a.transpose(0, 2, 1, 3)) for a in bufs]
+    want, vjp = jax.vjp(jhfa.head_folded_attention, *jargs)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+    do = torch.from_numpy(do_buf).transpose(1, 2)
+    got.backward(do)
+    want_grads = vjp(jnp.asarray(do_buf.transpose(0, 2, 1, 3)))
+    plain = thfa.head_folded_attention_bwd_plain(
+        *(t.detach() for t in views), do)
+    for leaf, p, w, name in zip(leaves, plain, want_grads, ("dq", "dk",
+                                                            "dv")):
+        # the gradient reaches the (b, L, h, d) buffer itself
+        assert tuple(leaf.grad.shape) == leaf.shape, name
+        assert tuple(p.shape) == w.shape, name
+        for g in (leaf.grad.transpose(1, 2), p):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                                       err_msg=name)
+
+
+def test_folded_empty_is_a_view_of_the_projection_layout():
+    out = thfa.folded_empty(2, 3, 5, 4, "cpu")
+    assert tuple(out.shape) == (2, 3, 5, 4)
+    assert out.stride() == (60, 4, 12, 1)
+    # back into (b, L, h d) rows without a copy
+    rows = out.transpose(1, 2).reshape(2, 5, 12)
+    assert rows.data_ptr() == out.data_ptr() and rows.is_contiguous()
+
+
+@pytest.mark.parametrize("h,lq,lk,d,plan", [
+    (8, 192, 192, 4, (4, 2)),   # the flagship's enc-self call
+    (8, 96, 96, 4, (8, 1)),     # dec-self
+    (8, 96, 192, 4, (4, 2)),    # dec-cross
+    (1, 1, 1, 1, (1, 1)),
+    (4, 50, 37, 7, (4, 1)),
+    (3, 256, 385, 16, (1, 4)),  # the longest query rows the fused route holds
+    (8, 257, 96, 4, (0, 0)),    # longer: the streamed route
+    (2, 130, 65, 33, (0, 0)),   # d > 16: the streamed route
+    (1, 256, 2000, 16, (0, 0)),  # keys past the card's shared memory
+])
+def test_head_folded_bwd_plan(h, lq, lk, d, plan):
+    """The backward's route and its blocks: the fused route holds every
+    query row and key of its heads in shared memory, within the card's
+    227 KB, and at most 16 warps a block (8 above a padded head dim of
+    4)."""
+    assert thfa.bwd_plan(h, lq, lk, d) == plan
+    hb, wph = plan
+    if hb:
+        dp = thfa.padded_head_dim(d)
+        rows = -(-lq // (32 // dp)) * (32 // dp)
+        smem = 4 * hb * (rows * (2 * dp + 2 + wph * dp) + 2 * lk * dp)
+        assert smem == thfa.fused_smem_bytes(hb, wph, lq, lk, d)
+        assert smem <= 227 * 1024
+        assert hb * wph <= (16 if dp == 4 else 8)
+        assert wph <= -(-lk // (32 * {4: 3, 8: 2, 16: 1}[dp]))
+
+
 @pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
 @pytest.mark.parametrize("lq,lk", [(24, 24), (12, 24), (24, 12)])
 def test_auto_correlation_matches_jax(training, lq, lk):

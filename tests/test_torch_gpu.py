@@ -578,16 +578,32 @@ def _qkv(b, h, lq, lk, d, seed, device):
         np.float32)).to(device) for n in (lq, lk, lk)]
 
 
+def _layout(layout, *ts):
+    """The tensors as given ("contiguous"), or their values as (b, h, L, d)
+    views of (b, L, h, d) buffers ("folded"), as the transformer hands them
+    to the head-folded kernels."""
+    if layout == "contiguous":
+        return list(ts)
+    return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+
+
+ATT_SHAPES = [(256, 8, 192, 192, 4), (256, 8, 96, 192, 4), (3, 4, 50, 37, 7),
+              (2, 2, 130, 65, 33), (1, 1, 1, 1, 1)]
+HF_LAYOUTS = ["contiguous", "folded"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,lq,lk,d", [
-    (256, 8, 192, 192, 4), (256, 8, 96, 192, 4), (3, 4, 50, 37, 7),
-    (2, 2, 130, 65, 33), (1, 1, 1, 1, 1)])
-def test_head_folded_kernel_matches_plain(cuda, b, h, lq, lk, d):
-    q, k, v = _qkv(b, h, lq, lk, d, seed=d, device=cuda)
+@pytest.mark.parametrize("layout", HF_LAYOUTS)
+@pytest.mark.parametrize("b,h,lq,lk,d", ATT_SHAPES)
+def test_head_folded_kernel_matches_plain(cuda, b, h, lq, lk, d, layout):
+    q, k, v = _layout(layout, *_qkv(b, h, lq, lk, d, seed=d, device=cuda))
     before = hfa.launches
     got = hfa.head_folded_attention(q, k, v)
     torch.cuda.synchronize()
     assert hfa.launches == before + 1
+    assert tuple(got.shape) == (b, h, lq, d)
+    # the context is a view of (b, Lq, h, d) memory
+    assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got, hfa.head_folded_attention_plain(q, k, v),
                                rtol=TOL_ATTENTION, atol=TOL_ATTENTION)
 
@@ -597,21 +613,21 @@ def test_head_folded_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(2, 2, 8, 8, 64, 0, cuda)
     with pytest.raises(ValueError, match="head dim"):
         hfa.head_folded_attention(q, k, v)
-    q, k, v = _qkv(2, 2, 8, 8, 4, 0, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        hfa.head_folded_attention(q[:, :, ::2], k, v)
-
-
-ATT_SHAPES = [(256, 8, 192, 192, 4), (256, 8, 96, 192, 4), (3, 4, 50, 37, 7),
-              (2, 2, 130, 65, 33), (1, 1, 1, 1, 1)]
+    # any (b, h, L) strides are taken; a head dim that is not unit-stride
+    # is not
+    q, k, v = _qkv(2, 2, 8, 8, 8, 0, cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        hfa.head_folded_attention(q[..., ::2], k[..., ::2], v[..., ::2])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", HF_LAYOUTS)
 @pytest.mark.parametrize("b,h,lq,lk,d", ATT_SHAPES)
-def test_head_folded_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d):
+def test_head_folded_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d, layout):
     q, k, v = _qkv(b, h, lq, lk, d, seed=d + 1, device=cuda)
     do = torch.randn(b, h, lq, d, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(d))
+    q, k, v, do = _layout(layout, q, k, v, do)
     out, lse = hfa.forward_kernel(q, k, v, with_lse=True)
     want_lse = torch.logsumexp(
         torch.matmul(q, k.transpose(-1, -2)) / d ** 0.5, dim=-1)
@@ -623,8 +639,73 @@ def test_head_folded_bwd_kernel_matches_plain(cuda, b, h, lq, lk, d):
     assert hfa.bwd_launches == before + 1
     want = hfa.head_folded_attention_bwd_plain(q, k, v, do)
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert tuple(g.shape) == tuple(w.shape), name
         torch.testing.assert_close(g, w, rtol=TOL_GRAD_ATT,
                                    atol=ATOL_GRAD_ATT, msg=name)
+
+
+# heads past the backward's fused route (Lq > 256, or d > 16: two
+# launches) and the forward's 192-key chunks, with a row or a key alone
+LONG_LENGTHS = [1, 257, 385]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 4, 8, 33, 63])
+@pytest.mark.parametrize("lk", LONG_LENGTHS)
+@pytest.mark.parametrize("lq", LONG_LENGTHS)
+def test_head_folded_long_heads_match_plain(cuda, lq, lk, d):
+    q, k, v = _layout("folded", *_qkv(2, 3, lq, lk, d, seed=lq + lk + d,
+                                      device=cuda))
+    do = _layout("folded", torch.randn(
+        2, 3, lq, d, device=cuda,
+        generator=torch.Generator(cuda).manual_seed(d)))[0]
+    out, lse = hfa.forward_kernel(q, k, v, with_lse=True)
+    torch.testing.assert_close(out, hfa.head_folded_attention_plain(q, k, v),
+                               rtol=TOL_ATTENTION, atol=TOL_ATTENTION)
+    got = hfa.backward_kernel(q, k, v, out, lse, do)
+    want = hfa.head_folded_attention_bwd_plain(q, k, v, do)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, w, rtol=TOL_GRAD_ATT,
+                                   atol=ATOL_GRAD_ATT, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (256, 8, 192, 192, 4), (256, 8, 96, 96, 4), (256, 8, 96, 192, 4),
+    (3, 4, 50, 37, 7), (2, 3, 257, 385, 4), (2, 2, 130, 65, 33)])
+def test_head_folded_kernels_rerun_bit_equal(cuda, b, h, lq, lk, d):
+    """Every sum in a fixed order, no atomics: the forward and both
+    backward routes give the same bits twice."""
+    q, k, v = _layout("folded", *_qkv(b, h, lq, lk, d, seed=5, device=cuda))
+    do = torch.randn(b, h, lq, d, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    first = hfa.forward_kernel(q, k, v, with_lse=True)
+    again = hfa.forward_kernel(q, k, v, with_lse=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    out, lse = first
+    grads = hfa.backward_kernel(q, k, v, out, lse, do)
+    grads_again = hfa.backward_kernel(q, k, v, out, lse, do)
+    for a, b_, name in zip(grads, grads_again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("at", [0, 300])
+def test_head_folded_forward_rescales_where_a_later_key_dominates(cuda, at):
+    """The forward takes its running max once a group of keys; one key
+    scoring ~25 above the rest, first or in the second 192-key chunk, must
+    rescale (or leave out) everything summed before it."""
+    q, k, v = _layout("folded", *_qkv(2, 3, 40, 385, 4, seed=at,
+                                      device=cuda))
+    q[..., 1] = 1.0
+    k[:, :, at] = torch.tensor([0.0, 50.0, 0.0, 0.0], device=cuda)
+    out, lse = hfa.forward_kernel(q, k, v, with_lse=True)
+    torch.testing.assert_close(out, hfa.head_folded_attention_plain(q, k, v),
+                               rtol=TOL_ATTENTION, atol=TOL_ATTENTION)
+    want_lse = torch.logsumexp(torch.matmul(q, k.transpose(-1, -2)) / 2.0,
+                               dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=TOL_ATTENTION,
+                               atol=TOL_ATTENTION)
 
 
 @pytest.mark.gpu
@@ -643,6 +724,31 @@ def test_head_folded_kernel_takes_grad(cuda, lq, lk):
     for a, p, name in zip(leaves, plain, "qkv"):
         torch.testing.assert_close(a.grad, p.grad, rtol=TOL_GRAD_ATT,
                                    atol=ATOL_GRAD_ATT, msg=name)
+
+
+@pytest.mark.gpu
+def test_head_folded_kernel_takes_grad_through_projection_views(cuda):
+    """As the transformer calls it: q, k, v sliced out of one (b, L, 3 h d)
+    projection and viewed as (b, h, L, d); the gradient reaches that buffer,
+    and the context goes back to (b, L, h d) rows without a copy."""
+    b, h, length, d = 3, 4, 40, 4
+    qkv = torch.randn(b, length, 3 * h * d, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2))
+    leaf = qkv.clone().requires_grad_(True)
+    plain = qkv.clone().requires_grad_(True)
+
+    def heads(x):
+        return [x[..., i * h * d:(i + 1) * h * d].reshape(
+            b, length, h, d).transpose(1, 2) for i in range(3)]
+
+    ctx = hfa.head_folded_attention(*heads(leaf))
+    rows = ctx.transpose(1, 2).reshape(b, length, h * d)
+    assert rows.data_ptr() == ctx.data_ptr()
+    torch.sin(rows).sum().backward()
+    want = hfa.head_folded_attention_plain(*heads(plain))
+    torch.sin(want.transpose(1, 2).reshape(b, length, h * d)).sum().backward()
+    torch.testing.assert_close(leaf.grad, plain.grad, rtol=TOL_GRAD_ATT,
+                               atol=ATOL_GRAD_ATT)
 
 
 FLASH_SHAPES = [(64, 8, 512, 512, 64), (64, 8, 128, 128, 64),
