@@ -9,10 +9,10 @@ JAX op casts.
 ``small_head_attention`` launches ``csrc/small_head_attention.cu`` for CUDA
 tensors and runs the plain version for CPU tensors; it never falls back from
 one to the other.  On the card it is a ``torch.autograd.Function``: the
-forward kernel also writes each row's log-sum-exp, and the two backward
-launches recompute the probabilities from it.  On the
-CPU, the plain backward (term for term the Pallas ``_bwd_kernel``) is its
-VJP.
+forward kernel also writes each row's log-sum-exp, and the backward
+recomputes the probabilities from it, in one launch where a head's rows
+fit on chip and in two past that (``bwd_launches_a_call``).  On the CPU,
+the plain backward (term for term the Pallas ``_bwd_kernel``) is its VJP.
 
 No model route reaches this op, in this package or in the JAX one: like the
 Pallas kernel it replaces, only a caller of the op itself does.
@@ -30,7 +30,8 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
 
 #: forward kernel launches since the counter was last set to 0
 launches = 0
-#: backward calls (two kernel launches each) since last set to 0
+#: backward calls (one kernel launch each, or two past the fused route's
+#: rows) since last set to 0
 bwd_launches = 0
 
 MAX_SMALL_D = 8
@@ -73,6 +74,23 @@ def bwd_launcher():
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
+def bwd_launches_a_call(lq, d):
+    """The backward's kernel launches for heads of ``lq`` rows at head dim
+    ``d``, as the C entry chooses them: 1 (each exponential once) where the
+    head's rows fit in shared memory, else 2."""
+    return _build.function("small_head_attention",
+                           "small_head_attention_bwd_launches",
+                           [ctypes.c_int] * 2)(lq, d)
+
+
+def kernels_launched():
+    """The kernels the C entries have launched since the library was loaded,
+    counted at each launch statement (the backward's route included)."""
+    return _build.function("small_head_attention",
+                           "small_head_attention_kernels_launched", [],
+                           ctypes.c_ulonglong)()
+
+
 def _check_shapes(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (b, h, L, d)")
@@ -99,6 +117,12 @@ def _check_kernel_operands(q, k, v):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes, as the
+    kernels' vector loads take them."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -121,7 +145,8 @@ def forward_kernel(q, k, v):
 
 
 def backward_kernel(q, k, v, out, lse, do):
-    """Launch the backward kernels: (dq, dk, dv)."""
+    """Launch the backward on checked fp32 operands: (dq, dk, dv).  The
+    delta scratch is the streamed route's (``bwd_launches_a_call`` 2)."""
     b, h, lq, d = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -153,7 +178,7 @@ class _SmallHeadAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return backward_kernel(q, k, v, out, lse, do.contiguous())
+        return backward_kernel(q, k, v, out, lse, _aligned(do.contiguous()))
 
 
 class _SmallHeadAttentionPlain(torch.autograd.Function):
@@ -179,7 +204,7 @@ def small_head_attention(q, k, v):
     if q.device.type == "cpu":
         out = _SmallHeadAttentionPlain.apply(q, k, v)
     elif q.device.type == "cuda":
-        q, k, v = (t.contiguous() for t in (q, k, v))
+        q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
         _check_kernel_operands(q, k, v)
         out = _SmallHeadAttention.apply(q, k, v)
     else:

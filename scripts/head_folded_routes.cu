@@ -32,8 +32,19 @@
 // included) at d 4 with their probe switches: the forward without exp2,
 // without its running max (offset 0), or both; the backward without exp2,
 // without its reduce-scatter of dQ, or both.
+//
+// `small_legacy`: the small-head kernels the port ran before their redesign
+// (csrc/small_head_attention.cu as it stood then: one thread a query or key
+// row, 64 threads a block, the forward's max a group of 4 keys, the
+// backward's two launches computing every exponential twice), at d 4, in
+// the three modes of `legacy`.
+//
+// `small_var`: the port's small-head bodies (csrc/small_head_attention.cu,
+// included) at d 4 with their probe switches and their rows (forward, R)
+// or keys (backward, RK) a lane chosen by the caller.
 
 #include "../fine_grained_gaussian_process_forcasting_torch/csrc/head_folded_attention.cu"
+#include "../fine_grained_gaussian_process_forcasting_torch/csrc/small_head_attention.cu"
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -292,6 +303,291 @@ int bwd(const float* q, const float* k, const float* v, const float* o,
 }
 
 }  // namespace legacy
+
+
+namespace small_legacy {
+
+// csrc/small_head_attention.cu before its redesign, at D = 4; MODE 0 whole,
+// 1 no exponentials (exp2f(x) replaced by one add), 2 no products (each dot
+// product of d terms replaced by one load)
+constexpr int D = 4;
+constexpr int ROWS = 64;
+constexpr int STAGE = 512;
+
+template <int MODE>
+__device__ __forceinline__ float ex(float x) {
+  if (MODE == 1) return x + 1.f;
+  return exp2f(x);
+}
+
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst,
+                                           const float* __restrict__ src,
+                                           int r0, int n, float scale) {
+  const float* from = src + (size_t)r0 * D;
+  for (int i = threadIdx.x; i < n * D; i += ROWS) dst[i] = from[i] * scale;
+}
+
+template <int MODE>
+__device__ __forceinline__ float dot(const float (&a)[D],
+                                     const float* __restrict__ b) {
+  if (MODE == 2) return b[0];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) s = fmaf(a[j], b[j], s);
+  return s;
+}
+
+template <int MODE>
+__device__ __forceinline__ void axpy(float p, const float* __restrict__ x,
+                                     float (&acc)[D]) {
+  if (MODE == 2) {
+    acc[0] += p;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) acc[j] = fmaf(p, x[j], acc[j]);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(ROWS)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse, int Lq, int Lk, int stage,
+           float q_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = smem + stage * D;
+  const size_t bh = blockIdx.x;
+  const int row = blockIdx.y * ROWS + threadIdx.x;
+  const bool live = row < Lq;
+  const float* kb = k + bh * Lk * D;
+  const float* vb = v + bh * Lk * D;
+  float qr[D], acc[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    qr[j] = live ? q[(bh * Lq + row) * D + j] * q_scale : 0.f;
+    acc[j] = 0.f;
+  }
+  float run_max = -INFINITY, run_sum = 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += stage) {
+    const int n = min(stage, Lk - k0);
+    if (k0 > 0) __syncthreads();
+    stage_rows(ks, kb, k0, n, 1.f);
+    stage_rows(vs, vb, k0, n, 1.f);
+    __syncthreads();
+    int t = 0;
+    for (; t + 4 <= n; t += 4) {
+      float s[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[u] = dot<MODE>(qr, ks + (t + u) * D);
+      const float m = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3]));
+      if (m > run_max) {
+        const float c = ex<MODE>(run_max - m);
+        run_sum *= c;
+#pragma unroll
+        for (int j = 0; j < D; ++j) acc[j] *= c;
+        run_max = m;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float p = ex<MODE>(s[u] - run_max);
+        run_sum += p;
+        axpy<MODE>(p, vs + (t + u) * D, acc);
+      }
+    }
+    for (; t < n; ++t) {
+      const float s = dot<MODE>(qr, ks + t * D);
+      if (s > run_max) {
+        const float c = ex<MODE>(run_max - s);
+        run_sum *= c;
+#pragma unroll
+        for (int j = 0; j < D; ++j) acc[j] *= c;
+        run_max = s;
+      }
+      const float p = ex<MODE>(s - run_max);
+      run_sum += p;
+      axpy<MODE>(p, vs + t * D, acc);
+    }
+  }
+  if (live) {
+    const float inv = 1.f / run_sum;
+#pragma unroll
+    for (int j = 0; j < D; ++j) o[(bh * Lq + row) * D + j] = acc[j] * inv;
+    lse[bh * Lq + row] = (run_max + log2f(run_sum)) * LN2;
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(ROWS)
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ o,
+              const float* __restrict__ lse, const float* __restrict__ dout,
+              float* __restrict__ dq, float* __restrict__ delta, int Lq,
+              int Lk, int stage, float q_scale, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = smem + stage * D;
+  const size_t bh = blockIdx.x;
+  const int row = blockIdx.y * ROWS + threadIdx.x;
+  const bool live = row < Lq;
+  const float* kb = k + bh * Lk * D;
+  const float* vb = v + bh * Lk * D;
+  const size_t at = (bh * Lq + row) * D;
+  float qr[D], dor[D], acc[D];
+  float dsum = 0.f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    qr[j] = live ? q[at + j] * q_scale : 0.f;
+    dor[j] = live ? dout[at + j] : 0.f;
+    dsum = fmaf(dor[j], live ? o[at + j] : 0.f, dsum);
+    acc[j] = 0.f;
+  }
+  const float lse2 = live ? lse[bh * Lq + row] * LOG2E : 0.f;
+  for (int k0 = 0; k0 < Lk; k0 += stage) {
+    const int n = min(stage, Lk - k0);
+    if (k0 > 0) __syncthreads();
+    stage_rows(ks, kb, k0, n, 1.f);
+    stage_rows(vs, vb, k0, n, 1.f);
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      const float* kt = ks + t * D;
+      const float s = dot<MODE>(qr, kt);
+      const float dp = dot<MODE>(dor, vs + t * D);
+      const float ds = ex<MODE>(s - lse2) * (dp - dsum);
+      axpy<MODE>(ds, kt, acc);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) dq[at + j] = acc[j] * scale;
+    delta[bh * Lq + row] = dsum;
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(ROWS)
+bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               const float* __restrict__ dout, float* __restrict__ dk,
+               float* __restrict__ dv, int Lq, int Lk, int stage,
+               float q_scale, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = smem + stage * D;
+  float* lses = smem + 2 * stage * D;
+  float* dels = lses + stage;
+  const size_t bh = blockIdx.x;
+  const int row = blockIdx.y * ROWS + threadIdx.x;
+  const bool live = row < Lk;
+  const float* qb = q + bh * Lq * D;
+  const float* dob = dout + bh * Lq * D;
+  const size_t at = (bh * Lk + row) * D;
+  float kr[D], vr[D], dka[D], dva[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    kr[j] = live ? k[at + j] : 0.f;
+    vr[j] = live ? v[at + j] : 0.f;
+    dka[j] = dva[j] = 0.f;
+  }
+  for (int q0 = 0; q0 < Lq; q0 += stage) {
+    const int n = min(stage, Lq - q0);
+    if (q0 > 0) __syncthreads();
+    stage_rows(qs, qb, q0, n, q_scale);
+    stage_rows(dos, dob, q0, n, 1.f);
+    for (int i = threadIdx.x; i < n; i += ROWS) {
+      lses[i] = lse[bh * Lq + q0 + i] * LOG2E;
+      dels[i] = delta[bh * Lq + q0 + i];
+    }
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      const float* qt = qs + t * D;
+      const float* dot_ = dos + t * D;
+      const float s = dot<MODE>(kr, qt);
+      const float dp = dot<MODE>(vr, dot_);
+      const float p = ex<MODE>(s - lses[t]);
+      const float ds = p * (dp - dels[t]);
+      axpy<MODE>(p, dot_, dva);
+      axpy<MODE>(ds, qt, dka);
+    }
+  }
+  if (live) {
+    const float to_dk = scale / q_scale;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      dk[at + j] = dka[j] * to_dk;
+      dv[at + j] = dva[j];
+    }
+  }
+}
+
+template <int MODE>
+int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
+        int BH, int Lq, int Lk, cudaStream_t s) {
+  const int stage = min(STAGE, Lk);
+  fwd_kernel<MODE><<<dim3(BH, (Lq + ROWS - 1) / ROWS), ROWS,
+                     2 * (size_t)stage * D * sizeof(float), s>>>(
+      q, k, v, o, lse, Lq, Lk, stage, LOG2E / 2.f);
+  return (int)cudaGetLastError();
+}
+
+// which: 1 the query-parallel launch, 2 the key-parallel one, 3 both
+template <int MODE>
+int bwd(const float* q, const float* k, const float* v, const float* o,
+        const float* lse, const float* dout, float* dq, float* dk, float* dv,
+        float* delta, int BH, int Lq, int Lk, int which, cudaStream_t s) {
+  const float scale = 0.5f, q_scale = LOG2E * scale;
+  const int stage_k = min(STAGE, Lk), stage_q = min(STAGE, Lq);
+  if (which & 1)
+    bwd_dq_kernel<MODE><<<dim3(BH, (Lq + ROWS - 1) / ROWS), ROWS,
+                          2 * (size_t)stage_k * D * sizeof(float), s>>>(
+        q, k, v, o, lse, dout, dq, delta, Lq, Lk, stage_k, q_scale, scale);
+  if (which & 2)
+    bwd_dkv_kernel<MODE><<<dim3(BH, (Lk + ROWS - 1) / ROWS), ROWS,
+                           (size_t)stage_q * (2 * D + 2) * sizeof(float),
+                           s>>>(q, k, v, lse, delta, dout, dk, dv, Lq, Lk,
+                                stage_q, q_scale, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace small_legacy
+
+namespace small_var {
+
+// the port's small-head bodies at d 4 with their probe switches
+template <int R, int PROBE>
+__global__ void __launch_bounds__(small_head::FWD_MAX_WARPS * 32, 2)
+fwd(const small_head::FwdArgs a) {
+  small_head::fwd_body<4, R, PROBE>(a);
+}
+
+template <int RK, bool FULL, int PROBE>
+__global__ void __launch_bounds__(32, small_head::BwdShape<4>::MIN_BLOCKS)
+bwd(const small_head::BwdArgs a) {
+  small_head::bwd_fused_body<4, RK, FULL, PROBE>(a);
+}
+
+template <int R, int PROBE>
+int launch_fwd(small_head::FwdArgs a, int BH, cudaStream_t s) {
+  size_t smem;
+  const dim3 grid = small_head::fwd_grid<4, R>(a, BH, &smem);
+  fwd<R, PROBE><<<grid, a.wpb * 32, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int RK, int PROBE>
+int launch_bwd(const small_head::BwdArgs& a, int BH, cudaStream_t s) {
+  const long long bytes = small_head::fused_bytes(a.Lq, 4);
+  auto kernel = a.Lk % (32 * RK) == 0 ? bwd<RK, true, PROBE>
+                                      : bwd<RK, false, PROBE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)BH, 32, (size_t)bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace small_var
 
 namespace engine {
 
@@ -735,6 +1031,77 @@ int probe_bwd_variant(const float* q, const float* k, const float* v,
   portvar::bwd_kernels[which]<<<B * groups, hb * wph * 32, (size_t)bytes,
                                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The first small-head kernels at d 4 (small_legacy): mode 0 whole, 1 without
+// exponentials, 2 without products; which 1 dQ launch, 2 dK dV, 3 both
+int probe_small_legacy_fwd(const float* q, const float* k, const float* v,
+                           float* o, float* lse, int BH, int Lq, int Lk,
+                           int mode, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 1) return small_legacy::fwd<1>(q, k, v, o, lse, BH, Lq, Lk, s);
+  if (mode == 2) return small_legacy::fwd<2>(q, k, v, o, lse, BH, Lq, Lk, s);
+  return small_legacy::fwd<0>(q, k, v, o, lse, BH, Lq, Lk, s);
+}
+
+int probe_small_legacy_bwd(const float* q, const float* k, const float* v,
+                           const float* o, const float* lse,
+                           const float* dout, float* dq, float* dk,
+                           float* dv, float* delta, int BH, int Lq, int Lk,
+                           int mode, int which, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 1)
+    return small_legacy::bwd<1>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH,
+                                Lq, Lk, which, s);
+  if (mode == 2)
+    return small_legacy::bwd<2>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH,
+                                Lq, Lk, which, s);
+  return small_legacy::bwd<0>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH,
+                              Lq, Lk, which, s);
+}
+
+// the port's small-head forward at d 4 with r rows a lane (3 or 6) and the
+// probe switches `probe` (small_head::NO_EXP 1, NO_CHECK 2)
+int probe_small_fwd(const float* q, const float* k, const float* v, float* o,
+                    float* lse, int BH, int Lq, int Lk, int r, int probe,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const small_head::FwdArgs a{q, k, v, o, lse, Lq, Lk, 0, 0, LOG2E / 2.f};
+#define SH_FWD(R)                                                   \
+  switch (probe) {                                                  \
+    case 0: return small_var::launch_fwd<R, 0>(a, BH, s);           \
+    case 1: return small_var::launch_fwd<R, 1>(a, BH, s);           \
+    case 2: return small_var::launch_fwd<R, 2>(a, BH, s);           \
+    case 3: return small_var::launch_fwd<R, 3>(a, BH, s);           \
+    default: return (int)cudaErrorInvalidValue;                     \
+  }
+  if (r == 6) SH_FWD(6)
+  if (r == 3) SH_FWD(3)
+#undef SH_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// the port's fused small-head backward at d 4 with rk keys a lane (3 or 6)
+// and the probe switches `probe` (small_head::NO_EXP 1, NO_ROTATE 4)
+int probe_small_bwd(const float* q, const float* k, const float* v,
+                    const float* o, const float* lse, const float* dout,
+                    float* dq, float* dk, float* dv, int BH, int Lq, int Lk,
+                    int rk, int probe, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const small_head::BwdArgs a{q,  k,  v,  o,  lse, dout,        dq, dk,
+                              dv, nullptr, Lq, Lk, LOG2E * 0.5f, 0.5f};
+#define SH_BWD(RK)                                                  \
+  switch (probe) {                                                  \
+    case 0: return small_var::launch_bwd<RK, 0>(a, BH, s);          \
+    case 1: return small_var::launch_bwd<RK, 1>(a, BH, s);          \
+    case 4: return small_var::launch_bwd<RK, 4>(a, BH, s);          \
+    case 5: return small_var::launch_bwd<RK, 5>(a, BH, s);          \
+    default: return (int)cudaErrorInvalidValue;                     \
+  }
+  if (rk == 6) SH_BWD(6)
+  if (rk == 3) SH_BWD(3)
+#undef SH_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

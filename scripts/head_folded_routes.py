@@ -48,6 +48,17 @@ with and without the log-sum-exp and backward, on contiguous operands and on
 the (b, h, L, d) views of (b, L, h, d) buffers that the transformer hands
 them.
 
+``small_head``: the small-head kernels (``ops/cuda/small_head_attention.py``)
+on contiguous (b, h, L, d) operands: the ones the port ran before their
+redesign, kept in the probe (``small_legacy``), whole, without their
+exponentials and without their products; the port's bodies with their rows
+(forward) or keys (backward) a lane set to 3 and to 6, whole, without
+exp2, without the forward's test of its group sums, without the backward's
+rotation of dQ; the port's C entries; the head-folded kernels' C entries at
+the same operands; and the instructions of the kernels'
+innermost loops, read from their SASS (``cuobjdump``), per (query, key)
+pair.
+
 Prints one line a probe and shape and writes everything, with the probe's
 build log, to ``DIR`` (by default ``build/probe``):
 ``head_folded_routes.json``.
@@ -102,6 +113,10 @@ def build(log_dir: Path) -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.probe_fwd_variant.argtypes = [p] * 5 + [strides] + [i] * 5 + [p]
     lib.probe_bwd_variant.argtypes = [p] * 9 + [strides] + [i] * 7 + [p]
+    lib.probe_small_legacy_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.probe_small_legacy_bwd.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.probe_small_fwd.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.probe_small_bwd.argtypes = [p] * 9 + [i] * 5 + [p]
     return lib
 
 
@@ -379,9 +394,237 @@ def clocks(lib, gen, report):
         print(f"clocks {name} (MHz, W) while it runs: {samples}", flush=True)
 
 
+# the small-head bodies' PROBE bits (csrc/small_head_attention.cu: NO_EXP
+# 1, NO_CHECK 2, NO_ROTATE 4)
+SMALL_FWD_PROBES = {"whole": 0, "no_exp": 1, "no_check": 2,
+                    "no_exp_no_check": 3}
+SMALL_BWD_PROBES = {"whole": 0, "no_exp": 1, "no_rotate": 4,
+                    "no_exp_no_rotate": 5}
+
+
+def small_head(lib, gen, report):
+    """The small-head kernels at the flagship's three calls, d 4, on
+    contiguous (b, h, L, d) operands: the first design kept in the probe, the
+    port's bodies with parts switched off and with 3 or 6 rows (keys) a
+    lane, the port's wrappers, and the head-folded kernels beside."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        small_head_attention as sha,
+    )
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = report.setdefault("small_head", {})
+    for call, (lq, lk) in CALLS.items():
+        q, k, v, do = _inputs(gen, lq, lk)
+        n = B * H
+        want = sha.small_head_attention_plain(q, k, v)
+        want_grads = sha.small_head_attention_bwd_plain(q, k, v, do)
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, lq, device="cuda")
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(lse)
+        fptr = [t.data_ptr() for t in (q, k, v, o, lse)]
+        row = {}
+        # the first design's kernels
+        for name, mode in MODES.items():
+            def run_fwd():
+                _ok(lib.probe_small_legacy_fwd(*fptr, n, lq, lk, mode,
+                                               stream), "legacy fwd")
+            run_fwd()
+            torch.cuda.synchronize()
+            if mode == 0:
+                row["legacy_fwd_err"] = (o - want).abs().max().item()
+            row[f"legacy_fwd_{name}_ms"] = chip_smoke.time_ms(run_fwd, ITERS)
+        _ok(lib.probe_small_legacy_fwd(*fptr, n, lq, lk, 0, stream), "fwd")
+        bptr = [t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                       delta)]
+        for name, mode in MODES.items():
+            for which, part in ((1, "dq"), (2, "dkv"), (3, "bwd")):
+                def run_bwd():
+                    _ok(lib.probe_small_legacy_bwd(*bptr, n, lq, lk, mode,
+                                                   which, stream), "legacy")
+                if mode == 0 and which == 3:
+                    run_bwd()
+                    torch.cuda.synchronize()
+                    row["legacy_bwd_err"] = max(
+                        (g - w).abs().max().item()
+                        for g, w in zip((dq, dk, dv), want_grads))
+                row[f"legacy_{part}_{name}_ms"] = chip_smoke.time_ms(
+                    run_bwd, ITERS)
+        # the port's bodies, parts switched off, 3 or 6 rows (keys) a lane
+        for r in (3, 6):
+            for name, probe in SMALL_FWD_PROBES.items():
+                def run_fwd():
+                    _ok(lib.probe_small_fwd(*fptr, n, lq, lk, r, probe,
+                                            stream), "small fwd")
+                run_fwd()
+                torch.cuda.synchronize()
+                if probe == 0:
+                    row[f"fwd_r{r}_err"] = (o - want).abs().max().item()
+                row[f"fwd_r{r}_{name}_ms"] = chip_smoke.time_ms(run_fwd,
+                                                                ITERS)
+        out, lse = sha.forward_kernel(q, k, v)
+        bptr = [t.data_ptr() for t in (q, k, v, out, lse, do, dq, dk, dv)]
+        for rk in (3, 6):
+            for name, probe in SMALL_BWD_PROBES.items():
+                def run_bwd():
+                    _ok(lib.probe_small_bwd(*bptr, n, lq, lk, rk, probe,
+                                            stream), "small bwd")
+                run_bwd()
+                torch.cuda.synchronize()
+                if probe == 0:
+                    row[f"bwd_rk{rk}_err"] = max(
+                        (g - w).abs().max().item()
+                        for g, w in zip((dq, dk, dv), want_grads))
+                row[f"bwd_rk{rk}_{name}_ms"] = chip_smoke.time_ms(run_bwd,
+                                                                  ITERS)
+        # the port's C entries, and head-folded at the same operands
+        fwd_ptr = [t.data_ptr() for t in (q, k, v, o, delta)]
+        bwd_ptr = [t.data_ptr() for t in (q, k, v, out, lse, do, dq, dk, dv,
+                                          delta)]
+        fwd_entry, bwd_entry = sha.launcher(), sha.bwd_launcher()
+        with torch.inference_mode():
+            row["port_fwd_ms"] = chip_smoke.time_ms(
+                lambda: _ok(fwd_entry(*fwd_ptr, n, lq, lk, D, stream),
+                            "port fwd"), ITERS)
+            row["port_bwd_ms"] = chip_smoke.time_ms(
+                lambda: _ok(bwd_entry(*bwd_ptr, n, lq, lk, D, stream),
+                            "port bwd"), ITERS)
+            row["port_bwd_launches"] = sha.bwd_launches_a_call(lq, D)
+            hf_out, hf_lse = hfa.forward_kernel(q, k, v, with_lse=True)
+            strides = hfa.launch_strides(q, k, v, o)
+            hf_fwd = [t.data_ptr() for t in (q, k, v, o, delta)]
+            row["head_folded_fwd_ms"] = chip_smoke.time_ms(
+                lambda: _ok(hfa.launcher()(*hf_fwd, strides, B, H, lq, lk, D,
+                                           stream), "head-folded fwd"),
+                ITERS)
+            hb, wph = hfa.bwd_plan(H, lq, lk, D)
+            bstrides = hfa.launch_strides(q, k, v, hf_out, do, dq, dk, dv)
+            hf_bwd = [t.data_ptr() for t in (q, k, v, hf_out, hf_lse, do, dq,
+                                             dk, dv)]
+            hf_bwd.append(None if hb else delta.data_ptr())
+            row["head_folded_bwd_ms"] = chip_smoke.time_ms(
+                lambda: _ok(hfa.bwd_launcher()(*hf_bwd, bstrides, B, H, lq,
+                                               lk, D, hb, wph, stream),
+                            "head-folded bwd"), ITERS)
+        rows[call] = row
+        print(f"small_head {call} (Lq {lq}, Lk {lk}): " + ", ".join(
+            f"{key} {val:.4f}" if key.endswith("ms") else
+            f"{key} {val:.3e}" if key.endswith("err") else f"{key} {val}"
+            for key, val in row.items()), flush=True)
+    sass = report["small_head_sass"] = small_head_sass()
+    # the share of the issue rate (4 warp instructions a clock an SM, 132
+    # SMs, at the 1980 MHz the `clocks` section read under load) that
+    # the loops reach at enc-self: their instructions a pair (the SASS loop
+    # with the exponentials) times the pairs, over the time
+    lq, lk = CALLS["enc_self"]
+    pairs = B * H * lq * lk
+    shares = report["small_head_issue_share"] = {}
+    for ms_key, frag in (("fwd_r6_no_check_ms", "small_var3fwdILi6ELi2E"),
+                         ("bwd_rk6_whole_ms",
+                          "bwd_fused_kernelILi4ELi6ELb1E")):
+        loops = sass.get(frag) if isinstance(sass, dict) else None
+        if not loops:
+            continue
+        loop = max(loops, key=lambda x: x["mix"].get("MUFU", 0))
+        ms = rows["enc_self"][ms_key]
+        shares[ms_key] = (pairs * loop["per_pair"] / 32
+                          / (ms * 1e-3 * 132 * 4 * 1.98e9))
+        print(f"issue share enc_self {ms_key}: {loop['per_pair']:.2f} "
+              f"instructions a pair, {ms:.4f} ms: "
+              f"{shares[ms_key]:.3f} of the issue rate", flush=True)
+
+
+# the small-head kernels at d 4 whose innermost loops the SASS section
+# counts, by a fragment of their mangled names, with the (query, key) pairs
+# a lane one trip of that loop computes (the forward a group of 4 keys for
+# R rows, the backward two rotation steps of RK keys): the port's, and the
+# probe's copies without the forward's test of its group sums (R 6, 3) and
+# without the backward's rotation (RK 6)
+SASS_KERNELS = {"fwd_kernelILi4ELi6E": 4 * 6, "fwd_kernelILi4ELi3E": 4 * 3,
+                "bwd_fused_kernelILi4ELi6ELb1E": 2 * 6,
+                "bwd_fused_kernelILi4ELi3ELb1E": 2 * 3,
+                "small_var3fwdILi6ELi2E": 4 * 6,
+                "small_var3fwdILi3ELi2E": 4 * 3,
+                "small_var3bwdILi6ELb1ELi2E": 2 * 6}
+
+
+def _sass_loops(text):
+    """{function: [(instructions, {opcode: count}), ...]} of each
+    function's innermost loops (a backward branch whose span holds no other
+    backward branch), from ``cuobjdump -sass`` text."""
+    import re
+
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if name and ins:
+            funcs[name].append((int(ins.group(1), 16), ins.group(2).strip()))
+    loops = {}
+    for name, code in funcs.items():
+        spans = []
+        for at, ins in code:
+            to = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+            if to and int(to.group(1), 16) <= at:
+                spans.append((int(to.group(1), 16), at))
+        inner = [s for s in spans if not any(
+            o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+        found = []
+        for lo, hi in inner:
+            mix = {}
+            body = [ins for at, ins in code if lo <= at <= hi]
+            for ins in body:
+                op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+                mix[op] = mix.get(op, 0) + 1
+            found.append((len(body), mix))
+        loops[name] = found
+    return loops
+
+
+def small_head_sass():
+    """Each timed kernel's innermost loops: their instructions, their mix,
+    and the instructions per (query, key) pair."""
+    import shutil
+
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        _build,
+    )
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = [_build.build(("small_head_attention",))["small_head_attention"],
+            ROOT / "build" / "probe" / "head_folded_routes.so"]
+    text = ""
+    for lib in libs:
+        proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            print(f"cuobjdump failed: {proc.stderr.strip()}", flush=True)
+            return {"error": proc.stderr.strip()}
+        text += proc.stdout
+    out = {}
+    for name, loops in _sass_loops(text).items():
+        for frag, pairs in SASS_KERNELS.items():
+            if frag not in name:
+                continue
+            # every innermost span: the key loop, and any rare path placed
+            # after it that branches back into it
+            out[frag] = [{"instructions": count, "pairs": pairs,
+                          "per_pair": count / pairs, "mix": mix}
+                         for count, mix in loops]
+            for count, mix in loops:
+                print(f"sass {frag}: an innermost loop of {count} "
+                      f"instructions, {pairs} pairs a lane a trip, "
+                      f"{count / pairs:.2f} a pair; {mix}", flush=True)
+    return out
+
+
 SECTIONS = {"legacy": legacy, "copies": copies, "engines": engines,
             "variants": variants, "port_variants": port_variants,
-            "clocks": clocks, "port": port}
+            "clocks": clocks, "port": port, "small_head": small_head}
 
 
 def main() -> int:

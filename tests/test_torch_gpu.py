@@ -8,6 +8,7 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import _torch_small_head_cases as small_head_cases
 import numpy as np
 import pytest
 import torch
@@ -304,6 +305,58 @@ def test_fused_gp_fp32_meets_the_float64_budget(cuda, rows, d, m, affine):
             dist[name][1] += (p.double() - e).abs().max().item()
     for name, (kernel, plain) in dist.items():
         assert kernel <= 2.0 * plain, (name, kernel, plain)
+
+
+def _dos_nearly_cancelling(seed, device):
+    """The flagship-sized fused-GP inputs (73,728 rows, d 32, M 512) with
+    a cotangent dvar that has lost its component along the rows' d var /
+    d os, after dmean's share of dos: dos is 0 up to float32 rounding.
+    Returns (args, dmean, dvar, the float64 inputs)."""
+    *args, dmean, dvar = _gp_like_inputs(73728, 32, 512, seed=seed,
+                                         device=device)
+    wide = [a.double() for a in args]
+
+    def marginals(outputscale):
+        return fused_gp.whitened_marginals_affine_plain(
+            *wide[:4], outputscale, *wide[5:])
+
+    _, (dmean_dos, dvar_dos) = torch.func.jvp(
+        marginals, (wide[4],), (torch.ones_like(wide[4]),))
+    dm, dv = dmean.double(), dvar.double()
+    dos = (dm * dmean_dos).sum() + (dv * dvar_dos).sum()
+    dvar = (dv - dos / (dvar_dos * dvar_dos).sum() * dvar_dos).float()
+    return args, dmean, dvar, wide + [dm, dvar.double()]
+
+
+@pytest.mark.gpu
+def test_fused_gp_fp32_dos_where_it_nearly_cancels(cuda):
+    """dos sums a term for every row and inducing point (37.7 M at the
+    flagship's 73,728 rows and M 512) that nearly cancel.  At inputs built
+    so that dos is 0 up to float32 rounding (``_dos_nearly_cancelling``),
+    the kernel's dos is no farther from the float64 function than twice the
+    plain version's, the distances summed over 16 such inputs: on one, the
+    two distances are nearly independent rounding errors of one size (the
+    first input here: kernel 4.8e-2, plain 1.9e-2 from float64), the
+    reason every float64 gate of the port sums 16 draws."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    kernel64 = plain64 = 0.0
+    seen = []
+    for i in range(16):
+        args, dmean, dvar, wide = _dos_nearly_cancelling(11 + i, cuda)
+        got = fused_gp.backward_kernel(*args, dmean, dvar)[4].item()
+        plain = fused_gp.whitened_marginals_affine_bwd_plain(
+            *args, dmean, dvar)[4].item()
+        exact = fused_gp.whitened_marginals_affine_bwd_plain(*wide)[4].item()
+        kernel64 += abs(got - exact)
+        plain64 += abs(plain - exact)
+        seen.append(f"seed {11 + i}: |dos| {abs(exact):.1e}, |kernel - "
+                    f"plain| {abs(got - plain):.2e}, from float64 kernel "
+                    f"{abs(got - exact):.2e} plain {abs(plain - exact):.2e}")
+    reading = (f"summed from float64: kernel {kernel64:.3e}, plain "
+               f"{plain64:.3e} (ratio {kernel64 / plain64:.3f}); "
+               + "; ".join(seen))
+    print(reading)
+    assert kernel64 <= 2.0 * plain64, reading
 
 
 @pytest.mark.gpu
@@ -1183,15 +1236,15 @@ def test_exact_blur_pallas_on_card_matches_cusolver_and_cpu(cuda):
 # kernel (tests/test_pallas_kernels.py), held as rtol / atol
 TOL_SH, ATOL_SH = 1e-4, 1e-5
 TOL_SH_GRAD, ATOL_SH_GRAD = 2e-3, 1e-4
-SMALL_HEAD_SHAPES = [(4, 8, 192, 192, 4), (3, 8, 96, 96, 2),
-                     (2, 8, 96, 192, 8), (2, 3, 1030, 20, 5),
-                     (3, 2, 37, 600, 1), (2, 2, 70, 33, 3)]
+# the shapes of ``_torch_small_head_cases`` (the CPU tests hold the same
+# inputs against the JAX package): every d from 1 to 8, a one-key row, Lq on
+# both sides of the fused backward's limit, Lk past 512 and 1536
+SMALL_HEAD_SHAPES = small_head_cases.SHAPES
 
 
-def _small_head_inputs(b, h, lq, lk, d, device, seed=0):
-    g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(b, h, n, d, device=device, generator=g)
-            for n in (lq, lk, lk, lq)]
+def _small_head_inputs(b, h, lq, lk, d, device):
+    return [torch.from_numpy(a).to(device) for a in small_head_cases.inputs(
+        b, h, lq, lk, d, seed=lq + lk + d)]
 
 
 @pytest.mark.gpu
@@ -1201,8 +1254,10 @@ def test_small_head_kernel_matches_plain(cuda, b, h, lq, lk, d):
     before = sha.launches
     with torch.no_grad():
         got = sha.small_head_attention(q, k, v)
+        again = sha.small_head_attention(q, k, v)
     torch.cuda.synchronize()
-    assert sha.launches == before + 1
+    assert sha.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, sha.small_head_attention_plain(q, k, v),
                                rtol=TOL_SH, atol=ATOL_SH)
 
@@ -1211,7 +1266,7 @@ def test_small_head_kernel_matches_plain(cuda, b, h, lq, lk, d):
 @pytest.mark.parametrize("b,h,lq,lk,d", SMALL_HEAD_SHAPES)
 def test_small_head_bwd_kernel_matches_plain_bit_for_bit_run_to_run(
         cuda, b, h, lq, lk, d):
-    q, k, v, do = _small_head_inputs(b, h, lq, lk, d, cuda, seed=1)
+    q, k, v, do = _small_head_inputs(b, h, lq, lk, d, cuda)
     out, lse = sha.forward_kernel(q, k, v)
     first = sha.backward_kernel(q, k, v, out, lse, do)
     second = sha.backward_kernel(q, k, v, out, lse, do)
@@ -1223,8 +1278,55 @@ def test_small_head_bwd_kernel_matches_plain_bit_for_bit_run_to_run(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,lq,lk,d", SMALL_HEAD_SHAPES)
+def test_small_head_bwd_takes_one_launch_where_the_rows_fit(cuda, b, h, lq,
+                                                            lk, d):
+    """The backward computes each exponential once, in one launch, where a
+    head's q, dO, dQ, lse and D (Lq rounded up to 32 rows) fit in 64 KB of
+    shared memory, and streams the rows in two launches past that; either
+    way one backward call counts once."""
+    fits = 4 * (-(-lq // 32) * 32) * (3 * d + 2) <= 64 * 1024
+    assert sha.bwd_launches_a_call(lq, d) == (1 if fits else 2)
+    q, k, v, do = _small_head_inputs(b, h, lq, lk, d, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before, kernels = sha.bwd_launches, sha.kernels_launched()
+    sha.small_head_attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    assert sha.bwd_launches == before + 1
+    # as the library counts its launches: the forward's, the backward's
+    assert sha.kernels_launched() - kernels == 1 + (1 if fits else 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", small_head_cases.SCORE_CASES)
+def test_small_head_forward_rescales_where_scores_rise(cuda, name):
+    """The forward keeps a lazy offset and rescales a row only where a
+    group of 4 keys sums past 2^8 against it: scores rising a key by steps
+    that leave the group sums just under and just over that threshold, and
+    one key 20, 60 or 130 (an exponential past 2^127) above the rest --
+    the offset kept, the row restarted, an inf dropped -- at 40 query rows
+    (3 rows a lane) and 192 (6 rows a lane).  Output and lse against
+    plain, the gradients too, two runs bit-equal."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda)
+                   for a in small_head_cases.score_case(name))
+    out, lse = sha.forward_kernel(q, k, v)
+    again = sha.forward_kernel(q, k, v)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    torch.testing.assert_close(out, sha.small_head_attention_plain(q, k, v),
+                               rtol=TOL_SH, atol=ATOL_SH)
+    want_lse = torch.logsumexp(torch.matmul(q, k.transpose(-1, -2)) / 2.0,
+                               dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=TOL_SH, atol=ATOL_SH)
+    grads = sha.backward_kernel(q, k, v, out, lse, do)
+    for g, w, n in zip(grads, sha.small_head_attention_bwd_plain(q, k, v, do),
+                       ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, w, rtol=TOL_SH_GRAD, atol=ATOL_SH_GRAD,
+                                   msg=lambda m, n=n: f"{n}: {m}")
+
+
+@pytest.mark.gpu
 def test_small_head_function_counts_its_launches(cuda):
-    q, k, v, do = _small_head_inputs(2, 4, 50, 61, 4, cuda, seed=2)
+    q, k, v, do = _small_head_inputs(2, 4, 50, 61, 4, cuda)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fwd, bwd = sha.launches, sha.bwd_launches
     hf_fwd, hf_bwd = hfa.launches, hfa.bwd_launches
