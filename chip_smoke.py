@@ -91,6 +91,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``conv_attn`` at d_model 512, 8 heads (d_k 64), fp32, with
    ``use_pallas_attention=True``: one served batch of 64 and 3 + 4 training
    steps, the fp32 flash kernels six times each way a step.
+   The model's last options, each served and trained the same way:
+   ``prod_autoformer``, ``bench.py`` ``bench_prod_step`` as it stands
+   (autoformer at the production width above, bf16, the GP's default
+   lengthscale; 216 windows, 3 + 60 steps); ``autoformer_bf16``, its
+   ``bench_jax(bf16=True)`` (the flagship in bf16; 600 windows, 3 + 60
+   steps); and at the flagship's width, 600 windows and 3 + 4 steps each,
+   ``informer`` (ProbSparse attention), ``fedformer`` (Fourier attention)
+   and ``lstm`` (the LSTM backbone, cuDNN) in fp32, and ``conv_attn_bf16``
+   (the conv family at 16 bits, flag off).  Per batch one fused GP (the
+   bf16 one at 16 bits), per step one each way; the CPU runs also replay
+   ProbSparse's key samples and chosen queries from the card.
 7. The training CLI, ``cli_ata``: ``train.cli.main`` as ``run.sh`` runs it
    (``--exp_name solar --attn_type ATA --denoising True --gp True``) on
    synthetic solar data at the flagship width, cut to 2560 training and 512
@@ -106,7 +117,8 @@ The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
 ReLU, so that a near-tie broken the other way on one device cannot make the
 two compute different functions; likewise ATA's top-1 scale of every
-(position, channel) and its side of zero; how many differed is printed.
+(position, channel) and its side of zero, and ProbSparse's key samples
+(drawn on the card) and the queries chosen; how many differed is printed.
 
 Every profile also prints the count and device time of its ``direct_copy``
 kernels (the copies that layout changes cost).  Prints the ``kernels`` JSON
@@ -590,18 +602,18 @@ def _f64_distances(draw, kernel, plain, names, first=None):
     return sums
 
 
-def _gp_grad_within(name, rel, rel_tol, kernel64, plain64):
+def _gp_grad_within(name, rel, rel_tol, kernel_summed, plain_summed):
     """A fused-GP gradient's gate against its plain version, affine and
     not: ``rel`` = max|kernel - plain| / max(1, max|plain|) within
-    ``rel_tol``, ``kernel64`` and ``plain64`` the two versions' max
-    distances from the float64 function.  dos alone, a sum over every row
-    and inducing point (37.7 M terms at the flagship) that nearly cancels,
-    may instead be within 10x the tolerance and no farther from the float64
-    function than twice the plain version is: where |dos| is small, plain's
-    own distance from float64 (~3e-2) exceeds 1e-3 of it, and the gate
-    would fail the more accurate of the two."""
-    return rel <= rel_tol or (name == "dos" and rel <= 10 * rel_tol
-                              and kernel64 <= 2.0 * plain64)
+    ``rel_tol``.  dos alone, a sum over every row and inducing point (37.7 M
+    terms at the flagship) that nearly cancels, may instead be no farther
+    from the float64 function than twice the plain version is, the two
+    versions' distances summed over ``F64_DRAWS`` draws (``kernel_summed``,
+    ``plain_summed``), as every float64 gate of this script sums them:
+    where |dos| is small, both fp32 versions lie 2-7e-2 from float64, more
+    than 1e-3 of it, and on one draw either may be the closer."""
+    return rel <= rel_tol or (name == "dos"
+                              and kernel_summed <= 2.0 * plain_summed)
 
 
 def check_fused_gp_nonaffine(gen, shape, bf16=False):
@@ -689,7 +701,7 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
         err64 = [(t.double() - e).abs().max().item() for t in (g, w_)]
         bwd_errs.append(rel)
         f64[name] = {"kernel": err64[0], "plain": err64[1]}
-        bwd_ok &= _gp_grad_within(name, rel, rel_tol, *err64)
+        bwd_ok &= _gp_grad_within(name, rel, rel_tol, *summed[name])
         line = (f"{tag} bwd {name}: max|kernel - plain| / max(1, max|plain|) "
                 f"{rel:.3e} (tol {rel_tol:.3e}); vs float64: kernel "
                 f"{err64[0]:.3e}, plain {err64[1]:.3e}")
@@ -778,8 +790,8 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
                                 for g, w_ in zip(grads, want_grads)),
              "max_rel_err": max(bwd_errs), "tolerance": rel_tol,
              "tolerance_is": "relative to max(1, max|plain|) per output; "
-                            "dos: or within 10x and no farther from "
-                            "float64 than twice plain"
+                            "dos: or no farther from float64 than twice "
+                            "plain, summed over F64_DRAWS draws"
                             + ("; bf16: every output no farther from the "
                                "float64 function than twice plain" if bf16
                                else "; every output no farther from the "
@@ -1197,11 +1209,12 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
                      f"plain {ps:.3e} (kernel / plain {f64_ratio:.3f}; "
                      f"budget {budget}")
         log(line + ")")
-        if not _gp_grad_within(name, err / max(scale, 1.0), rel_tol, k64,
-                               p64):
+        if not _gp_grad_within(name, err / max(scale, 1.0), rel_tol, ks,
+                               ps):
             raise AssertionError(f"{tag} {name} disagrees with its "
-                                 f"plain version: {err} > {tol} (float64: "
-                                 f"kernel {k64}, plain {p64})")
+                                 f"plain version: {err} > {tol} (float64, "
+                                 f"summed over {F64_DRAWS} draws: kernel "
+                                 f"{ks}, plain {ps})")
         if not f64_ratio <= budget:
             raise AssertionError(f"{tag} {name} is {f64_ratio:.3f} times "
                                  f"farther from float64 than the plain "
@@ -1262,8 +1275,8 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             "max_abs_err": worst_abs, "max_rel_err": worst,
             "tolerance": rel_tol,
             "tolerance_is": "relative to max(1, max|plain|) per output; "
-                            "dos: or within 10x and no farther from "
-                            "float64 than twice plain",
+                            "dos: or no farther from float64 than twice "
+                            "plain, summed over F64_DRAWS draws",
             "design": fused_gp.bwd_design(m, bf16),
             "f64_dist_over_plain": worst_f64,
             **({} if bf16 else {"tc_bound_ms": tc_ms}),
@@ -1943,7 +1956,8 @@ class Config:
     n_check: int  # windows compared with the CPU run
     per_batch: dict  # kernel launches of one served batch
     per_step: dict  # kernel launches of one training step
-    gp: dict = dataclasses.field(default_factory=dict)  # GP options
+    # more model options: the GP's, the flag, the backbone
+    gp: dict = dataclasses.field(default_factory=dict)
     # gradients that the training check may also judge against float64
     f64_leaves: tuple = ()
     # gradients that are 0 in exact arithmetic (fnmatch patterns): residue
@@ -2054,6 +2068,39 @@ CONFIGS = (
            per_step=dict(_NONE, fused_gp=1, fused_gp_bwd=1,
                          flash_attention_fp32=6, flash_attention_fp32_bwd=6),
            gp=dict(use_pallas_attention=True), epochs=1, steps=4),
+    # bench.py bench_prod_step as it stands (bench.py:136-161): autoformer
+    # at d_model 512, 8 heads (d_k 64), 2 layers, bf16 model and GP, the
+    # GP's default lengthscale; AutoCorrelation is torch ops (cuFFT), so the
+    # bf16 fused GP is its only hand kernel, once each way a step
+    Config("prod_autoformer", "autoformer", batch=P_B, enc_len=P_ENC_LEN,
+           dec_len=P_DEC_LEN, pred=P_PRED, features=P_F, d_model=P_D_MODEL,
+           layers=P_LAYERS, bf16=True, n_windows=P_N_WINDOWS,
+           n_check=P_N_CHECK, per_batch=dict(_NONE, fused_gp_bf16=1),
+           per_step=dict(_NONE, fused_gp_bf16=1, fused_gp_bf16_bwd=1),
+           gp=dict(gp_ls_init=0.0)),
+    # the flagship in bf16, as bench.py bench_jax(bf16=True) builds it
+    # (bench.py:49-56): the same launches at d 32
+    Config("autoformer_bf16", "autoformer", **dict(_FLAGSHIP, bf16=True),
+           per_batch=dict(_NONE, fused_gp_bf16=1),
+           per_step=dict(_NONE, fused_gp_bf16=1, fused_gp_bf16_bwd=1),
+           gp=dict(gp_ls_init=0.0)),
+    # the paper's comparison rows (RESULTS.md:84-89) at the flagship's
+    # width, fp32: ProbSparse and Fourier attention and the LSTM backbone
+    # are torch ops (cuFFT, cuDNN), the fused GP their hand kernel; a few
+    # steps each
+    *(Config(name, attn_type, **_FLAGSHIP,
+             per_batch=dict(_NONE, fused_gp=1),
+             per_step=dict(_NONE, fused_gp=1, fused_gp_bwd=1), gp=gp,
+             epochs=1, steps=4)
+      for name, attn_type, gp in (("informer", "informer", {}),
+                                  ("fedformer", "fedformer", {}),
+                                  ("lstm", "basic", dict(backbone="lstm")))),
+    # the conv family at 16 bits, flag off: fp32 convolutions on the bf16
+    # projections, plain attention; the bf16 fused GP
+    Config("conv_attn_bf16", "conv_attn", **dict(_FLAGSHIP, bf16=True),
+           per_batch=dict(_NONE, fused_gp_bf16=1),
+           per_step=dict(_NONE, fused_gp_bf16=1, fused_gp_bf16_bwd=1),
+           epochs=1, steps=4),
 )
 
 
@@ -2211,6 +2258,53 @@ class _ScaleMaxRecorder:
         self.module.relu_scale_max = self.original
 
 
+class _SampleRecorder:
+    """Wraps ProbSparse attention in the transformer module and keeps each
+    call's key sample and the queries it chose (per sample).  Given
+    ``replay`` (another run's ``draws``), each call takes those instead, the
+    queries cut to this call's batch (a served batch is padded on the card,
+    not on the CPU); ``flips`` counts the (sample, head) pairs whose own
+    choice here, from the replayed sample, differed."""
+
+    def __init__(self, replay=None):
+        from fine_grained_gaussian_process_forcasting_torch.models import (
+            transformer,
+        )
+        from fine_grained_gaussian_process_forcasting_torch.ops import (
+            probsparse,
+        )
+
+        self.module, self.ops = transformer, probsparse
+        self.original = transformer.prob_sparse_attention
+        self.replay = replay
+        self.draws, self.flips = [], 0
+
+    def __enter__(self):
+        def recording(q, k, v, generator=None, **kw):
+            ops = self.ops
+            u_part, u = ops.sample_sizes(q.shape[2], k.shape[2])
+            if self.replay is not None:
+                sample, m_top = (t.to(q.device) for t in
+                                 self.replay[len(self.draws)])
+                m_top = m_top[: q.shape[0]]
+                own = ops.top_queries(q, k, sample, u)
+                self.flips += int((own.sort(-1).values
+                                   != m_top.sort(-1).values).any(-1).sum())
+            else:
+                sample = ops.sample_keys(q.shape[2], k.shape[2], u_part,
+                                         generator, q.device)
+                m_top = ops.top_queries(q, k, sample, u)
+            self.draws.append((sample.cpu(), m_top.cpu()))
+            return self.original(q, k, v, index_sample=sample, m_top=m_top,
+                                 **kw)
+
+        self.module.prob_sparse_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prob_sparse_attention = self.original
+
+
 def _differing(chosen, replayed):
     """Per call: where this run's own top-k set differs from the one it
     replayed (per window in eval, one flag in training)."""
@@ -2362,10 +2456,12 @@ def serve(cfg: Config, card: str):
     n = cfg.n_check
     cpu = InferenceSession(cfg.model("cpu"), state, batch_size=n,
                            device="cpu")
-    with _DelayRecorder() as rec_gpu, _EpsRecorder() as eps_gpu:
+    with _DelayRecorder() as rec_gpu, _EpsRecorder() as eps_gpu, \
+            _SampleRecorder() as psp_gpu:
         gpu_first = session.predict(enc[:n], dec[:n])
     with _DelayRecorder(replay=rec_gpu.delays) as rec_cpu, \
-            _EpsRecorder(replay=eps_gpu.draws):
+            _EpsRecorder(replay=eps_gpu.draws), \
+            _SampleRecorder(replay=psp_gpu.draws) as psp_cpu:
         cpu_first = cpu.predict(enc[:n], dec[:n])
     flipped = torch.zeros(n, dtype=torch.bool)
     for differs in _differing(rec_cpu.delays, rec_gpu.delays):
@@ -2378,13 +2474,17 @@ def serve(cfg: Config, card: str):
         f"{float(np.abs(gpu_first - cpu_first).mean()):.3e}, max|cpu| "
         f"{float(np.abs(cpu_first).max()):.3e}); windows whose own delays "
         f"differ on the cpu (replayed the card's): "
-        f"{torch.nonzero(flipped).flatten().tolist()}")
+        f"{torch.nonzero(flipped).flatten().tolist()}"
+        + (f"; ProbSparse key samples and queries replayed from the card "
+           f"in {len(psp_gpu.draws)} calls, (window, head) choices that "
+           f"differ on the cpu: {psp_cpu.flips}" if psp_gpu.draws else ""))
     if not max_diff <= tol:
         raise AssertionError(f"{cfg.name}: cuda and cpu disagree: "
                              f"{max_diff} > {tol}")
     return counts, {"windows_compared": n, "max_abs_diff": max_diff,
                     "tolerance": tol,
-                    "delays_replayed_windows": int(flipped.sum())}
+                    "delays_replayed_windows": int(flipped.sum()),
+                    "probsparse_choices_replayed": psp_cpu.flips}
 
 
 def check_step_against_cpu(cfg: Config, params, batch):
@@ -2400,29 +2500,31 @@ def check_step_against_cpu(cfg: Config, params, batch):
               for h in cfg.gp.get("gp_hidden_dims", ())]
 
     def step(model, device, replay=None, masks=None, scales=None,
-             dtype=torch.float32):
+             samples=None, dtype=torch.float32):
         enc, dec, y = (t[:cfg.n_check].to(device, dtype) for t in batch)
         with _DelayRecorder(replay=replay) as rec, \
                 _ReluRecorder(model, replay=masks) as relu, \
-                _ScaleMaxRecorder(replay=scales) as top:
+                _ScaleMaxRecorder(replay=scales) as top, \
+                _SampleRecorder(replay=samples) as psp:
             out = model(enc, dec, y, training=True,
                         generator=torch.Generator(device).manual_seed(SEED),
                         gp_eps=[e.to(device, dtype) for e in gp_eps] or None)
         out.loss.backward()
         return out.loss.item(), {n: p.grad.detach().cpu()
                                  for n, p in model.named_parameters()}, \
-            rec, relu, top
+            rec, relu, top, psp
 
     model = cfg.model("cuda")
     model.load_state_dict(params)
-    loss_g, grads_g, rec_g, relu_g, top_g = step(model, "cuda")
-    # the cpu takes the card's delays, its side of every ReLU and its top
-    # scale of every ATA pyramid
+    loss_g, grads_g, rec_g, relu_g, top_g, psp_g = step(model, "cuda")
+    # the cpu takes the card's delays, its side of every ReLU, its top
+    # scale of every ATA pyramid and its ProbSparse samples and queries
     replay, masks, scales = rec_g.delays, relu_g.masks, top_g.choices
+    samples = psp_g.draws
     model = cfg.model("cpu")
     model.load_state_dict(params)
-    loss_c, grads_c, rec, relu, top = step(model, "cpu", replay, masks,
-                                           scales)
+    loss_c, grads_c, rec, relu, top, psp = step(model, "cpu", replay, masks,
+                                                scales, samples)
     flipped = [i for i, differs in
                enumerate(_differing(rec.delays, replay)) if differs]
     if replay:
@@ -2464,8 +2566,8 @@ def check_step_against_cpu(cfg: Config, params, batch):
     if set(over) & set(cfg.f64_leaves):
         model = cfg.model("cpu").double()
         model.load_state_dict(params)
-        _, grads64, _, _, _ = step(model, "cpu", replay, masks, scales,
-                                   torch.float64)
+        _, grads64, _, _, _, _ = step(model, "cpu", replay, masks, scales,
+                                      samples, torch.float64)
         for name in set(over) & set(cfg.f64_leaves):
             err64 = [(t[name].double() - grads64[name]).abs().max().item()
                      for t in (grads_g, grads_c)]
@@ -2488,7 +2590,10 @@ def check_step_against_cpu(cfg: Config, params, batch):
         f"{relu.flips} of {sum(m.numel() for m in masks)}"
         + (f"; ATA top-1 scales (or their side of zero) replayed from the "
            f"card on the cpu: {top.flips} of "
-           f"{sum(c[0].numel() for c in scales)}" if scales else ""))
+           f"{sum(c[0].numel() for c in scales)}" if scales else "")
+        + (f"; ProbSparse samples and queries replayed from the card in "
+           f"{len(samples)} calls, (window, head) choices that differ on "
+           f"the cpu: {psp.flips}" if samples else ""))
     if over:
         raise AssertionError(f"train {cfg.name}: cuda and cpu disagree: "
                              f"{over}")
@@ -2498,6 +2603,7 @@ def check_step_against_cpu(cfg: Config, params, batch):
             "delays_replayed_calls": len(flipped),
             "relu_sides_replayed": relu.flips,
             "ata_scales_replayed": top.flips,
+            "probsparse_choices_replayed": psp.flips,
             "zero_gradient_residue": zero_resid}
 
 

@@ -1,7 +1,8 @@
 """Forecast -> GP-blur -> denoise composite (the flagship model).
 
-Counterpart of the JAX package's ``models/forecast_denoising.py`` for the
-transformer backbone and the variational GP:
+Counterpart of the JAX package's ``models/forecast_denoising.py``, both
+backbones (the transformer, and the LSTM of ``backbone="lstm"``, which
+``compute_dtype`` does not reach, as in JAX):
 
 - joint loss = MSE(y, final) + clip(lambda, 0, lam_clip_max) * (-ELBO);
 - the denoiser is the forecaster itself (shared weights, called twice);
@@ -36,6 +37,9 @@ from fine_grained_gaussian_process_forcasting_torch.gp.deep_gp import (
 )
 from fine_grained_gaussian_process_forcasting_torch.gp.exact_blur import (
     ExactGPBlur,
+)
+from fine_grained_gaussian_process_forcasting_torch.models.lstm import (
+    LSTMBackbone,
 )
 from fine_grained_gaussian_process_forcasting_torch.models.transformer import (
     Transformer,
@@ -75,11 +79,7 @@ class ForecastDenoising(nn.Module):
             raise ValueError(
                 f"lam_clip_max must be >= 0 (got {lam_clip_max}); a clip "
                 "with max < min would flip the ELBO weight's sign")
-        if backbone == "lstm":
-            raise NotImplementedError(
-                "backbone='lstm' is not ported yet (ROADMAP.md modules to "
-                "port, item 11)")
-        if backbone != "transformer":
+        if backbone not in ("transformer", "lstm"):
             raise ValueError(f"unknown backbone {backbone!r}")
         if gp_kind not in ("variational", "exact"):
             raise ValueError(f"unknown gp_kind {gp_kind!r}")
@@ -97,11 +97,14 @@ class ForecastDenoising(nn.Module):
         self.gp_kind = gp_kind
 
         kw = dict(device=device, generator=generator)
-        self.forecasting_model = Transformer(
-            d_model=d_model, d_ff=4 * d_model, d_k=d_k, d_v=d_k,
-            n_heads=n_heads, n_layers=stack_size, attn_type=attn_type,
-            compute_dtype=compute_dtype,
-            use_pallas_attention=use_pallas_attention, **kw)
+        if backbone == "lstm":  # compute_dtype does not reach it, as in JAX
+            self.forecasting_model = LSTMBackbone(d_model, stack_size, **kw)
+        else:
+            self.forecasting_model = Transformer(
+                d_model=d_model, d_ff=4 * d_model, d_k=d_k, d_v=d_k,
+                n_heads=n_heads, n_layers=stack_size, attn_type=attn_type,
+                compute_dtype=compute_dtype,
+                use_pallas_attention=use_pallas_attention, **kw)
         self.enc_embedding = dense(src_input_size, d_model, bias=True, **kw)
         self.dec_embedding = dense(tgt_input_size, d_model, bias=True, **kw)
         self.final_projection = dense(d_model, 1, bias=True, **kw)
@@ -156,7 +159,8 @@ class ForecastDenoising(nn.Module):
             dec_noisy = dec_hidden + 0.05 * noise[1]
         # the denoising network IS the forecaster (shared parameters)
         _, dec_rec = self.forecasting_model(enc_noisy, dec_noisy,
-                                            training=training)
+                                            training=training,
+                                            generator=generator)
         return dec_hidden + dec_rec, posterior
 
     def forward(self, enc_inputs: torch.Tensor, dec_inputs: torch.Tensor,
@@ -169,12 +173,14 @@ class ForecastDenoising(nn.Module):
         decoder hidden states; ``gp_eps``: the deep GP's N(0, 1) draws, one
         (b, enc_len + dec_len, gp_hidden_dims[i]) per hidden layer; else
         either is drawn from ``generator`` (a generator on the inputs'
-        device)."""
+        device), as informer's key samples are (a fixed seed-0 generator
+        without one)."""
         dev = enc_inputs.device
         mll_error = torch.zeros((), device=dev)
         enc = self.enc_embedding(enc_inputs)
         dec = self.dec_embedding(dec_inputs)
-        enc_out, dec_out = self.forecasting_model(enc, dec, training=training)
+        enc_out, dec_out = self.forecasting_model(enc, dec, training=training,
+                                                  generator=generator)
         forecast = self.final_projection(dec_out[:, -self.pred_len:, :])
 
         if self.denoise or (self.input_corrupt and training):
@@ -198,7 +204,8 @@ class ForecastDenoising(nn.Module):
                                                   num_data=self.d_model)
             if self.residual:
                 _, dec_res = self.forecasting_model(enc_out, dec_out,
-                                                    training=training)
+                                                    training=training,
+                                                    generator=generator)
                 res = self.final_projection(dec_res[:, -self.pred_len:, :])
                 final = forecast + res
         else:

@@ -2,9 +2,10 @@
 
 Sinusoidal positional encoding, post-LN residual blocks with LayerNorm
 without affine parameters (eps 1e-5), ReLU feed-forward d -> 4d -> d, and
-multi-head attention over the ``basic`` and ``autoformer`` ops.  Module
-attribute names follow the Flax module names, so ``params.from_flax`` maps a
-Flax tree onto ``state_dict`` keys directly.
+multi-head attention over the whole zoo: ``basic``, ``autoformer``, the
+conv family (``ATA``, ``ACAT``, ``conv_attn``), ``informer`` and
+``fedformer``.  Module attribute names follow the Flax module names, so
+``params.from_flax`` maps a Flax tree onto ``state_dict`` keys directly.
 
 ``compute_dtype`` (e.g. ``torch.bfloat16``) mirrors Flax's ``dtype=`` by
 explicit casts, not ``torch.autocast`` (which picks a precision op by op and
@@ -13,7 +14,8 @@ would be another function): parameters stay fp32; every dense layer
 the streams and the
 positional encoding are cast on entry; LayerNorm takes its statistics in
 fp32 and returns the compute dtype; both outputs are cast back to the input
-dtype.
+dtype.  fedformer's layers take no ``dtype=`` in the JAX package, so they
+compute in fp32 in a 16-bit model too, as the conv family's convolutions do.
 """
 
 from __future__ import annotations
@@ -42,12 +44,19 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention imp
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
     head_folded_attention,
 )
+from fine_grained_gaussian_process_forcasting_torch.ops.fourier import (
+    FourierBlock,
+)
+from fine_grained_gaussian_process_forcasting_torch.ops.probsparse import (
+    prob_sparse_attention,
+)
 from fine_grained_gaussian_process_forcasting_torch.params import dense
 
 ATTENTION_TYPES = ("basic", "ATA", "ACAT", "conv_attn", "autoformer",
                    "informer", "fedformer")
-PORTED_ATTENTION_TYPES = ("basic", "autoformer", "ATA", "ACAT", "conv_attn")
-CONV_ATTENTION_TYPES = ("ATA", "ACAT", "conv_attn")
+# fedformer's Fourier block: the sequence length its modes are chosen for
+# and their number, fixed in the JAX package's MultiHeadAttention
+FEDFORMER_SEQ_LEN, FEDFORMER_MODES = 96, 8
 
 
 def positional_encoding(length: int, d_model: int, device=None,
@@ -113,6 +122,12 @@ class MultiHeadAttention(nn.Module):
     ``use_pallas_attention=True`` takes a kernel (ATA and conv_attn, on CUDA
     tensors; ``conv_attention.conv_attention_route``), and auto (None) is the
     plain op, as ``bool(None)`` is there.
+
+    ``informer`` draws its key sample from the ``generator`` its call is
+    given (the model's), or from a fixed seed-0 generator without one.
+    ``fedformer`` holds its own projections instead: ``fed_q`` (with bias)
+    on the queries' stream only, so that cross-attention ignores k and v,
+    the Fourier block, ``fed_out`` (with bias) and ``fc``, all fp32.
     """
 
     def __init__(self, d_model: int, d_k: int, d_v: int, n_heads: int,
@@ -122,30 +137,27 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if attn_type not in ATTENTION_TYPES:
             raise ValueError(f"unknown attn_type {attn_type!r}")
-        if attn_type not in PORTED_ATTENTION_TYPES:
-            raise NotImplementedError(
-                f"attn_type={attn_type!r} is not ported yet (ROADMAP.md "
-                "modules to port, item 9: the rest of the attention zoo)")
-        if attn_type in CONV_ATTENTION_TYPES and dtype is not None \
-                and dtype.itemsize == 2:
-            raise NotImplementedError(
-                f"attn_type={attn_type!r} with compute_dtype={dtype} is not "
-                "ported yet: the JAX conv layers promote a 16-bit input to "
-                "fp32 against their fp32 kernels (ROADMAP.md modules to port, "
-                "item 14)")
         use_kernel = bool(use_pallas_attention)
         self.d_k, self.d_v, self.n_heads = d_k, d_v, n_heads
         self.attn_type = attn_type
         self.use_pallas_attention = use_pallas_attention
         h = n_heads
-        conv_kw = dict(device=device, generator=generator)
+        init_kw = dict(device=device, generator=generator)
+        if attn_type == "fedformer":
+            self.fed_q = dense(d_model, d_k * h, bias=True, **init_kw)
+            self.fourier_block = FourierBlock(
+                d_model, d_model, FEDFORMER_SEQ_LEN, FEDFORMER_MODES,
+                n_heads=h, **init_kw)
+            self.fed_out = dense(d_model, d_model, bias=True, **init_kw)
+            self.fc = dense(d_model, d_model, bias=False, **init_kw)
+            return
         if attn_type == "ATA":
-            self.ata = ATAAttention(d_k, h, use_kernel=use_kernel, **conv_kw)
+            self.ata = ATAAttention(d_k, h, use_kernel=use_kernel, **init_kw)
         elif attn_type == "ACAT":
-            self.acat = ACATAttention(d_k, h, **conv_kw)
+            self.acat = ACATAttention(d_k, h, **init_kw)
         elif attn_type == "conv_attn":
             self.conv_attn = ConvAttnAttention(d_k, h, use_kernel=use_kernel,
-                                               **conv_kw)
+                                               **init_kw)
         kw = dict(bias=False, device=device, generator=generator,
                   dtype=dtype)
         if is_self:
@@ -156,9 +168,16 @@ class MultiHeadAttention(nn.Module):
             self.wv = dense(d_model, d_v * h, **kw)
         self.fc = dense(h * d_v, d_model, **kw)
 
-    def forward(self, q_in, k_in, v_in, training: bool = False):
+    def forward(self, q_in, k_in, v_in, training: bool = False,
+                generator: Optional[torch.Generator] = None):
         b = q_in.shape[0]
         h, d_k, d_v = self.n_heads, self.d_k, self.d_v
+        if self.attn_type == "fedformer":  # fp32, as Flax promotes
+            length = q_in.shape[1]
+            qs = self.fed_q(q_in.to(self.fed_q.weight.dtype)).reshape(
+                b, length, h, -1)
+            out, _ = self.fourier_block(qs)
+            return self.fc(self.fed_out(out.reshape(b, length, -1)))
         is_self = q_in is k_in and k_in is v_in
         if is_self:
             qkv = self.wqkv(q_in)
@@ -181,6 +200,8 @@ class MultiHeadAttention(nn.Module):
         elif self.attn_type == "autoformer":
             # batch-shared delays in training, per-sample in eval
             context, _ = auto_correlation(q, k, v, training=training)
+        elif self.attn_type == "informer":
+            context, _ = prob_sparse_attention(q, k, v, generator=generator)
         else:
             route = basic_attention_route(q.device, d_k, is_self,
                                           self.use_pallas_attention)
@@ -198,10 +219,11 @@ class MultiHeadAttention(nn.Module):
         return self.fc(context)
 
 
-def _layer_norm(x):
+def _layer_norm(x, dtype=None):
     """LayerNorm without affine parameters; the statistics in fp32, the
-    result in x's dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(x.dtype)
+    result in ``dtype`` (None: x's), as Flax's ``LayerNorm(dtype=)``."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=1e-5).to(
+        dtype or x.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -215,10 +237,13 @@ class EncoderLayer(nn.Module):
             dtype, is_self=True, device=device, generator=generator)
         self.ffn = FeedForward(d_model, d_ff, dtype, device=device,
                                generator=generator)
+        self.dtype = dtype
 
-    def forward(self, x, training: bool = False):
-        out = _layer_norm(self.self_attn(x, x, x, training=training) + x)
-        return _layer_norm(self.ffn(out) + out)
+    def forward(self, x, training: bool = False, generator=None):
+        out = _layer_norm(self.self_attn(x, x, x, training=training,
+                                         generator=generator) + x,
+                          self.dtype)
+        return _layer_norm(self.ffn(out) + out, self.dtype)
 
 
 class DecoderLayer(nn.Module):
@@ -235,12 +260,14 @@ class DecoderLayer(nn.Module):
             d_model, d_k, d_v, n_heads, attn_type, use_pallas_attention,
             dtype, is_self=False, **kw)
         self.ffn = FeedForward(d_model, d_ff, dtype, **kw)
+        self.dtype = dtype
 
-    def forward(self, x, enc_out, training: bool = False):
-        out = _layer_norm(x + self.self_attn(x, x, x, training=training))
-        out2 = _layer_norm(out + self.cross_attn(out, enc_out, enc_out,
-                                                 training=training))
-        return _layer_norm(out2 + self.ffn(out2))
+    def forward(self, x, enc_out, training: bool = False, generator=None):
+        kw = dict(training=training, generator=generator)
+        out = _layer_norm(x + self.self_attn(x, x, x, **kw), self.dtype)
+        out2 = _layer_norm(out + self.cross_attn(out, enc_out, enc_out, **kw),
+                           self.dtype)
+        return _layer_norm(out2 + self.ffn(out2), self.dtype)
 
 
 class Encoder(nn.Module):
@@ -256,13 +283,14 @@ class Encoder(nn.Module):
                 use_pallas_attention, dtype, device=device,
                 generator=generator))
 
-    def forward(self, x, training: bool = False):
+    def forward(self, x, training: bool = False, generator=None):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x + positional_encoding(x.shape[1], self.d_model, x.device,
                                     x.dtype)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer{i}")(x, training=training)
+            x = getattr(self, f"layer{i}")(x, training=training,
+                                           generator=generator)
         return x
 
 
@@ -279,13 +307,14 @@ class Decoder(nn.Module):
                 use_pallas_attention, dtype, device=device,
                 generator=generator))
 
-    def forward(self, x, enc_out, training: bool = False):
+    def forward(self, x, enc_out, training: bool = False, generator=None):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x + positional_encoding(x.shape[1], self.d_model, x.device,
                                     x.dtype)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer{i}")(x, enc_out, training=training)
+            x = getattr(self, f"layer{i}")(x, enc_out, training=training,
+                                           generator=generator)
         return x
 
 
@@ -299,13 +328,6 @@ class Transformer(nn.Module):
                  use_pallas_attention: Optional[bool] = None, *,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (attn_type == "autoformer" and compute_dtype is not None
-                and compute_dtype.itemsize == 2):
-            raise NotImplementedError(
-                f"attn_type='autoformer' with compute_dtype={compute_dtype} "
-                "is not ported yet: the reference rounds its DFT matrices "
-                "and spectra to that dtype (ROADMAP.md modules to port, "
-                "item 14)")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -314,9 +336,13 @@ class Transformer(nn.Module):
         self.encoder = Encoder(*args, device=device, generator=generator)
         self.decoder = Decoder(*args, device=device, generator=generator)
 
-    def forward(self, enc_inputs, dec_inputs, training: bool = False
+    def forward(self, enc_inputs, dec_inputs, training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator``: where informer draws its key samples."""
         in_dtype = enc_inputs.dtype
-        enc_out = self.encoder(enc_inputs, training=training)
-        dec_out = self.decoder(dec_inputs, enc_out, training=training)
+        enc_out = self.encoder(enc_inputs, training=training,
+                               generator=generator)
+        dec_out = self.decoder(dec_inputs, enc_out, training=training,
+                               generator=generator)
         return enc_out.to(in_dtype), dec_out.to(in_dtype)

@@ -19,8 +19,9 @@ def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     widened and the product taken by the fp32 GEMM, the order in which the
     JAX package's CPU runs sum: the 16-bit model's GP-parameter gradients
     (sums that nearly cancel) follow those few roundings, and the port could
-    not be held against the JAX package on the CPU otherwise."""
-    if a.device.type == "cpu":
+    not be held against the JAX package on the CPU otherwise.  Wider
+    operands take the plain product."""
+    if a.device.type == "cpu" and a.dtype.itemsize == 2:
         return torch.matmul(a.float(), b.float()).to(a.dtype)
     return torch.matmul(a, b)
 
@@ -28,12 +29,13 @@ def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Softmax attention over (batch, heads, length, d_k) operands.
 
-    Returns ``(context, attn)``.  With 16-bit operands the scores are exact
-    products summed in fp32 and the softmax is fp32; the probabilities are
-    cast to ``v``'s dtype for the second product and the context comes back
-    in that dtype.
+    Returns ``(context, attn)``.  With 16-bit values (and 16-bit or fp32
+    queries and keys: the conv family's in a 16-bit model) the scores are
+    exact products summed in fp32 and the softmax is fp32; the
+    probabilities are cast to ``v``'s dtype for the second product and the
+    context comes back in that dtype.
     """
-    if q.dtype == torch.float32:
+    if v.dtype.itemsize > 2:
         scores = torch.matmul(q, k.transpose(-1, -2))
         attn = torch.softmax(scores / math.sqrt(q.shape[-1]), dim=-1)
         return torch.matmul(attn, v), attn

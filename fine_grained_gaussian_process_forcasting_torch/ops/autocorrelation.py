@@ -5,6 +5,12 @@ PyTorch (the JAX version has no Pallas kernel).  The JAX package computes
 its transforms as DFT-by-GEMM, a choice made for the TPU's matrix unit; here
 they are ``torch.fft.rfft``/``irfft``, which give the same circular
 correlation.  Layout: (batch, heads, length, d) in and out.
+
+16-bit operands are widened to fp32 and the context is cast back to the
+values' dtype; the correlation stays fp32.  The JAX package rounds its DFT
+matrices and spectra to the operands' dtype instead (its
+``_rfft_pair``/``_irfft_pair``); the two agree within the 16-bit model's
+tolerance against the JAX package, delays replayed (its CPU tests).
 """
 
 from __future__ import annotations
@@ -50,9 +56,12 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     it replays another run's delays, so that two devices that break a
     near-tie differently still compute the same function.
 
-    Returns (context (b, h, L, d), mean correlation over heads/channels
-    (b, L)).
+    Returns (context (b, h, L, d) in ``v``'s dtype, mean correlation over
+    heads/channels (b, L) in fp32).
     """
+    dtype = v.dtype
+    if dtype.itemsize == 2:
+        q, k, v = q.float(), k.float(), v.float()
     b, h, L, d = q.shape
     S = k.shape[2]
     if L > S:
@@ -87,4 +96,4 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             delay = delays
             weights = torch.gather(mean_value, -1, delay)
         agg = _delay_aggregate(vt, delay, torch.softmax(weights, dim=-1))
-    return agg.transpose(2, 3), mean_value
+    return agg.transpose(2, 3).to(dtype), mean_value

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
+    matmul16,
     scaled_dot_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda.flash_attention import (
@@ -79,6 +80,9 @@ class Conv1d(nn.Module):
                      if bias else None)
 
     def forward(self, x):
+        """A 16-bit input is widened to the weight's dtype, as Flax's Conv
+        promotes it against its fp32 kernel."""
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
                      padding=self.weight.shape[-1] // 2)
         return y.transpose(1, 2)
@@ -101,10 +105,15 @@ def conv_attention_route(d_k: int, use_kernel: bool) -> str:
 
 def _dot_attention(q, k, v, use_kernel: bool):
     """The conv family's final softmax attention, by
-    ``conv_attention_route``."""
+    ``conv_attention_route``.  In a 16-bit model q and k come from the fp32
+    convolutions and v from the 16-bit projection: the plain op casts the
+    probabilities to v's dtype and returns that dtype, and a kernel takes v
+    widened to fp32 and returns fp32, as JAX's plain op and its head-folded
+    kernel do."""
     route = conv_attention_route(q.shape[-1], use_kernel)
     if route == "plain":
         return scaled_dot_attention(q, k, v)[0]
+    v = v.to(q.dtype)
     if route == "flash":
         return fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
     # the head-folded kernel reads (b, h, L, d) views in place; only a head
@@ -202,7 +211,7 @@ class ACATAttention(nn.Module):
         attn_full = attn.new_zeros((b, h, l, l_k))
         attn_full[..., 0::m_f] = attn
         attn_full = torch.softmax(attn_full, dim=-1)
-        return torch.matmul(attn_full.to(v.dtype), v)
+        return matmul16(attn_full.to(v.dtype), v)
 
 
 class ConvAttnAttention(nn.Module):

@@ -4,13 +4,17 @@ The port's module attributes carry the Flax module names (``forecasting_model
 .encoder.layer0.self_attn.wqkv`` and so on), so a Flax parameter tree maps
 onto a state dict by flattening its path.  Dense ``kernel`` (in, out) becomes
 ``Linear.weight`` (out, in), a 1-D Conv ``kernel`` (f, in, out) the conv1d
-``weight`` (out, in, f); every other leaf keeps its name and shape.  The
-input is a nested dict of numpy arrays, so loading needs no JAX;
-``to_flax`` is the inverse, for parameters and for their gradients.
+``weight`` (out, in, f); an LSTM cell ``lstm{i}`` (gates i, f, g, o, each a
+Dense ``i*`` on the input and ``h*`` with a bias on the hidden state) becomes
+layer i of ``nn.LSTM`` ``lstm``, its gates stacked, with a zero ``b_ih``
+(``models/lstm.py``); every other leaf keeps its name and shape.  The input
+is a nested dict of numpy arrays, so loading needs no JAX; ``to_flax`` is
+the inverse, for parameters and for their gradients.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping, Optional
 
 import numpy as np
@@ -78,6 +82,27 @@ def dense(in_features: int, out_features: int, *, bias: bool,
     return layer
 
 
+_GATES = "ifgo"  # Flax's and nn.LSTM's order of the gates
+_LSTM_CELL = re.compile(r"lstm(\d+)$")
+_LSTM_LEAF = re.compile(r"(?:(.*)\.)?lstm\.(weight_ih|weight_hh|bias_hh|"
+                        r"bias_ih)_l(\d+)$")
+
+
+def _lstm_leaves(cell: Mapping, prefix: str, layer: str) -> dict:
+    """One Flax LSTM cell -> layer ``layer`` of ``prefix + "lstm"``."""
+    def stacked(side, leaf):  # kernels (in, out) -> rows (out, in)
+        return np.concatenate([np.array(cell[side + g][leaf], np.float32).T
+                               for g in _GATES])
+
+    out = {"weight_ih": stacked("i", "kernel"),
+           "weight_hh": stacked("h", "kernel"),
+           "bias_hh": stacked("h", "bias")}
+    out["bias_ih"] = np.zeros_like(out["bias_hh"])
+    return {f"{prefix}lstm.{name}_l{layer}":
+            torch.from_numpy(np.ascontiguousarray(arr))
+            for name, arr in out.items()}
+
+
 def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """Flax parameter tree (nested dict of arrays) -> CPU state dict.
 
@@ -90,6 +115,11 @@ def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
     def walk(node: Mapping, prefix: str) -> None:
         for name, value in node.items():
+            cell = _LSTM_CELL.match(name)
+            if cell and isinstance(value, Mapping) and set(value) == {
+                    side + g for side in "ih" for g in _GATES}:
+                state.update(_lstm_leaves(value, prefix, cell.group(1)))
+                continue
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
                 continue
@@ -112,11 +142,27 @@ def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
 
     Every 2-D ``weight`` of the port is an ``nn.Linear``'s, and becomes the
     Dense ``kernel`` (in, out); every 3-D one a conv1d's, and becomes the
-    Conv ``kernel`` (f, in, out)."""
+    Conv ``kernel`` (f, in, out).  An ``nn.LSTM``'s layers become Flax's
+    cells, their gates split; its zero ``b_ih`` has no Flax leaf."""
     tree: dict = {}
     for key, value in state.items():
-        *path, name = key.split(".")
         arr = value.detach().cpu().numpy().astype(np.float32)
+        lstm = _LSTM_LEAF.match(key)
+        if lstm:
+            prefix, kind, layer = lstm.groups()
+            if kind == "bias_ih":
+                continue
+            node = tree
+            for part in (prefix.split(".") if prefix else []) + [
+                    f"lstm{layer}"]:
+                node = node.setdefault(part, {})
+            side = "i" if kind == "weight_ih" else "h"
+            leaf = "bias" if kind == "bias_hh" else "kernel"
+            for g, block in zip(_GATES, np.split(arr, 4)):
+                node.setdefault(side + g, {})[leaf] = np.ascontiguousarray(
+                    block.T)
+            continue
+        *path, name = key.split(".")
         if name == "weight" and arr.ndim in (2, 3):
             name, arr = "kernel", np.ascontiguousarray(arr.T)
         node = tree

@@ -12,12 +12,12 @@ default) is read, its ``date`` column kept as text.
         --denoising True --gp True --synthetic
 
 Runs on the card; ``main(argv, device="cpu")`` runs the plain versions on
-the CPU.  Not ported yet, and refused rather than ignored: ``--dp``,
-``--tp``, ``--fsdp`` (ROADMAP.md item 13), ``--multiseed True`` (item 8) and
-``--backbone lstm`` (item 11, refused by the model).  The JAX CLI first
-enables JAX's persistent compilation cache; PyTorch runs eagerly and the
-CUDA kernels are built once per source hash (``ops/cuda/_build.py``), so
-there is nothing to enable here.
+the CPU.  Every ``--attn_type`` and ``--backbone`` of the JAX CLI runs.
+Not ported yet, and refused rather than ignored: ``--dp``, ``--tp``,
+``--fsdp`` (ROADMAP.md item 13) and ``--multiseed True`` (item 8).  The
+JAX CLI first enables JAX's persistent compilation cache; PyTorch runs
+eagerly and the CUDA kernels are built once per source hash
+(``ops/cuda/_build.py``), so there is nothing to enable here.
 """
 
 from __future__ import annotations

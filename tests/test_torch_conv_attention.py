@@ -260,7 +260,7 @@ def test_flag_beyond_the_kernels_head_dim_raises():
     """The flag at d_k 64, past the head-folded kernel's d_k <= 63: the port
     takes the flash kernel there (its plain version on the CPU), JAX its
     head-folded kernel (interpret mode), the same function; nothing
-    raises.  16-bit compute still raises."""
+    raises."""
     for op in ("ATA", "conv_attn"):
         got, want = _flagged_op_at(op, 64, seed=8)
         np.testing.assert_allclose(got, want, rtol=TOL_OP, atol=TOL_OP,
@@ -268,8 +268,3 @@ def test_flag_beyond_the_kernels_head_dim_raises():
     ttr.Transformer(d_model=512, d_ff=64, d_k=64, d_v=64, n_heads=8,
                     n_layers=1, attn_type="ATA", use_pallas_attention=True,
                     device="cpu")
-    # the JAX conv layers promote a 16-bit input to fp32: not ported yet
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttr.Transformer(d_model=32, d_ff=64, d_k=4, d_v=4, n_heads=8,
-                        n_layers=1, attn_type="conv_attn",
-                        compute_dtype=torch.bfloat16, device="cpu")

@@ -1436,3 +1436,113 @@ def test_harness_on_card(cuda, tmp_path):
     assert preds.shape == (1, 32, 8) and np.isfinite(preds).all()
     assert (tmp_path / "reported_errors_solar.csv").read_text().startswith(
         ",MSE,MAE\n" + name + ",")
+
+
+# the model's last options on the card against the CPU: informer (its key
+# sample pinned on both devices), fedformer (a decoder stream of 16: its 8
+# Fourier modes need 8 frequencies), the LSTM backbone, and the 16-bit
+# autoformer (the card's delays replayed on the CPU) and conv family
+OPTION_DEC = 16
+OPTIONS = {
+    "informer": dict(attn_type="informer"),
+    "fedformer": dict(attn_type="fedformer"),
+    "lstm": dict(backbone="lstm", stack_size=2),
+    "autoformer_bf16": dict(attn_type="autoformer", **BF16),
+    "conv_attn_bf16": dict(attn_type="conv_attn", **BF16),
+}
+
+
+def _pin_options(monkeypatch):
+    """ProbSparse takes one numpy key sample per shape on both devices;
+    AutoCorrelation replays, on the CPU, the delays the card chose."""
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        transformer as ttr,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.ops import (
+        probsparse as tps,
+    )
+
+    psp, auto = ttr.prob_sparse_attention, ttr.auto_correlation
+    delays, replay = [], []
+
+    def pinned(q, k, v, generator=None, **kw):
+        u_part, _ = tps.sample_sizes(q.shape[2], k.shape[2])
+        sample = np.random.default_rng(q.shape[2] * k.shape[2]).integers(
+            0, k.shape[2], size=(q.shape[2], u_part))
+        return psp(q, k, v, index_sample=torch.from_numpy(sample), **kw)
+
+    def recorded(q, k, v, factor=1, training=True):
+        given = None
+        if q.device.type == "cpu" and replay:
+            given = replay.pop(0)
+            given = given if training else given[: q.shape[0]]
+        ctx, corr = auto(q, k, v, factor, training, delays=given)
+        if q.device.type == "cuda":
+            top_k = int(factor * np.log(q.shape[2]))
+            delays.append((torch.topk(corr.mean(0), top_k).indices
+                           if training else
+                           torch.topk(corr, top_k, dim=-1).indices).cpu())
+        return ctx, corr
+
+    def replay_next():
+        """The card's delays so far, for the CPU's next run."""
+        replay.extend(delays)
+        delays.clear()
+
+    monkeypatch.setattr(ttr, "prob_sparse_attention", pinned)
+    monkeypatch.setattr(ttr, "auto_correlation", recorded)
+    return replay_next
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_model_option_on_card_matches_cpu(cuda, option, monkeypatch):
+    """Served (three batches of 16, the last ragged) and one training step
+    on the card through the fused-GP kernels (the bf16 ones at 16 bits),
+    against the CPU from the same weights: fp32 1e-4 (each gradient 1e-3
+    of its largest magnitude), 16-bit 2^-6 (gradients 2^-3)."""
+    kw = dict(SMALL, pred_len=OPTION_DEC, **OPTIONS[option])
+    bf16 = "compute_dtype" in kw
+    replay_next = _pin_options(monkeypatch)
+    rng = np.random.default_rng(14)
+    enc = rng.normal(size=(N, ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(N, OPTION_DEC, F)).astype(np.float32)
+    y = rng.normal(size=(BATCH, OPTION_DEC, 1)).astype(np.float32)
+    cpu_model = ForecastDenoising(**kw, device="cpu")
+    with torch.no_grad():
+        cpu_model.lam.fill_(0.003)  # the ELBO counts
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    session = InferenceSession(ForecastDenoising(**kw, device=cuda), state,
+                               batch_size=BATCH, device=cuda)
+    _zero_counts()
+    got = session.predict(enc, dec)
+    replay_next()
+    want = InferenceSession(cpu_model, state, batch_size=BATCH,
+                            device="cpu").predict(enc, dec)
+    gp = "fused_gp_bf16" if bf16 else "fused_gp"
+    assert _flash_counts()[gp] == 3
+    tol = TOL_BF16_MODEL if bf16 else TOL_MODEL
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+    gpu_model = ForecastDenoising(**kw, device=cuda)
+    gpu_model.load_state_dict(state)
+    batch = [torch.from_numpy(a[:BATCH]) for a in (enc, dec)] + [
+        torch.from_numpy(y)]
+    _zero_counts()
+    loss_g, grads_g = _step(gpu_model, [t.to(cuda) for t in batch])
+    counts = _flash_counts()
+    assert (counts["fused_gp_bf16"], counts["fused_gp_bf16_bwd"]) == (
+        (1, 1) if bf16 else (0, 0))
+    assert counts["fused_gp"] == (0 if bf16 else 2)
+    replay_next()
+    loss_c, grads_c = _step(cpu_model, batch)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=tol)
+    # a gradient a million times below the largest (fedformer's fed_q bias,
+    # which reaches no selected mode: 0 in exact arithmetic) is rounding
+    # residue on both devices, held to that floor as the smoke run holds it
+    floor = 1e-6 * max(g.abs().max().item() for g in grads_c.values())
+    for name, gc in grads_c.items():
+        err = (grads_g[name] - gc).abs().max().item()
+        scale = max(gc.abs().max().item(), floor)
+        assert err <= (TOL_BF16_GRAD if bf16 else 1e-3) * scale, name
