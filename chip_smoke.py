@@ -52,7 +52,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    flagship's d 32 too).  The rbf kernel is also held to K in float64 beside
    the plain version, rerun bit-equal, and timed at the served ragged batch
    with the store bandwidth it reached.  The library's backward is timed on
-   the device alone, from its kernels under ``torch.profiler``.
+   the device alone, from its kernels under ``torch.profiler``.  The seed
+   axis (multi-seed training): the fused GP for 3 seeds in one call each
+   way, fp32 at the flagship shape and bf16 at the production width, every
+   seed bit-equal to its own call of one seed, within the plain gates and
+   the float64 gate, timed beside 3 single calls; the head-folded and flash
+   kernels' vmap rules (the seeds folded into the batch), bit-equal to
+   per-seed calls forward and backward.
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -66,7 +72,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Checks finite losses, the launches per step (fused GP forward and backward
    once; head-folded attention forward and backward six times in ``basic``),
    and one step's loss and gradients on 16 windows against the port's CPU
-   run.
+   run.  ``train_multiseed_autoformer``: the flagship at 3 seeds (weights
+   of seeds 0, 1, 2) through ``MultiSeedTrainer``, the same steps: the
+   fused GP once each way a step for all seeds, one step's per-seed losses
+   and gradients against 3 single-seed steps on the card, seed 0's step
+   against the CPU; seed-steps/s, busy, launches and peak memory beside
+   ``train_autoformer``'s.
 5. Serving and training, production width: the ``basic`` + GP + denoise
    model at d_model 512, 8 heads (d_k 64), 2 layers, 512 inducing points,
    batch 64, enc 512, dec/pred 128, 8 features, ``compute_dtype`` and
@@ -111,7 +122,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    way per step).  Checks finite losses, the launches per step and per
    evaluated batch, the checkpoint, the predictions ``.npz`` (2, 256, 96),
    the ``reported_errors_solar.csv`` row, and one step of the checkpointed
-   ATA model on 16 windows against the port's CPU run.
+   ATA model on 16 windows against the port's CPU run.  Then
+   ``cli_multiseed``: the same with ``--multiseed True --n_seeds 3
+   --use_pallas_attention True`` (the seeds train as one group, head-folded
+   once a call site for all of them), three checkpoints, curves, ``.npz``
+   files and CSV rows, finite per-seed test errors, and
+   ``evaluate_checkpoints`` over the three checkpoints.
 
 The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
@@ -137,6 +153,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -420,11 +437,11 @@ def _fwd_runner(fused_gp, args, bf16):
     scratch = torch.empty(fused_gp.fwd_scratch_floats(b * n, d, m, bf16),
                           device="cuda")
     ptrs = [a.data_ptr() for a in (*args, *outs, scratch)]
-    launch = fused_gp.launcher(bf16)
+    launch = fused_gp.launcher()
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        if launch(*ptrs, b * n, d, m, stream):
+        if launch(*ptrs, b * n, d, m, 1, int(bf16), stream):
             raise RuntimeError("fused_gp launch failed")
     return run
 
@@ -741,10 +758,10 @@ def check_fused_gp_nonaffine(gen, shape, bf16=False):
     bwd_ptrs = ([a.data_ptr() for a in full[:7]]
                 + [c.data_ptr() for c in cot]
                 + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
-    bwd_launch = fused_gp.bwd_launcher(bf16)
+    bwd_launch = fused_gp.bwd_launcher()
 
     def run_bwd():
-        if bwd_launch(*bwd_ptrs, b * n, d, m, stream):
+        if bwd_launch(*bwd_ptrs, b * n, d, m, 1, int(bf16), stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -1227,7 +1244,7 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
         raise AssertionError(f"{tag} differs between two runs")
     log(f"{tag}: two runs bit-equal in all eight gradients")
 
-    launch = fused_gp.bwd_launcher(bf16)
+    launch = fused_gp.bwd_launcher()
     stream = torch.cuda.current_stream().cuda_stream
     outs = [torch.empty_like(t) for t in got]
     scratch = torch.empty(fused_gp.bwd_scratch_floats(b * n, d, m, bf16),
@@ -1235,7 +1252,7 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
     ptrs = ([a.data_ptr() for a in args[:7]] + [c.data_ptr() for c in cot]
             + [o.data_ptr() for o in outs] + [scratch.data_ptr()])
     def run_kernel():
-        if launch(*ptrs, b * n, d, m, stream):
+        if launch(*ptrs, b * n, d, m, 1, int(bf16), stream):
             raise RuntimeError("fused_gp_bwd launch failed")
 
     with torch.inference_mode():
@@ -1283,6 +1300,247 @@ def check_fused_gp_bwd(gen, shape, bf16=False, large_m=False):
             "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+N_SEEDS = 3  # the protocol's seeds (scripts/run.sh), trained as one group
+
+
+def _stack_seeds(per):
+    """Per-seed tuples of tensors, stacked on a leading seed axis."""
+    return tuple(torch.stack(ts) for ts in zip(*per))
+
+
+def check_fused_gp_seeds(gen, shape, bf16=False):
+    """The seed axis of the fused GP: N_SEEDS seeds' inputs at (b, n, d, m)
+    in one call each way, held (1) bit-equal to N_SEEDS calls of one seed
+    each (the same arithmetic, offsets only), (2) each seed against the
+    plain version at ``check_fused_gp``'s and ``check_fused_gp_bwd``'s
+    gates, (3) each seed's outputs, summed over F64_DRAWS draws, no farther
+    from float64 than F64_BUDGET_FP32 (bf16: F64_BUDGET_BF16_* from the bf16
+    function, and the forward from the fp32 function too) times the plain
+    version's.  Times the seeded calls beside N_SEEDS single calls.
+    Returns the (forward, backward) entries of the kernels line."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import fused_gp
+
+    dev = "cuda"
+    b, n, d, m = shape
+    s = N_SEEDS
+    tag = (f"fused_gp{'_bf16' if bf16 else ''} seeds (S {s}, rows {b * n}, "
+           f"d {d}, M {m})")
+    plain = fused_gp.whitened_marginals_affine_plain
+    plain_bwd = fused_gp.whitened_marginals_affine_bwd_plain
+
+    def draw(g):
+        per = [_gp_inputs(g, shape) for _ in range(s)]
+        cot = [(torch.randn(b, n, device=dev, generator=g),
+                torch.randn(b, n, device=dev, generator=g)) for _ in range(s)]
+        return per, cot
+
+    per, cot = draw(gen)
+    args, cots = _stack_seeds(per), _stack_seeds(cot)
+    with torch.inference_mode():
+        fwd = fused_gp.forward_kernel(*args, bf16=bf16)
+        bwd = fused_gp.backward_kernel(*args, *cots, bf16=bf16)
+        fwd1 = [fused_gp.forward_kernel(*a, bf16=bf16) for a in per]
+        bwd1 = [fused_gp.backward_kernel(*a, *c, bf16=bf16)
+                for a, c in zip(per, cot)]
+    torch.cuda.synchronize()
+    for i in range(s):
+        if not (all(torch.equal(x[i], y) for x, y in zip(fwd, fwd1[i]))
+                and all(torch.equal(x[i], y) for x, y in zip(bwd, bwd1[i]))):
+            raise AssertionError(f"{tag}: seed {i} differs from its call of "
+                                 "one seed")
+    log(f"{tag}: every seed's mean, var and eight gradients bit-equal to "
+        f"its own call of one seed")
+    fwd_names, bwd_names = ("mean", "var"), ("dx", "dzs", "du", "dW", "dos",
+                                             "dinv_ls", "dmean_w", "dmean_b")
+    # float64 distances, per seed, summed over F64_DRAWS draws of all seeds:
+    # from the fp32 function (fp32) or the bf16 function (bf16; the forward
+    # from the fp32 function too)
+    refs = (1, 0) if bf16 else (0,)
+    sums = {(way, r, name, i): [0.0, 0.0] for i in range(s) for r in refs
+            for way, names in (("fwd", fwd_names), ("bwd", bwd_names))
+            for name in names if way == "fwd" or r == refs[0]}
+    errs = {}
+    f64_gen = _F64_BF16_GEN[0] if bf16 else _F64_GEN[0]
+    for k in range(F64_DRAWS):
+        if k:
+            per, cot = draw(f64_gen)
+            args, cots = _stack_seeds(per), _stack_seeds(cot)
+            with torch.inference_mode():
+                fwd = fused_gp.forward_kernel(*args, bf16=bf16)
+                bwd = fused_gp.backward_kernel(*args, *cots, bf16=bf16)
+        with torch.inference_mode():
+            for i in range(s):
+                want_f = plain(*per[i], bf16=bf16)
+                want_b = plain_bwd(*per[i], *cot[i], bf16=bf16)
+                wide = [a.double() for a in per[i]]
+                wide_c = [c.double() for c in cot[i]]
+                for way, got, want, names in (("fwd", fwd, want_f, fwd_names),
+                                              ("bwd", bwd, want_b,
+                                               bwd_names)):
+                    if k == 0:  # the plain gates, on the first draw
+                        for name, g, w_ in zip(names, got, want):
+                            scale = w_.abs().max().item()
+                            errs[(way, name, i)] = (
+                                (g[i] - w_).abs().max().item(), scale)
+                    for r in refs:
+                        if way == "bwd" and r != refs[0]:
+                            continue
+                        exact = (plain(*wide, bf16=r) if way == "fwd"
+                                 else plain_bwd(*wide, *wide_c, bf16=r))
+                        for name, g, w_, e in zip(names, got, want, exact):
+                            acc = sums[(way, r, name, i)]
+                            acc[0] += (g[i].double() - e).abs().max().item()
+                            acc[1] += (w_.double() - e).abs().max().item()
+    worst_f64, worst = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    worst_abs = {"fwd": 0.0, "bwd": 0.0}
+    for (way, r, name, i), (ks, ps) in sums.items():
+        budget = ((F64_BUDGET_BF16_FWD if way == "fwd"
+                   else F64_BUDGET_BF16_BWD) if bf16 else F64_BUDGET_FP32)
+        ratio = _f64_ratio(ks, ps)
+        worst_f64[way] = max(worst_f64[way], ratio)
+        if not ratio <= budget:
+            raise AssertionError(
+                f"{tag} seed {i} {name}: {ratio:.3f} times farther from the "
+                f"{'bf16' if r else 'fp32'} function in float64 than plain")
+    for (way, name, i), (err, scale) in errs.items():
+        if way == "fwd":
+            tol = (TOL_BF16 * max(1.0, scale) if bf16 and name == "var"
+                   else TOL_FUSED_GP)
+            ok, rel = err <= tol, err / tol * TOL_FUSED_GP
+        else:
+            rel_tol = TOL_BF16 if bf16 else TOL_FUSED_GP_BWD
+            ks, ps = sums[(way, refs[0], name, i)]
+            rel = err / max(scale, 1.0)
+            ok = _gp_grad_within(name, rel, rel_tol, ks, ps)
+        worst[way] = max(worst[way], rel)
+        worst_abs[way] = max(worst_abs[way], err)
+        if not ok:
+            raise AssertionError(f"{tag} seed {i} {way} {name} disagrees "
+                                 f"with its plain version: {err:.3e}")
+    log(f"{tag}: each seed within the plain gates (largest max|kernel - "
+        f"plain| fwd {worst_abs['fwd']:.3e}, bwd {worst_abs['bwd']:.3e}); "
+        f"largest summed float64 distance over plain's: fwd "
+        f"{worst_f64['fwd']:.3f}, bwd {worst_f64['bwd']:.3f}")
+
+    with torch.inference_mode():
+        ms = {"fwd": time_ms(lambda: fused_gp.forward_kernel(*args, bf16=bf16),
+                             10),
+              "bwd": time_ms(lambda: fused_gp.backward_kernel(
+                  *args, *cots, bf16=bf16), 5)}
+        singles = {"fwd": time_ms(lambda: [fused_gp.forward_kernel(
+                       *a, bf16=bf16) for a in per], 10),
+                   "bwd": time_ms(lambda: [fused_gp.backward_kernel(
+                       *a, *c, bf16=bf16) for a, c in zip(per, cot)], 5)}
+        plain_ms = {"fwd": time_ms(lambda: plain(*args, bf16=bf16), 5),
+                    "bwd": time_ms(lambda: plain_bwd(*args, *cots,
+                                                     bf16=bf16), 3)}
+    r = s * b * n  # every seed's rows
+    kw = r * 2.0 * m * m
+    fwd_rest = r * (2.0 * m * d + 7.0 * m + 2.0 * d)
+    fwd_bytes = 4.0 * s * (b * n * d + m * d + m + m * m + 2 * d + 2
+                           + 2 * b * n)
+    bwd_products = r * (2.0 * m * m + (2.0 * m * m if bf16
+                                       else m * (m + 1.0)))
+    bwd_rest = r * (4.0 * m * d + (2.0 * d + 10.0) * m)
+    bwd_bytes = 4.0 * s * (2 * b * n * d + 2 * b * n + 2 * m * d + 2 * m
+                           + 2 * m * m + 3 * d + 4)
+    bounds = {"fwd": (bound(fwd_rest, r * m, fwd_bytes, kw) if bf16
+                      else bound(kw + fwd_rest, r * m, fwd_bytes)),
+              "bwd": (bound(bwd_rest, r * m, bwd_bytes, bwd_products) if bf16
+                      else bound(bwd_products + bwd_rest, r * m, bwd_bytes))}
+    entries = []
+    for way, site in (("fwd", ":222"), ("bwd", ":290")):
+        log(f"{tag} {way}: one call for {s} seeds {ms[way]:.4f} ms, {s} "
+            f"calls of one seed {singles[way]:.4f} ms (ratio "
+            f"{ms[way] / singles[way]:.3f}); plain over the seed axis "
+            f"{plain_ms[way]:.4f} ms; bound {bounds[way][0]:.4f} ms "
+            f"({bounds[way][1]}); library: none")
+        entries.append({
+            "name": "fused_gp.whitened_marginals_affine"
+                    + ("_bf16" if bf16 else "") + f" (seed axis, {way}"
+                    + ("" if bf16 else ", fp32") + ")",
+            "route": "cuda", "source": _FUSED_GP_SOURCE,
+            "replaces": _FUSED_GP_PALLAS + site + " (under jax.vmap)",
+            "on_path": not bf16,
+            "shape": {"seeds": s, "rows": b * n, "d": d, "M": m},
+            "max_abs_err": worst_abs[way], "max_rel_err": worst[way],
+            "bit_equal_to_single_seed_calls": True,
+            "f64_dist_over_plain": worst_f64[way], "ms": ms[way],
+            "single_seed_calls_ms": singles[way], "plain_ms": plain_ms[way],
+            "bound_ms": bounds[way][0], "bound_by": bounds[way][1],
+            "library_ms": None})
+    return entries
+
+
+def check_attention_folds(gen):
+    """The attention kernels' vmap rules: N_SEEDS seeds folded into the
+    batch, one call each way, bit-equal to one call per seed, forward and
+    the gradients of q, k and v; head-folded on the projections' views at
+    the flagship's enc-self shape, flash (bf16) at the production width's.
+    Times the folded calls beside N_SEEDS single calls.  Returns
+    {kernel key: result} to record beside each kernel's entry."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        flash_attention,
+        head_folded_attention,
+    )
+
+    s = N_SEEDS
+    out = {}
+    for key, fn, shape, dtype in (
+            ("head_folded_attention", head_folded_attention.head_folded_attention,
+             (B, HEADS, ENC_LEN, D_MODEL // HEADS), torch.float32),
+            ("flash_attention", flash_attention.fused_attention,
+             (P_B, HEADS, P_ENC_LEN, P_D_MODEL // HEADS), torch.bfloat16)):
+        b, h, length, d = shape
+        tag = f"{key} seed fold (S {s}, {shape}, {str(dtype)[6:]})"
+        # (S, b, L, h, d) buffers viewed as (S, b, h, L, d), as the
+        # projections give them under vmap
+        qkv = [torch.randn(s, b, length, h, d, device="cuda", generator=gen
+                           ).to(dtype).transpose(2, 3) for _ in range(3)]
+        if key == "flash_attention":  # its wrapper takes contiguous operands
+            qkv = [t.contiguous() for t in qkv]
+        do = torch.randn(s, b, h, length, d, device="cuda", generator=gen
+                         ).to(dtype)
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        got = torch.func.vmap(fn)(*leaves)
+        got.backward(do)
+        singles = []
+        for i in range(s):
+            one = [t[i].detach().requires_grad_() for t in qkv]
+            o = fn(*one)
+            o.backward(do[i])
+            singles.append((o.detach(), *(t.grad for t in one)))
+        same = all(torch.equal(got[i].detach(), singles[i][0])
+                   and all(torch.equal(t.grad[i], g) for t, g in
+                           zip(leaves, singles[i][1:])) for i in range(s))
+        if not same:
+            raise AssertionError(f"{tag}: the folded call differs from the "
+                                 "calls of one seed")
+        def folded():
+            return torch.func.vmap(fn)(*qkv)
+
+        def single():
+            return [fn(*(t[i] for t in qkv)) for i in range(s)]
+
+        with torch.inference_mode():
+            ms, single_ms = time_ms(folded, 10), time_ms(single, 10)
+        # the device's share: the kernels' time under the profiler (the
+        # events above also hold vmap's host time where it exceeds it)
+        busy = {name: sum(_by_kernel(f, 10).values())
+                for name, f in (("folded", folded), ("single", single))}
+        log(f"{tag}: forward and dq, dk, dv bit-equal to {s} calls of one "
+            f"seed; forward folded {ms:.4f} ms, {s} single calls "
+            f"{single_ms:.4f} ms (CUDA events); device time by the profiler "
+            f"folded {busy['folded']:.4f} ms, single calls "
+            f"{busy['single']:.4f} ms")
+        out[key] = {"seeds": s, "shape": list(shape),
+                    "bit_equal_to_single_seed_calls": True, "ms": ms,
+                    "single_seed_calls_ms": single_ms,
+                    "device_ms": busy["folded"],
+                    "single_seed_calls_device_ms": busy["single"]}
+    return out
 
 
 def _by_kernel(fn, iters):
@@ -1966,7 +2224,7 @@ class Config:
     epochs: int = N_EPOCHS  # timed epochs of training
     steps: int = N_TRAIN_STEPS  # steps per timed epoch
 
-    def model(self, device: str):
+    def model(self, device: str, seed: int = SEED):
         from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
             ForecastDenoising,
         )
@@ -1984,7 +2242,7 @@ class Config:
             stack_size=self.layers, pred_len=self.pred,
             attn_type=self.attn_type, gp=True, denoise=True,
             num_inducing=INDUCING, device=device,
-            generator=torch.Generator().manual_seed(SEED), **extra)
+            generator=torch.Generator().manual_seed(seed), **extra)
 
     def windows(self, n: int, seed: int):
         rng = np.random.default_rng(seed)
@@ -2007,7 +2265,9 @@ class Config:
 
 
 _NONE = dict.fromkeys(
-    ("fused_gp", "fused_gp_bwd", "head_folded_attention",
+    ("fused_gp", "fused_gp_bwd", "fused_gp_seeds", "fused_gp_seeds_bwd",
+     "fused_gp_bf16_seeds", "fused_gp_bf16_seeds_bwd",
+     "head_folded_attention",
      "head_folded_attention_bwd", "fused_gp_bf16", "fused_gp_bf16_bwd",
      "flash_attention", "flash_attention_bwd", "flash_attention_bf16sm",
      "flash_attention_bf16sm_bwd", "flash_attention_fp32",
@@ -2368,6 +2628,11 @@ def _counters():
 
     return {"fused_gp": (fused_gp, "launches"),
             "fused_gp_bwd": (fused_gp, "bwd_launches"),
+            # the calls with the seed axis, counted in fused_gp's too
+            "fused_gp_seeds": (fused_gp, "seeds_launches"),
+            "fused_gp_seeds_bwd": (fused_gp, "seeds_bwd_launches"),
+            "fused_gp_bf16_seeds": (fused_gp, "bf16_seeds_launches"),
+            "fused_gp_bf16_seeds_bwd": (fused_gp, "bf16_seeds_bwd_launches"),
             "head_folded_attention": (head_folded_attention, "launches"),
             "head_folded_attention_bwd": (head_folded_attention,
                                           "bwd_launches"),
@@ -2660,10 +2925,13 @@ def train(cfg: Config, card: str):
     def one_step():
         after["state"], _, _ = trainer.train_epoch(state, batches(first, 1))
 
-    profile_device(one_step, f"train {cfg.name}, one step of {cfg.batch} "
-                   f"windows", median)
+    busy = profile_device(one_step, f"train {cfg.name}, one step of "
+                          f"{cfg.batch} windows", median)
     cpu_check = check_step_against_cpu(cfg, after["state"].params,
                                        tuple(t[first + 1] for t in data))
+    cpu_check.update(step_ms=median, steps_per_s=1e3 / median,
+                     busy_ms=busy["busy_ms"], launches_a_step=busy["launches"],
+                     idle_share=busy["idle_share"], peak_mib=peak / 2**20)
     return counts, cpu_check, trainer.model
 
 
@@ -2763,17 +3031,19 @@ CLI_FEATURES = 5  # solar: day_of_week, hour, Power(MW), categorical_id, capacit
 
 
 class _EpochWatch:
-    """Wraps ``Trainer.train_epoch`` for one CLI run: times each epoch (its
-    losses are read back, so the call ends synchronised), keeps the last
-    epoch's first batch for the CPU check, and profiles the epoch
-    ``profile_epoch`` against the wall time of the one before it."""
+    """Wraps ``train_epoch`` of ``cls`` (``Trainer`` by default) for one CLI
+    run: times each epoch (its losses are read back, so the call ends
+    synchronised), keeps the last epoch's first batch for the CPU check,
+    and profiles the epoch ``profile_epoch`` (None: none) against the wall
+    time of the one before it."""
 
-    def __init__(self, label: str, profile_epoch: int):
+    def __init__(self, label: str, profile_epoch: int, cls=None):
         from fine_grained_gaussian_process_forcasting_torch.train import (
             trainer,
         )
 
-        self.cls, self.original = trainer.Trainer, trainer.Trainer.train_epoch
+        cls = cls or trainer.Trainer
+        self.cls, self.original = cls, cls.train_epoch
         self.label, self.profile_epoch = label, profile_epoch
         self.epoch_ms, self.steps, self.batch, self.profile = [], [], None, None
 
@@ -2890,6 +3160,265 @@ def cli_ata(card: str, use_pallas: bool):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+class _no_vmap_loops(warnings.catch_warnings):
+    """Fails the path if ``torch.func.vmap`` fell back to a per-seed loop
+    for any op inside (its "performance drop" warning)."""
+
+    def __init__(self, label):
+        super().__init__(record=True)
+        self.label = label
+
+    def __enter__(self):
+        self.caught = super().__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        slow = {str(w.message)[:200] for w in self.caught
+                if "performance drop" in str(w.message)}
+        if slow and exc[0] is None:
+            raise AssertionError(f"{self.label}: vmap ran ops as a per-seed "
+                                 f"loop: {sorted(slow)}")
+        if exc[0] is None:
+            log(f"{self.label}: no op fell back to a per-seed loop under "
+                "vmap")
+
+
+def train_multiseed(cfg: Config, card: str, single: dict):
+    """``train_multiseed_autoformer``: the flagship trained at N_SEEDS seeds
+    as one group (``MultiSeedTrainer``), seed i from the weights of seed
+    SEED + i, through the same warm-up, epochs and profiled step as
+    ``train(cfg)``, whose numbers (``single``) it prints beside its own.
+    Checks finite per-seed losses, one fused-GP launch each way a step for
+    all seeds, one step's per-seed losses and gradients against N_SEEDS
+    single-seed steps on the card (TOL_TRAIN), and seed 0's step against the
+    port's CPU run as ``train`` does."""
+    from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
+        MultiSeedTrainer,
+    )
+
+    name = f"train_multiseed_{cfg.name}"
+    seeds = [SEED + i for i in range(N_SEEDS)]
+    data = cfg.training_data(N_WARMUP + cfg.epochs * cfg.steps + 2,
+                             SEED + 1)
+    trainer = MultiSeedTrainer(cfg.model("cuda"), cfg.d_model, N_SEEDS,
+                               warmup_steps=WARMUP_STEPS, lr_mul=LR_MUL,
+                               device="cuda")
+    state = trainer.init_state(
+        seeds, lambda s: cfg.model("cuda", seed=s).state_dict())
+
+    def batches(i, n):
+        return tuple(t[i: i + n] for t in data)
+
+    with _no_vmap_loops(name):  # and none in evaluation
+        state, _, _ = trainer.train_epoch(state, batches(0, N_WARMUP))
+        trainer.eval_epoch(state, batches(0, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    epoch_ms, loss_sums = [], []
+    for e in range(cfg.epochs):
+        t0 = time.perf_counter()
+        state, loss_sum, _ = trainer.train_epoch(
+            state, batches(N_WARMUP + e * cfg.steps, cfg.steps))
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)  # read back: synced
+        loss_sums.append(loss_sum)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = dict(_NONE, fused_gp=1, fused_gp_bwd=1, fused_gp_seeds=1,
+                    fused_gp_seeds_bwd=1)
+    expect = {k: cfg.epochs * cfg.steps * v for k, v in per_step.items()}
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts}, expected {expect}")
+    if not all(np.isfinite(v).all() for v in loss_sums):
+        raise AssertionError(f"{name}: non-finite loss sums {loss_sums}")
+    median = float(np.median([t / cfg.steps for t in epoch_ms]))
+    first = N_WARMUP + cfg.epochs * cfg.steps
+    after = {}
+
+    def one_step():
+        after["state"], _, _ = trainer.train_epoch(state, batches(first, 1))
+
+    busy = profile_device(one_step, f"{name}, one step of {N_SEEDS} seeds x "
+                          f"{cfg.batch} windows", median)
+    log(f"{name} on {card}: {cfg.epochs} epochs of {cfg.steps} steps of "
+        f"{N_SEEDS} seeds x {cfg.batch} windows: "
+        f"{', '.join(f'{t:.2f}' for t in epoch_ms)} ms; per step median "
+        f"{median:.3f} ms ({N_SEEDS * 1e3 / median:.2f} seed-steps/s; "
+        f"train_{cfg.name}: {single['step_ms']:.3f} ms, "
+        f"{single['steps_per_s']:.2f} steps/s); device busy a step "
+        f"{busy['busy_ms']:.4f} ms in {busy['launches']} launches, idle share "
+        f"{busy['idle_share']:.3f} (train_{cfg.name}: {single['busy_ms']:.4f} "
+        f"ms in {single['launches_a_step']} launches, idle share "
+        f"{single['idle_share']:.3f}); peak memory {peak / 2**20:.1f} MiB "
+        f"(train_{cfg.name}: {single['peak_mib']:.1f} MiB); mean loss per "
+        f"epoch by seed {[list(np.round(v / cfg.steps, 6)) for v in loss_sums]}"
+        f"; launches {counts}")
+
+    # one step at the state after the profiled step, against N_SEEDS
+    # single-seed steps on the card from each seed's parameters
+    batch = tuple(t[first + 1] for t in data)
+    state = after["state"]
+    losses, grads = trainer.gradients(state, batch)
+    worst_name, worst, loss_err = "", 0.0, 0.0
+    for i in range(N_SEEDS):
+        model = cfg.model("cuda")
+        model.load_state_dict(trainer.seed_params(state, i))
+        gen = torch.Generator("cuda")
+        gen.set_state(state.rngs[i])
+        out = model(*batch, training=True, generator=gen)
+        out.loss.backward()
+        loss_err = max(loss_err, abs(losses[i].item() - out.loss.item())
+                       / abs(out.loss.item()))
+        largest = max(p.grad.abs().max().item() for p in model.parameters())
+        for pname, p in model.named_parameters():
+            scale = max(p.grad.abs().max().item(), 1e-6 * largest)
+            rel = (grads[pname][i] - p.grad).abs().max().item() / scale
+            if rel > worst:
+                worst_name, worst = f"seed {i} {pname}", rel
+    log(f"{name}: one step's per-seed losses and gradients against "
+        f"{N_SEEDS} single-seed steps on the card: loss rel diff "
+        f"{loss_err:.3e}, worst gradient {worst_name} {worst:.3e} of its "
+        f"largest magnitude (tol {TOL_TRAIN})")
+    if not (loss_err <= TOL_TRAIN and worst <= TOL_TRAIN):
+        raise AssertionError(f"{name}: the seeds' step differs from single-"
+                             f"seed steps: loss {loss_err}, {worst_name} "
+                             f"{worst}")
+    cpu_check = check_step_against_cpu(cfg, trainer.seed_params(state, 0),
+                                       batch)
+    cpu_check.update(step_ms=median, seed_steps_per_s=N_SEEDS * 1e3 / median,
+                     busy_ms=busy["busy_ms"], launches_a_step=busy["launches"],
+                     idle_share=busy["idle_share"], peak_mib=peak / 2**20,
+                     vs_single_seed_steps={"loss_rel": loss_err,
+                                           "worst_grad_rel": worst})
+    return counts, cpu_check
+
+
+def cli_multiseed(card: str):
+    """``train.cli.main`` with ``--multiseed True --n_seeds 3
+    --use_pallas_attention True`` at ``cli_ata``'s cuts: the three seeds
+    train as one group (head-folded attention once a call site for all
+    seeds), each is evaluated on the test windows, then
+    ``evaluate_checkpoints`` scores the three checkpoints.  Checks the
+    launches, three checkpoints, loss curves, ``.npz`` files and CSV rows,
+    and finite per-seed test errors, which it prints."""
+    import random
+    import shutil
+    import tempfile
+
+    from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
+        make_synthetic_frame,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train import cli
+    from fine_grained_gaussian_process_forcasting_torch.train.evaluate_checkpoints import (
+        EvalArgs,
+        evaluate_checkpoints,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
+        MultiSeedTrainer,
+    )
+
+    label = "cli_multiseed"
+    rng = random.Random(1234)  # the CLI's seeds
+    seeds = [rng.randint(1000, 9999) for _ in range(N_SEEDS)]
+    names = [f"ATA_solar_{PRED}_{s}_denoise_gp" for s in seeds]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_ms_")
+    try:
+        argv = [a if a != "1" or CLI_ARGV[i - 1] != "--n_seeds"
+                else str(N_SEEDS) for i, a in enumerate(CLI_ARGV)]
+        argv += ["--multiseed", "True", "--use_pallas_attention", "True",
+                 "--out_dir", out_dir]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        # no epoch under the profiler: at ~3,800 launches a step under
+        # vmap it would take ~30 s (train_multiseed_autoformer profiles)
+        with _EpochWatch(label, profile_epoch=None,
+                         cls=MultiSeedTrainer) as watch, \
+                _no_vmap_loops(label):
+            results = cli.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = sum(watch.steps)
+        n_valid = CLI_VALID // B
+        seeded = steps + CLI_EPOCHS * n_valid  # trained, then validated
+        single = N_SEEDS * n_valid  # each seed's test windows
+        per_call = 6  # enc-self, dec-self, dec-cross, in both passes
+        expect = dict(_NONE, fused_gp=seeded + single, fused_gp_bwd=steps,
+                      fused_gp_seeds=seeded, fused_gp_seeds_bwd=steps,
+                      head_folded_attention=per_call * (seeded + single),
+                      head_folded_attention_bwd=per_call * steps)
+        if watch.steps != [CLI_TRAIN // B] * CLI_EPOCHS or counts != expect:
+            raise AssertionError(f"{label}: steps {watch.steps}, launches "
+                                 f"{counts}, expected {expect}")
+        if len(results) != N_SEEDS or not all(
+                math.isfinite(r["mse"]) and math.isfinite(r["mae"])
+                for r in results):
+            raise AssertionError(f"{label}: evaluation {results}")
+        with open(f"{out_dir}/reported_errors_solar.csv") as f:
+            rows = f.read().splitlines()
+        if rows[0] != ",MSE,MAE" or [r.split(",")[0] for r in rows[1:]] \
+                != names:
+            raise AssertionError(f"{label}: reported errors {rows}")
+        for name in names:
+            preds = np.load(f"{out_dir}/solar/{name}.npz")["predictions"]
+            curve = np.load(f"{out_dir}/losses_lists/"
+                            f"{name}_mse_losses_valid.npy")
+            if preds.shape != (n_valid, B, PRED) or curve.shape != (
+                    CLI_EPOCHS,) or not np.isfinite(preds).all():
+                raise AssertionError(f"{label}: {name}: predictions "
+                                     f"{preds.shape}, curve {curve.shape}")
+            torch.load(f"{out_dir}/models_solar_{PRED}/{name}",
+                       weights_only=True)  # the checkpoint loads
+
+        raw = make_synthetic_frame("solar", num_entities=8,
+                                   steps_per_entity=1600, seed=0)
+        scored = evaluate_checkpoints(raw, EvalArgs(
+            exp_name="solar", pred_len=PRED, seeds=tuple(seeds),
+            attn_types=("ATA",), d_models=(D_MODEL,), stack_sizes=(LAYERS,),
+            out_dir=out_dir, num_inducing=INDUCING, max_samples=CLI_VALID,
+            batch_size=B), device="cuda")
+        counts_all = read_counts()
+        evaluated = counts_all["fused_gp"] - counts["fused_gp"]
+        if len(scored) != N_SEEDS or evaluated != N_SEEDS * n_valid or not \
+                all(np.isfinite(r["per_step_mse"]).all()
+                    and r["per_step_mse"].shape == (PRED,)
+                    for r in scored.values()):
+            raise AssertionError(f"{label}: evaluate_checkpoints scored "
+                                 f"{list(scored)}, fused-GP launches "
+                                 f"{evaluated}")
+        epoch_ms = watch.epoch_ms
+        step_ms = float(np.median([t / n for t, n in zip(epoch_ms[1:],
+                                                         watch.steps[1:])]))
+        test = {s: r["errors"] for s, r in zip(seeds, results)}
+        mses = [r["mse"] for r in results]
+        log(f"{label} on {card}: cli.main in {wall:.2f} s; train epochs of "
+            f"{watch.steps[0]} steps of {N_SEEDS} seeds x {B} windows: "
+            f"{', '.join(f'{t:.2f}' for t in epoch_ms)} ms; per step "
+            f"{step_ms:.3f} ms ({N_SEEDS * 1e3 / step_ms:.2f} seed-steps/s, "
+            f"the median of epochs 1-{CLI_EPOCHS - 1}); peak memory "
+            f"{peak / 2**20:.1f} MiB; launches {counts}")
+        log(f"{label}: test errors by seed {test}; test MSE mean "
+            f"{np.mean(mses):.4f}, std {np.std(mses):.4f} (throughput cuts: "
+            f"{CLI_TRAIN} training windows, {CLI_EPOCHS} epochs)")
+        log(f"{label}: evaluate_checkpoints on its own {CLI_VALID} test "
+            f"windows: " + "; ".join(
+                f"{k} MSE {r['mse']:.4f} MAE {r['mae']:.4f}"
+                for k, r in scored.items()))
+        return counts_all, {
+            "epoch_ms": epoch_ms, "seed_steps_per_s": N_SEEDS * 1e3 / step_ms,
+            "peak_mib": peak / 2**20,
+            "test_errors": test, "test_mse_mean": float(np.mean(mses)),
+            "test_mse_std": float(np.std(mses)),
+            "evaluate_checkpoints_mse": {k: r["mse"]
+                                         for k, r in scored.items()}}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2953,6 +3482,15 @@ def main() -> int:
     # the bf16 forward by kernel at the flagship's d 32 too
     kernels["fused_gp_bf16"]["by_kernel_d32"] = fused_gp_fwd_by_kernel(
         _gp_inputs(_F64_BF16_GEN[0], flagship), bf16=True)
+    # the seed axis (multi-seed training): the fused GP's at both widths,
+    # the attention kernels' folds
+    (kernels["fused_gp_seeds"],
+     kernels["fused_gp_seeds_bwd"]) = check_fused_gp_seeds(gen, flagship)
+    (kernels["fused_gp_bf16_seeds"],
+     kernels["fused_gp_bf16_seeds_bwd"]) = check_fused_gp_seeds(
+        gen, production, bf16=True)
+    for key, fold in check_attention_folds(gen).items():
+        kernels[key]["seed_fold"] = fold
     kernels["rbf"] = check_rbf(gen)
     kernels["cholesky"] = check_cholesky(gen)
     (kernels["small_head_attention"],
@@ -2980,10 +3518,17 @@ def main() -> int:
                 model, smi)
             record("exact_blur_pallas", counts)
         del model
+        if cfg.name == "autoformer":  # the same flagship at N_SEEDS seeds
+            path = f"train_multiseed_{cfg.name}"
+            counts, cpu_checks[path] = train_multiseed(
+                cfg, smi, cpu_checks[f"train_{cfg.name}"])
+            record(path, counts)
     for use_pallas in (False, True):
         path = f"cli_ata_{'pallas' if use_pallas else 'auto'}"
         counts, cpu_checks[path] = cli_ata(smi, use_pallas)
         record(path, counts)
+    counts, cpu_checks["cli_multiseed"] = cli_multiseed(smi)
+    record("cli_multiseed", counts)
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())

@@ -53,6 +53,14 @@
 // epilogue the partial sums of (K W o K) with K in fp32; the last pass a
 // row.  K goes from the K^T launch to the next through device memory once,
 // in fp32; K W never does.
+//
+// The seed axis: one call computes S independent functions (S seeds of a
+// model, each with its own x and parameters, as JAX's vmap over a leading
+// batch axis gives the Pallas kernels a grid axis).  Every launch of the
+// sequence runs all S along gridDim.z, and seed z's inputs and outputs lie
+// z strides of one seed's element counts past seed 0's, its scratch z
+// scratch sizes past (`seed_at`, `bump`).  A seed's blocks compute exactly
+// what a call of S = 1 computes, so the outputs equal S calls bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +88,20 @@ __device__ float block_sum(float v, float* red) {
   float s = 0.f;
   for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
   return s;
+}
+
+// p (if not null) moved `bytes` on: seed z's scratch array, `bytes` the
+// scratch of z seeds
+template <class T>
+__host__ __device__ __forceinline__ T* bump(T* p, size_t bytes) {
+  return p == nullptr ? p
+                      : reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) + bytes);
+}
+
+// seed blockIdx.z's array of n elements a seed (p null stays null)
+template <class T>
+__device__ __forceinline__ T* seed_at(T* p, size_t n) {
+  return p == nullptr ? p : p + blockIdx.z * n;
 }
 
 // ---------------------------------- products on `wgmma` (any M): `wgb::` --
@@ -158,6 +180,11 @@ struct Operand {
   static constexpr bool f32 = false;
   const bf16* part[PARTS];
   int ld;
+
+  // the same operand of the seed whose scratch starts `zb` bytes on
+  __device__ Operand seed(size_t zb) const {
+    return {{bump(part[0], zb), bump(part[1], zb), bump(part[2], zb)}, ld};
+  }
 };
 
 // An fp32 operand split into its parts on the way into shared memory: rows
@@ -168,6 +195,10 @@ struct F32Operand {
   const float* v;
   const float* scale;
   int ld;
+
+  __device__ F32Operand seed(size_t zb) const {
+    return {bump(v, zb), bump(scale, zb), ld};
+  }
 };
 
 // stages of the ring: three, two where P = 3 parts leave room for two
@@ -381,10 +412,19 @@ __device__ __forceinline__ void col_sums(float (&acc)[2][32], float* red,
 // padding, and no product is issued for it).  MINB 2: two blocks an SM: of
 // three parts, for a sum of one stage (k_total <= GKC), which needs one
 // buffer of the ring; of one part (P 1), the whole ring fits twice.
+//
+// Seed blockIdx.z: A, B and epi as seed 0's, moved on by `zb` bytes of
+// scratch a seed (and the epilogue's inputs and outputs by a seed's
+// elements: Epi::seed).
 template <int P, bool B_MN, int SUM, class Epi, bool SYM = false,
           class OA = Operand, class OB = Operand, int NT = 2, int MINB = 1>
 __global__ void __launch_bounds__(256, MINB)
-gemm_kernel(OA A, OB B, int row_tiles, int k_len, int k_total, Epi epi) {
+gemm_kernel(OA A0, OB B0, int row_tiles, int k_len, int k_total, Epi epi0,
+            size_t zb) {
+  const size_t zoff = blockIdx.z * zb;
+  const OA A = A0.seed(zoff);
+  const OB B = B0.seed(zoff);
+  const Epi epi = epi0.seed(zoff);
   static_assert(SUM == 0 || SUM == 1 || SUM % (GKC / 16) == 0, "SUM");
   constexpr bool SPLIT = OA::f32 || OB::f32;
   static_assert(!SPLIT || P == PARTS || P == 1,
@@ -565,6 +605,14 @@ struct KEpi {
   float* part_du;   // (Rp / 128, Mp)
   int M, R, Mp, Rp;
 
+  // seed blockIdx.z's, its scratch `zb` bytes on
+  __device__ KEpi seed(size_t zb) const {
+    const size_t z = blockIdx.z;
+    return {bump(x2, zb), bump(z2, zb), os_ptr + z, dmean + z * R, dvar + z * R,
+            bump(kh, zb), bump(dvk, zb), bump(kf, zb), bump(part_du, zb),
+            M, R, Mp, Rp};
+  }
+
   __device__ void operator()(float (&acc)[2][32], float*, const Tile& t) const {
     const float os = *os_ptr;
     float du[2] = {0.f, 0.f};
@@ -612,6 +660,12 @@ struct FwdKEpi {
   float* part_mu;   // (Mp / 128, Rp)
   int M, R, Rp;
 
+  __device__ FwdKEpi seed(size_t zb) const {
+    const size_t z = blockIdx.z;
+    return {bump(x2, zb), bump(z2, zb), os_ptr + z, u + z * M, bump(kf, zb),
+            bump(part_mu, zb), M, R, Rp};
+  }
+
   __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
     const float os = *os_ptr;
 #pragma unroll
@@ -643,6 +697,10 @@ struct VarEpi {
   float* part_v;    // (Mp / 128, Rp)
   int Rp;
 
+  __device__ VarEpi seed(size_t zb) const {
+    return {bump(kf, zb), bump(part_v, zb), Rp};
+  }
+
   __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
@@ -671,7 +729,10 @@ constexpr int FK = 8;
 
 __global__ void __launch_bounds__(256, 2)
 kw_var_kernel(const float* __restrict__ w, const float* __restrict__ kf,
-              float* __restrict__ part_v, int M, int Rp) {
+              float* __restrict__ part_v, int M, int Rp, size_t zb) {
+  w = seed_at(w, (size_t)M * M);
+  kf = bump(kf, blockIdx.z * zb);
+  part_v = bump(part_v, blockIdx.z * zb);
   __shared__ __align__(16) float ws[2][FK][GT];  // W rows m, columns n0..
   __shared__ __align__(16) float ks[2][FK][GT];  // K^T rows m, columns r0..
   __shared__ float red[8][GT];
@@ -763,6 +824,12 @@ struct EEpi {
   float* part_re;     // (Mp / 128, Rp): sums over the tile's inducing points
   int M, R, Mp, Rp;
 
+  __device__ EEpi seed(size_t zb) const {
+    const size_t z = blockIdx.z;
+    return {bump(kf, zb), u + z * M, dmean + z * R, dvar + z * R, bump(ep, zb),
+            bump(ef, zb), bump(part_ce, zb), bump(part_re, zb), M, R, Mp, Rp};
+  }
+
   __device__ void operator()(float (&acc)[2][32], float* red, const Tile& t) const {
     const size_t plane = (size_t)Mp * Rp;
     float ce[2] = {0.f, 0.f};
@@ -815,6 +882,13 @@ struct DxEpi {
   float* dx;             // (R, d)
   float* part_dx;        // (Rp / 128, 2 Dp): sums of dxs o x, then dmean o x
   int R, d, Dp, Rp, m_tiles;
+
+  __device__ DxEpi seed(size_t zb) const {
+    const size_t z = blockIdx.z, rd = (size_t)R * d;
+    return {x + z * rd, inv_ls + z * d, mean_w + z * d, dmean + z * R,
+            bump(part_re, zb), dx + z * rd, bump(part_dx, zb), R, d, Dp, Rp,
+            m_tiles};
+  }
 
   __device__ void operator()(float (&acc)[2][32], float* sm, const Tile& t) const {
     constexpr int LD = GT + 1;
@@ -873,6 +947,8 @@ struct PartEpi {
   int ld;
   size_t slab;
 
+  __device__ PartEpi seed(size_t zb) const { return {bump(out, zb), ld, slab}; }
+
   __device__ void operator()(float (&acc)[2][32], float*, const Tile& t) const {
     float* o = out + t.slab * slab + (size_t)t.row0 * ld + t.col0;
 #pragma unroll
@@ -892,7 +968,16 @@ prep_x_kernel(const float* __restrict__ x, const float* __restrict__ inv_ls,
               const float* __restrict__ dvar, const float* __restrict__ mean_w,
               bf16* __restrict__ xp, float* __restrict__ x2,
               float* __restrict__ dvp, float* __restrict__ xw, int R, int d,
-              int Rp, int Dp) {
+              int Rp, int Dp, size_t zb) {
+  const size_t zoff = blockIdx.z * zb;
+  x = seed_at(x, (size_t)R * d);
+  inv_ls = seed_at(inv_ls, d);
+  dvar = seed_at(dvar, R);
+  mean_w = seed_at(mean_w, d);
+  xp = bump(xp, zoff);
+  x2 = bump(x2, zoff);
+  dvp = bump(dvp, zoff);
+  xw = bump(xw, zoff);
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= Rp) return;
@@ -931,7 +1016,14 @@ __global__ void __launch_bounds__(256)
 prep_z_kernel(const float* __restrict__ zs, const float* __restrict__ w,
               bf16* __restrict__ zp, bf16* __restrict__ ztp,
               float* __restrict__ z2, bf16* __restrict__ wp, int M, int d,
-              int Mp, int Dp) {
+              int Mp, int Dp, size_t zb) {
+  const size_t zoff = blockIdx.z * zb;
+  zs = seed_at(zs, (size_t)M * d);
+  w = seed_at(w, (size_t)M * M);
+  zp = bump(zp, zoff);
+  ztp = bump(ztp, zoff);
+  z2 = bump(z2, zoff);
+  wp = bump(wp, zoff);
   __shared__ float red[8];
   const int m = blockIdx.x;
   const size_t plane = (size_t)Mp * Dp;
@@ -988,7 +1080,23 @@ reduce_kernel(const float* __restrict__ part_du, const float* __restrict__ part_
               float* __restrict__ dw, float* __restrict__ dinv_ls,
               float* __restrict__ dmean_w, float* __restrict__ dmean_b,
               double* __restrict__ cem, int R, int d, int M, int Mp, int Dp,
-              int r_tiles, int s_z, int s_w, int sym) {
+              int r_tiles, int s_z, int s_w, int sym, size_t zb) {
+  const size_t zoff = blockIdx.z * zb, md = (size_t)M * d;
+  part_du = bump(part_du, zoff);
+  part_ce = bump(part_ce, zoff);
+  pz = bump(pz, zoff);
+  pw = bump(pw, zoff);
+  part_dx = bump(part_dx, zoff);
+  cem = bump(cem, zoff);
+  zs = seed_at(zs, md);
+  dmean = seed_at(dmean, R);
+  dvar = seed_at(dvar, R);
+  dzs = seed_at(dzs, md);
+  du = seed_at(du, M);
+  dw = seed_at(dw, (size_t)M * M);
+  dinv_ls = seed_at(dinv_ls, d);
+  dmean_w = seed_at(dmean_w, d);
+  dmean_b = seed_at(dmean_b, 1);
   __shared__ double red[8];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -1041,7 +1149,10 @@ reduce_kernel(const float* __restrict__ part_du, const float* __restrict__ part_
 // sum(dvar) in cem; one block
 __global__ void __launch_bounds__(256)
 dos_kernel(const double* __restrict__ cem, const float* __restrict__ os_ptr,
-           float* __restrict__ dos, int M, int Mp) {
+           float* __restrict__ dos, int M, int Mp, size_t zb) {
+  cem = bump(cem, blockIdx.z * zb);
+  os_ptr = seed_at(os_ptr, 1);
+  dos = seed_at(dos, 1);
   __shared__ double red[8];
   double a = 0.0;
   for (int m = threadIdx.x; m < M; m += 256) a += cem[m];
@@ -1057,7 +1168,15 @@ fwd_finish_kernel(const float* __restrict__ xw, const float* __restrict__ mean_b
                   const float* __restrict__ os_ptr,
                   const float* __restrict__ part_mu, const float* __restrict__ part_v,
                   float* __restrict__ mean, float* __restrict__ var, int R,
-                  int Rp, int m_tiles) {
+                  int Rp, int m_tiles, size_t zb) {
+  const size_t zoff = blockIdx.z * zb;
+  xw = bump(xw, zoff);
+  part_mu = bump(part_mu, zoff);
+  part_v = bump(part_v, zoff);
+  mean_b = seed_at(mean_b, 1);
+  os_ptr = seed_at(os_ptr, 1);
+  mean = seed_at(mean, R);
+  var = seed_at(var, R);
   const int r = blockIdx.x * 256 + threadIdx.x;
   if (r >= R) return;
   const float s = xw[r];
@@ -1161,11 +1280,17 @@ __host__ inline FwdPlan fwd_plan(int R, int d, int M, bool kw16) {
 
 // the tiles of `row_tiles` x `col_tiles` (SYM: those on and above the
 // diagonal of row_tiles x row_tiles), `slabs` deep, as gemm_kernel places
-// them
+// them, for each of the `sd` seeds (`sd.n` along z)
+struct SeedGrid {
+  int n;      // seeds
+  size_t zb;  // bytes of one seed's scratch
+};
+
 template <int P, bool B_MN, int SUM, bool SYM = false, int NT = 2,
           int MINB = 1, class OA, class OB, class Epi>
 __host__ int gemm(int row_tiles, int col_tiles, int slabs, OA A, OB B,
-                  int k_len, int k_total, const Epi& epi, cudaStream_t st) {
+                  int k_len, int k_total, const Epi& epi, SeedGrid sd,
+                  cudaStream_t st) {
   if (MINB == 2 && P != 1 && k_total > GKC) return (int)cudaErrorInvalidValue;
   constexpr int smem = MINB == 2 && P != 1 ? stage_bytes<P>() + 1024 : gemm_smem<P>();
   auto kernel = gemm_kernel<P, B_MN, SUM, Epi, SYM, OA, OB, NT, MINB>;
@@ -1173,8 +1298,8 @@ __host__ int gemm(int row_tiles, int col_tiles, int slabs, OA A, OB B,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = SYM ? row_tiles * (row_tiles + 1) / 2 : row_tiles * col_tiles;
-  kernel<<<dim3(tiles, slabs), 256, smem, st>>>(A, B, row_tiles, k_len,
-                                                k_total, epi);
+  kernel<<<dim3(tiles, slabs, sd.n), 256, smem, st>>>(A, B, row_tiles, k_len,
+                                                      k_total, epi, sd.zb);
   return (int)cudaGetLastError();
 }
 
@@ -1191,24 +1316,24 @@ __host__ int launch_fwd(const float* x, const float* zs, const float* u,
                         const float* w, const float* os, const float* inv_ls,
                         const float* mean_w, const float* mean_b, float* mean,
                         float* var, void* scratch, int R, int d, int M,
-                        bool kw16, cudaStream_t st) {
+                        int S, bool kw16, cudaStream_t st) {
   const FwdPlan p = fwd_plan(R, d, M, kw16);
+  const SeedGrid sd{S, p.total};
   unsigned char* base = static_cast<unsigned char*>(scratch);
   auto f32 = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
   auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
   const int mt = p.Mp / GT, rt = p.Rp / GT;
   int err;
-  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(x, inv_ls, nullptr, mean_w,
-                                                b16(p.xp), f32(p.x2), nullptr,
-                                                f32(p.xw), R, d, p.Rp, p.Dk);
+  prep_x_kernel<<<dim3((p.Rp + 7) / 8, 1, S), 256, 0, st>>>(
+      x, inv_ls, nullptr, mean_w, b16(p.xp), f32(p.x2), nullptr, f32(p.xw), R,
+      d, p.Rp, p.Dk, sd.zb);
   if ((err = (int)cudaGetLastError())) return err;
   if (kw16)  // and W^T in bf16
-    prep_z_kernel<1><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr, f32(p.z2),
-                                           b16(p.wp), M, d, p.Mp, p.Dk);
+    prep_z_kernel<1><<<dim3(p.Mp, 1, S), 256, 0, st>>>(
+        zs, w, b16(p.zp), nullptr, f32(p.z2), b16(p.wp), M, d, p.Mp, p.Dk, sd.zb);
   else
-    prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), nullptr,
-                                               f32(p.z2), nullptr, M, d, p.Mp,
-                                               p.Dk);
+    prep_z_kernel<PARTS><<<dim3(p.Mp, 1, S), 256, 0, st>>>(
+        zs, w, b16(p.zp), nullptr, f32(p.z2), nullptr, M, d, p.Mp, p.Dk, sd.zb);
   if ((err = (int)cudaGetLastError())) return err;
   // 1. K^T, and the partial K u (a sum of one stage at d <= 64: two blocks
   // an SM, whose loads and epilogues overlap)
@@ -1218,8 +1343,9 @@ __host__ int launch_fwd(const float* x, const float* zs, const float* u,
                      M, R, p.Rp};
   err = p.Dk <= GKC
             ? gemm<PARTS, false, 0, false, 2, 2>(mt, rt, 1, zsp, xs, p.Dk, p.Dk,
-                                                 kepi, st)
-            : gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dk, p.Dk, kepi, st);
+                                                 kepi, sd, st)
+            : gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dk, p.Dk, kepi,
+                                          sd, st);
   if (err) return err;
   // 2. the partial (K W o K) sums.  bf16: G^T = W^T K^T on the tensor
   // cores, K rounded to bf16 on its way into shared memory; up to M 512 one
@@ -1233,17 +1359,18 @@ __host__ int launch_fwd(const float* x, const float* zs, const float* u,
     const F32Operand kt{f32(p.kf), nullptr, p.Rp};
     const VarEpi ve{f32(p.kf), f32(p.part_v), p.Rp};
     err = p.Mp <= 512
-              ? gemm<1, true, 0, false, 2, 2>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve, st)
-              : gemm<1, true, SUM_F32>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve, st);
+              ? gemm<1, true, 0, false, 2, 2>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve,
+                                              sd, st)
+              : gemm<1, true, SUM_F32>(mt, rt, 1, wt, kt, p.Mp, p.Mp, ve, sd, st);
     if (err) return err;
   } else {
-    kw_var_kernel<<<dim3(mt, rt), 256, 0, st>>>(w, f32(p.kf), f32(p.part_v), M,
-                                                p.Rp);
+    kw_var_kernel<<<dim3(mt, rt, S), 256, 0, st>>>(w, f32(p.kf), f32(p.part_v),
+                                                   M, p.Rp, sd.zb);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  fwd_finish_kernel<<<(R + 255) / 256, 256, 0, st>>>(
+  fwd_finish_kernel<<<dim3((R + 255) / 256, 1, S), 256, 0, st>>>(
       f32(p.xw), mean_b, os, f32(p.part_mu), f32(p.part_v), mean, var, R,
-      p.Rp, mt);
+      p.Rp, mt, sd.zb);
   return (int)cudaGetLastError();
 }
 
@@ -1253,26 +1380,25 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
                         const float* dvar, float* dx, float* dzs, float* du,
                         float* dw, float* dos, float* dinv_ls, float* dmean_w,
                         float* dmean_b, void* scratch, int R, int d, int M,
-                        bool f32, cudaStream_t st) {
+                        int S, bool f32, cudaStream_t st) {
   const Plan p = plan(R, d, M, f32);
+  const SeedGrid sd{S, p.total};
   unsigned char* base = static_cast<unsigned char*>(scratch);
   auto b16 = [&](size_t off) { return reinterpret_cast<bf16*>(base + off); };
   auto fp = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
   const int mt = p.Mp / GT, rt = p.r_tiles, dt = p.Dp / GT;
   int err;
 
-  prep_x_kernel<<<(p.Rp + 7) / 8, 256, 0, st>>>(
+  prep_x_kernel<<<dim3((p.Rp + 7) / 8, 1, S), 256, 0, st>>>(
       x, inv_ls, dvar, nullptr, b16(p.xp), fp(p.x2), f32 ? fp(p.dvp) : nullptr,
-      nullptr, R, d, p.Rp, p.Dp);
+      nullptr, R, d, p.Rp, p.Dp, sd.zb);
   if ((err = (int)cudaGetLastError())) return err;
   if (f32)
-    prep_z_kernel<PARTS><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp),
-                                               fp(p.z2), b16(p.wp), M, d, p.Mp,
-                                               p.Dp);
+    prep_z_kernel<PARTS><<<dim3(p.Mp, 1, S), 256, 0, st>>>(
+        zs, w, b16(p.zp), b16(p.ztp), fp(p.z2), b16(p.wp), M, d, p.Mp, p.Dp, sd.zb);
   else
-    prep_z_kernel<1><<<p.Mp, 256, 0, st>>>(zs, w, b16(p.zp), b16(p.ztp),
-                                           fp(p.z2), b16(p.wp), M, d, p.Mp,
-                                           p.Dp);
+    prep_z_kernel<1><<<dim3(p.Mp, 1, S), 256, 0, st>>>(
+        zs, w, b16(p.zp), b16(p.ztp), fp(p.z2), b16(p.wp), M, d, p.Mp, p.Dp, sd.zb);
   if ((err = (int)cudaGetLastError())) return err;
 
   const size_t rd = (size_t)p.Rp * p.Dp, md = (size_t)p.Mp * p.Dp,
@@ -1287,12 +1413,13 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
                   f32 ? nullptr : b16(p.kh), f32 ? nullptr : b16(p.dvk),
                   fp(p.kf), fp(p.part_du), M, R, p.Mp, p.Rp};
   if (!f32)
-    err = gemm<PARTS, false, 0>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, st);
+    err = gemm<PARTS, false, 0>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, sd, st);
   else if (p.Dk <= GKC)
     err = gemm<PARTS, false, 0, false, 2, 2>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi,
-                                             st);
+                                             sd, st);
   else
-    err = gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, st);
+    err = gemm<PARTS, false, SUM_F32>(mt, rt, 1, zsp, xs, p.Dp, p.Dk, kepi, sd,
+                                      st);
   if (err) return err;
   const DxEpi dxe{x, inv_ls, mean_w, dmean, fp(p.part_re), dx, fp(p.part_dx),
                   R, d, p.Dp, p.Rp, mt};
@@ -1304,24 +1431,24 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
         mt, rt, 1, parts(base, p.wp, (size_t)p.Mp * p.Mp, PARTS, p.Mp), kt,
         p.Mp, p.Mp,
         EEpi{fp(p.kf), u, dmean, dvar, nullptr, fp(p.e), fp(p.part_ce),
-             fp(p.part_re), M, R, p.Mp, p.Rp}, st);
+             fp(p.part_re), M, R, p.Mp, p.Rp}, sd, st);
     if (err) return err;
     // 3. (E zs)^T, E split on load, dx in the epilogue
-    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, st);
+    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, sd, st);
     if (err) return err;
     // 4. E^T xs over slabs, E split on load; at d <= 64 the tile's second
     // 64 columns are padding
     const PartEpi pze{fp(p.pz), p.Dp, md};
     err = d <= 64 ? gemm<PARTS, true, 1, false, 1>(mt, dt, p.s_z, et, xs, p.k_z,
-                                                   p.Rp, pze, st)
+                                                   p.Rp, pze, sd, st)
                   : gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
-                                         pze, st);
+                                         pze, sd, st);
     if (err) return err;
     // 5. K^T (dvar o K) over slabs, both split from K on load, the tiles
     // on and above the diagonal
     err = gemm<PARTS, false, SUM_F32, true>(
         mt, mt, p.s_w, kt, F32Operand{fp(p.kf), fp(p.dvp), p.Rp}, p.k_w, p.Rp,
-        PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
+        PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, sd, st);
     if (err) return err;
   } else {
     const Operand kt = parts(base, p.kh, 0, 1, p.Rp);
@@ -1332,28 +1459,29 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
                                 p.Mp, p.Mp,
                                 EEpi{fp(p.kf), u, dmean, dvar, b16(p.e),
                                      nullptr, fp(p.part_ce), fp(p.part_re),
-                                     M, R, p.Mp, p.Rp}, st);
+                                     M, R, p.Mp, p.Rp}, sd, st);
     if (err) return err;
     // 3. (E zs)^T in three parts (sums over 16 at a time), dx in the epilogue
-    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, st);
+    err = gemm<PARTS, true, 1>(dt, rt, 1, zst, et, p.Mp, p.Mp, dxe, sd, st);
     if (err) return err;
     // 4. E^T xs in three parts (sums over 16 rows at a time), over slabs
     err = gemm<PARTS, true, 1>(mt, dt, p.s_z, et, xs, p.k_z, p.Rp,
-                               PartEpi{fp(p.pz), p.Dp, md}, st);
+                               PartEpi{fp(p.pz), p.Dp, md}, sd, st);
     if (err) return err;
     // 5. K^T (dvar o K) in bf16, over slabs of rows
     err = gemm<1, false, 0>(mt, mt, p.s_w, kt, parts(base, p.dvk, 0, 1, p.Rp),
                             p.k_w, p.Rp,
-                            PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, st);
+                            PartEpi{fp(p.pw), p.Mp, (size_t)p.Mp * p.Mp}, sd,
+                            st);
     if (err) return err;
   }
   double* cem = reinterpret_cast<double*>(base + p.cem);
-  reduce_kernel<<<M + 2 * d + 2, 256, 0, st>>>(
+  reduce_kernel<<<dim3(M + 2 * d + 2, 1, S), 256, 0, st>>>(
       fp(p.part_du), fp(p.part_ce), fp(p.pz), fp(p.pw), fp(p.part_dx), zs,
       dmean, dvar, dzs, du, dw, dinv_ls, dmean_w, dmean_b, cem, R, d,
-      M, p.Mp, p.Dp, rt, p.s_z, p.s_w, f32 ? 1 : 0);
+      M, p.Mp, p.Dp, rt, p.s_z, p.s_w, f32 ? 1 : 0, sd.zb);
   if ((err = (int)cudaGetLastError())) return err;
-  dos_kernel<<<1, 256, 0, st>>>(cem, os, dos, M, p.Mp);
+  dos_kernel<<<dim3(1, 1, S), 256, 0, st>>>(cem, os, dos, M, p.Mp, sd.zb);
   return (int)cudaGetLastError();
 }
 
@@ -1363,8 +1491,8 @@ __host__ int launch_bwd(const float* x, const float* zs, const float* u,
 
 extern "C" {
 
-// Floats of device scratch the two forwards and the two backwards need (the
-// wrapper allocates it).
+// Floats of device scratch the two forwards and the two backwards need for
+// one seed (the wrapper allocates S times as much for S seeds).
 long long fused_gp_fwd_scratch_floats(int R, int d, int M) {
   return (long long)((wgb::fwd_plan(R, d, M, false).total + 3) / 4);
 }
@@ -1381,59 +1509,39 @@ long long fused_gp_bf16_bwd_scratch_floats(int R, int d, int M) {
   return (long long)((wgb::plan(R, d, M, false).total + 3) / 4);
 }
 
-// x (R, d) raw rows; zs (M, d) = Z / lengthscale; u (M,); w (M, M) row-major;
-// os, mean_b: device scalars; inv_ls, mean_w (d,); mean, var (R,) outputs;
-// scratch of fused_gp_fwd_scratch_floats(R, d, M) floats.  Five launches on
-// `stream`; returns the first failure's cudaError_t.
+// S seeds' whitened-GP marginals, x (S, R, d) raw rows of each seed; zs
+// (S, M, d) = Z / lengthscale; u (S, M); w (S, M, M) row-major; os, mean_b
+// (S,); inv_ls, mean_w (S, d); mean, var (S, R) outputs; scratch of S times
+// fused_gp(_bf16)_fwd_scratch_floats(R, d, M) floats.  bf16 != 0: the K W
+// product in bf16 on the tensor cores (w the fp32 (M, M) all the same).
+// Five launches on `stream` for every S; seed z's outputs equal a call of
+// S = 1 on its inputs bit for bit.  Returns the first failure's
+// cudaError_t.
 int fused_gp_fwd(const float* x, const float* zs, const float* u, const float* w,
                  const float* os, const float* inv_ls, const float* mean_w,
                  const float* mean_b, float* mean, float* var, float* scratch,
-                 int R, int d, int M, void* stream) {
+                 int R, int d, int M, int S, int bf16, void* stream) {
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   return wgb::launch_fwd(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
-                         scratch, R, d, M, false, (cudaStream_t)stream);
+                         scratch, R, d, M, S, bf16 != 0, (cudaStream_t)stream);
 }
 
-// The same with the K W product in bf16 on the tensor cores: inputs and
-// outputs as fused_gp_fwd's, w the fp32 (M, M); scratch of
-// fused_gp_bf16_fwd_scratch_floats(R, d, M) floats.  Five launches.
-int fused_gp_bf16_fwd(const float* x, const float* zs, const float* u,
-                      const float* w, const float* os, const float* inv_ls,
-                      const float* mean_w, const float* mean_b, float* mean,
-                      float* var, float* scratch, int R, int d, int M,
-                      void* stream) {
-  return wgb::launch_fwd(x, zs, u, w, os, inv_ls, mean_w, mean_b, mean, var,
-                         scratch, R, d, M, true, (cudaStream_t)stream);
-}
-
-// The VJP.  Inputs as the forward's, plus dmean, dvar (R,); outputs dx
-// (R, d), dzs (M, d), du (M,), dw (M, M), and device scalars / vectors dos,
-// dinv_ls (d,), dmean_w (d,), dmean_b; scratch of
-// fused_gp_bwd_scratch_floats(R, d, M) floats.  Nine launches on `stream`;
-// returns the first failure.
+// The VJP.  Inputs as the forward's, plus dmean, dvar (S, R); outputs dx
+// (S, R, d), dzs (S, M, d), du (S, M), dw (S, M, M), dos (S,), dinv_ls
+// (S, d), dmean_w (S, d), dmean_b (S,); scratch of S times
+// fused_gp(_bf16)_bwd_scratch_floats(R, d, M) floats.  bf16 != 0: K W and
+// K^T (dvar o K) in bf16 on the tensor cores.  Nine launches on `stream`
+// for every S; returns the first failure.
 int fused_gp_bwd(const float* x, const float* zs, const float* u, const float* w,
                  const float* os, const float* inv_ls, const float* mean_w,
                  const float* dmean, const float* dvar, float* dx, float* dzs,
                  float* du, float* dw, float* dos, float* dinv_ls,
                  float* dmean_w, float* dmean_b, float* scratch, int R, int d,
-                 int M, void* stream) {
+                 int M, int S, int bf16, void* stream) {
+  if (S < 1 || S > 65535) return (int)cudaErrorInvalidValue;
   return wgb::launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
                          dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch,
-                         R, d, M, true, (cudaStream_t)stream);
-}
-
-// The bf16 VJP: K W and K^T (dvar o K) in bf16 on the tensor cores; inputs
-// and outputs as fused_gp_bwd's, w the fp32 (M, M); scratch of
-// fused_gp_bf16_bwd_scratch_floats floats.
-int fused_gp_bf16_bwd(const float* x, const float* zs, const float* u,
-                      const float* w, const float* os, const float* inv_ls,
-                      const float* mean_w, const float* dmean,
-                      const float* dvar, float* dx, float* dzs, float* du,
-                      float* dw, float* dos, float* dinv_ls, float* dmean_w,
-                      float* dmean_b, float* scratch, int R, int d, int M,
-                      void* stream) {
-  return wgb::launch_bwd(x, zs, u, w, os, inv_ls, mean_w, dmean, dvar, dx,
-                         dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch,
-                         R, d, M, false, (cudaStream_t)stream);
+                         R, d, M, S, bf16 == 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
+from fine_grained_gaussian_process_forcasting_torch.gp import deep_gp
 from fine_grained_gaussian_process_forcasting_torch.gp.deep_gp import (
     DeepGP,
     GPPosterior,
@@ -123,6 +124,39 @@ class ForecastDenoising(nn.Module):
         self.lam = nn.Parameter(torch.zeros(1, device=device))
         normal_(self.lam, 1.0, generator)
 
+    def noise_draws(self, batch: int, enc_len: int, dec_len: int,
+                    training: bool, generator: Optional[torch.Generator],
+                    device) -> dict:
+        """The N(0, 1) draws one forward takes from ``generator``, in the
+        order and at the shapes it takes them, keyed as the forward's
+        arguments: ``noise`` (the isotropic mode's encoder and decoder
+        draws) or ``gp_eps`` (one per hidden GP layer; zeros without a
+        generator); {} where the forward draws nothing.  The forward draws
+        through it, so a caller that draws ahead (a seed's own generator,
+        ``train/multiseed.py``) and passes the draws in gets the same
+        function.  informer's key samples are not among them."""
+        if not (self.denoise or (self.input_corrupt and training)):
+            return {}
+        like = torch.empty((), device=device)
+        if self.gp:
+            hidden = (() if self.gp_kind == "exact"
+                      else self.deep_gp.hidden_dims)
+            if not hidden:
+                return {}
+            # through the module, where a caller may wrap it
+            return {"gp_eps": [deep_gp.draw_eps((batch, enc_len + dec_len, h),
+                                                generator, like)
+                               for h in hidden]}
+        if self.no_noise:
+            return {}
+        if generator is None:
+            raise ValueError(
+                "isotropic mode needs a generator or noise draws")
+        return {"noise": tuple(
+            torch.randn((batch, length, self.d_model), generator=generator,
+                        device=device)
+            for length in (enc_len, dec_len))}
+
     def _denoise(self, enc_hidden, dec_hidden, training: bool, noise,
                  generator, gp_eps
                  ) -> Tuple[torch.Tensor, Optional[GPPosterior]]:
@@ -134,6 +168,10 @@ class ForecastDenoising(nn.Module):
         elif self.gp:
             # one GP evaluation over the concatenated enc+dec points
             s_enc = enc_hidden.shape[1]
+            if gp_eps is None:
+                gp_eps = self.noise_draws(
+                    enc_hidden.shape[0], s_enc, dec_hidden.shape[1], training,
+                    generator, enc_hidden.device).get("gp_eps")
             joint = torch.cat([enc_hidden, dec_hidden], dim=1)
             post = self.deep_gp(joint, gp_eps, generator)  # over (b, s)
             eps = self.proj_up(post.mean[..., None])  # (b, s, d)
@@ -148,13 +186,10 @@ class ForecastDenoising(nn.Module):
             enc_noisy, dec_noisy = enc_hidden, dec_hidden
         else:  # isotropic corruption, active in train and eval
             if noise is None:
-                if generator is None:
-                    raise ValueError(
-                        "isotropic mode needs a generator or noise draws")
-                noise = tuple(
-                    torch.randn(t.shape, generator=generator,
-                                device=t.device, dtype=t.dtype)
-                    for t in (enc_hidden, dec_hidden))
+                noise = self.noise_draws(
+                    enc_hidden.shape[0], enc_hidden.shape[1],
+                    dec_hidden.shape[1], training, generator,
+                    enc_hidden.device)["noise"]
             enc_noisy = enc_hidden + 0.05 * noise[0]
             dec_noisy = dec_hidden + 0.05 * noise[1]
         # the denoising network IS the forecaster (shared parameters)

@@ -109,7 +109,12 @@ class _BatchedCholesky(torch.autograd.Function):
 
 def batched_cholesky(a):
     """Lower Cholesky factors of (..., n, n) SPD matrices; NaN where a
-    matrix is not positive definite."""
+    matrix is not positive definite.  Not under ``torch.func.vmap`` (ROADMAP.md
+    item 18)."""
+    if torch._C._are_functorch_transforms_active():
+        raise NotImplementedError(
+            "batched_cholesky has no vmap rule yet (ROADMAP.md modules to "
+            "port, item 18: the kernels' seed axes)")
     if a.device.type == "cuda":
         _check(a)
     elif a.device.type != "cpu":

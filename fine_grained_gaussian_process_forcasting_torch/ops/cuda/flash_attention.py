@@ -27,6 +27,10 @@ kernel's own rule (which rounds P and dS), not the derivative of the rounded
 forward.  On the card the forward kernel also writes each row's log-sum-exp
 (``sm_bf16``: its max and rounded sum) when a gradient is wanted, and the
 backward kernels recompute the probabilities from it.
+
+Under ``torch.func.vmap`` (the seeds of a multi-seed model) the vmapped
+axis folds into b: the Function's ``vmap`` rule makes one call on
+(S b, h, L, d) and unfolds the context, as head-folded attention does.
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
+    fold_vmapped,
+)
 
 #: forward kernel launches since the counter was last set to 0
 launches = 0
@@ -222,26 +229,38 @@ def backward_kernel(q, k, v, out, stats, do, sm_bf16=False):
 
 class _FusedAttention(torch.autograd.Function):
     """The kernels on the card; the plain forward and the plain VJP on the
-    CPU."""
+    CPU.  Returns the context and, on the card, the backward's ``Stats``."""
 
     @staticmethod
-    def forward(ctx, sm_bf16, q, k, v):
-        ctx.sm_bf16 = sm_bf16
+    def forward(sm_bf16, q, k, v):
         if q.device.type == "cpu":
-            ctx.save_for_backward(q, k, v)
-            return fused_attention_plain(q, k, v, sm_bf16)
+            return fused_attention_plain(q, k, v, sm_bf16), None, None
         out, stats = forward_kernel(q, k, v, True, sm_bf16)
-        ctx.save_for_backward(q, k, v, out, *stats)
-        return out
+        return out, *stats
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        sm_bf16, q, k, v = inputs
+        out, lse, o_lo = output
+        ctx.sm_bf16 = sm_bf16
+        ctx.save_for_backward(q, k, v, out, lse, o_lo)
+        ctx.mark_non_differentiable(*(t for t in (lse, o_lo)
+                                      if t is not None))
+
+    @staticmethod
+    def vmap(info, in_dims, sm_bf16, q, k, v):
+        out = _attention(*(t.contiguous() for t in fold_vmapped(
+            info, in_dims[1:], q, k, v)), sm_bf16)
+        return ((out.unflatten(0, (info.batch_size, -1)), None, None),
+                (0, None, None))
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, do):
-        q, k, v, *saved = ctx.saved_tensors
+    def backward(ctx, do, *_):
+        q, k, v, out, lse, o_lo = ctx.saved_tensors
         if q.device.type == "cpu":
             return (None, *fused_attention_bwd_plain(q, k, v, do,
                                                      ctx.sm_bf16))
-        out, lse, o_lo = saved
         return (None, *backward_kernel(q, k, v, out, Stats(lse, o_lo),
                                        do.to(q.dtype).contiguous(),
                                        ctx.sm_bf16))
@@ -250,6 +269,8 @@ class _FusedAttention(torch.autograd.Function):
 def _attention(q, k, v, sm_bf16):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    if torch._C._are_functorch_transforms_active():
+        return _FusedAttention.apply(sm_bf16, q, k, v)[0]  # its vmap rule
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if q.device.type == "cuda":
@@ -258,7 +279,7 @@ def _attention(q, k, v, sm_bf16):
             return forward_kernel(q, k, v, False, sm_bf16)[0]
     elif not needs_grad:
         return fused_attention_plain(q, k, v, sm_bf16)
-    return _FusedAttention.apply(sm_bf16, q, k, v)
+    return _FusedAttention.apply(sm_bf16, q, k, v)[0]
 
 
 def fused_attention(q, k, v):

@@ -28,6 +28,18 @@ version's order: five launches forward, nine backward, at any M, each on
 a device scratch buffer that the wrapper allocates (``fwd_scratch_floats``,
 ``bwd_scratch_floats``).
 
+Every entry also takes a leading seed axis, S independent functions in
+one call: x (S, B, N, d), each parameter with a leading S (zs (S, M, d), u
+(S, M), w (S, M, M), outputscale (S,), inv_ls and mean_w (S, d), mean_b
+(S,)), mean and var (S, B, N) and each gradient with its leading S.  On the
+card the same five launches forward and nine backward run all S seeds
+(``csrc/fused_gp.cu``, the seed along each grid's z), each seed's scratch
+after the last's; seed i's outputs equal a call on its inputs alone, bit
+for bit.  Under ``torch.func.vmap`` the Function's ``vmap`` rule stacks the
+vmapped inputs on that axis and makes the one seeded call, so a vmapped
+model launches each kernel once for all its seeds.  The plain versions take
+the axis too.
+
 ``whitened_marginals_affine_bf16`` takes and returns the same fp32 tensors;
 only the two products K W and K^T (dvar o K) round their inputs to bf16 and
 sum in fp32, everything else stays fp32.  Its forward is the fp32 forward's
@@ -42,6 +54,7 @@ backward.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,6 +70,12 @@ bwd_launches = 0
 #: the same two counts for the bf16 variant
 bf16_launches = 0
 bf16_bwd_launches = 0
+#: of those, the calls with the seed axis (each one call for all its
+#: seeds), by variant and way
+seeds_launches = 0
+seeds_bwd_launches = 0
+bf16_seeds_launches = 0
+bf16_seeds_bwd_launches = 0
 
 _GT, _GKC = 128, 64  # the engine's output tile and summed-index stage
 
@@ -113,11 +132,22 @@ def _dot16(a, b, bf16):
     return torch.matmul(a, b)
 
 
+def _seeded(x) -> bool:
+    """Whether ``x`` carries the seed axis: (S, B, N, d) rather than
+    (B, N, d)."""
+    return x.dim() == 4
+
+
 def whitened_marginals_affine_plain(x, zs, u, w, outputscale, inv_ls,
                                     mean_w, mean_b, bf16=False):
     """The same function in plain PyTorch, with the Pallas kernel's
     |xs|^2 + |zs|^2 - 2 xs.zs distance (no clamp).  ``bf16``: K and W are
-    rounded to bf16 where they enter the K W product."""
+    rounded to bf16 where they enter the K W product.  With the seed axis,
+    the function of each seed (``torch.func.vmap`` over it)."""
+    if _seeded(x):
+        return torch.func.vmap(functools.partial(
+            whitened_marginals_affine_plain, bf16=bf16))(
+                x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
     xs = x * inv_ls
     d2 = ((xs * xs).sum(-1, keepdim=True) + (zs * zs).sum(-1)
           - 2.0 * torch.matmul(xs, zs.T))
@@ -138,7 +168,12 @@ def whitened_marginals_affine_bwd_plain(x, zs, u, w, outputscale, inv_ls,
     """The VJP in plain PyTorch, term for term as the Pallas ``_bwd_kernel``
     (affine) writes it, W taken as symmetric.  Returns the gradients of
     (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b).  ``bf16``: the K W
-    and K^T (dvar o K) products round their inputs to bf16."""
+    and K^T (dvar o K) products round their inputs to bf16.  With the seed
+    axis, each seed's VJP."""
+    if _seeded(x):
+        return torch.func.vmap(functools.partial(
+            whitened_marginals_affine_bwd_plain, bf16=bf16))(
+                x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean, dvar)
     b, n, d = x.shape
     xr = x.reshape(b * n, d)
     xs = xr * inv_ls
@@ -169,12 +204,12 @@ def whitened_marginals_affine_bf16_bwd_plain(*args):
 
 def _affine_args(xs, zs, u, w, outputscale):
     """The non-affine variants' inputs as the affine kernel's: inv_ls 1,
-    mean_w 0, mean_b 0."""
+    mean_w 0, mean_b 0 (each seed's, with the seed axis)."""
+    lead = xs.shape[:-3]
     d = xs.shape[-1]
-    return (xs, zs, u, w, outputscale,
-            torch.ones(d, device=xs.device, dtype=xs.dtype),
-            torch.zeros(d, device=xs.device, dtype=xs.dtype),
-            torch.zeros((), device=xs.device, dtype=xs.dtype))
+    kw = dict(device=xs.device, dtype=xs.dtype)
+    return (xs, zs, u, w, outputscale, torch.ones(*lead, d, **kw),
+            torch.zeros(*lead, d, **kw), torch.zeros(lead, **kw))
 
 
 def whitened_marginals_plain(xs, zs, u, w, outputscale, bf16=False):
@@ -203,27 +238,29 @@ def whitened_marginals_bf16_bwd_plain(*args):
     return whitened_marginals_bwd_plain(*args, bf16=True)
 
 
-def launcher(bf16=False):
-    """The C forward launcher, either variant: (x, zs, u, w, os, inv_ls,
-    mean_w, mean_b, mean, var, scratch pointers, R, d, M, stream) ->
-    cudaError_t, scratch of ``fwd_scratch_floats(R, d, M, bf16)``."""
+def launcher():
+    """The C forward launcher of S seeds, either variant: (x, zs, u, w, os,
+    inv_ls, mean_w, mean_b, mean, var, scratch pointers, R, d, M, S, bf16,
+    stream) -> cudaError_t, each array with the seed axis leading (S = 1:
+    one function) and S times a seed's ``fwd_scratch_floats``."""
     return _build.function(
-        "fused_gp", "fused_gp_bf16_fwd" if bf16 else "fused_gp_fwd",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        "fused_gp", "fused_gp_fwd",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-def bwd_launcher(bf16=False):
-    """The C backward launcher: (x, zs, u, w, os, inv_ls, mean_w, dmean,
-    dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b, scratch
-    pointers, R, d, M, stream) -> cudaError_t, for either variant (both
-    take the fp32 w)."""
+def bwd_launcher():
+    """The C backward launcher, either variant: (x, zs, u, w, os, inv_ls,
+    mean_w, dmean, dvar, dx, dzs, du, dw, dos, dinv_ls, dmean_w, dmean_b,
+    scratch pointers, R, d, M, S, bf16, stream) -> cudaError_t, laid out as
+    the forward's (both variants take the fp32 w)."""
     return _build.function(
-        "fused_gp", "fused_gp_bf16_bwd" if bf16 else "fused_gp_bwd",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        "fused_gp", "fused_gp_bwd",
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def fwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
-    """Floats of device scratch one forward call needs at R rows."""
+    """Floats of device scratch one forward call needs at R rows (a seed's
+    share of a seeded call)."""
     symbol = ("fused_gp_bf16_fwd_scratch_floats" if bf16
               else "fused_gp_fwd_scratch_floats")
     return _build.function("fused_gp", symbol, [ctypes.c_int] * 3,
@@ -231,7 +268,8 @@ def fwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
 
 
 def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
-    """Floats of device scratch one backward call needs at R rows."""
+    """Floats of device scratch one backward call needs at R rows (a seed's
+    share of a seeded call)."""
     symbol = ("fused_gp_bf16_bwd_scratch_floats" if bf16
               else "fused_gp_bwd_scratch_floats")
     return _build.function("fused_gp", symbol, [ctypes.c_int] * 3,
@@ -239,14 +277,16 @@ def bwd_scratch_floats(r: int, d: int, m: int, bf16=False) -> int:
 
 
 def _check(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b):
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, N, d), got {tuple(x.shape)}")
+    if x.dim() not in (3, 4):
+        raise ValueError(f"x must be (B, N, d) or (S, B, N, d), got "
+                         f"{tuple(x.shape)}")
+    lead = tuple(x.shape[:-3])  # the seed axis, or none
     d = x.shape[-1]
-    m = zs.shape[0]
-    want = {"x": (x, tuple(x.shape)), "zs": (zs, (m, d)), "u": (u, (m,)),
-            "w": (w, (m, m)), "outputscale": (outputscale, ()),
-            "inv_ls": (inv_ls, (d,)), "mean_w": (mean_w, (d,)),
-            "mean_b": (mean_b, ())}
+    m = zs.shape[-2]
+    want = {"x": (x, tuple(x.shape)), "zs": (zs, lead + (m, d)),
+            "u": (u, lead + (m,)), "w": (w, lead + (m, m)),
+            "outputscale": (outputscale, lead), "inv_ls": (inv_ls, lead + (d,)),
+            "mean_w": (mean_w, lead + (d,)), "mean_b": (mean_b, lead)}
     for name, (t, shape) in want.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -267,7 +307,8 @@ def whitened_marginals_affine(x, zs, u, w, outputscale, inv_ls, mean_w,
 
     x: (B, N, d); zs: (M, d) = Z / lengthscale; u: (M,) = L^-T m;
     w: (M, M) = L^-T diag(1 - s^2) L^-1; outputscale: 0-d;
-    inv_ls: (d,) = 1 / lengthscale; mean_w: (d,); mean_b: 0-d.
+    inv_ls: (d,) = 1 / lengthscale; mean_w: (d,); mean_b: 0-d.  Or every
+    one of them with a leading seed axis S, and (S, B, N) out.
     """
     return _marginals((x, zs, u, w, outputscale, inv_ls, mean_w, mean_b),
                       bf16=False)
@@ -300,6 +341,9 @@ def _full(args):
 
 def _marginals(args, bf16):
     x = args[0]
+    if torch._C._are_functorch_transforms_active():
+        # under vmap: the Function's rule makes one seeded call
+        return _WhitenedMarginals.apply(bf16, *args)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
     if x.device.type == "cpu":
         if bf16 and grad:  # the bf16 VJP is the kernel's own rule
@@ -313,71 +357,104 @@ def _marginals(args, bf16):
     return forward_kernel(*_full(args), bf16=bf16)
 
 
+def _seeds_and_shape(x):
+    """(S, B, N, d) of x, S = 1 without the seed axis."""
+    return (1, *x.shape) if x.dim() == 3 else tuple(x.shape)
+
+
 def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
                    bf16=False):
-    """Launch the forward kernel on checked inputs: (mean, var)."""
-    global launches, bf16_launches
-    b, n, d = x.shape
-    m = zs.shape[0]
-    mean = torch.empty((b, n), device=x.device, dtype=torch.float32)
-    var = torch.empty((b, n), device=x.device, dtype=torch.float32)
-    scratch = torch.empty(fwd_scratch_floats(b * n, d, m, bf16),
+    """Launch the forward kernels on checked inputs, with or without the
+    seed axis: (mean, var)."""
+    global launches, bf16_launches, seeds_launches, bf16_seeds_launches
+    s, b, n, d = _seeds_and_shape(x)
+    m = zs.shape[-2]
+    lead = tuple(x.shape[:-3])
+    mean = torch.empty(lead + (b, n), device=x.device, dtype=torch.float32)
+    var = torch.empty(lead + (b, n), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(s * fwd_scratch_floats(b * n, d, m, bf16),
                           device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launcher(bf16)(
+    err = launcher()(
         *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
                                  mean_b, mean, var, scratch)),
-        b * n, d, m, stream)
+        b * n, d, m, s, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_fwd launch failed: cudaError {err}")
     if bf16:
         bf16_launches += 1
+        bf16_seeds_launches += bool(lead)
     else:
         launches += 1
+        seeds_launches += bool(lead)
     return mean, var
 
 
 def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,
                     dvar, bf16=False):
     """Launch the backward kernels on checked inputs and contiguous (B, N)
-    cotangents: the gradients of the eight inputs."""
-    global bwd_launches, bf16_bwd_launches
-    b, n, d = x.shape
-    m = zs.shape[0]
+    cotangents, or (S, B, N) with the seed axis: the gradients of the eight
+    inputs."""
+    global bwd_launches, bf16_bwd_launches, seeds_bwd_launches
+    global bf16_seeds_bwd_launches
+    s, b, n, d = _seeds_and_shape(x)
+    m = zs.shape[-2]
+    lead = tuple(x.shape[:-3])
 
     def new(*shape):
-        return torch.empty(shape, device=x.device, dtype=torch.float32)
+        return torch.empty(lead + shape, device=x.device, dtype=torch.float32)
 
     grads = (new(b, n, d), new(m, d), new(m), new(m, m), new(), new(d),
              new(d), new())
-    scratch = new(bwd_scratch_floats(b * n, d, m, bf16))
+    scratch = torch.empty(s * bwd_scratch_floats(b * n, d, m, bf16),
+                          device=x.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = bwd_launcher(bf16)(
+    err = bwd_launcher()(
         *(t.data_ptr() for t in (x, zs, u, w, outputscale, inv_ls, mean_w,
                                  dmean, dvar)),
-        *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m,
-        stream)
+        *(t.data_ptr() for t in grads), scratch.data_ptr(), b * n, d, m, s,
+        int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused_gp_bwd launch failed: cudaError {err}")
     if bf16:
         bf16_bwd_launches += 1
+        bf16_seeds_bwd_launches += bool(lead)
     else:
         bwd_launches += 1
+        seeds_bwd_launches += bool(lead)
     return grads
 
 
 class _WhitenedMarginals(torch.autograd.Function):
     """The kernels on the card; on the CPU (the bf16 variants only) the plain
     forward and the plain VJP.  Five inputs: the non-affine variant, run as
-    the affine function at inv_ls 1, mean_w 0, mean_b 0."""
+    the affine function at inv_ls 1, mean_w 0, mean_b 0.  With or without
+    the seed axis."""
 
     @staticmethod
-    def forward(ctx, bf16, *args):
-        ctx.bf16 = bf16
-        ctx.save_for_backward(*args)
+    def forward(bf16, *args):
         if args[0].device.type == "cpu":
             return whitened_marginals_affine_plain(*_full(args), bf16=bf16)
         return forward_kernel(*_full(args), bf16=bf16)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.bf16 = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def vmap(info, in_dims, bf16, *args):
+        """The vmapped axis as the seed axis: every input stacked on it
+        (an input it does not batch is repeated), one seeded call."""
+        if args[0].dim() - (in_dims[1] is not None) == 4:
+            raise NotImplementedError(
+                "the fused GP takes one seed axis; a vmap over seeded "
+                "inputs would need two")
+        stacked = tuple(
+            (a.movedim(dim, 0) if dim is not None
+             else a.expand(info.batch_size, *a.shape)).contiguous()
+            for a, dim in zip(args, in_dims[1:]))
+        return _marginals(stacked, bf16), (0, 0)
 
     @staticmethod
     @once_differentiable

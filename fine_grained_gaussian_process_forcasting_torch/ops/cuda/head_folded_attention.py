@@ -18,6 +18,11 @@ whose head dim has unit stride (the transposed (b, L, h, d) buffers of the
 transformer), and the outputs (the context; dq, dk and dv) are (b, h, L, d)
 views of fresh (b, L, h, d) memory (``folded_empty``), so that the way back
 into (b, L, h d) rows is a view as well.
+
+Under ``torch.func.vmap`` (the seeds of a multi-seed model) the vmapped
+axis folds into b: the Function's ``vmap`` rule calls the kernel once on
+(S b, h, L, d), a view of the same buffers wherever the seed's stride is b
+times the batch's (the projections' own layout), and unfolds the context.
 """
 
 from __future__ import annotations
@@ -216,16 +221,37 @@ def backward_kernel(q, k, v, out, lse, do):
     return dq, dk, dv
 
 
+def fold_vmapped(info, in_dims, *ts):
+    """The vmapped axis of each (b, h, L, d) operand folded into b: (S b, h,
+    L, d), a view where the strides allow it (an operand the vmap does not
+    batch is repeated S times)."""
+    folded = []
+    for t, dim in zip(ts, in_dims):
+        t = (t.movedim(dim, 0) if dim is not None
+             else t.expand(info.batch_size, *t.shape))
+        folded.append(t.flatten(0, 1))
+    return folded
+
+
 class _HeadFoldedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = forward_kernel(q, k, v, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out
+    def forward(q, k, v):
+        return forward_kernel(q, k, v, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        out, lse = output
+        ctx.save_for_backward(*inputs, out, lse)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        out = head_folded_attention(*fold_vmapped(info, in_dims, q, k, v))
+        return (out.unflatten(0, (info.batch_size, -1)), None), (0, None)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, do):
+    def backward(ctx, do, _):
         q, k, v, out, lse = ctx.saved_tensors
         if not _unit_head_stride(do):
             do = do.contiguous()
@@ -240,7 +266,9 @@ def head_folded_attention(q, k, v):
         return head_folded_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch._C._are_functorch_transforms_active():
+        return _HeadFoldedAttention.apply(q, k, v)[0]  # its vmap rule folds
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _HeadFoldedAttention.apply(q, k, v)
+        return _HeadFoldedAttention.apply(q, k, v)[0]
     return forward_kernel(q, k, v, with_lse=False)[0]

@@ -158,7 +158,13 @@ class _RbfCrossKernel(torch.autograd.Function):
 
 
 def rbf_cross_kernel(x, z, lengthscale, outputscale):
-    """K of one GP, (..., N, M), or of h GPs, (h, ..., N, M), at raw x."""
+    """K of one GP, (..., N, M), or of h GPs, (h, ..., N, M), at raw x.  Not
+    under ``torch.func.vmap``: the h GPs' weights over a shared x would need
+    a seed axis in the kernel (ROADMAP.md item 18)."""
+    if torch._C._are_functorch_transforms_active():
+        raise NotImplementedError(
+            "rbf_cross_kernel has no seed axis yet (ROADMAP.md modules to "
+            "port, item 18: the kernels' seed axes)")
     if x.device.type == "cuda":
         _check(x, z, lengthscale, outputscale)
     elif x.device.type != "cpu":

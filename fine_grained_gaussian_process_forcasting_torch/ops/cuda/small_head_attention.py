@@ -197,7 +197,13 @@ class _SmallHeadAttentionPlain(torch.autograd.Function):
 
 def small_head_attention(q, k, v):
     """Context (b, h, Lq, d) of softmax attention for d <= 8; q (b, h, Lq, d),
-    k and v (b, h, Lk, d).  Computed in fp32, returned in q's dtype."""
+    k and v (b, h, Lk, d).  Computed in fp32, returned in q's dtype.  Not
+    under ``torch.func.vmap``: no route takes it, and its seed fold is
+    ROADMAP.md item 18."""
+    if torch._C._are_functorch_transforms_active():
+        raise NotImplementedError(
+            "small_head_attention has no vmap rule yet (ROADMAP.md modules "
+            "to port, item 18: the kernels' seed axes)")
     _check_shapes(q, k, v)
     dtype = q.dtype
     q, k, v = (t.float() for t in (q, k, v))

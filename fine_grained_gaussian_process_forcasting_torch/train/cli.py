@@ -3,7 +3,9 @@ package's ``train/cli.py``, with the same flags, names and defaults).
 
 Three seeds are drawn from ``random.seed(1234)`` as the reference draws
 them; each seed runs an HPO study (``train/harness.py``) and its evaluation
-per ``--pred_len``.  ``--synthetic`` trains on generated data of the
+per ``--pred_len``, or with ``--multiseed True`` all the seeds train as one
+group per ``--pred_len`` (``MultiSeedExperimentHarness``, one step per batch
+for every seed) and are evaluated one by one.  ``--synthetic`` trains on generated data of the
 experiment's schema; otherwise ``--data_csv`` (``{exp_name}.csv`` by
 default) is read, its ``date`` column kept as text.
 
@@ -12,9 +14,11 @@ default) is read, its ``date`` column kept as text.
         --denoising True --gp True --synthetic
 
 Runs on the card; ``main(argv, device="cpu")`` runs the plain versions on
-the CPU.  Every ``--attn_type`` and ``--backbone`` of the JAX CLI runs.
-Not ported yet, and refused rather than ignored: ``--dp``, ``--tp``,
-``--fsdp`` (ROADMAP.md item 13) and ``--multiseed True`` (item 8).  The
+the CPU.  Every ``--attn_type`` and ``--backbone`` of the JAX CLI runs
+(with ``--multiseed True``, not yet ``--gp_kind exact``,
+``--gp_hidden_dims``, ``--backbone lstm`` or informer: ROADMAP.md items
+17-20).  Not ported yet, and refused rather than ignored: ``--dp``,
+``--tp`` and ``--fsdp`` (ROADMAP.md item 13).  The
 JAX CLI first enables JAX's persistent compilation cache; PyTorch runs
 eagerly and the CUDA kernels are built once per source hash
 (``ops/cuda/_build.py``), so there is nothing to enable here.
@@ -32,6 +36,7 @@ from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
 from fine_grained_gaussian_process_forcasting_torch.train.harness import (
     ExperimentHarness,
     HarnessArgs,
+    MultiSeedExperimentHarness,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.observability import (
     profile_trace,
@@ -66,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pred_len", type=int, nargs="+", default=[96])
     parser.add_argument("--n_seeds", type=int, default=3)
     parser.add_argument("--multiseed", type=_str2bool, default="False",
-                        help="train all n_seeds as one batched dispatch "
-                             "(not ported yet: raises)")
+                        help="train all n_seeds as one group: one step per "
+                             "batch for every seed")
     parser.add_argument("--backbone", type=str, default="transformer")
     parser.add_argument("--out_dir", type=str, default=".")
     parser.add_argument("--data_csv", type=str, default=None,
@@ -151,13 +156,13 @@ def main(argv=None, device="cuda"):
     not a flag)."""
     args = build_parser().parse_args(argv)
     if args.dp > 0 or args.tp > 1 or args.fsdp:
+        if args.multiseed:
+            raise SystemExit(
+                "--multiseed and --dp/--tp are mutually exclusive: the "
+                "multiseed trainer fills the card with the seed axis")
         raise NotImplementedError(
             "--dp, --tp and --fsdp are not ported yet (ROADMAP.md modules to "
             "port, item 13: parallel/mesh.py and parallel/sharding.py)")
-    if args.multiseed:
-        raise NotImplementedError(
-            "--multiseed True is not ported yet (ROADMAP.md modules to port, "
-            "item 8: train/multiseed.py)")
 
     if args.synthetic:
         raw_data = make_synthetic_frame(args.exp_name, num_entities=8,
@@ -171,8 +176,10 @@ def main(argv=None, device="cuda"):
     random.seed(1234)
     seeds = [random.randint(1000, 9999) for _ in range(args.n_seeds)]
     results = []
-    for seed in seeds:
+    seed_groups = [seeds] if args.multiseed else [[s] for s in seeds]
+    for seed_group in seed_groups:
         for pred_len in args.pred_len:
+            seed = seed_group[0]
             # iso == denoising without GP and without no_noise
             gp = args.gp and not args.iso
             hargs = HarnessArgs(
@@ -209,10 +216,15 @@ def main(argv=None, device="cuda"):
                 clip_grad_norm=args.clip_grad_norm,
                 nonfinite_guard=args.nonfinite_guard,
             )
-            harness = ExperimentHarness(raw_data, hargs, device=device)
+            if args.multiseed:
+                harness = MultiSeedExperimentHarness(
+                    raw_data, hargs, seeds=seed_group, device=device)
+            else:
+                harness = ExperimentHarness(raw_data, hargs, device=device)
             with profile_trace(args.profile_dir):
                 harness.run_study()
-            results.append(harness.evaluate())
+            res = harness.evaluate()
+            results.extend(res if isinstance(res, list) else [res])
     return results
 
 

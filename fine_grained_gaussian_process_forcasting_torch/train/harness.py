@@ -13,7 +13,10 @@ The same behaviour as the JAX harness (and the reference's ``Train``):
   beside the curves, so a restarted study skips finished trials and
   rebuilds the best parameters from their checkpoint;
 - ``evaluate``: test MSE / MAE with their std, the predictions ``.npz``, and
-  a row appended to ``reported_errors_{exp}.csv``.
+  a row appended to ``reported_errors_{exp}.csv``;
+- ``MultiSeedExperimentHarness``: the seeds of one study trained together
+  (``train/multiseed.py``), with a best checkpoint, loss curves and an
+  evaluation per seed.
 
 The data is windowed on the host (numpy), copied to the device once per
 trial, and the model runs on ``device`` (``cuda`` unless the caller asks for
@@ -45,6 +48,9 @@ from fine_grained_gaussian_process_forcasting_torch.train import hpo
 from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
+)
+from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
+    MultiSeedTrainer,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.observability import (
     MetricsLogger,
@@ -144,18 +150,23 @@ class ExperimentHarness:
         with open(self._study_state_path) as f:
             st = json.load(f)
         self._completed_trials = st.get("trials", {})
+        self._apply_study_state(st)
+
+    def _apply_study_state(self, st: dict) -> None:
         if st.get("best_config") is not None:
             self.best_val = st["best_val"]
             self.best_config = tuple(st["best_config"])
+
+    def _study_state_payload(self) -> dict:
+        return {"trials": self._completed_trials, "best_val": self.best_val,
+                "best_config": (list(self.best_config)
+                                if self.best_config else None)}
 
     def _save_study_state(self) -> None:
         os.makedirs(os.path.dirname(self._study_state_path), exist_ok=True)
         tmp = self._study_state_path + ".tmp"
         with open(tmp, "w") as f:
-            json.dump({"trials": self._completed_trials,
-                       "best_val": self.best_val,
-                       "best_config": (list(self.best_config)
-                                       if self.best_config else None)}, f)
+            json.dump(self._study_state_payload(), f)
         os.replace(tmp, self._study_state_path)
 
     def _load_best_params(self, model_name: str, d_model: int,
@@ -337,11 +348,126 @@ class ExperimentHarness:
 
 
 class MultiSeedExperimentHarness(ExperimentHarness):
-    """The JAX package trains the seeds of one study as one vmapped
-    dispatch (``train/multiseed.py``); not ported yet."""
+    """The reference's N-seed protocol as one study whose trials train every
+    seed together (``train/multiseed.py``), as N sequential
+    ``ExperimentHarness`` studies would: seed s's trial n starts from
+    ``s + n``, and each seed keeps its own best validation loss, checkpoint
+    (``_name_for_seed``), loss curves and evaluation.  A trial's value is
+    the mean over seeds of their best validation losses."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiSeedExperimentHarness needs the vmapped MultiSeedTrainer, "
-            "which is not ported yet (ROADMAP.md modules to port, item 8: "
-            "train/multiseed.py)")
+    def __init__(self, raw_data: table.Frame, args: HarnessArgs, seeds, *,
+                 device="cuda"):
+        self.seeds = tuple(int(s) for s in seeds)
+        n = len(self.seeds)
+        # before super().__init__: _load_study_state restores into these
+        self.best_val_seed = [1e10] * n
+        self.best_params_seed = [None] * n
+        self.best_config_seed = [None] * n
+        super().__init__(raw_data, args, device=device)
+
+    def _apply_study_state(self, st: dict) -> None:
+        super()._apply_study_state(st)
+        vals = st.get("best_val_seed") or []
+        cfgs = st.get("best_config_seed") or []
+        for i, (v, c) in enumerate(zip(vals, cfgs)):
+            if i < len(self.seeds) and c is not None:
+                self.best_val_seed[i] = v
+                self.best_config_seed[i] = tuple(c)
+
+    def _study_state_payload(self) -> dict:
+        payload = super()._study_state_payload()
+        payload["best_val_seed"] = self.best_val_seed
+        payload["best_config_seed"] = [
+            list(c) if c is not None else None for c in self.best_config_seed]
+        return payload
+
+    def _name_for_seed(self, seed: int) -> str:
+        a = self.args
+        return "{}_{}_{}_{}{}{}{}{}{}{}".format(
+            a.model_name, a.exp_name, a.pred_len, seed,
+            "_denoise" if self.denoising else "",
+            "_gp" if self.gp else "",
+            "_predictions" if a.no_noise else "",
+            "_iso" if a.iso else "",
+            "_residual" if a.residual else "",
+            "_input_corrupt" if self.input_corrupt else "",
+        )
+
+    def objective(self, trial: hpo.Trial) -> float:
+        args = self.args
+        d_model = trial.suggest_categorical("d_model",
+                                            list(args.d_model_choices))
+        w_steps = trial.suggest_categorical("w_steps",
+                                            list(args.w_steps_choices))
+        stack_size = trial.suggest_categorical("stack_size",
+                                               list(args.stack_choices))
+
+        trial_key = f"d{d_model}_w{w_steps}_s{stack_size}"
+        if trial_key in self._completed_trials:
+            val = self._completed_trials[trial_key]
+            print(f"trial {trial_key}: resumed from study state "
+                  f"(val {val:.4f})")
+            return val
+
+        trial_seeds = [s + trial.number for s in self.seeds]
+        trainer = MultiSeedTrainer(
+            self._make_model(d_model, stack_size), d_model=d_model,
+            n_seeds=len(self.seeds), warmup_steps=w_steps,
+            clip_grad_norm=args.clip_grad_norm,
+            nonfinite_guard=args.nonfinite_guard, device=self.device)
+        train_dev = trainer.device_put_split(self.train_data)
+        valid_dev = trainer.device_put_split(self.valid_data)
+        state = trainer.init_state(
+            trial_seeds,
+            lambda s: self._make_model(d_model, stack_size, s).state_dict())
+
+        val_best = np.full(len(self.seeds), 1e10)
+        curves_train, curves_valid = [], []
+        for epoch in range(args.num_epochs):
+            state, loss, mse = trainer.train_epoch(state, train_dev)
+            v_loss, v_mse, _ = trainer.eval_epoch(state, valid_dev)
+            curves_train.append(mse)
+            curves_valid.append(v_mse)
+            if epoch % 5 == 0:
+                print(f"Train epoch: {epoch}, loss: "
+                      + " ".join(f"{x:.4f}" for x in loss))
+                print("val loss: " + " ".join(f"{x:.4f}" for x in v_loss))
+            improved = v_loss < val_best
+            val_best = np.minimum(val_best, v_loss)
+            for i in np.flatnonzero(improved):
+                if v_loss[i] < self.best_val_seed[i]:
+                    self.best_val_seed[i] = float(v_loss[i])
+                    self.best_params_seed[i] = trainer.seed_params(state,
+                                                                   int(i))
+                    self.best_config_seed[i] = (d_model, stack_size)
+                    save_checkpoint(self.model_path,
+                                    self._name_for_seed(self.seeds[i]),
+                                    self.best_params_seed[i])
+
+        losses_dir = os.path.join(args.out_dir, "losses_lists")
+        os.makedirs(losses_dir, exist_ok=True)
+        for i, seed in enumerate(self.seeds):
+            name = self._name_for_seed(seed)
+            np.save(os.path.join(losses_dir, f"{name}_mse_losses_train.npy"),
+                    np.asarray(curves_train)[:, i])
+            np.save(os.path.join(losses_dir, f"{name}_mse_losses_valid.npy"),
+                    np.asarray(curves_valid)[:, i])
+        value = float(val_best.mean())
+        self._completed_trials[trial_key] = value
+        self._save_study_state()
+        return value
+
+    def evaluate(self) -> list:
+        """One result per seed, through the single-seed machinery."""
+        results = []
+        for i, seed in enumerate(self.seeds):
+            if (self.best_params_seed[i] is None
+                    and self.best_config_seed[i] is not None):
+                self.best_params_seed[i] = self._load_best_params(
+                    self._name_for_seed(seed), *self.best_config_seed[i])
+            assert self.best_params_seed[i] is not None, "run_study first"
+            self.best_params = self.best_params_seed[i]
+            self.best_config = self.best_config_seed[i]
+            self.model_name = self._name_for_seed(seed)
+            results.append(super().evaluate())
+        return results

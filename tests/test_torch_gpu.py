@@ -1546,3 +1546,166 @@ def test_model_option_on_card_matches_cpu(cuda, option, monkeypatch):
         err = (grads_g[name] - gc).abs().max().item()
         scale = max(gc.abs().max().item(), floor)
         assert err <= (TOL_BF16_GRAD if bf16 else 1e-3) * scale, name
+
+
+# ---- the seed axis (multi-seed training) ------------------------------- #
+
+def _seeded_inputs(seeds, b, n, d, m, device):
+    """Per-seed fused-GP inputs and cotangents, and both stacked."""
+    per = [_fused_inputs(b, n, d, m, 40 + i, device) for i in range(seeds)]
+    gen = torch.Generator(device).manual_seed(7)
+    cot = [(torch.randn(b, n, device=device, generator=gen),
+            torch.randn(b, n, device=device, generator=gen))
+           for _ in range(seeds)]
+    return (per, cot, [torch.stack(t) for t in zip(*per)],
+            [torch.stack(t) for t in zip(*cot)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [128, 512])
+def test_fused_gp_seed_axis_bit_equal_to_single_seed_calls(cuda, bf16, m):
+    """One call for 3 seeds, forward and backward, equals 3 calls of one
+    seed bit for bit (the same kernels, offsets only), and counts one
+    launch each way."""
+    per, cot, args, cots = _seeded_inputs(3, 4, 96, 32, m, cuda)
+    before = (fused_gp.bf16_launches if bf16 else fused_gp.launches,
+              fused_gp.bf16_bwd_launches if bf16 else fused_gp.bwd_launches)
+    fwd = fused_gp.forward_kernel(*args, bf16=bf16)
+    bwd = fused_gp.backward_kernel(*args, *cots, bf16=bf16)
+    after = (fused_gp.bf16_launches if bf16 else fused_gp.launches,
+             fused_gp.bf16_bwd_launches if bf16 else fused_gp.bwd_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    for i in range(3):
+        for got, want in zip(fwd, fused_gp.forward_kernel(*per[i],
+                                                          bf16=bf16)):
+            assert torch.equal(got[i], want)
+        for got, want in zip(bwd, fused_gp.backward_kernel(
+                *per[i], *cot[i], bf16=bf16)):
+            assert torch.equal(got[i], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_one_seed_axis_is_the_call_without_it(cuda, bf16):
+    """S = 1: the same kernels and results as the call without the axis."""
+    per, cot, args, cots = _seeded_inputs(1, 2, 160, 16, 256, cuda)
+    fwd = fused_gp.forward_kernel(*args, bf16=bf16)
+    bwd = fused_gp.backward_kernel(*args, *cots, bf16=bf16)
+    for got, want in zip(fwd, fused_gp.forward_kernel(*per[0], bf16=bf16)):
+        assert got.shape[0] == 1 and torch.equal(got[0], want)
+    for got, want in zip(bwd, fused_gp.backward_kernel(*per[0], *cot[0],
+                                                       bf16=bf16)):
+        assert got.shape[0] == 1 and torch.equal(got[0], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_fused_gp_vmap_rule_makes_one_seeded_call(cuda, bf16):
+    """Under torch.func.vmap the Function's rule makes one seeded call each
+    way, and each seed's outputs and gradients are its own call's."""
+    per, cot, args, cots = _seeded_inputs(3, 2, 64, 8, 128, cuda)
+    fn = (fused_gp.whitened_marginals_affine_bf16 if bf16
+          else fused_gp.whitened_marginals_affine)
+    leaves = [a.clone().requires_grad_() for a in args]
+    n0 = (fused_gp.seeds_launches + fused_gp.bf16_seeds_launches,
+          fused_gp.seeds_bwd_launches + fused_gp.bf16_seeds_bwd_launches)
+    mean, var = torch.func.vmap(fn)(*leaves)
+    torch.autograd.backward((mean, var), cots)
+    n1 = (fused_gp.seeds_launches + fused_gp.bf16_seeds_launches,
+          fused_gp.seeds_bwd_launches + fused_gp.bf16_seeds_bwd_launches)
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
+    for i in range(3):
+        one = [a.clone().requires_grad_() for a in per[i]]
+        m1, v1 = fn(*one)
+        torch.autograd.backward((m1, v1), cot[i])
+        assert torch.equal(mean[i], m1) and torch.equal(var[i], v1)
+        for leaf, single in zip(leaves, one):
+            assert torch.equal(leaf.grad[i], single.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["head_folded", "flash_fp32",
+                                    "flash_bf16"])
+def test_attention_fold_rule_bit_equal_to_single_seed_calls(cuda, kernel):
+    """Under torch.func.vmap the attention kernels fold the seeds into the
+    batch: one launch each way for 3 seeds, each seed's context and dq, dk,
+    dv equal to its own call's bit for bit (head-folded on the projections'
+    (b, L, h, d) views)."""
+    fn, module, d, dtype = {
+        "head_folded": (hfa.head_folded_attention, hfa, 4, torch.float32),
+        "flash_fp32": (flash.fused_attention, flash, 64, torch.float32),
+        "flash_bf16": (flash.fused_attention, flash, 64, torch.bfloat16),
+    }[kernel]
+    gen = torch.Generator(cuda).manual_seed(3)
+    s, b, h, length = 3, 4, 8, 96
+    qkv = [torch.randn(s, b, length, h, d, device=cuda, generator=gen
+                       ).to(dtype).transpose(2, 3) for _ in range(3)]
+    if module is flash:
+        qkv = [t.contiguous() for t in qkv]
+    do = torch.randn(s, b, h, length, d, device=cuda, generator=gen).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in qkv]
+    n0 = (module.launches, module.bwd_launches)
+    out = torch.func.vmap(fn)(*leaves)
+    out.backward(do)
+    assert (module.launches - n0[0], module.bwd_launches - n0[1]) == (1, 1)
+    for i in range(s):
+        one = [t[i].detach().requires_grad_() for t in qkv]
+        o = fn(*one)
+        o.backward(do[i])
+        assert torch.equal(out[i], o)
+        for t, single in zip(leaves, one):
+            assert torch.equal(t.grad[i], single.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn_type, flag", [("autoformer", None),
+                                             ("basic", None),
+                                             ("ATA", True)])
+def test_multiseed_step_matches_single_seed_steps(cuda, attn_type, flag):
+    """One MultiSeedTrainer step for 3 seeds against 3 Trainer steps on the
+    card: each seed's loss and gradients (TOL_MODEL relative to each
+    gradient's largest magnitude), one fused-GP launch each way for all
+    seeds."""
+    from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
+        MultiSeedTrainer,
+    )
+
+    def model(seed):
+        return ForecastDenoising(
+            src_input_size=4, tgt_input_size=4, d_model=32, n_heads=8,
+            d_k=4, stack_size=1, pred_len=24, attn_type=attn_type,
+            num_inducing=64, gp_ls_init=-1.0, use_pallas_attention=flag,
+            device=cuda, generator=torch.Generator().manual_seed(seed))
+
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                   ).to(cuda)
+                  for shape in ((16, 48, 4), (16, 24, 4), (16, 24, 1)))
+    seeds = (3, 4, 5)
+    trainer = MultiSeedTrainer(model(0), 32, 3, warmup_steps=100,
+                               device=cuda)
+    state = trainer.init_state(seeds, lambda s: model(s).state_dict())
+    n0 = (fused_gp.launches, fused_gp.bwd_launches)
+    losses, grads = trainer.gradients(state, batch)
+    assert (fused_gp.launches - n0[0], fused_gp.bwd_launches - n0[1]) == (1, 1)
+    for i, s in enumerate(seeds):
+        single = Trainer(model(s), 32, warmup_steps=100, device=cuda)
+        single.init_state(seed=s)
+        out = single.model(*batch, training=True, generator=single.generator)
+        out.loss.backward()
+        np.testing.assert_allclose(losses[i].item(), out.loss.item(),
+                                   rtol=TOL_MODEL)
+        largest = max(p.grad.abs().max().item()
+                      for p in single.model.parameters())
+        for name, p in single.model.named_parameters():
+            if ".ata." in name and "_conv" in name and name.endswith("bias"):
+                # 0 in exact arithmetic (the batch norm after each removes
+                # it): rounding residue on both sides, below 1e-5 of the
+                # largest gradient, as chip_smoke.py's ZERO_GRAD
+                assert max(p.grad.abs().max().item(),
+                           grads[name][i].abs().max().item()) <= 1e-5 * largest
+                continue
+            scale = max(p.grad.abs().max().item(), 1e-12)
+            err = (grads[name][i] - p.grad).abs().max().item()
+            assert err <= TOL_MODEL * scale, (name, err, scale)

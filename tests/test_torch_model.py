@@ -480,7 +480,8 @@ def test_port_imports_nothing_of_jax():
                    "data/table.py", "data/synthetic.py",
                    "data/formatters/scaling.py", "train/hpo.py",
                    "train/harness.py", "train/cli.py", "ops/probsparse.py",
-                   "ops/fourier.py", "models/lstm.py"):
+                   "ops/fourier.py", "models/lstm.py", "train/multiseed.py",
+                   "train/evaluate_checkpoints.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
