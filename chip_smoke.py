@@ -113,6 +113,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (the conv family at 16 bits, flag off).  Per batch one fused GP (the
    bf16 one at 16 bits), per step one each way; the CPU runs also replay
    ProbSparse's key samples and chosen queries from the card.
+   Serving and runtime, after the serving phases: ``serve_int8`` serves
+   the flagship pair (autoformer, basic) through ``InferenceSession(...,
+   quantize="int8")``, 600 windows, the launches a batch as fp32's, within
+   JAX's 0.15 of the fp32 session on fp32's AutoCorrelation delays, the
+   first 16 windows within 2^-5 of the CPU's int8 session, latency a batch
+   beside fp32's; ``export_*`` exports ``basic`` and ``autoformer`` (fp32
+   and int8), ``autoformer_bf16``, ``prod_basic``, ``multilayer`` and
+   ``exact_blur_pallas`` at full batch (``export_serving``, ``torch.export``
+   with each kernel a registered op), loads each from its file, serves it,
+   counts the kernels it launches from inside and holds it to
+   ``session.predict`` (rtol 1e-6 / atol 1e-7, int8 1e-5 / 1e-6), the
+   flagship int8 artifact also served by a fresh process that imports no
+   model code; ``predict_dataframe`` serves a synthetic electricity frame
+   on the card and on the CPU: the same identifiers, the forecasts within
+   1e-3 of each entity's std.
 7. The training CLI, ``cli_ata``: ``train.cli.main`` as ``run.sh`` runs it
    (``--exp_name solar --attn_type ATA --denoising True --gp True``) on
    synthetic solar data at the flagship width, cut to 2560 training and 512
@@ -150,8 +165,10 @@ import dataclasses
 import fnmatch
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2752,6 +2769,337 @@ def serve(cfg: Config, card: str):
                     "probsparse_choices_replayed": psp_cpu.flips}
 
 
+# int8 serving (train/quantize.py): JAX's own bound for the int8 session
+# against fp32, 0.15 of the largest fp32 prediction (tests/test_quantize.py)
+TOL_INT8_VS_FP32 = 0.15
+# the card's int8 session against the CPU's: the int8 products are exact
+# int32 sums on both devices, but the activations entering each int8 layer
+# differ by the devices' fp32 rounding, and every activation whose x / x_s
+# falls that close to a half takes the neighbouring int8 code on the other
+# device, one step of 1/127 of its token's largest activation: 8-bit values
+# rounded the other way at places, as in the bf16 model, whose card-vs-CPU
+# gate this takes (TOL_SERVING_BF16, 2^-5 of the largest prediction)
+TOL_SERVING_INT8 = 2.0 ** -5
+# the exported program against ``session.predict``: the JAX package's
+# tolerances for its own artifact (tests/test_predict.py), (rtol, atol)
+TOL_EXPORT = (1e-6, 1e-7)
+TOL_EXPORT_INT8 = (1e-5, 1e-6)
+# predict_dataframe: the electricity windows served (one batch of 256)
+DF_WINDOWS = 256
+
+
+def _median_ms(fn, runs: int = 5) -> float:
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def serve_int8(cfg: Config, card: str):
+    """The int8 session (``quantize="int8"``) at full width: every window
+    of ``serve``'s, the launches a batch as fp32's, within JAX's bound of
+    the fp32 session on the card, the first windows against the int8
+    session on the CPU (the card's delays replayed), and latency a batch
+    and windows/s beside fp32's."""
+    from fine_grained_gaussian_process_forcasting_torch.train.predict import (
+        InferenceSession,
+    )
+
+    b = cfg.batch
+    enc, dec = cfg.windows(cfg.n_windows, SEED)
+    model = cfg.model("cuda")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    fp32 = InferenceSession(model, state, batch_size=b, device="cuda")
+    int8 = InferenceSession(model, state, batch_size=b, device="cuda",
+                            quantize="int8")
+    for session in (fp32, int8):
+        session.predict(enc[:b], dec[:b])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out8 = int8.predict(enc, dec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-cfg.n_windows // b)
+    expect = {k: n_batches * v for k, v in cfg.per_batch.items()}
+    if out8.shape != (cfg.n_windows, cfg.pred, 1):
+        raise AssertionError(f"{cfg.name} int8: output shape {out8.shape}")
+    if not np.all(np.isfinite(out8)):
+        raise AssertionError(f"{cfg.name} int8: non-finite predictions")
+    if counts != expect:
+        raise AssertionError(f"{cfg.name} int8: launches {counts}, "
+                             f"expected {expect}")
+    # against fp32 on the same delays: a near-tie that quantization noise
+    # breaks the other way picks other delays, another function (why JAX
+    # holds only basic to the bound); both figures are printed
+    with _DelayRecorder() as rec32:
+        out32 = fp32.predict(enc, dec)
+    with _DelayRecorder(replay=rec32.delays) as rec8:
+        same_delays = int8.predict(enc, dec)
+    # each call's delays are one padded batch's, a batch's calls in turn
+    flipped = np.zeros(n_batches * b, dtype=bool)
+    calls = len(rec32.delays) // n_batches
+    for i, differs in enumerate(_differing(rec8.delays, rec32.delays)):
+        start = i // calls * b
+        flipped[start: start + b] |= differs.numpy()
+    flipped = flipped[: cfg.n_windows]
+
+    def rel(a):
+        return float(np.abs(a - out32).max() / (np.abs(out32).max() + 1e-3))
+
+    vs_fp32, own_delays = rel(same_delays), rel(out8)
+    if not 0.0 < vs_fp32 < TOL_INT8_VS_FP32:
+        raise AssertionError(f"{cfg.name} int8: max|int8 - fp32| / max|fp32|"
+                             f" {vs_fp32:.3e} on fp32's delays, expected in "
+                             f"(0, {TOL_INT8_VS_FP32})")
+    ms = {name: _median_ms(lambda s=s: s.predict(enc[:b], dec[:b]))
+          for name, s in (("int8", int8), ("fp32", fp32))}
+
+    n = cfg.n_check
+    cpu = InferenceSession(cfg.model("cpu"), state, batch_size=n,
+                           device="cpu", quantize="int8")
+    with _DelayRecorder() as rec_gpu:
+        gpu_first = int8.predict(enc[:n], dec[:n])
+    with _DelayRecorder(replay=rec_gpu.delays):
+        cpu_first = cpu.predict(enc[:n], dec[:n])
+    max_diff = float(np.abs(gpu_first - cpu_first).max())
+    mean_diff = float(np.abs(gpu_first - cpu_first).mean())
+    tol = TOL_SERVING_INT8 * float(np.abs(cpu_first).max())
+    log(f"serve_int8 {cfg.name} on {card}: {cfg.n_windows} windows in "
+        f"{wall * 1e3:.2f} ms ({cfg.n_windows / wall:.1f} windows/s); per "
+        f"batch of {b}: int8 {ms['int8']:.3f} ms ({b / ms['int8'] * 1e3:.1f}"
+        f" windows/s), fp32 {ms['fp32']:.3f} ms ({b / ms['fp32'] * 1e3:.1f}"
+        f" windows/s); peak memory {peak / 2**20:.1f} MiB; launches "
+        f"{counts}; max|int8 - fp32| / max|fp32| {vs_fp32:.3e} on fp32's "
+        f"delays (bound {TOL_INT8_VS_FP32}), {own_delays:.3e} on its own, "
+        f"whose delays differ in {int(flipped.sum())} of {cfg.n_windows} "
+        f"windows; int8 max|cuda - cpu| over {n} windows "
+        f"{max_diff:.3e} (tol {tol:.3e}; mean {mean_diff:.3e}, max|cpu| "
+        f"{float(np.abs(cpu_first).max()):.3e})")
+    if not max_diff <= tol:
+        raise AssertionError(f"{cfg.name} int8: cuda and cpu disagree: "
+                             f"{max_diff} > {tol}")
+    return counts, {"int8_vs_fp32": vs_fp32,
+                    "int8_vs_fp32_bound": TOL_INT8_VS_FP32,
+                    "int8_vs_fp32_own_delays": own_delays,
+                    "windows_own_delays_differ": int(flipped.sum()),
+                    "windows_compared": n, "max_abs_diff": max_diff,
+                    "mean_abs_diff": mean_diff, "tolerance": tol,
+                    "int8_batch_ms": ms["int8"],
+                    "fp32_batch_ms": ms["fp32"]}
+
+
+def _within(got, want, rtol_atol):
+    """max(|got - want| / (atol + rtol |want|)): at most 1 passes."""
+    rtol, atol = rtol_atol
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+_FRESH_LOADER = """
+import json, sys
+import numpy as np
+import torch
+from fine_grained_gaussian_process_forcasting_torch import serving
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+    fused_gp, head_folded_attention)
+serve = serving.load_exported(sys.argv[1])
+enc, dec = np.load(sys.argv[2]), np.load(sys.argv[3])
+serve(enc, dec)
+torch.cuda.synchronize()
+fused_gp.launches = head_folded_attention.launches = 0
+out = serve(enc, dec)
+torch.cuda.synchronize()
+np.save(sys.argv[4], out)
+print(json.dumps({"fused_gp": fused_gp.launches,
+                  "head_folded_attention": head_folded_attention.launches,
+                  "modules": sorted(m for m in sys.modules if m.startswith(
+                      "fine_grained_gaussian_process_forcasting_torch"))}))
+"""
+
+
+def _fresh_process_load(path, enc, dec, want, tmpdir, expect):
+    """The artifact loaded and served in a new process that imports
+    ``serving`` (torch and the kernels' ops) and nothing of the model."""
+    files = [os.path.join(tmpdir, f"{n}.npy") for n in ("enc", "dec", "out")]
+    np.save(files[0], enc)
+    np.save(files[1], dec)
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", _FRESH_LOADER, path, *files],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    if run.returncode != 0:
+        raise AssertionError(f"fresh-process load failed:\n{run.stderr}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    model_code = [m for m in report["modules"] if m.split(".")[1:2] in (
+        ["models"], ["params"], ["train"], ["gp"])]
+    if model_code:
+        raise AssertionError(f"the fresh process imported {model_code}")
+    counts = {k: report[k] for k in ("fused_gp", "head_folded_attention")}
+    if counts != {k: expect[k] for k in counts}:
+        raise AssertionError(f"fresh-process launches {counts}, expected "
+                             f"{expect}")
+    err = _within(np.load(files[2]), want, TOL_EXPORT_INT8)
+    if not err <= 1.0:
+        raise AssertionError(f"fresh-process output off session.predict "
+                             f"by {err:.3e} of the tolerance")
+    return {"launches": counts, "within_tolerance": err,
+            "modules": report["modules"]}
+
+
+def export_served(cfg: Config, card: str, quantize, tmpdir: str,
+                  fresh_process: bool = False):
+    """``export_serving`` at the configuration's full batch and shapes ->
+    ``load_exported`` from the file -> served: the launches of one batch
+    from inside the loaded program (the kernels' ops), its output against
+    ``session.predict`` at the JAX package's tolerances, export seconds,
+    artifact bytes, and latency a batch beside the eager session's.
+    ``exact`` takes the exact blur's Cholesky kernel (``use_pallas``, the
+    route of ``exact_blur_pallas``)."""
+    from fine_grained_gaussian_process_forcasting_torch.train.predict import (
+        InferenceSession,
+    )
+
+    label = f"{cfg.name}{'_int8' if quantize else ''}"
+    b = cfg.batch
+    enc, dec = cfg.windows(b, SEED + 3)
+    model = cfg.model("cuda")
+    expect = dict(cfg.per_batch)
+    if cfg.name == "exact":
+        label = f"exact_blur_pallas{'_int8' if quantize else ''}"
+        model.deep_gp.use_pallas = True
+        # smooth() of both streams, each a batched probe and the factor
+        expect["cholesky"] = 4
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    session = InferenceSession(model, state, batch_size=b, device="cuda",
+                               quantize=quantize)
+    want = session.predict(enc, dec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = session.export_serving(os.path.join(tmpdir, f"{label}.pt2"),
+                                  cfg.enc_len, cfg.dec_len, cfg.features)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    served = InferenceSession.load_exported(path)
+    load_s = time.perf_counter() - t0
+    served(enc, dec)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    got = served(enc, dec)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expect:
+        raise AssertionError(f"export {label}: launches from the loaded "
+                             f"program {counts}, expected {expect}")
+    tol = TOL_EXPORT_INT8 if quantize else TOL_EXPORT
+    err = _within(got, want, tol)
+    max_diff = float(np.abs(got - want).max())
+    ms = {"exported": _median_ms(lambda: served(enc, dec)),
+          "eager": _median_ms(lambda: session.predict(enc, dec))}
+    log(f"export {label} on {card}: export {export_s:.2f} s, load "
+        f"{load_s:.2f} s, artifact {size} bytes; launches from the loaded "
+        f"program {counts}; max|exported - predict| {max_diff:.3e} "
+        f"({err:.3e} of rtol {tol[0]:.0e} / atol {tol[1]:.0e}); per batch "
+        f"of {b}: exported {ms['exported']:.3f} ms, eager "
+        f"{ms['eager']:.3f} ms")
+    if not err <= 1.0:
+        raise AssertionError(f"export {label}: the loaded program is off "
+                             f"session.predict by {err:.3e} of the "
+                             f"tolerance (max diff {max_diff:.3e})")
+    result = {"export_s": export_s, "load_s": load_s, "artifact_bytes": size,
+              "max_abs_diff": max_diff, "within_tolerance": err,
+              "tolerance": tol, "exported_batch_ms": ms["exported"],
+              "eager_batch_ms": ms["eager"]}
+    if fresh_process:
+        result["fresh_process"] = _fresh_process_load(path, enc, dec, want,
+                                                      tmpdir, expect)
+        log(f"export {label}: a fresh process served the artifact: "
+            f"{result['fresh_process']}")
+    return counts, result
+
+
+def predict_dataframe_phase(card: str):
+    """``InferenceSession.predict_dataframe`` of the flagship (random
+    weights) on the port's synthetic electricity frame, on the card and on
+    the CPU (the card's delays replayed): the same identifiers in the same
+    order, and the forecasts, each in its entity's standardized units,
+    within the fp32 serving gate."""
+    from fine_grained_gaussian_process_forcasting_torch.data.experiment import (
+        ExperimentConfig,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
+        make_synthetic_frame,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.predict import (
+        InferenceSession,
+    )
+
+    cfg = next(c for c in CONFIGS if c.name == "autoformer")
+    raw = make_synthetic_frame("electricity", num_entities=4,
+                               steps_per_entity=500, seed=SEED)
+    with tempfile.TemporaryDirectory() as root:
+        fmt = ExperimentConfig(PRED, "electricity",
+                               root_folder=root).make_data_formatter()
+    model = cfg.model("cuda")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    session = InferenceSession(model, state, batch_size=B, device="cuda")
+    session.predict_dataframe(raw, fmt, PRED, max_windows=DF_WINDOWS)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with _DelayRecorder() as rec:
+        frame = session.predict_dataframe(raw, fmt, PRED,
+                                          max_windows=DF_WINDOWS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect = {k: -(-DF_WINDOWS // B) * v for k, v in cfg.per_batch.items()}
+    if counts != expect:
+        raise AssertionError(f"predict_dataframe: launches {counts}, "
+                             f"expected {expect}")
+    cpu = InferenceSession(cfg.model("cpu"), state, batch_size=B,
+                           device="cpu")
+    with _DelayRecorder(replay=rec.delays):
+        cpu_frame = cpu.predict_dataframe(raw, fmt, PRED,
+                                          max_windows=DF_WINDOWS)
+    cols = [f"t+{i + 1}" for i in range(PRED)]
+    if list(frame) != cols + ["identifier"] or list(cpu_frame) != list(frame):
+        raise AssertionError(f"predict_dataframe: columns {list(frame)}")
+    ids = frame["identifier"]
+    if len(ids) != DF_WINDOWS or not np.array_equal(
+            ids, cpu_frame["identifier"]):
+        raise AssertionError("predict_dataframe: the card's identifiers "
+                             "differ from the cpu's")
+    values = np.stack([frame[c] for c in cols], 1)
+    ref = np.stack([cpu_frame[c] for c in cols], 1)
+    # each entity's standardized units, where TOL_SERVING applies
+    scale = np.array([fmt._target_scaler[i].scale_[0] for i in ids])
+    max_diff = float((np.abs(values - ref) / scale[:, None]).max())
+    if not np.all(np.isfinite(values)) or not max_diff <= TOL_SERVING:
+        raise AssertionError(f"predict_dataframe: cuda and cpu disagree by "
+                             f"{max_diff:.3e} standard deviations")
+    log(f"predict_dataframe on {card}: {DF_WINDOWS} electricity windows of "
+        f"{len(set(ids.tolist()))} entities in {wall * 1e3:.2f} ms, "
+        f"launches {counts}; identifiers equal to the cpu's; max|cuda - "
+        f"cpu| {max_diff:.3e} of each entity's std (tol {TOL_SERVING:.0e})")
+    return counts, {"windows": DF_WINDOWS, "max_abs_diff_std": max_diff,
+                    "tolerance": TOL_SERVING, "wall_ms": wall * 1e3}
+
+
+# the export phase: (configuration, quantize, load in a fresh process too)
+EXPORTS = (("basic", None, False), ("basic", "int8", False),
+           ("autoformer", None, False), ("autoformer", "int8", True),
+           ("autoformer_bf16", None, False), ("prod_basic", None, False),
+           ("multilayer", None, False), ("exact", None, False))
+
+
 def check_step_against_cpu(cfg: Config, params, batch):
     """Loss and every parameter gradient of one training step on the card
     against the same step of the port's CPU run: same weights, the first
@@ -3510,6 +3858,21 @@ def main() -> int:
     for cfg in CONFIGS:
         counts, cpu_checks[f"serve_{cfg.name}"] = serve(cfg, smi)
         record(f"serve_{cfg.name}", counts)
+    by_name = {cfg.name: cfg for cfg in CONFIGS}
+    for cfg_name in ("autoformer", "basic"):
+        path = f"serve_int8_{cfg_name}"
+        counts, cpu_checks[path] = serve_int8(by_name[cfg_name], smi)
+        record(path, counts)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for cfg_name, quantize, fresh in EXPORTS:
+            cfg = by_name[cfg_name]
+            label = "exact_blur_pallas" if cfg_name == "exact" else cfg_name
+            path = f"export_{label}{'_int8' if quantize else ''}"
+            counts, cpu_checks[path] = export_served(cfg, smi, quantize,
+                                                     tmpdir, fresh)
+            record(path, counts)
+    counts, cpu_checks["predict_dataframe"] = predict_dataframe_phase(smi)
+    record("predict_dataframe", counts)
     for cfg in CONFIGS:
         counts, cpu_checks[f"train_{cfg.name}"], model = train(cfg, smi)
         record(f"train_{cfg.name}", counts)

@@ -9,7 +9,8 @@ Semantics are the reference's, as the JAX package keeps them:
   numpy's global generator, seeded 2436 and restored afterwards; when fewer
   windows exist, all of them, shuffled;
 - the arrays keep ``max_samples`` rows and the tail stays zero, like the
-  reference's pre-allocated buffers;
+  reference's pre-allocated buffers (``pad_incomplete=False``: only the
+  real windows, as serving takes them);
 - splits: train = the first ``train_percent`` of the rows sorted by (id,
   time), valid = the next half of the rest, test = the *whole* frame;
 - encoder block = the first ``num_encoder_steps`` rows, decoder block = the
@@ -45,6 +46,7 @@ class WindowedSplit:
     enc_inputs: np.ndarray  # (N, num_encoder_steps, F)
     dec_inputs: np.ndarray  # (N, time_steps - num_encoder_steps - pred_len, F)
     outputs: np.ndarray  # (N, pred_len, 1)
+    identifiers: np.ndarray  # (N,) object: each window's entity, or None
 
     def __len__(self) -> int:
         return self.enc_inputs.shape[0]
@@ -100,9 +102,11 @@ def _entity_windows(df: table.Frame, id_col: str, time_steps: int
 
 def sample_windows(df: table.Frame, max_samples: int, time_steps: int,
                    num_encoder_steps: int, pred_len: int,
-                   column_definition: Sequence) -> WindowedSplit:
-    """Extract (enc, dec, y) windows, drawing from numpy's global
-    generator; zero-padded to ``max_samples`` rows when fewer exist."""
+                   column_definition: Sequence,
+                   pad_incomplete: bool = True) -> WindowedSplit:
+    """Extract (enc, dec, y) windows and their entities, drawing from
+    numpy's global generator; zero-padded to ``max_samples`` rows when fewer
+    exist, unless ``pad_incomplete`` is False."""
     id_col = get_single_col_by_input_type(InputTypes.ID, column_definition)
     target_col = get_single_col_by_input_type(InputTypes.TARGET,
                                               column_definition)
@@ -119,10 +123,12 @@ def sample_windows(df: table.Frame, max_samples: int, time_steps: int,
                                          replace=False)]
 
     n_real = len(starts)
-    n_out = max_samples if max_samples > 0 else n_real
+    n_out = max_samples if (pad_incomplete and max_samples > 0) else n_real
     inputs = np.zeros((n_out, time_steps, len(input_cols)), np.float32)
     outputs = np.zeros((n_out, pred_len, 1), np.float32)
+    identifiers = np.full((n_out,), None, dtype=object)
     if n_real:
+        identifiers[:n_real] = df[id_col][starts]
         rows = starts[:, None] + np.arange(time_steps)
         inputs[:n_real] = table.matrix(df, input_cols, np.float32)[rows]
         outputs[:n_real] = table.matrix(df, [target_col],
@@ -134,6 +140,7 @@ def sample_windows(df: table.Frame, max_samples: int, time_steps: int,
         dec_inputs=inputs[:, num_encoder_steps: num_encoder_steps + dec_len,
                           :],
         outputs=outputs,
+        identifiers=identifiers,
     )
 
 

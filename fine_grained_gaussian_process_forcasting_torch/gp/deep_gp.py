@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from fine_grained_gaussian_process_forcasting_torch import draws
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
 from fine_grained_gaussian_process_forcasting_torch.gp.kernels import (
     rbf_ard,
@@ -188,7 +189,7 @@ def draw_eps(shape, generator: Optional[torch.Generator],
     ``generator`` (on ``like``'s device), or zeros without one."""
     if generator is None:
         return torch.zeros(shape, dtype=like.dtype, device=like.device)
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
+    return draws.randn(shape, generator, dtype=like.dtype,
                        device=like.device)
 
 

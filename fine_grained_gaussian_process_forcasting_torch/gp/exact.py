@@ -48,22 +48,29 @@ def psd_safe_cholesky(a: torch.Tensor, max_tries: int = 3,
     ``psd_safe_cholesky``): the smallest jitter 1e-4 * s0 * 10^i, i in
     0..max_tries, for which ``factor`` (NaN where it fails) is finite in
     every matrix of the batch, s0 the mean diagonal over the whole batch
-    (i = max_tries if none is).  The probes run on a detached copy, one
-    device read each; the result is one differentiable factorization at
-    the chosen jitter."""
+    (i = max_tries if none is).  The candidates 0..max_tries - 1 are
+    factored at once on a detached copy and i is picked on the device, so
+    nothing is read on the host (JAX's ``lax.while_loop`` probes them one
+    by one; the pick is the same).  The result is one differentiable
+    factorization at the chosen jitter."""
     a0 = a.detach()
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     s0 = torch.diagonal(a0, dim1=-2, dim2=-1).mean()
-    ten = torch.tensor(10.0, dtype=a.dtype, device=a.device)
-
-    def jittered(m, i):  # in the arithmetic of the JAX probe
-        return m + 1e-4 * s0 * ten ** i * eye
-
-    i = 0
-    while (i < max_tries
-           and not bool(torch.isfinite(factor(jittered(a0, i))).all())):
-        i += 1
-    return factor(jittered(a, i))
+    # 10^i, exact in every float type for these i
+    powers = torch.tensor([10.0 ** i for i in range(max_tries + 1)],
+                          dtype=a.dtype, device=a.device)
+    scaled = 1e-4 * s0 * powers  # the JAX probe's arithmetic
+    if max_tries > 0:
+        lead = (max_tries,) + (1,) * a0.dim()
+        probes = factor(a0 + scaled[:max_tries].reshape(lead) * eye)
+        ok = torch.isfinite(probes).flatten(1).all(1)
+        i = torch.where(ok.any(), ok.int().argmax(),
+                        torch.tensor(max_tries, device=a.device))
+    else:
+        i = torch.zeros((), dtype=torch.long, device=a.device)
+    # a gather, not scaled[i]: indexing with a tensor would read it on the
+    # host
+    return factor(a + scaled.index_select(0, i.reshape(1))[0] * eye)
 
 
 def _chol_factors(params: ExactGPParams, x: torch.Tensor, y: torch.Tensor):

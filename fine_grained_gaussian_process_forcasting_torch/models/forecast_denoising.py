@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from fine_grained_gaussian_process_forcasting_torch import draws
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
 from fine_grained_gaussian_process_forcasting_torch.gp import deep_gp
 from fine_grained_gaussian_process_forcasting_torch.gp.deep_gp import (
@@ -153,7 +154,7 @@ class ForecastDenoising(nn.Module):
             raise ValueError(
                 "isotropic mode needs a generator or noise draws")
         return {"noise": tuple(
-            torch.randn((batch, length, self.d_model), generator=generator,
+            draws.randn((batch, length, self.d_model), generator,
                         device=device)
             for length in (enc_len, dec_len))}
 
@@ -208,7 +209,8 @@ class ForecastDenoising(nn.Module):
         decoder hidden states; ``gp_eps``: the deep GP's N(0, 1) draws, one
         (b, enc_len + dec_len, gp_hidden_dims[i]) per hidden layer; else
         either is drawn from ``generator`` (a generator on the inputs'
-        device), as informer's key samples are (a fixed seed-0 generator
+        device, or a ``draws.DrawTape`` that records or replays the
+        draws), as informer's key samples are (a fixed seed-0 generator
         without one)."""
         dev = enc_inputs.device
         mll_error = torch.zeros((), device=dev)

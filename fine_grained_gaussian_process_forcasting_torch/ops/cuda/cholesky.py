@@ -107,6 +107,29 @@ class _BatchedCholesky(torch.autograd.Function):
         return batched_cholesky_bwd_plain(chol, dchol)
 
 
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel: the kernel on CUDA tensors, the library's factorization on
+# CPU tensors, L's shape from ``register_fake``.  The served (no-gradient)
+# path calls it.
+@torch.library.custom_op("fgp_torch::batched_cholesky_fwd", mutates_args=(),
+                         device_types="cuda", schema="(Tensor a) -> Tensor")
+def batched_cholesky_fwd(a):
+    _check(a)
+    return forward_kernel(a)
+
+
+@batched_cholesky_fwd.register_kernel("cpu")
+def _(a):
+    # LAPACK's factor is column-major; the op's output is row-major, as the
+    # kernel's
+    return batched_cholesky_plain(a).contiguous()
+
+
+@batched_cholesky_fwd.register_fake
+def _(a):
+    return a.new_empty(a.shape)
+
+
 def batched_cholesky(a):
     """Lower Cholesky factors of (..., n, n) SPD matrices; NaN where a
     matrix is not positive definite.  Not under ``torch.func.vmap`` (ROADMAP.md
@@ -115,8 +138,10 @@ def batched_cholesky(a):
         raise NotImplementedError(
             "batched_cholesky has no vmap rule yet (ROADMAP.md modules to "
             "port, item 18: the kernels' seed axes)")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    if not (torch.is_grad_enabled() and a.requires_grad):
+        return batched_cholesky_fwd(a)
     if a.device.type == "cuda":
         _check(a)
-    elif a.device.type != "cpu":
-        raise ValueError(f"unsupported device {a.device}")
     return _BatchedCholesky.apply(a)

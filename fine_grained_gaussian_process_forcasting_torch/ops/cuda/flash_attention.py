@@ -266,20 +266,39 @@ class _FusedAttention(torch.autograd.Function):
                                        ctx.sm_bf16))
 
 
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel: the kernel on CUDA tensors, the plain version on CPU
+# tensors, the context's shape from ``register_fake``.  The served
+# (no-gradient) path calls it.
+@torch.library.custom_op(
+    "fgp_torch::flash_attention_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, bool sm_bf16) -> Tensor")
+def flash_attention_fwd(q, k, v, sm_bf16):
+    _check(q, k, v)
+    return forward_kernel(q, k, v, False, sm_bf16)[0]
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _(q, k, v, sm_bf16):
+    return fused_attention_plain(q, k, v, sm_bf16)
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, sm_bf16):
+    return torch.empty_like(q) if q.device.type == "cuda" else q.new_empty(
+        q.shape)
+
+
 def _attention(q, k, v, sm_bf16):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if torch._C._are_functorch_transforms_active():
         return _FusedAttention.apply(sm_bf16, q, k, v)[0]  # its vmap rule
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    if q.device.type == "cuda":
-        _check(q, k, v)
-        if not needs_grad:
-            return forward_kernel(q, k, v, False, sm_bf16)[0]
-    elif not needs_grad:
-        return fused_attention_plain(q, k, v, sm_bf16)
-    return _FusedAttention.apply(sm_bf16, q, k, v)[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda":
+            _check(q, k, v)
+        return _FusedAttention.apply(sm_bf16, q, k, v)[0]
+    return flash_attention_fwd(q, k, v, sm_bf16)
 
 
 def fused_attention(q, k, v):

@@ -348,13 +348,15 @@ def _marginals(args, bf16):
     if x.device.type == "cpu":
         if bf16 and grad:  # the bf16 VJP is the kernel's own rule
             return _WhitenedMarginals.apply(bf16, *args)
-        return whitened_marginals_affine_plain(*_full(args), bf16=bf16)
+        if grad:
+            return whitened_marginals_affine_plain(*_full(args), bf16=bf16)
+        return fused_gp_fwd(*_full(args), bf16)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(*_full(args))
     if grad:
+        _check(*_full(args))
         return _WhitenedMarginals.apply(bf16, *args)
-    return forward_kernel(*_full(args), bf16=bf16)
+    return fused_gp_fwd(*_full(args), bf16)
 
 
 def _seeds_and_shape(x):
@@ -388,6 +390,32 @@ def forward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b,
         launches += 1
         seeds_launches += bool(lead)
     return mean, var
+
+
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel (FakeTensors have no data to hand to ctypes): the kernels on
+# CUDA tensors, the plain version on CPU tensors, the outputs' shapes from
+# ``register_fake``.  The served (no-gradient) path calls it.
+@torch.library.custom_op(
+    "fgp_torch::fused_gp_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor zs, Tensor u, Tensor w, Tensor outputscale, "
+           "Tensor inv_ls, Tensor mean_w, Tensor mean_b, bool bf16) -> "
+           "(Tensor, Tensor)")
+def fused_gp_fwd(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, bf16):
+    args = (x, zs, u, w, outputscale, inv_ls, mean_w, mean_b)
+    _check(*args)
+    return forward_kernel(*args, bf16=bf16)
+
+
+@fused_gp_fwd.register_kernel("cpu")
+def _(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, bf16):
+    return whitened_marginals_affine_plain(x, zs, u, w, outputscale, inv_ls,
+                                           mean_w, mean_b, bf16=bf16)
+
+
+@fused_gp_fwd.register_fake
+def _(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, bf16):
+    return x.new_empty(x.shape[:-1]), x.new_empty(x.shape[:-1])
 
 
 def backward_kernel(x, zs, u, w, outputscale, inv_ls, mean_w, mean_b, dmean,

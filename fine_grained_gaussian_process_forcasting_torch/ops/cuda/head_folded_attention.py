@@ -15,9 +15,9 @@ the CPU, torch's autograd differentiates the plain forward.
 Like the TPU kernel, which took its operands as (b, L, h d), the kernels
 read the projections' own layout: q, k and v may be any (b, h, L, d) views
 whose head dim has unit stride (the transposed (b, L, h, d) buffers of the
-transformer), and the outputs (the context; dq, dk and dv) are (b, h, L, d)
-views of fresh (b, L, h, d) memory (``folded_empty``), so that the way back
-into (b, L, h d) rows is a view as well.
+transformer), and the outputs (the context; dq, dk and dv) are fresh
+(b, h, L, d) tensors laid out as (b, L, h, d) memory (``folded_empty``), so
+that the way back into (b, L, h d) rows is a view as well.
 
 Under ``torch.func.vmap`` (the seeds of a multi-seed model) the vmapped
 axis folds into b: the Function's ``vmap`` rule calls the kernel once on
@@ -110,9 +110,11 @@ def bwd_plan(h: int, lq: int, lk: int, d: int) -> tuple[int, int]:
 
 
 def folded_empty(b: int, h: int, length: int, d: int, device):
-    """An uninitialised fp32 (b, h, L, d) view of (b, L, h, d) memory."""
-    return torch.empty((b, length, h, d), device=device,
-                       dtype=torch.float32).transpose(1, 2)
+    """An uninitialised fp32 (b, h, L, d) tensor laid out as (b, L, h, d)
+    memory (the transpose of a contiguous (b, L, h, d) tensor)."""
+    return torch.empty_strided((b, h, length, d),
+                               (length * h * d, d, h * d, 1), device=device,
+                               dtype=torch.float32)
 
 
 def launch_strides(*tensors):
@@ -258,17 +260,49 @@ class _HeadFoldedAttention(torch.autograd.Function):
         return backward_kernel(q, k, v, out, lse, do)
 
 
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel: the kernel on CUDA tensors, the plain version on CPU
+# tensors, the context's shape and strides from ``register_fake``.  The
+# served (no-gradient) path calls it.
+@torch.library.custom_op("fgp_torch::head_folded_attention_fwd",
+                         mutates_args=(), device_types="cuda",
+                         schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
+def head_folded_attention_fwd(q, k, v):
+    _check(q, k, v)
+    return forward_kernel(q, k, v, with_lse=False)[0]
+
+
+@head_folded_attention_fwd.register_kernel("cpu")
+def _(q, k, v):
+    return head_folded_attention_plain(q, k, v)
+
+
+@head_folded_attention_fwd.register_fake
+def _(q, k, v):
+    b, h, lq, d = q.shape
+    if q.device.type == "cuda":
+        return folded_empty(b, h, lq, d, q.device)
+    return q.new_empty((b, h, lq, d))
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def head_folded_attention(q, k, v):
     """Context (b, h, Lq, d) of softmax attention; q (b, h, Lq, d), k and v
     (b, h, Lk, d).  On the card the inputs may be any views with a unit
-    stride on d, and the context is a view of (b, Lq, h, d) memory."""
+    stride on d, and the context is laid out as (b, Lq, h, d) memory."""
     if q.device.type == "cpu":
-        return head_folded_attention_plain(q, k, v)
+        if (torch._C._are_functorch_transforms_active()
+                or _needs_grad(q, k, v)):
+            return head_folded_attention_plain(q, k, v)
+        return head_folded_attention_fwd(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if torch._C._are_functorch_transforms_active():
         return _HeadFoldedAttention.apply(q, k, v)[0]  # its vmap rule folds
-    _check(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if _needs_grad(q, k, v):
+        _check(q, k, v)
         return _HeadFoldedAttention.apply(q, k, v)[0]
-    return forward_kernel(q, k, v, with_lse=False)[0]
+    return head_folded_attention_fwd(q, k, v)

@@ -157,6 +157,29 @@ class _RbfCrossKernel(torch.autograd.Function):
         return rbf_cross_kernel_bwd_plain(*ctx.saved_tensors, g)
 
 
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel: the kernel on CUDA tensors, the plain version on CPU
+# tensors, K's shape from ``register_fake``.  The served (no-gradient) path
+# calls it.
+@torch.library.custom_op(
+    "fgp_torch::rbf_cross_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor z, Tensor lengthscale, Tensor outputscale) "
+           "-> Tensor")
+def rbf_cross_fwd(x, z, lengthscale, outputscale):
+    _check(x, z, lengthscale, outputscale)
+    return forward_kernel(x, z, lengthscale, outputscale)
+
+
+@rbf_cross_fwd.register_kernel("cpu")
+def _(x, z, lengthscale, outputscale):
+    return rbf_cross_kernel_plain(x, z, lengthscale, outputscale)
+
+
+@rbf_cross_fwd.register_fake
+def _(x, z, lengthscale, outputscale):
+    return x.new_empty(_out_shape(x, z))
+
+
 def rbf_cross_kernel(x, z, lengthscale, outputscale):
     """K of one GP, (..., N, M), or of h GPs, (h, ..., N, M), at raw x.  Not
     under ``torch.func.vmap``: the h GPs' weights over a shared x would need
@@ -165,8 +188,11 @@ def rbf_cross_kernel(x, z, lengthscale, outputscale):
         raise NotImplementedError(
             "rbf_cross_kernel has no seed axis yet (ROADMAP.md modules to "
             "port, item 18: the kernels' seed axes)")
-    if x.device.type == "cuda":
-        _check(x, z, lengthscale, outputscale)
-    elif x.device.type != "cpu":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    return _RbfCrossKernel.apply(x, z, lengthscale, outputscale)
+    args = (x, z, lengthscale, outputscale)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return rbf_cross_fwd(*args)
+    if x.device.type == "cuda":
+        _check(*args)
+    return _RbfCrossKernel.apply(*args)

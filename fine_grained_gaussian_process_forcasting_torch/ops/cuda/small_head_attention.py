@@ -195,6 +195,35 @@ class _SmallHeadAttentionPlain(torch.autograd.Function):
         return small_head_attention_bwd_plain(*ctx.saved_tensors, do)
 
 
+def _kernel_operands(q, k, v):
+    """fp32 operands as the kernels take them: contiguous, on 16 bytes,
+    checked."""
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
+    _check_kernel_operands(q, k, v)
+    return q, k, v
+
+
+# The forward as a registered op, so that ``torch.export`` records a call
+# of the kernel: the kernel on CUDA tensors, the plain version on CPU
+# tensors (fp32 operands either way), the context's shape from
+# ``register_fake``.  The served (no-gradient) path calls it.
+@torch.library.custom_op("fgp_torch::small_head_attention_fwd",
+                         mutates_args=(), device_types="cuda",
+                         schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
+def small_head_attention_fwd(q, k, v):
+    return forward_kernel(*_kernel_operands(q, k, v))[0]
+
+
+@small_head_attention_fwd.register_kernel("cpu")
+def _(q, k, v):
+    return small_head_attention_plain(q, k, v)
+
+
+@small_head_attention_fwd.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)
+
+
 def small_head_attention(q, k, v):
     """Context (b, h, Lq, d) of softmax attention for d <= 8; q (b, h, Lq, d),
     k and v (b, h, Lk, d).  Computed in fp32, returned in q's dtype.  Not
@@ -205,14 +234,15 @@ def small_head_attention(q, k, v):
             "small_head_attention has no vmap rule yet (ROADMAP.md modules "
             "to port, item 18: the kernels' seed axes)")
     _check_shapes(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
     dtype = q.dtype
     q, k, v = (t.float() for t in (q, k, v))
-    if q.device.type == "cpu":
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        out = small_head_attention_fwd(q, k, v)
+    elif q.device.type == "cpu":
         out = _SmallHeadAttentionPlain.apply(q, k, v)
-    elif q.device.type == "cuda":
-        q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
-        _check_kernel_operands(q, k, v)
-        out = _SmallHeadAttention.apply(q, k, v)
     else:
-        raise ValueError(f"unsupported device {q.device}")
+        out = _SmallHeadAttention.apply(*_kernel_operands(q, k, v))
     return out.to(dtype)

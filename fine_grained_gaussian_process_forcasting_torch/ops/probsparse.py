@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from fine_grained_gaussian_process_forcasting_torch import draws
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
     matmul16,
 )
@@ -49,8 +50,7 @@ def sample_keys(l_q: int, l_k: int, u_part: int,
     [0, l_k), from ``generator`` (a fixed seed-0 generator without one)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return torch.randint(0, l_k, (l_q, u_part), generator=generator,
-                         device=device)
+    return draws.randint(l_k, (l_q, u_part), generator, device=device)
 
 
 def top_queries(q: torch.Tensor, k: torch.Tensor, index_sample: torch.Tensor,

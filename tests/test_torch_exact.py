@@ -275,3 +275,60 @@ def test_exact_blur_escalation_matches_jax(use_pallas):
     np.testing.assert_allclose(chol.numpy(), np.asarray(jchol_), rtol=TOL,
                                atol=TOL)
     _blur_check(jmod, params, tmod, x, y, grads=False)
+
+
+def _needing(bumps, n=12, seed=7):
+    """A symmetric matrix whose factorization first succeeds at jitter
+    1e-4 * s0 * 10^bumps (s0 its mean diagonal): one eigenvalue between
+    minus the jitters before and at that bump (geometric mean); bumps -1:
+    positive definite; bumps 4: past every jitter (-1)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    eig = np.linspace(1.0, 2.0, n)
+    s0 = eig.mean()  # the mean diagonal, to first order in the last one
+    if bumps == 4:
+        eig[0] = -1.0
+    elif bumps >= 1:
+        eig[0] = -1e-4 * s0 * 10.0 ** (bumps - 0.5)
+    return ((q * eig) @ q.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("bumps", [0, 1, 2, 3, 4],
+                         ids=["pd", "1", "2", "max_tries", "none_pd"])
+def test_device_jitter_pick_is_jax_pick(bumps):
+    """The candidates factored at once and picked on the device take JAX's
+    jitter (0, 1, 2 and max_tries = 3 bumps), and NaN where no candidate
+    is positive definite, as JAX's ``lax.while_loop`` gives."""
+    k = _needing(bumps)
+    want = np.asarray(jexact.psd_safe_cholesky(jnp.asarray(k)))
+    got = texact.psd_safe_cholesky(_t(k)).numpy()
+    if bumps == 4:  # NaN over the factor's triangle, on both sides
+        lower = np.tril_indices(len(k))
+        assert np.isnan(want[lower]).all() and np.isnan(got[lower]).all()
+        return
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    jit = 1e-4 * np.trace(k) / len(k) * 10.0 ** min(bumps, 3)
+    np.testing.assert_allclose(got @ got.T - k, jit * np.eye(len(k)),
+                               rtol=0, atol=1e-5 + 1e-3 * jit)
+
+
+def test_device_jitter_pick_is_shared_and_bit_equal():
+    """A batch takes the jitter its neediest matrix takes; the factor is
+    bit-equal to one factorization at that jitter (the eager result where
+    the same i is chosen), and the pick reads nothing on the host: it
+    exports."""
+    a = np.stack([_needing(0), _needing(2)])
+    t = _t(a)
+    got = texact.psd_safe_cholesky(t)
+    s0 = torch.diagonal(t, dim1=-2, dim2=-1).mean()
+    eye = torch.eye(t.shape[-1])
+    want = tchol.batched_cholesky_plain(
+        t + 1e-4 * s0 * torch.tensor(10.0) ** 2 * eye)
+    assert torch.equal(got, want)
+
+    class Pick(torch.nn.Module):
+        def forward(self, a):
+            return texact.psd_safe_cholesky(a)
+
+    program = torch.export.export(Pick(), (t,), strict=False)
+    assert torch.equal(program.module()(t), want)

@@ -1709,3 +1709,102 @@ def test_multiseed_step_matches_single_seed_steps(cuda, attn_type, flag):
             scale = max(p.grad.abs().max().item(), 1e-12)
             err = (grads[name][i] - p.grad).abs().max().item()
             assert err <= TOL_MODEL * scale, (name, err, scale)
+
+
+# the exported program against session.predict: the JAX package's
+# tolerances for its own artifact (tests/test_predict.py), (rtol, atol)
+TOL_EXPORT = {None: (1e-6, 1e-7), "int8": (1e-5, 1e-6)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["fp32", "int8"])
+@pytest.mark.parametrize("attn_type", ["basic", "autoformer"])
+def test_export_round_trip_on_card(cuda, tmp_path, attn_type, quantize):
+    """export_serving -> load_exported on the card: the loaded program
+    equals session.predict and launches the hand kernels (the fused GP; in
+    basic, head-folded attention six times) through their registered
+    ops."""
+    model = ForecastDenoising(
+        src_input_size=4, tgt_input_size=4, d_model=32, n_heads=8, d_k=4,
+        stack_size=1, pred_len=24, attn_type=attn_type, num_inducing=64,
+        gp_ls_init=-1.0, device=cuda,
+        generator=torch.Generator().manual_seed(0))
+    session = InferenceSession(model, model.state_dict(), batch_size=BATCH,
+                               device=cuda, quantize=quantize)
+    path = session.export_serving(str(tmp_path / "s.pt2"), 48, 24, 4)
+    rng = np.random.default_rng(1)
+    enc = rng.normal(size=(BATCH, 48, 4)).astype(np.float32)
+    dec = rng.normal(size=(BATCH, 24, 4)).astype(np.float32)
+    want = session.predict(enc, dec)
+    served = InferenceSession.load_exported(path)
+    n0 = (fused_gp.launches, hfa.launches)
+    got = served(enc, dec)
+    torch.cuda.synchronize()
+    assert (fused_gp.launches - n0[0], hfa.launches - n0[1]) == (
+        1, 6 if attn_type == "basic" else 0)
+    rtol, atol = TOL_EXPORT[quantize]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, n", [(1, 32), (4, 32), (32, 1), (32, 32),
+                                  (4, 1)])
+@pytest.mark.parametrize("rows", [5, 300])
+def test_int8_dense_padded_shapes_match_cpu(cuda, k, n, rows):
+    """The card's int8 product at the widths it pads (K 1 and 4, N 1, fewer
+    than 17 rows) against the CPU's: the same int8 codes, an exact int32
+    sum and the same IEEE fp32 dequantization, so equal."""
+    from fine_grained_gaussian_process_forcasting_torch.train import (
+        quantize as tq,
+    )
+
+    rng = np.random.default_rng(k * 100 + n)
+    x = torch.from_numpy(rng.normal(size=(rows, 3, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(n,)).astype(np.float32))
+    want = tq.int8_dense(x, w, b)
+    got = tq.int8_dense(x.to(cuda), w.to(cuda), b.to(cuda))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _op_cases(device):
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    q, k, v = t(2, 8, 40, 4), t(2, 8, 56, 4), t(2, 8, 56, 4)
+    fq, fk, fv = (x.bfloat16() for x in (t(2, 4, 80, 64), t(2, 4, 96, 64),
+                                         t(2, 4, 96, 64)))
+    a = t(3, 40, 40)
+    spd = a @ a.transpose(-1, -2) + 40 * torch.eye(40, device=device)
+    m, d = 64, 8
+    lw = 0.1 * t(m, m)
+    gp = (t(2, 30, d), t(m, d) / 4, t(m), (lw @ lw.T).contiguous(),
+          torch.tensor(0.9, device=device), torch.full((d,), 0.25,
+                                                       device=device),
+          t(d) / d, torch.tensor(0.2, device=device))
+    return {"fused_gp": (fused_gp.fused_gp_fwd, (*gp, False)),
+            "fused_gp_bf16": (fused_gp.fused_gp_fwd, (*gp, True)),
+            "head_folded": (hfa.head_folded_attention_fwd, (q, k, v)),
+            "flash_bf16": (flash.flash_attention_fwd, (fq, fk, fv, False)),
+            "small_head": (sha.small_head_attention_fwd, (q, k, v)),
+            "rbf": (rbf.rbf_cross_fwd, (t(2, 30, d), t(3, m, d),
+                                        torch.full((3, d), 2.0,
+                                                   device=device),
+                                        torch.full((3,), 1.3,
+                                                   device=device))),
+            "cholesky": (cholesky.batched_cholesky_fwd, (spd,))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fused_gp", "fused_gp_bf16", "head_folded",
+                                  "flash_bf16", "small_head", "rbf",
+                                  "cholesky"])
+def test_registered_op_passes_opcheck_on_card(cuda, case):
+    """Each kernel's registered op on CUDA tensors: ``opcheck``'s schema,
+    fake (the kernel's output shapes, dtypes and strides) and dispatch
+    checks."""
+    op, args = _op_cases(cuda)[case]
+    torch.library.opcheck(op, args)

@@ -446,15 +446,17 @@ def test_gp_config_params_round_trip(config):
 
 
 def test_unported_session_surfaces_raise():
+    """Every session surface is ported; what has no counterpart raises: a
+    quantization mode other than int8, and JAX's ``platforms=`` (the
+    artifact serves on the session's device)."""
     model = tfd.ForecastDenoising(**SMALL, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="fp4"):
         InferenceSession(model, model.state_dict(), device="cpu",
-                         quantize="int8")
-    session = InferenceSession(model, model.state_dict(), device="cpu")
-    for call in (InferenceSession.from_checkpoint, session.export_serving,
-                 session.predict_dataframe):
-        with pytest.raises(NotImplementedError):
-            call()
+                         quantize="fp4")
+    session = InferenceSession(model, model.state_dict(), device="cpu",
+                               quantize="int8")
+    with pytest.raises(ValueError, match="platforms"):
+        session.export_serving("unused.pt2", 24, 12, 4, platforms=("tpu",))
 
 
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax",
@@ -481,7 +483,9 @@ def test_port_imports_nothing_of_jax():
                    "data/formatters/scaling.py", "train/hpo.py",
                    "train/harness.py", "train/cli.py", "ops/probsparse.py",
                    "ops/fourier.py", "models/lstm.py", "train/multiseed.py",
-                   "train/evaluate_checkpoints.py"):
+                   "train/evaluate_checkpoints.py", "train/quantize.py",
+                   "train/predict.py", "serving.py", "draws.py",
+                   "utils/config.py", "utils/normalizers.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
