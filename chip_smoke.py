@@ -143,6 +143,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    once a call site for all of them), three checkpoints, curves, ``.npz``
    files and CSV rows, finite per-seed test errors, and
    ``evaluate_checkpoints`` over the three checkpoints.
+8. The baselines, ``baselines``: ``BaselinesHarness`` trains DLinear,
+   NBeats, DeepAR and CMGP on a synthetic electricity frame at the
+   harness's widths (history 192, horizon 96, the loader's batches of 256
+   cut to 8 train and 2 valid and test), one trial of 2 epochs each, and
+   ``evaluate`` writes the error CSV's four rows; each is held to the CPU's
+   ``evaluate`` on the card's best parameters, then timed at the study's
+   widest configuration (steps/s, busy, idle share, peak memory) with one
+   step's loss and gradients against the CPU's (CMGP, a Cholesky of a
+   smooth kernel, against float64 on the CPU instead).  No hand kernel
+   runs there.
 
 The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
@@ -3767,6 +3777,220 @@ def cli_multiseed(card: str):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# the baselines phase: BaselinesHarness at the harness's published widths
+BL_MODELS = ("DLinear", "NBeats", "DeepAR", "CMGP")
+BL_HISTORY = 192  # max_encoder_length, the harness's default
+BL_BATCH = 256  # the loader's batch, which the harness keeps
+BL_TRAIN_BATCHES, BL_TEST_BATCHES = 8, 2
+BL_WIDEST = (64, 2)  # the study's widest (d_model, stack); CMGP d_model 32
+BL_STEPS, BL_RUNS = 20, 3  # timed steps a run at the widest configuration
+BL_F64_DRAWS = 8  # CMGP's gates against float64: batches summed
+
+
+def _bl_distance(got, want) -> float:
+    """max |got - want| / max |want|, in float64."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _bl_step(harness, model, x, y):
+    """One step's loss and every gradient, as float64 numpy, by name."""
+    model.zero_grad(set_to_none=True)
+    loss = harness.loss(model, x, y)
+    loss.backward()
+    out = {"loss": loss.detach().double().cpu().numpy()}
+    out.update({n: p.grad.detach().double().cpu().numpy()
+                for n, p in model.named_parameters()})
+    return out
+
+
+def _bl_cut(loader):
+    """The loader's batches (of 256, the loader's size) cut to
+    ``BL_TRAIN_BATCHES`` train and ``BL_TEST_BATCHES`` valid and test."""
+    for split, n in (("train_loader", BL_TRAIN_BATCHES),
+                     ("valid_loader", BL_TEST_BATCHES),
+                     ("test_loader", BL_TEST_BATCHES)):
+        batches = getattr(loader, split)
+        if batches.n_batches < n or batches.x_enc.shape[1] != BL_BATCH:
+            raise AssertionError(f"baselines: {split} has "
+                                 f"{batches.x_enc.shape[:2]} batches")
+        setattr(loader, split, dataclasses.replace(
+            batches, x_enc=batches.x_enc[:n], x_dec=batches.x_dec[:n],
+            y=batches.y[:n]))
+
+
+def _bl_cpu_model(harness, config, state, dtype=torch.float32):
+    model = harness._make_model(*config).to(dtype)
+    model.load_state_dict({k: v.detach().cpu().to(dtype)
+                           for k, v in state.items()})
+    return model
+
+
+def baselines_phase(card: str):
+    """``BaselinesHarness`` on the card: DLinear, NBeats, DeepAR and CMGP on
+    the port's synthetic electricity frame (8 entities x 1200 hours), at
+    the harness's widths (history 192, horizon 96, batches of 256), one
+    trial of 2 epochs each, the loader cut to 8 train and 2 valid and test
+    batches; ``evaluate`` beside the CPU's on the card's best parameters
+    (DeepAR's draws are the same CPU generator's on both), the error CSV's
+    four rows.  Then each model at the study's widest configuration:
+    steps/s, device busy a step, idle share and peak memory, and one step's
+    loss and gradients against the CPU's.  Every gate is the fp32 training
+    gate but CMGP's: its Cholesky of a smooth kernel is held to float64 on
+    the CPU (the card's distance at most twice the fp32 CPU's, summed).
+    The baselines launch no hand kernel."""
+    from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
+        make_synthetic_frame,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.baselines_harness import (  # noqa: E501
+        BaselineArgs,
+        BaselinesHarness,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.schedule import (
+        noam_adam,
+    )
+
+    raw = make_synthetic_frame("electricity", num_entities=8,
+                               steps_per_entity=1200, seed=SEED)
+    zero_counts()
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name in BL_MODELS:
+            args = BaselineArgs(
+                exp_name="electricity", model_name=name, pred_len=PRED,
+                n_trials=1, num_epochs=2, out_dir=os.path.join(root, "cuda"),
+                max_encoder_length=BL_HISTORY)
+            t0 = time.perf_counter()
+            h = BaselinesHarness(raw, args, device="cuda")
+            _bl_cut(h.loader)
+            h.run_study()
+            result = h.evaluate()
+            study_s = time.perf_counter() - t0
+            losses = [v for _, _, t, vl in h.epoch_losses for v in (t, vl)]
+            if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"baselines {name}: epoch losses "
+                                     f"{h.epoch_losses}")
+            # evaluate on the CPU with the card's best parameters
+            cpu = BaselinesHarness(raw, dataclasses.replace(
+                args, out_dir=os.path.join(root, "cpu")), device="cpu")
+            _bl_cut(cpu.loader)
+            config = h.best_config
+
+            def cpu_predictions(dtype):
+                cpu.best_model = _bl_cpu_model(cpu, config, h.best_params,
+                                               dtype)
+                cpu.best_params = cpu.best_model.state_dict()
+                return cpu.evaluate()["predictions"]
+
+            preds, ref = result["predictions"], cpu_predictions(torch.float32)
+            if not np.all(np.isfinite(preds)):
+                raise AssertionError(f"baselines {name}: non-finite "
+                                     f"predictions")
+            if name == "CMGP":
+                ref64 = cpu_predictions(torch.float64)
+                d_card, d_cpu = (_bl_distance(p, ref64) for p in (preds, ref))
+                eval_gate = {"vs_float64_cuda": d_card,
+                             "vs_float64_cpu": d_cpu}
+                ok = d_card <= 2.0 * d_cpu
+            else:
+                d_card = _bl_distance(preds, ref)
+                eval_gate = {"vs_cpu": d_card, "tolerance": TOL_TRAIN}
+                ok = d_card <= TOL_TRAIN
+            if not ok:
+                raise AssertionError(f"baselines {name}: evaluate's "
+                                     f"predictions, cuda vs cpu {eval_gate}")
+
+            # the widest configuration: timed steps, a profiled one, and one
+            # step's loss and gradients against the CPU
+            config = (32 if name == "CMGP" else BL_WIDEST[0], BL_WIDEST[1])
+            model = h._make_model(*config)
+            opt = noam_adam(model.parameters(), config[0], WARMUP_STEPS)
+            tl = h.loader.train_loader
+            xs = torch.from_numpy(np.concatenate([tl.x_enc, tl.x_dec],
+                                                 2)).cuda()
+            ys = torch.from_numpy(tl.y).cuda()
+            for i in range(N_WARMUP):
+                h.train_step(model, opt, xs[i], ys[i])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = []
+            for _ in range(BL_RUNS):
+                t1 = time.perf_counter()
+                step_losses = [h.train_step(model, opt, xs[i % len(xs)],
+                                            ys[i % len(xs)])
+                               for i in range(BL_STEPS)]
+                total = float(torch.stack(step_losses).sum())  # synced
+                step_ms.append((time.perf_counter() - t1) * 1e3 / BL_STEPS)
+                if not math.isfinite(total):
+                    raise AssertionError(f"baselines {name}: non-finite "
+                                         f"training loss at {config}")
+            peak = torch.cuda.max_memory_allocated()
+            median = float(np.median(step_ms))
+            busy = profile_device(
+                lambda: h.train_step(model, opt, xs[0], ys[0]),
+                f"baselines {name} at {config}, one step of {BL_BATCH} "
+                f"windows", median)
+            state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            cpu_model = _bl_cpu_model(cpu, config, state)
+            draws = BL_F64_DRAWS if name == "CMGP" else 1
+            worst, summed = {}, {"cuda": 0.0, "cpu": 0.0}
+            for j in range(draws):
+                got = _bl_step(h, model, xs[j], ys[j])
+                want = _bl_step(cpu, cpu_model, xs[j].cpu(), ys[j].cpu())
+                if name == "CMGP":
+                    m64 = _bl_cpu_model(cpu, config, state, torch.float64)
+                    ref64 = _bl_step(cpu, m64, xs[j].cpu().double(),
+                                     ys[j].cpu().double())
+                    for k in ref64:
+                        summed["cuda"] += _bl_distance(got[k], ref64[k])
+                        summed["cpu"] += _bl_distance(want[k], ref64[k])
+                else:
+                    worst = {k: _bl_distance(got[k], want[k]) for k in want}
+            if name == "CMGP":
+                step_gate = {"vs_float64_summed_cuda": summed["cuda"],
+                             "vs_float64_summed_cpu": summed["cpu"],
+                             "draws": draws}
+                ok = summed["cuda"] <= 2.0 * summed["cpu"]
+            else:
+                step_gate = {"worst": max(worst.values()),
+                             "worst_leaf": max(worst, key=worst.get),
+                             "tolerance": TOL_TRAIN}
+                ok = step_gate["worst"] <= TOL_TRAIN
+            if not ok:
+                raise AssertionError(f"baselines {name}: one step at "
+                                     f"{config}, cuda vs cpu {step_gate}")
+            log(f"baselines {name} on {card}: study (1 trial, 2 epochs of "
+                f"{BL_TRAIN_BATCHES} batches of {BL_BATCH}, config "
+                f"{h.best_config}) and evaluate in {study_s:.2f} s, epoch "
+                f"losses {h.epoch_losses}; test MSE {result['mse']:.6f} MAE "
+                f"{result['mae']:.6f}; evaluate vs cpu {eval_gate}; widest "
+                f"{config}: median {median:.3f} ms a step "
+                f"({1e3 / median:.2f} steps/s) over {BL_RUNS} runs of "
+                f"{BL_STEPS}, device busy {busy['busy_ms']:.4f} ms in "
+                f"{busy['launches']} launches, idle share "
+                f"{busy['idle_share']:.3f}, peak memory "
+                f"{peak / 2**20:.1f} MiB; one step vs cpu {step_gate}")
+            report[name] = {
+                "study_s": study_s, "best_config": list(h.best_config),
+                "test_mse": result["mse"], "test_mae": result["mae"],
+                "evaluate_vs_cpu": eval_gate, "widest": list(config),
+                "step_ms": median, "steps_per_s": 1e3 / median,
+                "busy_ms": busy["busy_ms"], "launches_a_step":
+                busy["launches"], "idle_share": busy["idle_share"],
+                "peak_mib": peak / 2**20, "step_vs_cpu": step_gate}
+        csv_path = os.path.join(
+            root, "cuda", "Previous_set_up_Final_errors_electricity.csv")
+        with open(csv_path) as f:
+            rows = f.read().splitlines()
+        if len(rows) != 1 + len(BL_MODELS) or rows[0] != ",MSE,MAE":
+            raise AssertionError(f"baselines: error CSV {rows}")
+        log(f"baselines: {csv_path.rsplit(os.sep, 1)[1]}: {rows}")
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"baselines: a hand kernel launched: {counts}")
+    return counts, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3892,6 +4116,8 @@ def main() -> int:
         record(path, counts)
     counts, cpu_checks["cli_multiseed"] = cli_multiseed(smi)
     record("cli_multiseed", counts)
+    counts, cpu_checks["baselines"] = baselines_phase(smi)
+    record("baselines", counts)
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())

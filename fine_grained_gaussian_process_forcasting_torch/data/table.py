@@ -18,8 +18,10 @@ harness need, with pandas' semantics where the result depends on them:
   usual missing-value spellings, else text), with named columns kept text;
   numbers are parsed correctly rounded (pandas' ``float_precision=
   "round_trip"``; its default parser can land one ulp away);
-- ``append_errors_csv``: ``reported_errors_{exp}.csv`` as pandas writes it
-  (an index column, then ``MSE`` and ``MAE``), appended to.
+- ``append_errors_csv``: ``reported_errors_{exp}.csv`` (and the baselines'
+  ``Previous_set_up_Final_errors_{exp}.csv``) as pandas writes it (an index
+  column, then ``MSE`` and ``MAE``), appended to: the rows already there
+  are read back and written again as pandas does, numbers reformatted.
 """
 
 from __future__ import annotations
@@ -145,17 +147,34 @@ def read_csv(path: str, str_columns: Iterable[str] = ()) -> Frame:
     return out
 
 
+def _rewritten(values: List[str]) -> List[str]:
+    """A CSV column as ``pandas.read_csv`` reads it and ``to_csv`` writes
+    it again: numbers in a column of numbers reformatted (``"0.250"`` and
+    ``" 0.25"`` become ``"0.25"``, a missing one ``""``), text kept."""
+    col = _parse_column(values)
+    if col.dtype.kind == "i":
+        return [str(v) for v in col.tolist()]
+    if col.dtype.kind == "f":
+        return ["" if v != v else repr(v) for v in col.tolist()]
+    return values
+
+
 def append_errors_csv(path: str, name: str, errors: Dict[str, str]) -> None:
     """Append the row ``name`` (``errors``: column -> text) to the CSV at
     ``path``, writing the header first if the file is new: pandas'
-    ``DataFrame.from_dict(..., orient="index")`` read back and written again
-    with ``to_csv``."""
+    ``DataFrame.from_dict(..., orient="index")`` concatenated to the file
+    read back with ``read_csv(path, index_col=0)`` and written again with
+    ``to_csv``."""
     header, rows = [""] + list(errors), []
     if os.path.exists(path):
         with open(path, newline="") as f:
             old = list(csv.reader(f))
         if old:
             header, rows = old[0], old[1:]
+            rows = [r + [""] * (len(header) - len(r)) for r in rows]
+            columns = [_rewritten([r[j] for r in rows])
+                       for j in range(len(header))]
+            rows = [list(r) for r in zip(*columns)] if rows else []
             for col in errors:
                 if col not in header:
                     header.append(col)

@@ -42,6 +42,28 @@ def orthogonal_(weight: torch.Tensor, generator: torch.Generator) -> None:
         weight.copy_(q)
 
 
+def flax_lstm(input_size: int, hidden_size: int, num_layers: int = 1, *,
+              device, generator: torch.Generator) -> nn.LSTM:
+    """A batch-first ``nn.LSTM`` laid out and initialised as ``num_layers``
+    stacked Flax ``OptimizedLSTMCell``s: each layer's ``b_ih`` a zero
+    buffer, its input kernel lecun-normal, each gate's recurrent kernel
+    orthogonal, ``b_hh`` zero (the draws layer by layer)."""
+    h = hidden_size
+    lstm = nn.LSTM(input_size, h, num_layers=num_layers, batch_first=True,
+                   device=device)
+    for i in range(num_layers):
+        delattr(lstm, f"bias_ih_l{i}")
+        lstm.register_buffer(f"bias_ih_l{i}",
+                             torch.zeros(4 * h, device=device))
+        lecun_normal_(getattr(lstm, f"weight_ih_l{i}"), generator)
+        recurrent = getattr(lstm, f"weight_hh_l{i}")
+        for gate in range(4):
+            orthogonal_(recurrent.data[gate * h:(gate + 1) * h], generator)
+        nn.init.zeros_(getattr(lstm, f"bias_hh_l{i}"))
+    lstm._init_flat_weights()  # the buffers in the weights' list
+    return lstm
+
+
 class LSTMBackbone(nn.Module):
     """Returns (enc_out, dec_out) hidden states, each (b, l, hidden_size);
     ignores ``training`` and ``generator`` (no dropout, nothing drawn)."""
@@ -49,20 +71,8 @@ class LSTMBackbone(nn.Module):
     def __init__(self, hidden_size: int, n_layers: int = 1, *, device,
                  generator: torch.Generator):
         super().__init__()
-        h = hidden_size
-        self.lstm = nn.LSTM(h, h, num_layers=n_layers, batch_first=True,
-                            device=device)
-        for i in range(n_layers):
-            delattr(self.lstm, f"bias_ih_l{i}")
-            self.lstm.register_buffer(f"bias_ih_l{i}",
-                                      torch.zeros(4 * h, device=device))
-            lecun_normal_(getattr(self.lstm, f"weight_ih_l{i}"), generator)
-            recurrent = getattr(self.lstm, f"weight_hh_l{i}")
-            for gate in range(4):
-                orthogonal_(recurrent.data[gate * h:(gate + 1) * h],
-                            generator)
-            nn.init.zeros_(getattr(self.lstm, f"bias_hh_l{i}"))
-        self.lstm._init_flat_weights()  # the buffers in the weights' list
+        self.lstm = flax_lstm(hidden_size, hidden_size, n_layers,
+                              device=device, generator=generator)
 
     def forward(self, enc_inputs, dec_inputs, training: bool = False,
                 generator=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,9 +7,11 @@ onto a state dict by flattening its path.  Dense ``kernel`` (in, out) becomes
 ``weight`` (out, in, f); an LSTM cell ``lstm{i}`` (gates i, f, g, o, each a
 Dense ``i*`` on the input and ``h*`` with a bias on the hidden state) becomes
 layer i of ``nn.LSTM`` ``lstm``, its gates stacked, with a zero ``b_ih``
-(``models/lstm.py``); every other leaf keeps its name and shape.  The input
-is a nested dict of numpy arrays, so loading needs no JAX; ``to_flax`` is
-the inverse, for parameters and for their gradients.
+(``models/lstm.py``), and DeepAR's cell ``rnn{i}/cell`` (Flax's ``nn.RNN``
+of one such cell) the one-layer ``nn.LSTM`` ``rnn{i}.cell``
+(``models/deepar.py``); every other leaf keeps its name and shape.  The
+input is a nested dict of numpy arrays, so loading needs no JAX;
+``to_flax`` is the inverse, for parameters and for their gradients.
 """
 
 from __future__ import annotations
@@ -84,12 +86,17 @@ def dense(in_features: int, out_features: int, *, bias: bool,
 
 _GATES = "ifgo"  # Flax's and nn.LSTM's order of the gates
 _LSTM_CELL = re.compile(r"lstm(\d+)$")
+_RNN_SCOPE = re.compile(r"(?:^|\.)rnn\d+\.$")  # the prefix of rnn{i}/cell
 _LSTM_LEAF = re.compile(r"(?:(.*)\.)?lstm\.(weight_ih|weight_hh|bias_hh|"
                         r"bias_ih)_l(\d+)$")
+_RNN_LEAF = re.compile(r"((?:.*\.)?rnn\d+\.cell)\.(weight_ih|weight_hh|"
+                       r"bias_hh|bias_ih)_l0$")
+_CELL_LEAVES = frozenset(side + g for side in "ih" for g in _GATES)
 
 
-def _lstm_leaves(cell: Mapping, prefix: str, layer: str) -> dict:
-    """One Flax LSTM cell -> layer ``layer`` of ``prefix + "lstm"``."""
+def _lstm_leaves(cell: Mapping, module: str, layer: str) -> dict:
+    """One Flax LSTM cell -> layer ``layer`` of the ``nn.LSTM`` at
+    ``module``."""
     def stacked(side, leaf):  # kernels (in, out) -> rows (out, in)
         return np.concatenate([np.array(cell[side + g][leaf], np.float32).T
                                for g in _GATES])
@@ -98,7 +105,7 @@ def _lstm_leaves(cell: Mapping, prefix: str, layer: str) -> dict:
            "weight_hh": stacked("h", "kernel"),
            "bias_hh": stacked("h", "bias")}
     out["bias_ih"] = np.zeros_like(out["bias_hh"])
-    return {f"{prefix}lstm.{name}_l{layer}":
+    return {f"{module}.{name}_l{layer}":
             torch.from_numpy(np.ascontiguousarray(arr))
             for name, arr in out.items()}
 
@@ -115,10 +122,14 @@ def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
     def walk(node: Mapping, prefix: str) -> None:
         for name, value in node.items():
+            is_cell = isinstance(value, Mapping) and set(value) == _CELL_LEAVES
             cell = _LSTM_CELL.match(name)
-            if cell and isinstance(value, Mapping) and set(value) == {
-                    side + g for side in "ih" for g in _GATES}:
-                state.update(_lstm_leaves(value, prefix, cell.group(1)))
+            if cell and is_cell:
+                state.update(_lstm_leaves(value, prefix + "lstm",
+                                          cell.group(1)))
+                continue
+            if name == "cell" and is_cell and _RNN_SCOPE.search(prefix):
+                state.update(_lstm_leaves(value, prefix + "cell", "0"))
                 continue
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
@@ -143,18 +154,25 @@ def to_flax(state: Mapping[str, torch.Tensor]) -> dict:
     Every 2-D ``weight`` of the port is an ``nn.Linear``'s, and becomes the
     Dense ``kernel`` (in, out); every 3-D one a conv1d's, and becomes the
     Conv ``kernel`` (f, in, out).  An ``nn.LSTM``'s layers become Flax's
-    cells, their gates split; its zero ``b_ih`` has no Flax leaf."""
+    cells (``lstm{i}``, or ``rnn{i}/cell`` for DeepAR's one-layer
+    ``rnn{i}.cell``), their gates split; its zero ``b_ih`` has no Flax
+    leaf."""
     tree: dict = {}
     for key, value in state.items():
         arr = value.detach().cpu().numpy().astype(np.float32)
-        lstm = _LSTM_LEAF.match(key)
-        if lstm:
-            prefix, kind, layer = lstm.groups()
+        lstm, rnn = _LSTM_LEAF.match(key), _RNN_LEAF.match(key)
+        if lstm or rnn:
+            if rnn:
+                module, kind = rnn.groups()
+                path = module.split(".")
+            else:
+                prefix, kind, layer = lstm.groups()
+                path = (prefix.split(".") if prefix else []) + [
+                    f"lstm{layer}"]
             if kind == "bias_ih":
                 continue
             node = tree
-            for part in (prefix.split(".") if prefix else []) + [
-                    f"lstm{layer}"]:
+            for part in path:
                 node = node.setdefault(part, {})
             side = "i" if kind == "weight_ih" else "h"
             leaf = "bias" if kind == "bias_hh" else "kernel"

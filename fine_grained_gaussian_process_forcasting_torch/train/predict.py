@@ -144,14 +144,13 @@ class InferenceSession:
         ops registered, without the model code or parameters.
 
         Shapes are fixed at (batch_size, enc_len/dec_len, n_features), the
-        one shape ``predict`` serves through.  The artifact serves on the
-        session's device; JAX's ``platforms=`` (lowering for other
-        backends) has no counterpart and must be None.  Returns ``path``.
+        one shape ``predict`` serves through.  ``platforms``: the torch
+        device types the artifact may serve on (``"cpu"``, ``"cuda"``;
+        JAX's names the backends it lowers for), recorded in the artifact;
+        ``load_exported(path, device=)`` moves the program to one of them.
+        None: it serves on the session's device.  Returns ``path``.
         """
-        if platforms is not None:
-            raise ValueError(
-                "platforms= has no meaning for a torch.export artifact: it "
-                "serves on the session's device")
+        platforms = serving.check_platforms(platforms)
         b = self.batch_size
         enc = torch.zeros((b, enc_len, n_features), device=self.device)
         dec = torch.zeros((b, dec_len, n_features), device=self.device)
@@ -162,14 +161,15 @@ class InferenceSession:
             program = torch.export.export(
                 _ServedForward(self.model, tape.draws), (enc, dec),
                 strict=False)
-        torch.export.save(program, path)
+        serving.save_exported(program, path, platforms)
         return path
 
     @staticmethod
-    def load_exported(path: str):
+    def load_exported(path: str, device=None):
         """Load an ``export_serving`` artifact -> callable (enc, dec) ->
-        predictions (``serving.load_exported``)."""
-        return serving.load_exported(path)
+        predictions, on ``device``, one of its platforms
+        (``serving.load_exported``)."""
+        return serving.load_exported(path, device)
 
     def predict_dataframe(self, raw_df: table.Frame, formatter,
                           pred_len: int,

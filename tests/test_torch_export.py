@@ -136,12 +136,35 @@ def test_exact_blur_on_the_cholesky_op_exports():
 
 
 def test_export_rejects_platforms(tmp_path):
+    """platforms= names torch device types: a ("cpu",) artifact records
+    them and serves equal to session.predict; a name that is not a torch
+    device type (JAX's "tpu") or a device the artifact does not name is
+    refused."""
     model = ForecastDenoising(**PREDICT_KW, device="cpu")
     session = InferenceSession(model, model.state_dict(), batch_size=B,
                                device="cpu")
-    with pytest.raises(ValueError, match="platforms"):
-        session.export_serving(str(tmp_path / "s.pt2"), ENC, DEC, F,
-                               platforms=("tpu",))
+    for bad in (("tpu",), ("cpu", "tpu"), ()):
+        with pytest.raises(ValueError, match="platforms"):
+            session.export_serving(str(tmp_path / "s.pt2"), ENC, DEC, F,
+                                   platforms=bad)
+    path = session.export_serving(str(tmp_path / "cpu.pt2"), ENC, DEC, F,
+                                  platforms=("cpu",))
+    enc, dec = _windows(4)
+    want = session.predict(enc, dec)
+    for device in (None, "cpu"):
+        got = InferenceSession.load_exported(path, device=device)(enc, dec)
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    extra = {"platforms": ""}
+    torch.export.load(path, extra_files=extra)
+    assert extra["platforms"] == '["cpu"]'
+    # an artifact exported without platforms= serves on its own device
+    # type alone, as before; one that names only the card is refused here
+    plain = session.export_serving(str(tmp_path / "plain.pt2"), ENC, DEC, F)
+    for artifact, device in ((plain, "cuda"), (session.export_serving(
+            str(tmp_path / "cuda.pt2"), ENC, DEC, F, platforms=("cuda",)),
+            "cpu")):
+        with pytest.raises(ValueError, match="serves on"):
+            InferenceSession.load_exported(artifact, device=device)
 
 
 _LOADER = """

@@ -1808,3 +1808,124 @@ def test_registered_op_passes_opcheck_on_card(cuda, case):
     checks."""
     op, args = _op_cases(cuda)[case]
     torch.library.opcheck(op, args)
+
+
+# the baselines (DLinear, N-BEATS, DeepAR, CMGP; no hand kernel: cuBLAS,
+# cuDNN's LSTM and cuSOLVER): forward and gradients on the card against
+# the CPU within the fp32 training gate, 1e-3 of each output's largest
+# magnitude; CMGP (a Cholesky of an ill-conditioned smooth kernel) against
+# float64 on the CPU instead: the card's distance, summed over its outputs
+# and gradients, at most twice the fp32 CPU's
+TOL_BASELINE = 1e-3
+
+
+def _baseline(name, device):
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        cmgp,
+        deepar,
+        dlinear,
+        nbeats,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    L, H = 96, 24
+    if name == "DLinear":
+        return dlinear.DLinear(L, H, device=device)
+    if name == "NBeats":
+        return nbeats.NBeats(L, H, hidden_layer_units=64, device=device,
+                             generator=gen)
+    if name == "DeepAR":
+        return deepar.DeepAR(64, 64, 2, device=device, generator=gen)
+    return cmgp.CMGP(H, 2, device=device)
+
+
+def _baseline_run(name, model, x, y, eps):
+    """(outputs, loss) of the harness's loss and of a forward."""
+    from fine_grained_gaussian_process_forcasting_torch.models.deepar import (
+        deepar_nll,
+    )
+
+    if name == "DeepAR":
+        full = torch.cat([x, y], 1)
+        mu, sigma = model(full[:, :-1])
+        loss = deepar_nll(mu, sigma, full[:, 1:, 0])
+        with torch.no_grad():
+            samples = model.sample(x, y.shape[1], 2, eps=eps)
+        return [mu, sigma, samples], loss
+    if name == "NBeats":
+        back, fore = model(x)
+        return [back, fore], torch.mean((fore - y[..., 0]) ** 2)
+    if name == "CMGP":
+        return [model(x)], model.nll(x, y)
+    out = model(x)
+    return [out], torch.mean((out - y) ** 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["DLinear", "NBeats", "DeepAR", "CMGP"])
+def test_baselines_match_cpu_on_card(cuda, name):
+    rng = np.random.default_rng(3)
+    t = np.arange(120) / 24.0
+    series = (np.sin(2 * np.pi * t)[None] + rng.normal(size=(32, 120))
+              * 0.3).astype(np.float32)
+    x_np, y_np = series[:, :96, None], series[:, 96:, None]
+    eps_np = rng.normal(size=(2, 24, 32)).astype(np.float32)
+    state = _baseline(name, "cpu").state_dict()
+    runs = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = _baseline(name, device)
+        model.load_state_dict(state)
+        model = model.to(dtype)
+        x, y, eps = (torch.from_numpy(a).to(device, dtype)
+                     for a in (x_np, y_np, eps_np))
+        outs, loss = _baseline_run(name, model, x, y, eps)
+        loss.backward()
+        runs.append([t.detach().cpu().double() for t in (
+            *outs, loss, *(p.grad for p in model.parameters()))])
+    card, cpu, f64 = runs
+
+    def dist(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    for t in card:
+        assert torch.isfinite(t).all()
+    if name == "CMGP":
+        d_card = sum(dist(a, b) for a, b in zip(card, f64))
+        d_cpu = sum(dist(a, b) for a, b in zip(cpu, f64))
+        assert d_card <= 2.0 * d_cpu, (d_card, d_cpu)
+    else:
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            assert dist(a, b) <= TOL_BASELINE, (i, dist(a, b))
+
+
+@pytest.mark.gpu
+def test_export_platforms_card_to_cpu(cuda, tmp_path):
+    """An artifact exported on the card with platforms=("cuda", "cpu")
+    serves on the card by default and, moved, on the CPU: there equal to
+    the CPU session within the fp32 serving gate (1e-3 of the largest
+    prediction)."""
+    kw = dict(src_input_size=4, tgt_input_size=4, d_model=32, n_heads=8,
+              d_k=4, stack_size=1, pred_len=24, attn_type="basic",
+              num_inducing=64, gp_ls_init=-1.0)
+    model = ForecastDenoising(**kw, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    session = InferenceSession(model, state, batch_size=BATCH, device=cuda)
+    path = session.export_serving(str(tmp_path / "s.pt2"), 48, 24, 4,
+                                  platforms=("cuda", "cpu"))
+    rng = np.random.default_rng(2)
+    enc = rng.normal(size=(BATCH, 48, 4)).astype(np.float32)
+    dec = rng.normal(size=(BATCH, 24, 4)).astype(np.float32)
+    on_card = InferenceSession.load_exported(path)(enc, dec)
+    np.testing.assert_allclose(on_card, session.predict(enc, dec),
+                               rtol=1e-6, atol=1e-7)
+    cpu = InferenceSession(ForecastDenoising(**kw, device="cpu"), state,
+                           batch_size=BATCH, device="cpu")
+    want = cpu.predict(enc, dec)
+    n0 = fused_gp.launches
+    got = InferenceSession.load_exported(path, device="cpu")(enc, dec)
+    assert fused_gp.launches == n0  # the ops' CPU bodies
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 1e-3, err
