@@ -153,6 +153,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step's loss and gradients against the CPU's (CMGP, a Cholesky of a
    smooth kernel, against float64 on the CPU instead).  No hand kernel
    runs there.
+9. The rest of ``models/``, after ``baselines`` (no hand kernel: cuBLAS,
+   cuFFT, cuDNN): ``fedformer_model_{fourier,wavelets,autoformer}``,
+   ``FEDformer`` at the FEDformer repository's run.py defaults (enc/dec/c_out
+   7, seq 96, label 48, pred 96, d_model 512, 8 heads, d_ff 2048, 2 + 1
+   layers, moving_avg 24, 64 random modes, L 3, legendre, tanh, timeF at
+   freq h, batch 32; MSE + Adam); ``informer_stack``,
+   ``InformerEncoder(512, 2 layers, 8 heads, ProbSparse, distil)`` on (32,
+   96, 512) and ``InformerDecoderLayer(512, 8)`` on (32, 72, 512);
+   ``arima_batch``, ``fit_forecast_batch`` on 1024 windows of 192 steps,
+   96 ahead, 200 Adam steps (seconds and windows/s); ``denoise_vae``,
+   ``DenoiseVAE(32, gp=True)`` on (256, 288, 32) with a 96-step target.
+   Each: ms a forward and a training step (medians of 5), device busy,
+   launches and idle share of a step under the profiler, peak memory;
+   finite outputs and losses; one step's outputs, loss and gradients on
+   the first windows against the CPU on the card's weights (the fp32
+   training gate, gradients over a floor of 1e-2 of the largest; where
+   some miss it, held to float64 on the CPU instead: Wavelets' cross
+   block), the card's AutoCorrelation delays, ProbSparse key samples and
+   chosen queries and the VAE's draws replayed there; ARIMA's 200-step fit,
+   chaotic on a few windows, held to float64 on the CPU by its median
+   window and its count of diverged windows.
 
 The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
@@ -2546,14 +2567,15 @@ class _ScaleMaxRecorder:
 
 
 class _SampleRecorder:
-    """Wraps ProbSparse attention in the transformer module and keeps each
-    call's key sample and the queries it chose (per sample).  Given
-    ``replay`` (another run's ``draws``), each call takes those instead, the
-    queries cut to this call's batch (a served batch is padded on the card,
-    not on the CPU); ``flips`` counts the (sample, head) pairs whose own
-    choice here, from the replayed sample, differed."""
+    """Wraps ProbSparse attention in the transformer module (or
+    ``module``: the Informer stack's) and keeps each call's key sample and
+    the queries it chose (per sample).  Given ``replay`` (another run's
+    ``draws``), each call takes those instead, the queries cut to this
+    call's batch (a served batch is padded on the card, not on the CPU);
+    ``flips`` counts the (sample, head) pairs whose own choice here, from
+    the replayed sample, differed."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, module=None):
         from fine_grained_gaussian_process_forcasting_torch.models import (
             transformer,
         )
@@ -2561,15 +2583,16 @@ class _SampleRecorder:
             probsparse,
         )
 
-        self.module, self.ops = transformer, probsparse
-        self.original = transformer.prob_sparse_attention
+        self.module, self.ops = module or transformer, probsparse
+        self.original = self.module.prob_sparse_attention
         self.replay = replay
         self.draws, self.flips = [], 0
 
     def __enter__(self):
         def recording(q, k, v, generator=None, **kw):
             ops = self.ops
-            u_part, u = ops.sample_sizes(q.shape[2], k.shape[2])
+            u_part, u = ops.sample_sizes(q.shape[2], k.shape[2],
+                                         kw.get("factor", 1))
             if self.replay is not None:
                 sample, m_top = (t.to(q.device) for t in
                                  self.replay[len(self.draws)])
@@ -3991,6 +4014,437 @@ def baselines_phase(card: str):
     return counts, report
 
 
+# the rest of models/: the FEDformer stack at the FEDformer repository's
+# run.py defaults (Zhou et al., ICML 2022), the Informer stack at the
+# Informer paper's width (Zhou et al., AAAI 2021), the batched ARIMA and the
+# denoising VAE
+FED_CFG = dict(enc_in=7, dec_in=7, c_out=7, seq_len=96, label_len=48,
+               pred_len=96, d_model=512, n_heads=8, d_ff=2048, e_layers=2,
+               d_layers=1, moving_avg=(24,), mode_select="random", modes=64,
+               L=3, base="legendre", cross_activation="tanh", embed="timeF",
+               freq="h")
+FED_VERSIONS = ("Fourier", "Wavelets", "Autoformer")
+FED_BATCH, FED_MARKS, FED_LR = 32, 4, 1e-4  # run.py's batch and lr
+INF_D, INF_HEADS, INF_B, INF_ENC, INF_DEC = 512, 8, 32, 96, 72  # 48 + 24
+VAE_D, VAE_B, VAE_L, VAE_TARGET = 32, 256, ENC_LEN + DEC_LEN, PRED
+AR_WINDOWS, AR_LEN, AR_STEPS, AR_ITERS, AR_LR = 1024, ENC_LEN, PRED, 200, 5e-2
+MODEL_CHECK = 4  # windows of a batch compared with the CPU run
+VAE_CHECK = 16
+AR_CHECK = 256  # windows of the ARIMA batch fitted on the CPU too
+MR_WARMUP, MR_RUNS = 2, 5  # untimed, then timed forwards and steps
+# a gradient whose exact value is 0 (a bias that a norm right after
+# cancels: MyLayerNorm's, the distilling conv's and the VAE's conv2 under
+# their batch norms; a projection bias on modes no block keeps) is
+# rounding residue on both devices: each leaf's error is taken over the
+# larger of its own largest magnitude and MR_GRAD_FLOOR of the step's
+# largest gradient, so such a leaf passes where the two residues agree
+# within ZERO_GRAD of the largest
+MR_GRAD_FLOOR = ZERO_GRAD / TOL_TRAIN
+# the 200-step Adam fit of ARIMA(1,1,1) is chaotic on a few windows (on the
+# CPU 5 of 256 lie past 1e-3 of a float64 run, one 0.23 away; the rest
+# ~1.4e-6): the card is held to float64 on the CPU by the median window,
+# at most twice the fp32 CPU's distance, and by the windows past
+# AR_DIVERGED, at most AR_EXTRA more than the fp32 CPU's
+AR_DIVERGED, AR_EXTRA = 1e-3, 0.02
+
+
+def _time_model(label, forward, step):
+    """ms a forward (no gradient) and ms a training step, each the median
+    of MR_RUNS after MR_WARMUP; peak memory over the timed steps; device
+    busy, launches and idle share of one profiled step."""
+    def fwd():
+        with torch.no_grad():
+            return forward()
+
+    for _ in range(MR_WARMUP):
+        fwd()
+        step()
+    torch.cuda.synchronize()
+    fwd_ms = _median_ms(fwd, MR_RUNS)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_ms(step, MR_RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    busy = profile_device(step, f"{label}, one training step", step_ms)
+    loss = float(step().detach())
+    out = fwd()
+    outs = out if isinstance(out, tuple) else (out,)
+    if not math.isfinite(loss) or not all(bool(torch.isfinite(o).all())
+                                          for o in outs):
+        raise AssertionError(f"{label}: non-finite loss {loss} or output")
+    return {"fwd_ms": fwd_ms, "step_ms": step_ms, "busy_ms": busy["busy_ms"],
+            "launches_a_step": busy["launches"],
+            "idle_share": busy["idle_share"], "peak_mib": peak / 2**20,
+            "loss": loss}
+
+
+def _loss_and_grads(model, run):
+    """``run()`` -> (outputs dict, loss); every output, the loss and each
+    parameter's gradient (zeros where the loss does not reach it), as
+    float64 numpy."""
+    model.zero_grad(set_to_none=True)
+    outs, loss = run()
+    loss.backward()
+    res = {f"output:{k}": v for k, v in outs.items()}
+    res["loss"] = loss
+    res.update({n: torch.zeros_like(p) if p.grad is None else p.grad
+                for n, p in model.named_parameters()})
+    return {k: v.detach().double().cpu().numpy() for k, v in res.items()}
+
+
+def _card_vs_cpu(label, got, want, f64=None):
+    """Outputs and loss within TOL_TRAIN of their largest magnitude; each
+    gradient within TOL_TRAIN of the larger of its own largest magnitude
+    and MR_GRAD_FLOOR of the largest gradient.  Where some miss it and
+    ``f64`` is given (the same run in float64 on the CPU), those pass if
+    the card's distances from float64, summed over them, are at most twice
+    the fp32 CPU's (the port's float64 rule)."""
+    grads = [k for k in want if k != "loss" and not k.startswith("output:")]
+    floor = MR_GRAD_FLOOR * max(np.abs(want[k]).max() for k in grads)
+    dist = {}
+    for k, w in want.items():
+        scale = np.abs(w).max()
+        if k in grads:
+            scale = max(scale, floor)
+        dist[k] = float(np.abs(got[k] - w).max() / max(scale, 1e-30))
+    outs = {k: v for k, v in dist.items() if k not in grads}
+    worst = max(grads, key=dist.get)
+    gate = {"outputs": outs, "worst_gradient": dist[worst],
+            "worst_leaf": worst, "gradients": len(grads),
+            "tolerance": TOL_TRAIN}
+    over = sorted(k for k, v in dist.items() if v > TOL_TRAIN)
+    if over and f64 is not None:
+        ref = f64()
+        summed = {"cuda": sum(_bl_distance(got[k], ref[k]) for k in over),
+                  "cpu": sum(_bl_distance(want[k], ref[k]) for k in over)}
+        gate["float64"] = dict(leaves_over_tolerance=over,
+                               summed_from_float64=summed)
+        if summed["cuda"] <= 2.0 * summed["cpu"]:
+            over = []
+    if over:
+        raise AssertionError(f"{label}: cuda vs cpu {gate}")
+    return gate
+
+
+def _phase_log(label, card, timing, extra=""):
+    log(f"{label} on {card}: forward {timing['fwd_ms']:.3f} ms, training "
+        f"step {timing['step_ms']:.3f} ms (medians of {MR_RUNS}), device "
+        f"busy {timing['busy_ms']:.4f} ms a step in "
+        f"{timing['launches_a_step']} launches, idle share "
+        f"{timing['idle_share']:.3f}, peak memory {timing['peak_mib']:.1f} "
+        f"MiB{extra}")
+
+
+def _no_kernel(label):
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: a hand kernel launched: {counts}")
+    return counts
+
+
+def fedformer_phase(version: str, card: str):
+    """``FEDformer`` (``version``) at run.py's defaults, batch 32: one MSE +
+    Adam step a timed step, the same forward under ``no_grad``; then one
+    step's outputs, loss and gradients on the first MODEL_CHECK windows
+    against the CPU on the card's weights (AutoCorrelation's delays
+    recorded on the card and replayed).  No hand kernel runs."""
+    import copy
+
+    from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  # noqa: E501
+        FEDformer,
+        FEDformerConfig,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (  # noqa: E501
+        DelayTape,
+    )
+
+    label = f"fedformer_model_{version.lower()}"
+    cfg = FEDformerConfig(**FED_CFG, version=version)
+    zero_counts()
+    model = FEDformer(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(SEED))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    dec_len = cfg.label_len + cfg.pred_len
+    *inputs, y = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in (
+        (FED_BATCH, cfg.seq_len, cfg.enc_in),
+        (FED_BATCH, cfg.seq_len, FED_MARKS),
+        (FED_BATCH, dec_len, cfg.dec_in), (FED_BATCH, dec_len, FED_MARKS),
+        (FED_BATCH, cfg.pred_len, cfg.c_out)))
+    opt = torch.optim.Adam(model.parameters(), lr=FED_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((model(*inputs) - y) ** 2)
+        loss.backward()
+        opt.step()
+        return loss
+
+    timing = _time_model(label, lambda: model(*inputs), step)
+    cpu_model = copy.deepcopy(model).cpu()
+    sub = [t[:MODEL_CHECK] for t in inputs + [y]]
+    tape = DelayTape() if version == "Autoformer" else None
+
+    def run(m, ts, delays):
+        out = m(*ts[:4], delays=delays)
+        return {"forecast": out}, torch.mean((out - ts[4]) ** 2)
+
+    got = _loss_and_grads(model, lambda: run(model, sub, tape))
+
+    def on_cpu(m, dtype):
+        replay = (DelayTape([d.cpu() for d in tape.delays]) if tape
+                  else None)
+        return _loss_and_grads(m, lambda: run(
+            m, [t.cpu().to(dtype) for t in sub], replay))
+
+    want = on_cpu(cpu_model, torch.float32)
+    gate = _card_vs_cpu(label, got, want, lambda: on_cpu(
+        copy.deepcopy(cpu_model).double(), torch.float64))
+    extra = (f"; delays a call on the card "
+             f"{[d.sort().values.tolist() for d in tape.delays]}"
+             if tape else "")
+    _phase_log(label, card, timing, f", weights {weights / 2**20:.1f} MiB; "
+               f"one step on {MODEL_CHECK} windows vs cpu {gate}{extra}")
+    return _no_kernel(label), dict(timing, weights_mib=weights / 2**20,
+                                   step_vs_cpu=gate)
+
+
+def informer_stack_phase(card: str):
+    """``InformerEncoder(512, 2 layers, 8 heads, ProbSparse, distil)`` on
+    (32, 96, 512), then ``InformerDecoderLayer(512, 8)`` on (32, 72, 512)
+    against its output: the timed forward and MSE + Adam step; one step on
+    MODEL_CHECK windows against the CPU, the card's key samples and chosen
+    queries replayed there.  No hand kernel runs."""
+    import copy
+
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        informer_stack,
+    )
+
+    label = "informer_stack"
+    gen = torch.Generator().manual_seed(SEED)
+    zero_counts()
+    enc = informer_stack.InformerEncoder(INF_D, 2, INF_HEADS, "prob", True,
+                                         device="cuda", generator=gen)
+    dec = informer_stack.InformerDecoderLayer(INF_D, INF_HEADS,
+                                              device="cuda", generator=gen)
+    model = torch.nn.ModuleDict({"encoder": enc, "decoder": dec})
+    rng = np.random.RandomState(SEED)
+    x, dec_in, y = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((INF_B, INF_ENC, INF_D),
+                                      (INF_B, INF_DEC, INF_D),
+                                      (INF_B, INF_DEC, INF_D)))
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    opt = torch.optim.Adam(model.parameters(), lr=FED_LR)
+
+    def forward(m, x_, d_, g):
+        enc_out = m["encoder"](x_, generator=g)
+        return enc_out, m["decoder"](d_, enc_out, generator=g)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((forward(model, x, dec_in, card_gen)[1] - y) ** 2)
+        loss.backward()
+        opt.step()
+        return loss
+
+    timing = _time_model(label, lambda: forward(model, x, dec_in, card_gen),
+                         step)
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def run(m, x_, d_, y_):
+        enc_out, out = forward(m, x_, d_, None)
+        return ({"encoder": enc_out, "decoder": out},
+                torch.mean((out - y_) ** 2))
+
+    n = MODEL_CHECK
+    with _SampleRecorder(module=informer_stack) as rec:
+        got = _loss_and_grads(model, lambda: run(model, x[:n], dec_in[:n],
+                                                 y[:n]))
+
+    def on_cpu(m, dtype):
+        with _SampleRecorder(replay=rec.draws, module=informer_stack) as r:
+            out = _loss_and_grads(m, lambda: run(
+                m, *(t[:n].cpu().to(dtype) for t in (x, dec_in, y))))
+        return out, r.flips
+
+    want, flips = on_cpu(cpu_model, torch.float32)
+    gate = _card_vs_cpu(label, got, want, lambda: on_cpu(
+        copy.deepcopy(cpu_model).double(), torch.float64)[0])
+    gate["query_choices_flipped_on_cpu"] = flips
+    _phase_log(label, card, timing, f"; encoder out "
+               f"{tuple(forward(model, x, dec_in, card_gen)[0].shape)}; one "
+               f"step on {n} windows vs cpu (the card's {len(rec.draws)} "
+               f"key samples and chosen queries replayed) {gate}")
+    return _no_kernel(label), dict(timing, step_vs_cpu=gate)
+
+
+def denoise_vae_phase(card: str):
+    """``DenoiseVAE(32, gp=True)`` on (256, 288, 32) with a 96-step target:
+    the timed forward and MSE + KL + Adam step, its two normal draws from a
+    card generator; one step on VAE_CHECK windows against the CPU, the
+    card's draws replayed there (``draws.DrawTape``).  No hand kernel
+    runs."""
+    import copy
+
+    from fine_grained_gaussian_process_forcasting_torch import draws
+    from fine_grained_gaussian_process_forcasting_torch.models.denoise_vae import (  # noqa: E501
+        DenoiseVAE,
+    )
+
+    label = "denoise_vae"
+    zero_counts()
+    model = DenoiseVAE(VAE_D, gp=True, device="cuda",
+                       generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    x, y, target = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).cuda() for s in ((VAE_B, VAE_L, VAE_D),
+                                      (VAE_B, VAE_L, VAE_D),
+                                      (VAE_B, VAE_TARGET, 1)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def loss_of(m, x_, t_, y_, g):
+        out, kl = m(x_, t_, generator=g)
+        return out, kl, torch.mean((out - y_) ** 2) + kl
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, x, target, y, gen)[2]
+        loss.backward()
+        opt.step()
+        return loss
+
+    timing = _time_model(label, lambda: model(x, target, generator=gen),
+                         step)
+    cpu_model = copy.deepcopy(model).cpu()
+    n = VAE_CHECK
+    tape = draws.DrawTape(gen)
+
+    def run(m, ts, g):
+        out, kl, loss = loss_of(m, *ts, g)
+        return {"output": out, "kl": kl}, loss
+
+    got = _loss_and_grads(model, lambda: run(
+        model, (x[:n], target[:n], y[:n]), tape))
+
+    def on_cpu(m, dtype):
+        # the input noise in the inputs' dtype, the latent's fp32, as the
+        # model draws them
+        eps, z = (d.cpu() for d in tape.draws)
+        replay = draws.DrawTape(draws=[eps.to(dtype), z])
+        return _loss_and_grads(m, lambda: run(
+            m, tuple(t[:n].cpu().to(dtype) for t in (x, target, y)),
+            replay))
+
+    want = on_cpu(cpu_model, torch.float32)
+    gate = _card_vs_cpu(label, got, want, lambda: on_cpu(
+        copy.deepcopy(cpu_model).double(), torch.float64))
+    _phase_log(label, card, timing, f"; one step on {n} windows vs cpu "
+               f"(the card's {len(tape.draws)} draws replayed) {gate}")
+    return _no_kernel(label), dict(timing, step_vs_cpu=gate)
+
+
+def arima_batch_phase(card: str):
+    """``fit_forecast_batch`` on 1024 windows of 192 steps (integrated
+    ARMA(1,1) series from the seed), 96 ahead, 200 Adam steps: its seconds
+    and windows/s; ms a step and a forward (the CSS residuals) as medians;
+    the device busy a step under the profiler.  The first AR_CHECK windows
+    are fitted on the CPU too, in fp32 and float64, and the card held to
+    float64 (AR_DIVERGED, AR_EXTRA).  No hand kernel runs."""
+    from fine_grained_gaussian_process_forcasting_torch.models import arima
+
+    label = "arima_batch"
+    rng = np.random.RandomState(SEED)
+    n, T = AR_WINDOWS, AR_LEN
+    phi, theta = (rng.uniform(-0.8, 0.8, (n,)) for _ in range(2))
+    e = rng.standard_normal((n, T))
+    w = np.zeros((n, T))
+    for t in range(1, T):
+        w[:, t] = 0.05 + phi * w[:, t - 1] + theta * e[:, t - 1] + e[:, t]
+    x = (10.0 + np.cumsum(w, 1)).astype(np.float32)
+    zero_counts()
+    arima.fit_forecast_batch(x, AR_STEPS, iters=2, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = arima.fit_forecast_batch(x, AR_STEPS, AR_ITERS, AR_LR,
+                                   device="cuda")
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (n, AR_STEPS) or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: forecasts {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+    wd = torch.diff(torch.from_numpy(x).cuda(), dim=1)
+    params = arima.fit_batch(wd, AR_ITERS, AR_LR)
+    steps10 = 10
+    step_ms = _median_ms(lambda: arima.fit_batch(wd, steps10, AR_LR),
+                         MR_RUNS) / steps10
+    fwd_ms = _median_ms(lambda: arima.css_residuals_batch(params, wd),
+                        MR_RUNS)
+    busy = profile_device(lambda: arima.fit_batch(wd, steps10, AR_LR),
+                          f"{label}, {steps10} Adam steps",
+                          step_ms * steps10)
+    busy_step, launches_step = busy["busy_ms"] / steps10, (
+        busy["launches"] / steps10)
+
+    k = AR_CHECK
+    cpu32 = arima.fit_forecast_batch(x[:k], AR_STEPS, AR_ITERS, AR_LR,
+                                     device="cpu")
+    xt = torch.from_numpy(x[:k].astype(np.float64))
+    w64 = torch.diff(xt, dim=1)
+    cpu64 = arima.forecast_batch(arima.fit_batch(w64, AR_ITERS, AR_LR), w64,
+                                 xt[:, -1], AR_STEPS).numpy()
+
+    def per_window(a, ref):
+        return np.abs(a - ref).max(1) / np.abs(ref).max(1)
+
+    card64, cpu32_64 = per_window(out[:k], cpu64), per_window(cpu32, cpu64)
+    card32 = per_window(out[:k], cpu32)
+    gate = {"median_vs_float64_cuda": float(np.median(card64)),
+            "median_vs_float64_cpu": float(np.median(cpu32_64)),
+            "past_diverged_cuda": int((card64 > AR_DIVERGED).sum()),
+            "past_diverged_cpu": int((cpu32_64 > AR_DIVERGED).sum()),
+            "windows": k, "median_vs_cpu_fp32": float(np.median(card32)),
+            "worst_vs_cpu_fp32": float(card32.max()),
+            "within_1e-3_of_cpu_fp32": int((card32 <= TOL_TRAIN).sum())}
+    ok = (gate["median_vs_float64_cuda"]
+          <= 2.0 * gate["median_vs_float64_cpu"]
+          and gate["past_diverged_cuda"]
+          <= gate["past_diverged_cpu"] + AR_EXTRA * k)
+    if not ok:
+        raise AssertionError(f"{label}: cuda vs float64 {gate}")
+    log(f"{label} on {card}: {n} windows x {T} steps, {AR_ITERS} Adam "
+        f"steps, {AR_STEPS} ahead in {fit_s:.3f} s ({n / fit_s:.1f} "
+        f"windows/s); a step {step_ms:.3f} ms, the residuals (forward) "
+        f"{fwd_ms:.3f} ms (medians of {MR_RUNS}); device busy "
+        f"{busy_step:.4f} ms a step in {launches_step:.0f} launches, idle "
+        f"share {busy['idle_share']:.3f}; peak memory {peak / 2**20:.1f} "
+        f"MiB; the first {k} windows vs the cpu {gate}")
+    return _no_kernel(label), {
+        "fit_s": fit_s, "windows_per_s": n / fit_s, "step_ms": step_ms,
+        "fwd_ms": fwd_ms, "busy_ms": busy_step,
+        "launches_a_step": launches_step, "idle_share": busy["idle_share"],
+        "peak_mib": peak / 2**20, "vs_cpu": gate}
+
+
+MODEL_PHASES = tuple(f"fedformer_model_{v.lower()}" for v in FED_VERSIONS) + (
+    "informer_stack", "arima_batch", "denoise_vae")
+
+
+def models_rest_phases(card: str, record, cpu_checks):
+    """The phases of the rest of ``models/``, after ``baselines``."""
+    for version in FED_VERSIONS:
+        path = f"fedformer_model_{version.lower()}"
+        counts, cpu_checks[path] = fedformer_phase(version, card)
+        record(path, counts)
+    for path, phase in (("informer_stack", informer_stack_phase),
+                        ("arima_batch", arima_batch_phase),
+                        ("denoise_vae", denoise_vae_phase)):
+        counts, cpu_checks[path] = phase(card)
+        record(path, counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4118,6 +4572,7 @@ def main() -> int:
     record("cli_multiseed", counts)
     counts, cpu_checks["baselines"] = baselines_phase(smi)
     record("baselines", counts)
+    models_rest_phases(smi, record, cpu_checks)
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())

@@ -11,6 +11,12 @@ import math
 import torch
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """A 16-bit tensor widened to fp32; fp32 and float64 as they are (so a
+    float64 reference run stays float64)."""
+    return t.float() if t.dtype.itemsize == 2 else t
+
+
 def matmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 16-bit operands: exact products summed in fp32, rounded
     once to the operands' dtype.  Every GEMM here does that, each in its own

@@ -97,3 +97,33 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             weights = torch.gather(mean_value, -1, delay)
         agg = _delay_aggregate(vt, delay, torch.softmax(weights, dim=-1))
     return agg.transpose(2, 3).to(dtype), mean_value
+
+
+class DelayTape:
+    """The delays of a run's AutoCorrelation calls, in call order.  Made
+    empty it records the top-k each call chose; made from another run's
+    ``delays`` it hands them back, one a call, as ``auto_correlation``'s
+    ``delays=``, so that two devices that break a near-tie differently
+    compute the same function.  Call it as ``auto_correlation``."""
+
+    def __init__(self, delays: Optional[list] = None):
+        self.replaying = delays is not None
+        self.delays = [] if delays is None else list(delays)
+        self._next = 0
+
+    def __call__(self, q, k, v, factor: int = 1, training: bool = True):
+        forced = None
+        if self.replaying:
+            if self._next >= len(self.delays):
+                raise RuntimeError(f"the tape holds {len(self.delays)} "
+                                   "delays; this run takes more")
+            forced = self.delays[self._next].to(q.device)
+            self._next += 1
+        ctx, mean_value = auto_correlation(q, k, v, factor, training,
+                                           delays=forced)
+        if not self.replaying:
+            top_k = int(factor * math.log(q.shape[2]))
+            self.delays.append(
+                torch.topk(mean_value.mean(dim=0), top_k).indices
+                if training else torch.topk(mean_value, top_k, dim=-1).indices)
+        return ctx, mean_value

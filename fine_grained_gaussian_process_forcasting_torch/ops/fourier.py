@@ -5,8 +5,8 @@ JAX version has no Pallas kernel): rFFT, keep a fixed subset of frequency
 modes, a complex linear map per mode and head, irFFT.  The complex weights
 are two real parameters, ``w_real`` and ``w_imag``, as in the JAX package,
 so ``params.from_flax`` carries them across unchanged.  The transforms are
-``torch.fft`` in fp32 (cuFFT on the card), as the JAX version's are
-``jnp.fft``.
+``torch.fft`` in fp32 (16-bit operands widened; cuFFT on the card), as the
+JAX version's are ``jnp.fft``.
 
 The modes are chosen on the host when the module is built, by numpy's
 ``RandomState(seed)``, so they are the JAX package's own.  A mode index past
@@ -22,6 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from fine_grained_gaussian_process_forcasting_torch.ops.attention import widen
 
 
 def get_frequency_modes(seq_len: int, modes: int = 64,
@@ -55,7 +57,7 @@ def _spectrum(x: torch.Tensor, modes: torch.Tensor,
     on x's device): one past the spectrum reads its last frequency and
     passes no gradient back, as JAX's gather clamps such an index and its
     transpose, a scatter, drops it."""
-    x_ft = torch.fft.rfft(x.float(), dim=-1)
+    x_ft = torch.fft.rfft(widen(x), dim=-1)
     n_freq = x_ft.shape[-1]
     if max(index) < n_freq:
         return x_ft[..., modes]
@@ -141,7 +143,7 @@ class FourierCrossAttention(nn.Module):
         if self.activation == "tanh":
             xqk_ft = torch.tanh(xqk_ft)
         else:
-            xqk_ft = torch.softmax(xqk_ft.abs(), dim=-1).to(torch.complex64)
+            xqk_ft = torch.softmax(xqk_ft.abs(), dim=-1).to(xqk_ft.dtype)
         xqkv_ft = torch.einsum("bhxy,bhey->bhex", xqk_ft, xk_ft)
         w = torch.complex(self.w_real, self.w_imag).to(xqkv_ft.dtype)
         xqkvw = torch.einsum("bhex,heox->bhox", xqkv_ft, w)

@@ -28,12 +28,8 @@ import torch
 from fine_grained_gaussian_process_forcasting_torch import draws
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
     matmul16,
+    widen,
 )
-
-
-def _wide(t: torch.Tensor) -> torch.Tensor:
-    """A 16-bit tensor widened to fp32; any other as it is."""
-    return t.float() if t.dtype.itemsize == 2 else t
 
 
 def sample_sizes(l_q: int, l_k: int, factor: int = 1) -> Tuple[int, int]:
@@ -60,8 +56,8 @@ def top_queries(q: torch.Tensor, k: torch.Tensor, index_sample: torch.Tensor,
     exact products summed in fp32."""
     l_k = k.shape[2]
     k_sample = k[:, :, index_sample, :]  # (b, h, l_q, u_part, d)
-    qk = torch.matmul(_wide(q)[..., None, :],
-                      _wide(k_sample).transpose(-1, -2))[..., 0, :]
+    qk = torch.matmul(widen(q)[..., None, :],
+                      widen(k_sample).transpose(-1, -2))[..., 0, :]
     m = qk.amax(dim=-1) - qk.sum(dim=-1) / l_k
     return torch.topk(m, u, dim=-1).indices
 
@@ -97,19 +93,19 @@ def prob_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             u)
     rows = m_top.to(q.device, torch.long)[..., None].expand(b, h, u, d)
     q_reduce = torch.gather(q, 2, rows)
-    scores = torch.matmul(_wide(q_reduce), _wide(k).transpose(-1, -2))
+    scores = torch.matmul(widen(q_reduce), widen(k).transpose(-1, -2))
     scores = scores * (scale or 1.0 / math.sqrt(d))
     if mask_flag:
         if l_q != l_k:
             raise ValueError(
                 "masked ProbSparse attention requires L_Q == L_K "
                 f"(self-attention only), got {l_q} != {l_k}")
-        context = torch.cumsum(_wide(v), dim=-2).to(v.dtype)
+        context = torch.cumsum(widen(v), dim=-2).to(v.dtype)
         causal = (torch.arange(l_k, device=q.device)[None, None, None, :]
                   > rows[..., :1])
         scores = scores.masked_fill(causal, -math.inf)
     else:
-        context = _wide(v).mean(dim=-2, keepdim=True).to(v.dtype).expand(
+        context = widen(v).mean(dim=-2, keepdim=True).to(v.dtype).expand(
             b, h, l_q, d)
     attn = torch.softmax(scores, dim=-1)
     top_ctx = matmul16(attn.to(v.dtype), v)

@@ -9,9 +9,12 @@ Dense ``i*`` on the input and ``h*`` with a bias on the hidden state) becomes
 layer i of ``nn.LSTM`` ``lstm``, its gates stacked, with a zero ``b_ih``
 (``models/lstm.py``), and DeepAR's cell ``rnn{i}/cell`` (Flax's ``nn.RNN``
 of one such cell) the one-layer ``nn.LSTM`` ``rnn{i}.cell``
-(``models/deepar.py``); every other leaf keeps its name and shape.  The
-input is a nested dict of numpy arrays, so loading needs no JAX;
-``to_flax`` is the inverse, for parameters and for their gradients.
+(``models/deepar.py``); every other leaf keeps its name and shape.  So
+no map is needed for Flax's ``LayerNorm`` (``scale``, ``bias``) or
+``nn.Embed`` (``embedding``): the port's ``LayerNorm`` and ``Embed`` below
+hold leaves of those names.  The input is a nested dict of numpy arrays, so
+loading needs no JAX; ``to_flax`` is the inverse, for parameters and for
+their gradients.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
     matmul16,
+    widen,
 )
 
 # Flax's lecun_normal: truncated normal at +-2 std, rescaled so the
@@ -82,6 +86,43 @@ def dense(in_features: int, out_features: int, *, bias: bool,
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(epsilon)`` over the last axis, with its leaves
+    ``scale`` and ``bias`` and its arithmetic: the statistics in fp32 (a
+    16-bit input widened),
+    var = E[x^2] - E[x]^2 clipped at 0, (x - mean) * (rsqrt(var + eps) *
+    scale) + bias."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, *, device):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        xf = widen(x)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Embed(nn.Module):
+    """Flax ``nn.Embed(num, features)``: a lookup of the rows of its leaf
+    ``embedding`` (num, features), drawn N(0, 1 / features)."""
+
+    def __init__(self, num: int, features: int, *, device,
+                 generator: torch.Generator):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, features,
+                                                  device=device))
+        normal_(self.embedding, features ** -0.5, generator)
+
+    def forward(self, index: torch.Tensor) -> torch.Tensor:
+        return self.embedding[index]
 
 
 _GATES = "ifgo"  # Flax's and nn.LSTM's order of the gates

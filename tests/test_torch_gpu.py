@@ -1929,3 +1929,145 @@ def test_export_platforms_card_to_cpu(cuda, tmp_path):
     assert np.isfinite(got).all()
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= 1e-3, err
+
+
+# the rest of models/ (FEDformer, the Informer stack, the denoising VAE,
+# the batched ARIMA; no hand kernel: cuBLAS, cuFFT and cuDNN): the card
+# against the CPU on the same weights and inputs, at the tolerances of the
+# CPU tests against JAX (tests/test_torch_fedformer.py,
+# tests/test_torch_baselines_rest.py): outputs 1e-5 of their largest
+# magnitude; gradients 1e-4 (the whole FEDformer 5e-4), each over the
+# larger of its own largest magnitude and 1e-2 of the largest gradient
+# (the floor for gradients that are 0 in exact arithmetic); the ARIMA
+# forecast after 100 Adam steps 1e-5.  The card's random draws
+# (AutoCorrelation's delays, ProbSparse's key samples, the VAE's normals)
+# are recorded there and replayed on the CPU.
+TOL_REST, TOL_REST_GRAD, TOL_REST_FED_GRAD = 1e-5, 1e-4, 5e-4
+REST_GRAD_FLOOR = 1e-2
+FED_SMALL = dict(enc_in=3, dec_in=3, c_out=3, seq_len=32, label_len=16,
+                 pred_len=8, d_model=16, n_heads=4, d_ff=16, e_layers=2,
+                 d_layers=1, moving_avg=(9,), modes=4, wavelet_k=2, L=1)
+
+
+def _rest_runs(make, run, inputs, cuda):
+    """One model's outputs, loss and gradients on the card, then on the CPU
+    with the card's weights; ``run(model, tensors, record)`` -> (outputs,
+    loss, record), ``record`` the draws the card took (None on the card)."""
+    card = make(cuda)
+    cpu = make("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    runs, record = [], None
+    for model, device in ((card, cuda), (cpu, "cpu")):
+        ts = [torch.from_numpy(a).to(device) for a in inputs]
+        outs, loss, record = run(model, ts, record)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in model.parameters()]
+        runs.append(([t.detach().cpu().double() for t in (*outs, loss)],
+                     [g.detach().cpu().double() for g in grads]))
+    return runs
+
+
+def _rest_close(runs, tol_grad):
+    (outs_g, grads_g), (outs_c, grads_c) = runs
+    for i, (a, b) in enumerate(zip(outs_g, outs_c)):
+        assert torch.isfinite(a).all()
+        err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        assert err <= TOL_REST, (i, err)
+    floor = REST_GRAD_FLOOR * max(float(g.abs().max()) for g in grads_c)
+    for i, (a, b) in enumerate(zip(grads_g, grads_c)):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+        assert err <= tol_grad, (i, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", ["Fourier", "Wavelets", "Autoformer"])
+def test_fedformer_matches_cpu_on_card(cuda, version):
+    from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  # noqa: E501
+        FEDformer,
+        FEDformerConfig,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (  # noqa: E501
+        DelayTape,
+    )
+
+    cfg = FEDformerConfig(**FED_SMALL, version=version)
+    rng = np.random.default_rng(15)
+    inputs = [rng.normal(size=s).astype(np.float32) for s in (
+        (3, 32, 3), (3, 32, 4), (3, 24, 3), (3, 24, 4), (3, 8, 3))]
+
+    def run(model, ts, record):
+        tape = DelayTape(None if record is None
+                         else [d.cpu() for d in record.delays])
+        out = model(*ts[:4], delays=tape)
+        return [out], torch.mean((out - ts[4]) ** 2), tape
+
+    runs = _rest_runs(lambda d: FEDformer(
+        cfg, device=d, generator=torch.Generator().manual_seed(0)), run,
+        inputs, cuda)
+    _rest_close(runs, TOL_REST_FED_GRAD)
+
+
+@pytest.mark.gpu
+def test_informer_stack_matches_cpu_on_card(cuda):
+    from fine_grained_gaussian_process_forcasting_torch import draws
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        informer_stack,
+    )
+
+    def make(device):
+        gen = torch.Generator().manual_seed(0)
+        return torch.nn.ModuleDict({
+            "encoder": informer_stack.InformerEncoder(
+                16, 2, 4, device=device, generator=gen),
+            "decoder": informer_stack.InformerDecoderLayer(
+                16, 4, device=device, generator=gen)})
+
+    def run(model, ts, record):
+        tape = (draws.DrawTape(torch.Generator(device=cuda).manual_seed(3))
+                if record is None else
+                draws.DrawTape(draws=[d.cpu() for d in record.draws]))
+        enc = model["encoder"](ts[0], generator=tape)
+        out = model["decoder"](ts[1], enc, generator=tape)
+        return [enc, out], torch.mean((out - ts[2]) ** 2), tape
+
+    rng = np.random.default_rng(20)
+    inputs = [rng.normal(size=s).astype(np.float32)
+              for s in ((2, 24, 16), (2, 8, 16), (2, 8, 16))]
+    _rest_close(_rest_runs(make, run, inputs, cuda), TOL_REST_GRAD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gp", [True, False], ids=["gp", "plain"])
+def test_denoise_vae_matches_cpu_on_card(cuda, gp):
+    from fine_grained_gaussian_process_forcasting_torch import draws
+    from fine_grained_gaussian_process_forcasting_torch.models.denoise_vae import (  # noqa: E501
+        DenoiseVAE,
+    )
+
+    def run(model, ts, record):
+        tape = (draws.DrawTape(torch.Generator(device=cuda).manual_seed(3))
+                if record is None else
+                draws.DrawTape(draws=[d.cpu() for d in record.draws]))
+        out, kl = model(ts[0], ts[1], generator=tape)
+        return [out, kl], torch.mean((out - ts[2]) ** 2) + kl, tape
+
+    rng = np.random.default_rng(27)
+    inputs = [rng.normal(size=s).astype(np.float32)
+              for s in ((3, 20, 8), (3, 6, 1), (3, 20, 8))]
+    _rest_close(_rest_runs(lambda d: DenoiseVAE(
+        8, gp=gp, device=d, generator=torch.Generator().manual_seed(0)),
+        run, inputs, cuda), TOL_REST_GRAD)
+
+
+@pytest.mark.gpu
+def test_fit_forecast_batch_matches_cpu_on_card(cuda):
+    from fine_grained_gaussian_process_forcasting_torch.models import arima
+
+    rng = np.random.default_rng(3)
+    x = (10.0 + np.cumsum(rng.normal(size=(4, 120)), 1)).astype(np.float32)
+    got = arima.fit_forecast_batch(x, 24, iters=100, device=cuda)
+    want = arima.fit_forecast_batch(x, 24, iters=100, device="cpu")
+    assert got.shape == (4, 24) and np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= TOL_REST, err
