@@ -56,9 +56,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    axis (multi-seed training): the fused GP for 3 seeds in one call each
    way, fp32 at the flagship shape and bf16 at the production width, every
    seed bit-equal to its own call of one seed, within the plain gates and
-   the float64 gate, timed beside 3 single calls; the head-folded and flash
-   kernels' vmap rules (the seeds folded into the batch), bit-equal to
-   per-seed calls forward and backward.
+   the float64 gate, timed beside 3 single calls; the head-folded, flash
+   and small-head kernels' vmap rules (the seeds folded into the batch),
+   bit-equal to per-seed calls forward and backward; the Cholesky's fold
+   at (256, 192, 192) x 3 seeds, one launch, each factor bit-equal to its
+   own call; the rbf kernel's seed axis at the multi-layer flagship's
+   hidden layer (3 seeds x 8 GPs, one launch, bit-equal to 3 launches of
+   one seed and timed beside them, with its store bandwidth and bound).
 3. Serving, flagship: the AutoDG model (autoformer + GP + denoise, d_model
    32, 8 heads, 1 layer, 512 inducing points, enc 192, dec/pred 96) and its
    ``basic``-attention twin, weights from a fixed seed, serve 600 request
@@ -77,7 +81,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    fused GP once each way a step for all seeds, one step's per-seed losses
    and gradients against 3 single-seed steps on the card, seed 0's step
    against the CPU; seed-steps/s, busy, launches and peak memory beside
-   ``train_autoformer``'s.
+   ``train_autoformer``'s.  After every single-seed path, the options that
+   train at 3 seeds through the kernels' seed rules, each at the flagship's
+   width with 3 warm-up steps and 1 epoch of 4, the same gates, beside its
+   single-seed path: ``train_multiseed_multilayer`` (every seed's hidden-
+   layer K in one rbf launch, the fused GP's seed axis),
+   ``train_multiseed_exact`` (no hand kernel), ``..._exact_blur_pallas``
+   (the exact model with its blur on the Cholesky kernel, the seeds folded:
+   6 launches a step), ``..._lstm`` (one cuDNN call a seed) and
+   ``..._informer`` (each seed's key samples from its own generator; the
+   card's samples and chosen queries replayed on the CPU).
 5. Serving and training, production width: the ``basic`` + GP + denoise
    model at d_model 512, 8 heads (d_k 64), 2 layers, 512 inducing points,
    batch 64, enc 512, dec/pred 128, 8 features, ``compute_dtype`` and
@@ -924,7 +937,7 @@ def check_rbf(gen):
             ptrs = [t.data_ptr() for t in (x, z, ls, os_, got)]
 
             def run():
-                if launch(*ptrs, r, m, d, h, stream):
+                if launch(*ptrs, r, m, d, h, 1, stream):
                     raise RuntimeError("rbf launch failed")
             return run
 
@@ -969,6 +982,71 @@ def check_rbf(gen):
             "served_ragged_rows": served_rows, "served_ragged_ms": served_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def check_rbf_seeds(gen):
+    """The rbf kernel's seed axis at the multi-layer flagship's hidden
+    layer (8 GPs, 256 x 288 rows, M 512, d 32) for N_SEEDS seeds, each
+    with its own x and GPs: one launch for every seed's K, bit-equal to
+    N_SEEDS launches of one seed, each seed within TOL_RBF of the plain
+    version; timed beside the N_SEEDS single launches, with the store
+    bandwidth it reaches and its bound (N_SEEDS times one seed's)."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import rbf
+
+    h, rows, m, d = ML_HIDDEN, B * (ENC_LEN + DEC_LEN), INDUCING, D_MODEL
+    s = N_SEEDS
+    per = [_rbf_inputs(gen, h, rows, m, d) for _ in range(s)]
+    args = _stack_seeds(per)
+    tag = f"rbf seeds (S {s}, h {h}, rows {rows}, M {m}, d {d})"
+    with torch.inference_mode():
+        before = (rbf.launches, rbf.seeds_launches)
+        got = rbf.rbf_cross_kernel(*args)
+        torch.cuda.synchronize()
+        if (rbf.launches, rbf.seeds_launches) != (before[0] + 1,
+                                                  before[1] + 1):
+            raise AssertionError(f"{tag}: expected one seeded launch")
+        if tuple(got.shape) != (s, h, rows, m):
+            raise AssertionError(f"{tag}: K has shape {tuple(got.shape)}")
+        for i in range(s):
+            if not torch.equal(got[i], rbf.rbf_cross_kernel(*per[i])):
+                raise AssertionError(f"{tag}: seed {i} differs from its "
+                                     "launch of one seed")
+        err = measure = 0.0
+        for i in range(s):
+            e, m_ = _measure(got[i], rbf.rbf_cross_kernel_plain(*per[i]),
+                             TOL_RBF)
+            err, measure = max(err, e), max(measure, m_)
+        ms = time_ms(lambda: rbf.forward_kernel(*args), 10)
+        single_ms = time_ms(
+            lambda: [rbf.forward_kernel(*a) for a in per], 10)
+        plain_ms = time_ms(lambda: rbf.rbf_cross_kernel_plain(*args), 3)
+    pairs = float(s * h * rows * m)
+    flops = pairs * (2.0 * d + 6.0) + s * 2.0 * d * h * (rows + m)
+    nbytes = 4.0 * (pairs + s * (rows * d + h * (m * d + d + 1)))
+    bound_ms, bound_by = bound(flops, pairs, nbytes)
+    store_tb_s = 4.0 * pairs / ms / 1e9
+    log(f"{tag}: every seed's K in one launch, bit-equal to {s} launches of "
+        f"one seed; max|kernel - plain| {err:.3e}, / (atol + rtol |plain|) "
+        f"{measure:.3e} (limit 1); one launch {ms:.4f} ms (K written at "
+        f"{store_tb_s:.3f} TB/s), {s} launches of one seed {single_ms:.4f} "
+        f"ms (ratio {ms / single_ms:.3f}); plain over the seed axis "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{nbytes / 1e9:.3f} GB); library: none")
+    if not measure <= 1.0:
+        raise AssertionError(f"{tag} disagrees with its plain version")
+    return {"name": "rbf.rbf_cross_kernel (seed axis, fwd, fp32, h GPs)",
+            "route": "cuda",
+            "source": "fine_grained_gaussian_process_forcasting_torch/csrc/"
+                      "rbf.cu",
+            "replaces": "fine_grained_gaussian_process_forcasting_tpu/ops/"
+                        "pallas/rbf.py:52 (under jax.vmap)",
+            "shape": {"seeds": s, "h": h, "rows": rows, "M": m, "d": d},
+            "max_abs_err": err, "measure": measure,
+            "tolerance": {"rtol": TOL_RBF[0], "atol": TOL_RBF[1]},
+            "bit_equal_to_single_seed_calls": True, "ms": ms,
+            "kernel_ms": ms, "single_seed_calls_ms": single_ms,
+            "store_tb_per_s": store_tb_s, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def _blur_gram(gen, b, n, d=D_MODEL):
@@ -1523,21 +1601,25 @@ def check_fused_gp_seeds(gen, shape, bf16=False):
 
 
 def check_attention_folds(gen):
-    """The attention kernels' vmap rules: N_SEEDS seeds folded into the
-    batch, one call each way, bit-equal to one call per seed, forward and
-    the gradients of q, k and v; head-folded on the projections' views at
-    the flagship's enc-self shape, flash (bf16) at the production width's.
-    Times the folded calls beside N_SEEDS single calls.  Returns
-    {kernel key: result} to record beside each kernel's entry."""
+    """The vmap rules that fold the seeds into a kernel's batch: N_SEEDS
+    seeds folded into the batch, one call each way, bit-equal to one call
+    per seed, forward and the gradients of q, k and v; head-folded on the
+    projections' views and small-head at the flagship's enc-self shape,
+    flash (bf16) at the production width's.  Times the folded calls beside
+    N_SEEDS single calls.  Then the Cholesky's fold (``check_cholesky_fold``).
+    Returns {kernel key: result} to record beside each kernel's entry."""
     from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
         flash_attention,
         head_folded_attention,
+        small_head_attention,
     )
 
     s = N_SEEDS
     out = {}
     for key, fn, shape, dtype in (
             ("head_folded_attention", head_folded_attention.head_folded_attention,
+             (B, HEADS, ENC_LEN, D_MODEL // HEADS), torch.float32),
+            ("small_head_attention", small_head_attention.small_head_attention,
              (B, HEADS, ENC_LEN, D_MODEL // HEADS), torch.float32),
             ("flash_attention", flash_attention.fused_attention,
              (P_B, HEADS, P_ENC_LEN, P_D_MODEL // HEADS), torch.bfloat16)):
@@ -1588,7 +1670,65 @@ def check_attention_folds(gen):
                     "single_seed_calls_ms": single_ms,
                     "device_ms": busy["folded"],
                     "single_seed_calls_device_ms": busy["single"]}
+    out["small_head_attention_bwd"] = out["small_head_attention"]
+    out["cholesky"] = check_cholesky_fold(gen)
     return out
+
+
+def check_cholesky_fold(gen):
+    """The Cholesky's vmap rule at the exact blur's encoder shape (256,
+    192, 192) for N_SEEDS seeds: one launch for all seeds, each seed's
+    factor bit-equal to its own call's; its gradient (the plain pullback,
+    no kernel) within TOL_CHOL of the calls of one seed.  Timed beside
+    N_SEEDS single calls."""
+    from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
+        cholesky,
+    )
+
+    s, shape = N_SEEDS, (B, ENC_LEN)
+    tag = f"cholesky seed fold (S {s}, b {shape[0]}, n {shape[1]})"
+    a = torch.stack([_blur_gram(gen, *shape) for _ in range(s)])
+    cot = torch.randn(a.shape, device="cuda", generator=gen) * 1e-2
+    leaf = a.detach().requires_grad_()
+    before = cholesky.launches
+    got = torch.func.vmap(cholesky.batched_cholesky)(leaf)
+    torch.cuda.synchronize()
+    if cholesky.launches != before + 1:
+        raise AssertionError(f"{tag}: expected one launch for all seeds")
+    got.backward(cot)
+    grad_err = 0.0
+    for i in range(s):
+        one = a[i].detach().requires_grad_()
+        single = cholesky.batched_cholesky(one)
+        if not torch.equal(got[i].detach(), single.detach()):
+            raise AssertionError(f"{tag}: seed {i} differs from its call")
+        single.backward(cot[i])
+        err, measure = _measure(leaf.grad[i], one.grad, TOL_CHOL)
+        if not measure <= 1.0:
+            raise AssertionError(f"{tag}: seed {i}'s gradient differs from "
+                                 f"its call's: {err:.3e}")
+        grad_err = max(grad_err, err)
+
+    def folded():
+        return torch.func.vmap(cholesky.batched_cholesky)(a)
+
+    def single():
+        return [cholesky.batched_cholesky(a[i]) for i in range(s)]
+
+    with torch.inference_mode():
+        ms, single_ms = time_ms(folded, 10), time_ms(single, 10)
+    busy = {name: sum(_by_kernel(f, 10).values())
+            for name, f in (("folded", folded), ("single", single))}
+    log(f"{tag}: one launch, every seed's factor bit-equal to its call of "
+        f"one seed, gradients (plain pullback) within {grad_err:.3e}; "
+        f"folded {ms:.4f} ms, {s} single calls {single_ms:.4f} ms (CUDA "
+        f"events); device time by the profiler folded {busy['folded']:.4f} "
+        f"ms, single calls {busy['single']:.4f} ms")
+    return {"seeds": s, "shape": [shape[0], shape[1], shape[1]],
+            "bit_equal_to_single_seed_calls": True,
+            "grad_max_abs_err": grad_err, "ms": ms,
+            "single_seed_calls_ms": single_ms, "device_ms": busy["folded"],
+            "single_seed_calls_device_ms": busy["single"]}
 
 
 def _by_kernel(fn, iters):
@@ -2271,6 +2411,9 @@ class Config:
     zero_leaves: tuple = ()
     epochs: int = N_EPOCHS  # timed epochs of training
     steps: int = N_TRAIN_STEPS  # steps per timed epoch
+    # the exact blur on its Cholesky kernel (``ExactGPBlur.use_pallas``,
+    # which no model option reaches, in either package)
+    blur_pallas: bool = False
 
     def model(self, device: str, seed: int = SEED):
         from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
@@ -2284,13 +2427,16 @@ class Config:
                      gp_compute_dtype=torch.bfloat16,
                      gp_ls_init=-1.0) if self.bf16 else {}
         extra.update(self.gp)
-        return ForecastDenoising(
+        model = ForecastDenoising(
             src_input_size=self.features, tgt_input_size=self.features,
             d_model=self.d_model, n_heads=HEADS, d_k=self.d_model // HEADS,
             stack_size=self.layers, pred_len=self.pred,
             attn_type=self.attn_type, gp=True, denoise=True,
             num_inducing=INDUCING, device=device,
             generator=torch.Generator().manual_seed(seed), **extra)
+        if self.blur_pallas:
+            model.deep_gp.use_pallas = True
+        return model
 
     def windows(self, n: int, seed: int):
         rng = np.random.default_rng(seed)
@@ -2319,8 +2465,8 @@ _NONE = dict.fromkeys(
      "head_folded_attention_bwd", "fused_gp_bf16", "fused_gp_bf16_bwd",
      "flash_attention", "flash_attention_bwd", "flash_attention_bf16sm",
      "flash_attention_bf16sm_bwd", "flash_attention_fp32",
-     "flash_attention_fp32_bwd", "rbf", "cholesky", "small_head_attention",
-     "small_head_attention_bwd"), 0)
+     "flash_attention_fp32_bwd", "rbf", "rbf_seeds", "cholesky",
+     "small_head_attention", "small_head_attention_bwd"), 0)
 _FLAGSHIP = dict(batch=B, enc_len=ENC_LEN, dec_len=DEC_LEN, pred=PRED,
                  features=F, d_model=D_MODEL, layers=LAYERS, bf16=False,
                  n_windows=N_WINDOWS, n_check=N_CHECK)
@@ -2697,6 +2843,8 @@ def _counters():
             "flash_attention_fp32_bwd": (flash_attention,
                                          "f32_bwd_launches"),
             "rbf": (rbf, "launches"),
+            # the launches with the seed axis, counted in rbf's too
+            "rbf_seeds": (rbf, "seeds_launches"),
             "cholesky": (cholesky, "launches"),
             "small_head_attention": (small_head_attention, "launches"),
             "small_head_attention_bwd": (small_head_attention,
@@ -3133,6 +3281,31 @@ EXPORTS = (("basic", None, False), ("basic", "int8", False),
            ("multilayer", None, False), ("exact", None, False))
 
 
+def _step(cfg: Config, params, windows, device, kw, replay=None,
+          dtype=torch.float32):
+    """One training step of ``cfg``'s model at ``params`` in ``dtype`` on
+    ``device``, on ``windows`` = (enc, dec, y), its forward given ``kw``:
+    (loss, {name: gradient, on the cpu}, the recorders of its
+    AutoCorrelation delays, ReLU sides, ATA top-1 scales and ProbSparse
+    samples and queries).  Given ``replay`` (an earlier step's recorders),
+    it takes their choices."""
+    model = cfg.model(device)
+    if dtype != torch.float32:
+        model = model.to(dtype)
+    model.load_state_dict(params)
+    r = replay
+    with _DelayRecorder(replay=r and r[0].delays) as rec, \
+            _ReluRecorder(model, replay=r and r[1].masks) as relu, \
+            _ScaleMaxRecorder(replay=r and r[2].choices) as top, \
+            _SampleRecorder(replay=r and r[3].draws) as psp:
+        out = model(*(t.to(device, dtype) for t in windows), training=True,
+                    **kw)
+    out.loss.backward()
+    return out.loss.item(), {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}, \
+        (rec, relu, top, psp)
+
+
 def check_step_against_cpu(cfg: Config, params, batch):
     """Loss and every parameter gradient of one training step on the card
     against the same step of the port's CPU run: same weights, the first
@@ -3145,32 +3318,18 @@ def check_step_against_cpu(cfg: Config, params, batch):
                           generator=draw_gen, device="cuda")
               for h in cfg.gp.get("gp_hidden_dims", ())]
 
-    def step(model, device, replay=None, masks=None, scales=None,
-             samples=None, dtype=torch.float32):
-        enc, dec, y = (t[:cfg.n_check].to(device, dtype) for t in batch)
-        with _DelayRecorder(replay=replay) as rec, \
-                _ReluRecorder(model, replay=masks) as relu, \
-                _ScaleMaxRecorder(replay=scales) as top, \
-                _SampleRecorder(replay=samples) as psp:
-            out = model(enc, dec, y, training=True,
-                        generator=torch.Generator(device).manual_seed(SEED),
-                        gp_eps=[e.to(device, dtype) for e in gp_eps] or None)
-        out.loss.backward()
-        return out.loss.item(), {n: p.grad.detach().cpu()
-                                 for n, p in model.named_parameters()}, \
-            rec, relu, top, psp
+    def kw(device, dtype=torch.float32):
+        return dict(generator=torch.Generator(device).manual_seed(SEED),
+                    gp_eps=[e.to(device, dtype) for e in gp_eps] or None)
 
-    model = cfg.model("cuda")
-    model.load_state_dict(params)
-    loss_g, grads_g, rec_g, relu_g, top_g, psp_g = step(model, "cuda")
+    windows = tuple(t[:cfg.n_check] for t in batch)
+    loss_g, grads_g, recs = _step(cfg, params, windows, "cuda", kw("cuda"))
     # the cpu takes the card's delays, its side of every ReLU, its top
     # scale of every ATA pyramid and its ProbSparse samples and queries
-    replay, masks, scales = rec_g.delays, relu_g.masks, top_g.choices
-    samples = psp_g.draws
-    model = cfg.model("cpu")
-    model.load_state_dict(params)
-    loss_c, grads_c, rec, relu, top, psp = step(model, "cpu", replay, masks,
-                                                scales, samples)
+    loss_c, grads_c, (rec, relu, top, psp) = _step(
+        cfg, params, windows, "cpu", kw("cpu"), recs)
+    replay, masks, scales = recs[0].delays, recs[1].masks, recs[2].choices
+    samples = recs[3].draws
     flipped = [i for i, differs in
                enumerate(_differing(rec.delays, replay)) if differs]
     if replay:
@@ -3208,20 +3367,17 @@ def check_step_against_cpu(cfg: Config, params, batch):
     # a gradient named in cfg.f64_leaves that misses the tolerance passes
     # if it is within 10x of it and the card lies no farther from a float64
     # CPU run than the fp32 CPU run does, twice over
-    f64 = {}
-    if set(over) & set(cfg.f64_leaves):
-        model = cfg.model("cpu").double()
-        model.load_state_dict(params)
-        _, grads64, _, _, _, _ = step(model, "cpu", replay, masks, scales,
-                                      samples, torch.float64)
-        for name in set(over) & set(cfg.f64_leaves):
-            err64 = [(t[name].double() - grads64[name]).abs().max().item()
-                     for t in (grads_g, grads_c)]
-            f64[name] = {"cuda": err64[0], "cpu_fp32": err64[1]}
+    f64, names = {}, sorted(set(over) & set(cfg.f64_leaves))
+    if names:
+        _, exact, _ = _step(cfg, params, windows, "cpu",
+                            kw("cpu", torch.float64), recs, torch.float64)
+        for name in names:
+            card, cpu = ((t[name].double() - exact[name]).abs().max().item()
+                         for t in (grads_g, grads_c))
+            f64[name] = {"cuda": card, "cpu_fp32": cpu}
             log(f"train {cfg.name}: {name} {over[name]:.3e} over; against "
-                f"float64 on the cpu: cuda {err64[0]:.3e}, cpu fp32 "
-                f"{err64[1]:.3e}")
-            if over[name] <= 10 * tol and err64[0] <= 2.0 * err64[1]:
+                f"float64 on the cpu: cuda {card:.3e}, cpu fp32 {cpu:.3e}")
+            if over[name] <= 10 * tol and card <= 2.0 * cpu:
                 del over[name]
     log(f"train {cfg.name}: one step on {cfg.n_check} windows, cuda vs cpu: "
         f"loss {loss_g:.7f} vs {loss_c:.7f} (rel diff {loss_err:.3e}, tol "
@@ -3566,15 +3722,18 @@ class _no_vmap_loops(warnings.catch_warnings):
                 "vmap")
 
 
-def train_multiseed(cfg: Config, card: str, single: dict):
-    """``train_multiseed_autoformer``: the flagship trained at N_SEEDS seeds
-    as one group (``MultiSeedTrainer``), seed i from the weights of seed
-    SEED + i, through the same warm-up, epochs and profiled step as
-    ``train(cfg)``, whose numbers (``single``) it prints beside its own.
-    Checks finite per-seed losses, one fused-GP launch each way a step for
-    all seeds, one step's per-seed losses and gradients against N_SEEDS
-    single-seed steps on the card (TOL_TRAIN), and seed 0's step against the
-    port's CPU run as ``train`` does."""
+def train_multiseed(cfg: Config, card: str, single: dict,
+                    per_step: dict = None, single_path: str = None):
+    """``train_multiseed_{cfg.name}``: the configuration trained at N_SEEDS
+    seeds as one group (``MultiSeedTrainer``), seed i from the weights of
+    seed SEED + i, through the same warm-up, epochs and profiled step as
+    ``train(cfg)``, whose numbers (``single``, the path ``single_path``) it
+    prints beside its own.  Checks finite per-seed losses, the launches a
+    step (``per_step``; the fused GP once each way a step for all seeds
+    without it), no op run as vmap's per-seed loop, one step's per-seed
+    losses and gradients against N_SEEDS single-seed steps on the card
+    (TOL_TRAIN), and seed 0's step against the port's CPU run as ``train``
+    does."""
     from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
         MultiSeedTrainer,
     )
@@ -3607,8 +3766,9 @@ def train_multiseed(cfg: Config, card: str, single: dict):
         loss_sums.append(loss_sum)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_step = dict(_NONE, fused_gp=1, fused_gp_bwd=1, fused_gp_seeds=1,
-                    fused_gp_seeds_bwd=1)
+    if per_step is None:
+        per_step = dict(_NONE, **_SEEDED_GP)
+    single_path = single_path or f"train_{cfg.name}"
     expect = {k: cfg.epochs * cfg.steps * v for k, v in per_step.items()}
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts}, expected {expect}")
@@ -3627,53 +3787,93 @@ def train_multiseed(cfg: Config, card: str, single: dict):
         f"{N_SEEDS} seeds x {cfg.batch} windows: "
         f"{', '.join(f'{t:.2f}' for t in epoch_ms)} ms; per step median "
         f"{median:.3f} ms ({N_SEEDS * 1e3 / median:.2f} seed-steps/s; "
-        f"train_{cfg.name}: {single['step_ms']:.3f} ms, "
+        f"{single_path}: {single['step_ms']:.3f} ms, "
         f"{single['steps_per_s']:.2f} steps/s); device busy a step "
         f"{busy['busy_ms']:.4f} ms in {busy['launches']} launches, idle share "
-        f"{busy['idle_share']:.3f} (train_{cfg.name}: {single['busy_ms']:.4f} "
+        f"{busy['idle_share']:.3f} ({single_path}: {single['busy_ms']:.4f} "
         f"ms in {single['launches_a_step']} launches, idle share "
         f"{single['idle_share']:.3f}); peak memory {peak / 2**20:.1f} MiB "
-        f"(train_{cfg.name}: {single['peak_mib']:.1f} MiB); mean loss per "
+        f"({single_path}: {single['peak_mib']:.1f} MiB); mean loss per "
         f"epoch by seed {[list(np.round(v / cfg.steps, 6)) for v in loss_sums]}"
         f"; launches {counts}")
 
     # one step at the state after the profiled step, against N_SEEDS
-    # single-seed steps on the card from each seed's parameters
+    # single-seed steps on the card from each seed's parameters and draws
     batch = tuple(t[first + 1] for t in data)
     state = after["state"]
     losses, grads = trainer.gradients(state, batch)
-    worst_name, worst, loss_err = "", 0.0, 0.0
+    worst_name, worst, loss_err, over = "", 0.0, 0.0, {}
     for i in range(N_SEEDS):
-        model = cfg.model("cuda")
-        model.load_state_dict(trainer.seed_params(state, i))
         gen = torch.Generator("cuda")
         gen.set_state(state.rngs[i])
-        out = model(*batch, training=True, generator=gen)
-        out.loss.backward()
-        loss_err = max(loss_err, abs(losses[i].item() - out.loss.item())
-                       / abs(out.loss.item()))
-        largest = max(p.grad.abs().max().item() for p in model.parameters())
-        for pname, p in model.named_parameters():
-            scale = max(p.grad.abs().max().item(), 1e-6 * largest)
-            rel = (grads[pname][i] - p.grad).abs().max().item() / scale
+        drawn = trainer.model.noise_draws(cfg.batch, cfg.enc_len,
+                                          cfg.dec_len, True, gen, "cuda")
+        params = trainer.seed_params(state, i)
+        loss, one, _ = _step(cfg, params, batch, "cuda", drawn)
+        loss_err = max(loss_err, abs(losses[i].item() - loss) / abs(loss))
+        largest = max(g.abs().max().item() for g in one.values())
+        for pname, g in one.items():
+            scale = max(g.abs().max().item(), 1e-6 * largest)
+            rel = (grads[pname][i].cpu() - g).abs().max().item() / scale
+            if rel > TOL_TRAIN:
+                over[(i, pname)] = rel
             if rel > worst:
                 worst_name, worst = f"seed {i} {pname}", rel
     log(f"{name}: one step's per-seed losses and gradients against "
         f"{N_SEEDS} single-seed steps on the card: loss rel diff "
         f"{loss_err:.3e}, worst gradient {worst_name} {worst:.3e} of its "
         f"largest magnitude (tol {TOL_TRAIN})")
-    if not (loss_err <= TOL_TRAIN and worst <= TOL_TRAIN):
+    if not (loss_err <= TOL_TRAIN and not over):
         raise AssertionError(f"{name}: the seeds' step differs from single-"
-                             f"seed steps: loss {loss_err}, {worst_name} "
-                             f"{worst}")
+                             f"seed steps: loss {loss_err}, {over}")
     cpu_check = check_step_against_cpu(cfg, trainer.seed_params(state, 0),
                                        batch)
     cpu_check.update(step_ms=median, seed_steps_per_s=N_SEEDS * 1e3 / median,
                      busy_ms=busy["busy_ms"], launches_a_step=busy["launches"],
                      idle_share=busy["idle_share"], peak_mib=peak / 2**20,
                      vs_single_seed_steps={"loss_rel": loss_err,
-                                           "worst_grad_rel": worst})
+                                           "worst_grad_rel": worst},
+                     single_seed_path=single_path,
+                     single_seed={k: single[k] for k in (
+                         "step_ms", "steps_per_s", "busy_ms",
+                         "launches_a_step", "idle_share", "peak_mib")})
     return counts, cpu_check
+
+
+# the fused GP at the seed axis, once each way a step for all seeds
+_SEEDED_GP = dict(fused_gp=1, fused_gp_bwd=1, fused_gp_seeds=1,
+                  fused_gp_seeds_bwd=1)
+# the options that train at N_SEEDS seeds through the kernels' seed rules,
+# 3 warm-up steps and 1 epoch of 4 each: (path's name, the configuration
+# it trains, its launches a step)
+MULTISEED_OPTIONS = (
+    # the hidden layer's K, every seed's in one rbf launch
+    ("multilayer", "multilayer", dict(_NONE, **_SEEDED_GP, rbf=1,
+                                      rbf_seeds=1)),
+    ("exact", "exact", _NONE),  # the library's factorizations
+    # the blur's three factorizations a step (smooth of both streams, mll),
+    # each a jitter probe and the differentiable factor: one launch each
+    # for all seeds
+    ("exact_blur_pallas", "exact", dict(_NONE, cholesky=6)),
+    ("lstm", "lstm", dict(_NONE, **_SEEDED_GP)),  # one cuDNN call a seed
+    ("informer", "informer", dict(_NONE, **_SEEDED_GP)),
+)
+
+
+def multiseed_options(card: str, record, cpu_checks):
+    """``train_multiseed_{multilayer, exact, exact_blur_pallas, lstm,
+    informer}``: each configuration at the flagship's width at N_SEEDS
+    seeds, beside its single-seed path's numbers."""
+    by_name = {cfg.name: cfg for cfg in CONFIGS}
+    for name, base, per_step in MULTISEED_OPTIONS:
+        cfg = dataclasses.replace(by_name[base], name=name, epochs=1,
+                                  steps=4,
+                                  blur_pallas=name == "exact_blur_pallas")
+        path = f"train_multiseed_{name}"
+        counts, cpu_checks[path] = train_multiseed(
+            cfg, card, cpu_checks[f"train_{base}"], per_step,
+            f"train_{base}")
+        record(path, counts)
 
 
 def cli_multiseed(card: str):
@@ -4145,8 +4345,10 @@ def fedformer_phase(version: str, card: str):
     """``FEDformer`` (``version``) at run.py's defaults, batch 32: one MSE +
     Adam step a timed step, the same forward under ``no_grad``; then one
     step's outputs, loss and gradients on the first MODEL_CHECK windows
-    against the CPU on the card's weights (AutoCorrelation's delays
-    recorded on the card and replayed).  No hand kernel runs."""
+    against the CPU (AutoCorrelation's delays recorded on the card and
+    replayed), both from the seed's weights, a copy taken before the timed
+    steps: the atomics of the default backward kernels make the weights
+    after them differ from run to run.  No hand kernel runs."""
     import copy
 
     from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  # noqa: E501
@@ -4172,6 +4374,7 @@ def fedformer_phase(version: str, card: str):
         (FED_BATCH, dec_len, cfg.dec_in), (FED_BATCH, dec_len, FED_MARKS),
         (FED_BATCH, cfg.pred_len, cfg.c_out)))
     opt = torch.optim.Adam(model.parameters(), lr=FED_LR)
+    cpu_model = copy.deepcopy(model).cpu()
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -4181,7 +4384,7 @@ def fedformer_phase(version: str, card: str):
         return loss
 
     timing = _time_model(label, lambda: model(*inputs), step)
-    cpu_model = copy.deepcopy(model).cpu()
+    model.load_state_dict(cpu_model.state_dict())
     sub = [t[:MODEL_CHECK] for t in inputs + [y]]
     tape = DelayTape() if version == "Autoformer" else None
 
@@ -4515,12 +4718,13 @@ def main() -> int:
     (kernels["fused_gp_bf16_seeds"],
      kernels["fused_gp_bf16_seeds_bwd"]) = check_fused_gp_seeds(
         gen, production, bf16=True)
-    for key, fold in check_attention_folds(gen).items():
-        kernels[key]["seed_fold"] = fold
     kernels["rbf"] = check_rbf(gen)
+    kernels["rbf_seeds"] = check_rbf_seeds(gen)
     kernels["cholesky"] = check_cholesky(gen)
     (kernels["small_head_attention"],
      kernels["small_head_attention_bwd"]) = check_small_head(gen)
+    for key, fold in check_attention_folds(gen).items():
+        kernels[key]["seed_fold"] = fold
     log(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the fp32 flash entries and the non-affine fused-GP entries share other
@@ -4564,6 +4768,7 @@ def main() -> int:
             counts, cpu_checks[path] = train_multiseed(
                 cfg, smi, cpu_checks[f"train_{cfg.name}"])
             record(path, counts)
+    multiseed_options(smi, record, cpu_checks)
     for use_pallas in (False, True):
         path = f"cli_ata_{'pallas' if use_pallas else 'auto'}"
         counts, cpu_checks[path] = cli_ata(smi, use_pallas)

@@ -7,6 +7,9 @@
 //     xs = x / ls[g],  zs = z[g] / ls[g].
 //   The deep GP's hidden layer vmaps the op over its h GPs, which batches
 //   the Pallas grid; here the h GPs are the grid's second axis of one launch.
+//   Multi-seed training vmaps the layer again over S seeds, each with its
+//   own x and its own h GPs: the seeds are the grid's third axis, so one
+//   launch computes every seed's K, (S, h, R, M).
 //   The VJP is plain PyTorch over the saved K, as it is plain XLA there.
 //
 // What bounds it on an H100: the stores.  At the hidden layer of the
@@ -108,7 +111,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(THREADS, 2)
 rbf_cross_kernel(const float* __restrict__ x, const float* __restrict__ z,
                  const float* __restrict__ ls, const float* __restrict__ os,
-                 float* __restrict__ out, int R, int M, int d) {
+                 float* __restrict__ out, int R, int M, int d, int G) {
   extern __shared__ __align__(128) float smem[];
   float* xt = smem;                // x chunk / ls^2, [k][r]
   float* zt = xt + DK * LD;        // z chunk, raw, [k][m]
@@ -119,10 +122,12 @@ rbf_cross_kernel(const float* __restrict__ x, const float* __restrict__ z,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid & 15, ty = tid >> 4;
   const int r0 = blockIdx.x * BR;
-  const int g = blockIdx.y;
-  const float* zg = z + (size_t)g * M * d;
-  const float* lsg = ls + (size_t)g * d;
-  const float osg = os[g];
+  // the seed's GP g: x is the seed's, z, ls, os and K the pair's
+  const size_t sg = (size_t)blockIdx.z * G + blockIdx.y;
+  x += (size_t)blockIdx.z * R * d;
+  const float* zg = z + sg * M * d;
+  const float* lsg = ls + sg * d;
+  const float osg = os[sg];
   const int nd = (d + DK - 1) / DK;       // chunks of d
   const int steps = (M + BM - 1) / BM * nd;
   const bool vec = (M & 3) == 0;  // rows start on 16-byte boundaries
@@ -212,7 +217,7 @@ rbf_cross_kernel(const float* __restrict__ x, const float* __restrict__ z,
           v[j] = osg * ex2(fminf(fmaf(LOG2E, c[i][4 * h + j], ar + cbv[4 * h + j]), 0.f));
         const int r = r0 + rr, m = m0 + cc;
         if (r < R) {
-          float* o = out + ((size_t)g * R + r) * M + m;
+          float* o = out + (sg * R + r) * M + m;
           if (vec && m + 3 < M) {
             __stcs(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
           } else {
@@ -230,21 +235,22 @@ rbf_cross_kernel(const float* __restrict__ x, const float* __restrict__ z,
 
 extern "C" {
 
-// x (R, d) raw points shared by the G GPs; z (G, M, d) inducing points;
-// ls (G, d) lengthscales; os (G,) outputscales; out (G, R, M).  All
+// S seeds (1 without the seed axis), each with its raw points x (R, d)
+// shared by its G GPs: x (S, R, d); z (S, G, M, d) inducing points; ls
+// (S, G, d) lengthscales; os (S, G) outputscales; out (S, G, R, M).  All
 // contiguous fp32.  Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for an empty or oversized shape).
 int rbf_cross_fwd(const float* x, const float* z, const float* ls,
                   const float* os, float* out, int R, int M, int d, int G,
-                  void* stream) {
-  if (R < 1 || M < 1 || d < 1 || G < 1 || G > 65535)
+                  int S, void* stream) {
+  if (R < 1 || M < 1 || d < 1 || G < 1 || G > 65535 || S < 1 || S > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       rbf_cross_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + BR - 1) / BR, G);
-  rbf_cross_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(x, z, ls, os,
-                                                                  out, R, M, d);
+  const dim3 grid((R + BR - 1) / BR, G, S);
+  rbf_cross_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
+      x, z, ls, os, out, R, M, d, G);
   return (int)cudaGetLastError();
 }
 

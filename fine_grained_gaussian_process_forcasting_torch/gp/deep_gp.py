@@ -15,7 +15,8 @@ marginals go through ``ops/cuda/fused_gp.py`` (the CUDA kernel on the card,
 its plain version on the CPU).  Otherwise K is formed, by
 ``ops/cuda/rbf.py`` with ``use_pallas`` (one launch for all the GPs of a
 layer) or by ``rbf_ard``.  The Cholesky, L^-1, u and W are small library
-calls, as in the JAX package.
+calls, as in the JAX package; under ``torch.func.vmap`` (multi-seed
+training) one call a seed (``seedwise.py``).
 
 ``hidden_dims`` stacks hidden layers of h independent GPs each (the JAX
 layer vmaps one GP over h; here every parameter carries a leading h axis
@@ -51,6 +52,7 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
     rbf,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import normal_
+from fine_grained_gaussian_process_forcasting_torch.seedwise import seedwise
 
 _JITTER = 1e-4  # gpytorch's float32 cholesky jitter scale
 _NOISE_FLOOR = 1e-4  # gpytorch GaussianLikelihood GreaterThan(1e-4)
@@ -67,6 +69,21 @@ class GPPosterior(NamedTuple):
     var: torch.Tensor
     kl: torch.Tensor
     noise: torch.Tensor
+
+
+def _inverse_factor(kzz: torch.Tensor) -> torch.Tensor:
+    """L^-1 of Kzz + jitter = L L^T, explicit (a small inverse: the
+    downstream solves become matmuls)."""
+    eye = torch.eye(kzz.shape[-1], dtype=kzz.dtype, device=kzz.device)
+    chol = torch.linalg.cholesky(kzz + _JITTER * eye)
+    return torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                         upper=False)
+
+
+def _whitened_products(chol_inv, var_mean, s2):
+    """The whitened q(u)'s u = L^-T m and W = L^-T diag(1 - s^2) L^-1."""
+    return (chol_inv.T @ var_mean,
+            chol_inv.T @ (chol_inv * (1.0 - s2)[:, None]))
 
 
 class _VariationalLayer(nn.Module):
@@ -122,19 +139,14 @@ class _VariationalLayer(nn.Module):
                           outputscale[:, None, None])
         else:
             kzz = rbf_ard(z, z, lengthscale, outputscale)
-        eye = torch.eye(m, dtype=kzz.dtype, device=kzz.device)
-        chol = torch.linalg.cholesky(kzz + _JITTER * eye)
-        # explicit small inverse: the downstream solves become matmuls
-        chol_inv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
-                                                 upper=False)
+        chol_inv = seedwise(_inverse_factor, kzz)  # one a seed under vmap
         var_mean = self.variational_mean
         log_std = self.variational_log_stddev
         s2 = torch.exp(2.0 * log_std)
         kl = 0.5 * torch.sum(s2 + var_mean * var_mean - 1.0 - 2.0 * log_std)
 
         if self.use_fused and not h:
-            u = chol_inv.T @ var_mean
-            w_mat = chol_inv.T @ (chol_inv * (1.0 - s2)[:, None])
+            u, w_mat = seedwise(_whitened_products, chol_inv, var_mean, s2)
             xr = x[None] if x.dim() == 2 else x
             # the bf16 kernel only for an explicit 16-bit compute dtype
             use_bf16 = (self.compute_dtype is not None

@@ -14,9 +14,11 @@ A = K + noise I.
 
 The batched factorization is the library's (cuSOLVER on the card, NaN
 where it fails) unless ``use_pallas``, which takes the hand-written kernel
-of ``ops/cuda/cholesky.py``.  The psd-safe jitter escalation is a host
-decision here (JAX runs it in a ``lax.while_loop`` on the device): one
-device read per probe, one probe per ``_factor`` when the first succeeds.
+of ``ops/cuda/cholesky.py``.  The psd-safe jitter escalation
+(``gp/exact.py`` ``psd_safe_cholesky``) factors its probes at once and
+picks the jitter on the device, nothing read on the host (JAX runs it in a
+``lax.while_loop``); under ``torch.func.vmap`` each seed's jitter comes
+from its own probes.
 """
 
 from __future__ import annotations

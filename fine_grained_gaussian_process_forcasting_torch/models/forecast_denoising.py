@@ -11,6 +11,9 @@ backbones (the transformer, and the LSTM of ``backbone="lstm"``, which
   names; the ELBO uses the decoder-stream marginals.  Its hidden layers
   (``gp_hidden_dims``) draw their eps from the model's generator, or take
   injected draws (``gp_eps``), or use 0 without either;
+- every draw of a forward (those eps, the isotropic noise, informer's key
+  samples) is taken through ``noise_draws`` first, in one order, so that a
+  caller may draw them ahead and pass them in;
 - ``gp_kind="exact"``: an exact GP smooths each stream in place and its
   exact marginal log likelihood on the decoder states replaces the ELBO;
 - isotropic mode adds 0.05 * N(0, 1) noise in train and eval; the draws come
@@ -127,28 +130,52 @@ class ForecastDenoising(nn.Module):
 
     def noise_draws(self, batch: int, enc_len: int, dec_len: int,
                     training: bool, generator: Optional[torch.Generator],
-                    device) -> dict:
-        """The N(0, 1) draws one forward takes from ``generator``, in the
-        order and at the shapes it takes them, keyed as the forward's
-        arguments: ``noise`` (the isotropic mode's encoder and decoder
-        draws) or ``gp_eps`` (one per hidden GP layer; zeros without a
-        generator); {} where the forward draws nothing.  The forward draws
-        through it, so a caller that draws ahead (a seed's own generator,
-        ``train/multiseed.py``) and passes the draws in gets the same
-        function.  informer's key samples are not among them."""
-        if not (self.denoise or (self.input_corrupt and training)):
-            return {}
+                    device, skip: Sequence[str] = ()) -> dict:
+        """The draws one forward takes from ``generator``, in the order and
+        at the shapes it takes them, keyed as the forward's arguments:
+        ``index_samples`` (informer's key samples, one per ProbSparse call:
+        the forecaster's, then the denoiser's and the residual branch's),
+        ``noise`` (the isotropic mode's N(0, 1) encoder and decoder draws)
+        or ``gp_eps`` (one N(0, 1) draw per hidden GP layer; zeros without
+        a generator); {} where the forward draws nothing.  Drawn in forward
+        order: the forecaster's key samples, the noise or eps, the other
+        passes' key samples.  The keys in ``skip`` (draws the caller holds)
+        are not drawn.  The forward draws through it, so a caller that
+        draws ahead (a seed's own generator, ``train/multiseed.py``) and
+        passes the draws in gets the same function."""
+        key_samples = getattr(self.forecasting_model, "key_samples", None)
+
+        def samples():
+            if key_samples is None or "index_samples" in skip:
+                return []
+            return key_samples(enc_len, dec_len, generator, device)
+
+        out, drawn = {}, samples()
+        if self.denoise or (self.input_corrupt and training):
+            out = self._denoise_draws(batch, enc_len, dec_len, generator,
+                                      device, skip)
+            drawn += samples()
+            if self.residual:
+                drawn += samples()
+        if drawn:
+            out["index_samples"] = drawn
+        return out
+
+    def _denoise_draws(self, batch, enc_len, dec_len, generator, device,
+                       skip) -> dict:
+        """The denoising step's ``noise`` or ``gp_eps``, as ``noise_draws``
+        keys them."""
         like = torch.empty((), device=device)
         if self.gp:
             hidden = (() if self.gp_kind == "exact"
                       else self.deep_gp.hidden_dims)
-            if not hidden:
+            if not hidden or "gp_eps" in skip:
                 return {}
             # through the module, where a caller may wrap it
             return {"gp_eps": [deep_gp.draw_eps((batch, enc_len + dec_len, h),
                                                 generator, like)
                                for h in hidden]}
-        if self.no_noise:
+        if self.no_noise or "noise" in skip:
             return {}
         if generator is None:
             raise ValueError(
@@ -159,7 +186,7 @@ class ForecastDenoising(nn.Module):
             for length in (enc_len, dec_len))}
 
     def _denoise(self, enc_hidden, dec_hidden, training: bool, noise,
-                 generator, gp_eps
+                 keys, gp_eps
                  ) -> Tuple[torch.Tensor, Optional[GPPosterior]]:
         posterior = None
         if self.gp and self.gp_kind == "exact":  # each stream in place
@@ -169,12 +196,8 @@ class ForecastDenoising(nn.Module):
         elif self.gp:
             # one GP evaluation over the concatenated enc+dec points
             s_enc = enc_hidden.shape[1]
-            if gp_eps is None:
-                gp_eps = self.noise_draws(
-                    enc_hidden.shape[0], s_enc, dec_hidden.shape[1], training,
-                    generator, enc_hidden.device).get("gp_eps")
             joint = torch.cat([enc_hidden, dec_hidden], dim=1)
-            post = self.deep_gp(joint, gp_eps, generator)  # over (b, s)
+            post = self.deep_gp(joint, gp_eps)  # over (b, s)
             eps = self.proj_up(post.mean[..., None])  # (b, s, d)
             enc_noisy = (enc_hidden + eps[:, :s_enc]
                          if self.gp_inject in ("joint", "enc") else enc_hidden)
@@ -186,43 +209,52 @@ class ForecastDenoising(nn.Module):
         elif self.no_noise:
             enc_noisy, dec_noisy = enc_hidden, dec_hidden
         else:  # isotropic corruption, active in train and eval
-            if noise is None:
-                noise = self.noise_draws(
-                    enc_hidden.shape[0], enc_hidden.shape[1],
-                    dec_hidden.shape[1], training, generator,
-                    enc_hidden.device)["noise"]
             enc_noisy = enc_hidden + 0.05 * noise[0]
             dec_noisy = dec_hidden + 0.05 * noise[1]
         # the denoising network IS the forecaster (shared parameters)
         _, dec_rec = self.forecasting_model(enc_noisy, dec_noisy,
                                             training=training,
-                                            generator=generator)
+                                            generator=keys)
         return dec_hidden + dec_rec, posterior
 
     def forward(self, enc_inputs: torch.Tensor, dec_inputs: torch.Tensor,
                 y_true: Optional[torch.Tensor] = None, training: bool = False,
                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                gp_eps: Optional[Sequence[torch.Tensor]] = None
+                gp_eps: Optional[Sequence[torch.Tensor]] = None,
+                index_samples: Optional[Sequence[torch.Tensor]] = None
                 ) -> ForecastOutput:
         """``noise``: the isotropic mode's N(0, 1) draws for the encoder and
         decoder hidden states; ``gp_eps``: the deep GP's N(0, 1) draws, one
-        (b, enc_len + dec_len, gp_hidden_dims[i]) per hidden layer; else
-        either is drawn from ``generator`` (a generator on the inputs'
-        device, or a ``draws.DrawTape`` that records or replays the
-        draws), as informer's key samples are (a fixed seed-0 generator
-        without one)."""
+        (b, enc_len + dec_len, gp_hidden_dims[i]) per hidden layer;
+        ``index_samples``: informer's key samples, one per ProbSparse call
+        in forward order; else each is drawn from ``generator`` (a generator
+        on the inputs' device, or a ``draws.DrawTape`` that records or
+        replays the draws; informer's from a fixed seed-0 generator without
+        one), through ``noise_draws``."""
         dev = enc_inputs.device
+        given = [k for k, v in (("noise", noise), ("gp_eps", gp_eps),
+                                ("index_samples", index_samples))
+                 if v is not None]
+        drawn = self.noise_draws(enc_inputs.shape[0], enc_inputs.shape[1],
+                                 dec_inputs.shape[1], training, generator,
+                                 dev, skip=given)
+        noise = drawn.get("noise", noise)
+        gp_eps = drawn.get("gp_eps", gp_eps)
+        index_samples = drawn.get("index_samples", index_samples)
+        # the forecaster's passes take the key samples in order
+        keys = (draws.DrawTape(draws=index_samples) if index_samples
+                else generator)
         mll_error = torch.zeros((), device=dev)
         enc = self.enc_embedding(enc_inputs)
         dec = self.dec_embedding(dec_inputs)
         enc_out, dec_out = self.forecasting_model(enc, dec, training=training,
-                                                  generator=generator)
+                                                  generator=keys)
         forecast = self.final_projection(dec_out[:, -self.pred_len:, :])
 
         if self.denoise or (self.input_corrupt and training):
             de_out, posterior = self._denoise(enc_out, dec_out, training,
-                                              noise, generator, gp_eps)
+                                              noise, keys, gp_eps)
             final = self.final_projection(de_out[:, -self.pred_len:, :])
             # lam_clip_max == 0 drops the term: skipped, so that a
             # non-finite likelihood cannot reach the loss as 0 * inf
@@ -242,7 +274,7 @@ class ForecastDenoising(nn.Module):
             if self.residual:
                 _, dec_res = self.forecasting_model(enc_out, dec_out,
                                                     training=training,
-                                                    generator=generator)
+                                                    generator=keys)
                 res = self.final_projection(dec_res[:, -self.pred_len:, :])
                 final = forecast + res
         else:

@@ -17,6 +17,15 @@ twice as fast under Adam).  ``params.from_flax`` stacks the gates into
 splits them.  Initialised as Flax does: lecun-normal input kernels,
 orthogonal recurrent kernels (each gate's own), zero biases, and a zero
 initial carry.
+
+``torch.func.vmap`` has no batching rule for ``aten::lstm``.  Under a
+functorch transform (multi-seed training: the weights stacked by seed) the
+recurrence runs through ``seedwise``: one cuDNN call per seed on that
+seed's weights, the outputs stacked, so that each seed's output is its
+single-seed call's.  JAX's vmap batches the
+scan's cell into one recurrence for all seeds; batching the seeds so here
+(block-diagonal weights or a hand-written batched cell) is left to a
+performance change.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from torch import nn
 from fine_grained_gaussian_process_forcasting_torch.params import (
     lecun_normal_,
 )
+from fine_grained_gaussian_process_forcasting_torch.seedwise import seedwise
 
 
 def orthogonal_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -64,6 +74,17 @@ def flax_lstm(input_size: int, hidden_size: int, num_layers: int = 1, *,
     return lstm
 
 
+def _lstm(x, weights, num_layers: int, train: bool):
+    """The stacked LSTM over batch-first x from the zero carry, on the flat
+    weights (per layer ``w_ih, w_hh, b_ih, b_hh``): its outputs, (b, l,
+    hidden)."""
+    hidden = weights[1].shape[-1]
+    h0 = x.new_zeros((num_layers, x.shape[0], hidden))
+    out, _, _ = torch._VF.lstm(x, (h0, h0), list(weights), True, num_layers,
+                               0.0, train, False, True)
+    return out
+
+
 class LSTMBackbone(nn.Module):
     """Returns (enc_out, dec_out) hidden states, each (b, l, hidden_size);
     ignores ``training`` and ``generator`` (no dropout, nothing drawn)."""
@@ -77,6 +98,14 @@ class LSTMBackbone(nn.Module):
     def forward(self, enc_inputs, dec_inputs, training: bool = False,
                 generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
         x = torch.cat([enc_inputs, dec_inputs], dim=1)
-        out, _ = self.lstm(x)
+        if torch._C._are_functorch_transforms_active():
+            # by name: functional_call swaps the module's parameters and
+            # buffers, not the list nn.LSTM keeps of them (_flat_weights)
+            lstm = self.lstm
+            out = seedwise(
+                lambda x_, *w: _lstm(x_, w, lstm.num_layers, lstm.training),
+                x, *(getattr(lstm, n) for n in lstm._flat_weights_names))
+        else:
+            out, _ = self.lstm(x)
         n = enc_inputs.shape[1]
         return out[:, :n], out[:, n:]

@@ -49,6 +49,8 @@ from fine_grained_gaussian_process_forcasting_torch.ops.fourier import (
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.probsparse import (
     prob_sparse_attention,
+    sample_keys,
+    sample_sizes,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import dense
 
@@ -335,11 +337,27 @@ class Transformer(nn.Module):
                 use_pallas_attention, compute_dtype)
         self.encoder = Encoder(*args, device=device, generator=generator)
         self.decoder = Decoder(*args, device=device, generator=generator)
+        self.attn_type, self.n_layers = attn_type, n_layers
+
+    def key_samples(self, enc_len: int, dec_len: int, generator,
+                    device) -> list:
+        """informer's key samples of one forward, drawn from ``generator``
+        in the order its ProbSparse calls take them (each encoder layer's
+        self-attention, then each decoder layer's self- and cross-
+        attention), each (l_q, u_part) int64; [] for the other attention
+        types, which draw nothing."""
+        if self.attn_type != "informer":
+            return []
+        calls = ([(enc_len, enc_len)] * self.n_layers
+                 + [(dec_len, dec_len), (dec_len, enc_len)] * self.n_layers)
+        return [sample_keys(l_q, l_k, sample_sizes(l_q, l_k)[0], generator,
+                            device) for l_q, l_k in calls]
 
     def forward(self, enc_inputs, dec_inputs, training: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``generator``: where informer draws its key samples."""
+        """``generator``: where informer draws its key samples (a
+        generator, or a ``draws.DrawTape`` that replays ``key_samples``)."""
         in_dtype = enc_inputs.dtype
         enc_out = self.encoder(enc_inputs, training=training,
                                generator=generator)

@@ -89,16 +89,30 @@ def forward_kernel(a):
 
 
 class _BatchedCholesky(torch.autograd.Function):
-    """The kernel (card) or the plain forward (CPU); the plain pullback."""
+    """The kernel (card) or the plain forward (CPU); the plain pullback.
+    Under ``torch.func.vmap`` its rule folds the vmapped axis into the
+    batch and makes one call."""
 
     @staticmethod
-    def forward(ctx, a):
+    def forward(a):
         if a.device.type == "cpu":
-            chol = batched_cholesky_plain(a)
-        else:
-            chol = forward_kernel(a)
-        ctx.save_for_backward(chol)
-        return chol
+            return batched_cholesky_plain(a)
+        return forward_kernel(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        """The vmapped axis (the seeds) folded into the leading batch dims:
+        (S, ..., n, n) factored as one batch, one call.  Each matrix is
+        factored alone, so each seed's factor (NaN where its matrix is not
+        positive definite) is the one a call of that seed gives."""
+        (dim,) = in_dims
+        a = a.movedim(dim, 0) if dim is not None else a.expand(
+            info.batch_size, *a.shape)
+        return batched_cholesky(a.contiguous()), 0
 
     @staticmethod
     @once_differentiable
@@ -132,14 +146,15 @@ def _(a):
 
 def batched_cholesky(a):
     """Lower Cholesky factors of (..., n, n) SPD matrices; NaN where a
-    matrix is not positive definite.  Not under ``torch.func.vmap`` (ROADMAP.md
-    item 18)."""
-    if torch._C._are_functorch_transforms_active():
-        raise NotImplementedError(
-            "batched_cholesky has no vmap rule yet (ROADMAP.md modules to "
-            "port, item 18: the kernels' seed axes)")
+    matrix is not positive definite.  Under ``torch.func.vmap`` on the card
+    the Function's rule folds the seeds into the batch (one launch); CPU
+    tensors take the plain version, which vmap batches itself."""
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a.device}")
+    if torch._C._are_functorch_transforms_active():
+        if a.device.type == "cpu":
+            return batched_cholesky_plain(a)
+        return _BatchedCholesky.apply(a)  # its vmap rule folds
     if not (torch.is_grad_enabled() and a.requires_grad):
         return batched_cholesky_fwd(a)
     if a.device.type == "cuda":

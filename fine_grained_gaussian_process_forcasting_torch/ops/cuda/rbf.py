@@ -9,9 +9,13 @@ for raw points x (..., N, d) and inducing points z (M, d) with lengthscale
 (d,) and outputscale () -> (..., N, M); or, in one call, for the h GPs of a
 deep GP's hidden layer over the same x: z (h, M, d), lengthscale (h, d),
 outputscale (h,) -> (h, ..., N, M), which the JAX layer gets by vmapping
-the op.
+the op.  Multi-seed training vmaps that layer once more, over S seeds with
+their own x and GPs: x (S, ..., N, d), z (S, h, M, d), lengthscale (S, h,
+d), outputscale (S, h) -> (S, h, ..., N, M), the Function's ``vmap`` rule
+stacking the seeds on that axis.
 
-On the card one launch of ``csrc/rbf.cu`` computes the h GPs' K: a kernel
+On the card one launch of ``csrc/rbf.cu`` computes the h GPs' K (every
+seed's, with the seed axis): a kernel
 bound by its stores (K is written once, as whole 128-byte lines), whose
 fp32 cross products on the CUDA cores and exponentials run while the stores
 drain; each block stages and scales its rows of x once and walks all of M.
@@ -35,28 +39,41 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
 
 #: kernel launches since the counter was last set to 0
 launches = 0
+#: of them, launches with the seed axis (every seed's K in one launch)
+seeds_launches = 0
 
 
-def _gps(z, lengthscale, outputscale):
-    """The parameters with a leading GP axis: (h, M, d), (h, d), (h,)."""
-    if z.dim() == 3:
-        return z, lengthscale, outputscale
-    return z[None], lengthscale[None], outputscale.reshape(1)
+def _seeded(x, z, lengthscale, outputscale):
+    """The inputs with a leading seed axis and a GP axis: x (S, R, d), z
+    (S, h, M, d), lengthscale (S, h, d), outputscale (S, h); S = 1 without
+    the seed axis, h = 1 for one GP."""
+    d = x.shape[-1]
+    if z.dim() == 4:
+        return (x.reshape(z.shape[0], -1, d), z, lengthscale, outputscale)
+    if z.dim() == 2:
+        z, lengthscale = z[None], lengthscale[None]
+        outputscale = outputscale.reshape(1)
+    return (x.reshape(1, -1, d), z[None], lengthscale[None],
+            outputscale[None])
 
 
 def _out_shape(x, z):
+    if z.dim() == 4:
+        return tuple(z.shape[:2]) + tuple(x.shape[1:-1]) + (z.shape[-2],)
     lead = (z.shape[0],) if z.dim() == 3 else ()
     return lead + tuple(x.shape[:-1]) + (z.shape[-2],)
 
 
 def rbf_cross_kernel_plain(x, z, lengthscale, outputscale):
-    """The same function in plain PyTorch, as the Pallas body computes it."""
-    zg, lsg, osg = _gps(z, lengthscale, outputscale)
-    xs = x.reshape(-1, x.shape[-1])[None] / lsg[:, None, :]  # (h, R, d)
-    zs = zg / lsg[:, None, :]
-    d2 = ((xs * xs).sum(-1, keepdim=True) + (zs * zs).sum(-1)[:, None, :]
+    """The same function in plain PyTorch, as the Pallas body computes it;
+    with the seed axis too (x (S, ..., N, d), z (S, h, M, d), lengthscale
+    (S, h, d), outputscale (S, h) -> (S, h, ..., N, M))."""
+    xg, zg, lsg, osg = _seeded(x, z, lengthscale, outputscale)
+    xs = xg[:, None] / lsg[:, :, None, :]  # (S, h, R, d)
+    zs = zg / lsg[:, :, None, :]
+    d2 = ((xs * xs).sum(-1, keepdim=True) + (zs * zs).sum(-1)[:, :, None, :]
           - 2.0 * torch.matmul(xs, zs.transpose(-1, -2)))
-    k = osg[:, None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
+    k = osg[..., None, None] * torch.exp(-0.5 * torch.clamp(d2, min=0.0))
     return k.reshape(_out_shape(x, z))
 
 
@@ -65,31 +82,34 @@ def rbf_cross_kernel_bwd_plain(x, z, lengthscale, outputscale, k, g):
     its cotangent g, the closed form of ``rbf.py:92-113`` (with gK = g K,
     x~ = x / l):  dx~ = gK z~ - rowsum(gK) x~,  dz~ = gK^T x~ - colsum(gK)
     z~,  dos = sum(gK) / os,  dl = -(dx~ . x + dz~ . z) / l^2.  For h GPs
-    the gradient of the shared x is summed over them, as under JAX's vmap."""
-    zg, lsg, osg = _gps(z, lengthscale, outputscale)
-    h, m, d = zg.shape
-    xr = x.reshape(-1, d)
-    xs = xr[None] / lsg[:, None, :]
-    zs = zg / lsg[:, None, :]
-    gk = (g * k).reshape(h, -1, m)
+    the gradient of the shared x is summed over them, as under JAX's vmap;
+    with the seed axis each seed's x takes its own GPs' sum, never another
+    seed's."""
+    xg, zg, lsg, osg = _seeded(x, z, lengthscale, outputscale)
+    s, h, m, d = zg.shape
+    xs = xg[:, None] / lsg[:, :, None, :]
+    zs = zg / lsg[:, :, None, :]
+    gk = (g * k).reshape(s, h, -1, m)
     gxs = torch.matmul(gk, zs) - gk.sum(-1, keepdim=True) * xs
     gzs = (torch.matmul(gk.transpose(-1, -2), xs)
            - gk.sum(-2)[..., None] * zs)
     gos = gk.sum((-1, -2)) / osg
-    gx = (gxs / lsg[:, None, :]).sum(0).reshape(x.shape)
-    gz = gzs / lsg[:, None, :]
-    gl = -((gxs * xr).sum(-2) + (gzs * zg).sum(-2)) / lsg ** 2
-    if z.dim() == 2:
-        gz, gl, gos = gz[0], gl[0], gos.reshape(())
-    return gx, gz, gl, gos
+    gx = (gxs / lsg[:, :, None, :]).sum(1).reshape(x.shape)
+    gz = gzs / lsg[:, :, None, :]
+    gl = -((gxs * xg[:, None]).sum(-2) + (gzs * zg).sum(-2)) / lsg ** 2
+    if z.dim() == 4:
+        return gx, gz, gl, gos
+    if z.dim() == 3:
+        return gx, gz[0], gl[0], gos[0]
+    return gx, gz[0, 0], gl[0, 0], gos.reshape(())
 
 
 def launcher():
-    """The C launcher: (x, z, ls, os, out pointers, R, M, d, G, stream) ->
-    cudaError_t."""
+    """The C launcher: (x, z, ls, os, out pointers, R, M, d, G, S, stream)
+    -> cudaError_t; S = 1 without the seed axis."""
     return _build.function(
         "rbf", "rbf_cross_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _check(x, z, lengthscale, outputscale):
@@ -104,8 +124,16 @@ def _check(x, z, lengthscale, outputscale):
         want = {"z": (z, (h, z.shape[1], d)),
                 "lengthscale": (lengthscale, (h, d)),
                 "outputscale": (outputscale, (h,))}
+    elif z.dim() == 4:
+        if x.dim() < 3 or x.shape[0] != z.shape[0]:
+            raise ValueError(f"x must be (S, ..., N, d) for z "
+                             f"{tuple(z.shape)}, got {tuple(x.shape)}")
+        sh = tuple(z.shape[:2])
+        want = {"z": (z, sh + (z.shape[2], d)),
+                "lengthscale": (lengthscale, sh + (d,)),
+                "outputscale": (outputscale, sh)}
     else:
-        raise ValueError(f"z must be (M, d) or (h, M, d), got "
+        raise ValueError(f"z must be (M, d), (h, M, d) or (S, h, M, d), got "
                          f"{tuple(z.shape)}")
     want["x"] = (x, tuple(x.shape))
     for name, (t, shape) in want.items():
@@ -123,33 +151,54 @@ def _check(x, z, lengthscale, outputscale):
 
 
 def forward_kernel(x, z, lengthscale, outputscale):
-    """Launch the kernel on checked inputs: K, in the op's output shape."""
-    global launches
-    zg = _gps(z, lengthscale, outputscale)[0]
-    h, m, d = zg.shape
-    r = x.numel() // d
-    out = torch.empty((h, r, m), device=x.device, dtype=torch.float32)
+    """Launch the kernel on checked inputs, with or without the seed axis:
+    K, in the op's output shape."""
+    global launches, seeds_launches
+    sd, h, m, d = _seeded(x, z, lengthscale, outputscale)[1].shape
+    r = x.numel() // (sd * d)
+    out = torch.empty((sd, h, r, m), device=x.device, dtype=torch.float32)
     err = launcher()(
         x.data_ptr(), z.data_ptr(), lengthscale.data_ptr(),
-        outputscale.data_ptr(), out.data_ptr(), r, m, d, h,
+        outputscale.data_ptr(), out.data_ptr(), r, m, d, h, sd,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rbf_cross_fwd launch failed: cudaError {err}")
     launches += 1
+    seeds_launches += z.dim() == 4
     return out.reshape(_out_shape(x, z))
 
 
 class _RbfCrossKernel(torch.autograd.Function):
-    """The kernel (card) or the plain forward (CPU); the plain VJP."""
+    """The kernel (card) or the plain forward (CPU); the plain VJP; with or
+    without the seed axis."""
 
     @staticmethod
-    def forward(ctx, x, z, lengthscale, outputscale):
+    def forward(x, z, lengthscale, outputscale):
         if x.device.type == "cpu":
-            k = rbf_cross_kernel_plain(x, z, lengthscale, outputscale)
-        else:
-            k = forward_kernel(x, z, lengthscale, outputscale)
-        ctx.save_for_backward(x, z, lengthscale, outputscale, k)
-        return k
+            return rbf_cross_kernel_plain(x, z, lengthscale, outputscale)
+        return forward_kernel(x, z, lengthscale, outputscale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def vmap(info, in_dims, x, z, lengthscale, outputscale):
+        """The vmapped axis as the seed axis: every input stacked on it (an
+        input it does not batch is repeated), one seeded call; one GP takes
+        a GP axis of 1 for the call."""
+        if z.dim() - (in_dims[1] is not None) == 4:
+            raise NotImplementedError(
+                "rbf_cross_kernel takes one seed axis; a vmap over seeded "
+                "inputs would need two")
+        x, z, ls, os_ = (
+            (a.movedim(dim, 0) if dim is not None
+             else a.expand(info.batch_size, *a.shape)).contiguous()
+            for a, dim in zip((x, z, lengthscale, outputscale), in_dims))
+        if z.dim() == 3:  # one GP
+            return rbf_cross_kernel(x, z[:, None], ls[:, None],
+                                    os_[:, None])[:, 0], 0
+        return rbf_cross_kernel(x, z, ls, os_), 0
 
     @staticmethod
     @once_differentiable
@@ -181,16 +230,14 @@ def _(x, z, lengthscale, outputscale):
 
 
 def rbf_cross_kernel(x, z, lengthscale, outputscale):
-    """K of one GP, (..., N, M), or of h GPs, (h, ..., N, M), at raw x.  Not
-    under ``torch.func.vmap``: the h GPs' weights over a shared x would need
-    a seed axis in the kernel (ROADMAP.md item 18)."""
+    """K of one GP, (..., N, M), or of h GPs, (h, ..., N, M), at raw x.
+    Under ``torch.func.vmap`` (multi-seed training) the Function's rule
+    stacks the seeds: one launch computes every seed's K."""
+    args = (x, z, lengthscale, outputscale)
     if torch._C._are_functorch_transforms_active():
-        raise NotImplementedError(
-            "rbf_cross_kernel has no seed axis yet (ROADMAP.md modules to "
-            "port, item 18: the kernels' seed axes)")
+        return _RbfCrossKernel.apply(*args)  # its vmap rule: the seed axis
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    args = (x, z, lengthscale, outputscale)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
         return rbf_cross_fwd(*args)
     if x.device.type == "cuda":

@@ -27,6 +27,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from fine_grained_gaussian_process_forcasting_torch.ops.cuda import _build
+from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attention import (
+    fold_vmapped,
+)
 
 #: forward kernel launches since the counter was last set to 0
 launches = 0
@@ -167,16 +170,34 @@ def backward_kernel(q, k, v, out, lse, do):
     return dq, dk, dv
 
 
+def _fold_rule(info, in_dims, q, k, v):
+    """The vmap rule of both Functions: the vmapped axis (the seeds) folded
+    into b, one call of ``small_head_attention`` on (S b, h, L, d), as
+    head-folded attention's rule folds."""
+    out = small_head_attention(*fold_vmapped(info, in_dims, q, k, v))
+    return out.unflatten(0, (info.batch_size, -1))
+
+
 class _SmallHeadAttention(torch.autograd.Function):
+    """The kernels; returns the context and the forward's lse."""
+
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = forward_kernel(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out
+    def forward(q, k, v):
+        return forward_kernel(q, k, v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        out, lse = output
+        ctx.save_for_backward(*inputs, out, lse)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        return (_fold_rule(info, in_dims, q, k, v), None), (0, None)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, do):
+    def backward(ctx, do, _):
         q, k, v, out, lse = ctx.saved_tensors
         return backward_kernel(q, k, v, out, lse, _aligned(do.contiguous()))
 
@@ -185,9 +206,16 @@ class _SmallHeadAttentionPlain(torch.autograd.Function):
     """The CPU's op: the plain forward, with the plain backward as its VJP."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
+    def forward(q, k, v):
         return small_head_attention_plain(q, k, v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        return _fold_rule(info, in_dims, q, k, v), 0
 
     @staticmethod
     @once_differentiable
@@ -226,23 +254,23 @@ def _(q, k, v):
 
 def small_head_attention(q, k, v):
     """Context (b, h, Lq, d) of softmax attention for d <= 8; q (b, h, Lq, d),
-    k and v (b, h, Lk, d).  Computed in fp32, returned in q's dtype.  Not
-    under ``torch.func.vmap``: no route takes it, and its seed fold is
-    ROADMAP.md item 18."""
-    if torch._C._are_functorch_transforms_active():
-        raise NotImplementedError(
-            "small_head_attention has no vmap rule yet (ROADMAP.md modules "
-            "to port, item 18: the kernels' seed axes)")
+    k and v (b, h, Lk, d).  Computed in fp32, returned in q's dtype.  Under
+    ``torch.func.vmap`` the Functions' rule folds the seeds into b: one
+    launch each way on the card, one plain call on the CPU."""
     _check_shapes(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     dtype = q.dtype
     q, k, v = (t.float() for t in (q, k, v))
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
+    if torch._C._are_functorch_transforms_active():
+        out = (_SmallHeadAttentionPlain.apply(q, k, v)
+               if q.device.type == "cpu"
+               else _SmallHeadAttention.apply(q, k, v)[0])
+    elif not (torch.is_grad_enabled()
+              and any(t.requires_grad for t in (q, k, v))):
         out = small_head_attention_fwd(q, k, v)
     elif q.device.type == "cpu":
         out = _SmallHeadAttentionPlain.apply(q, k, v)
     else:
-        out = _SmallHeadAttention.apply(*_kernel_operands(q, k, v))
+        out = _SmallHeadAttention.apply(*_kernel_operands(q, k, v))[0]
     return out.to(dtype)

@@ -14,10 +14,9 @@ default) is read, its ``date`` column kept as text.
         --denoising True --gp True --synthetic
 
 Runs on the card; ``main(argv, device="cpu")`` runs the plain versions on
-the CPU.  Every ``--attn_type`` and ``--backbone`` of the JAX CLI runs
-(with ``--multiseed True``, not yet ``--gp_kind exact``,
-``--gp_hidden_dims``, ``--backbone lstm`` or informer: ROADMAP.md items
-17-20).  Not ported yet, and refused rather than ignored: ``--dp``,
+the CPU.  Every ``--attn_type``, ``--backbone`` and ``--gp_kind`` of the
+JAX CLI runs, alone or with ``--multiseed True``.  Not ported yet, and
+refused rather than ignored: ``--dp``,
 ``--tp`` and ``--fsdp`` (ROADMAP.md item 13).  The
 JAX CLI first enables JAX's persistent compilation cache; PyTorch runs
 eagerly and the CUDA kernels are built once per source hash

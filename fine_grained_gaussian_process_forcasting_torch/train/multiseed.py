@@ -8,21 +8,23 @@ seed, and one training step runs the model's forward under
 ``torch.func.vmap`` over that axis (``torch.func.functional_call`` on the
 stacked parameters, the batch shared), so that each op runs once for all
 seeds.  The hand kernels take the axis through their Functions' ``vmap``
-rules: the fused GP as its seed axis (one launch sequence for all seeds),
-the attention kernels with the seeds folded into their batch.  The summed
+rules: the fused GP and the rbf cross-covariance as their seed axes (one
+launch sequence for all seeds), the attention kernels and the Cholesky
+with the seeds folded into their batch, and the LSTM backbone as one cuDNN
+call per seed on that seed's weights.  The summed
 losses take one ordinary ``backward()``; the seeds share nothing, so each
 seed's gradient is its own loss's.  Noam-Adam is elementwise, so Adam over
 the stacked tensors is each seed's Adam, with each seed's own update count.
 
 Each seed has its own parameters, optimizer state and random stream: its
-step noise (the isotropic mode's draws) comes from its own
-``torch.Generator``, drawn outside the vmapped call through the model's
-``noise_draws`` (the helper the single-seed forward draws through) and
-passed in.  The result equals N sequential ``Trainer`` runs with the same
-seeds (pinned by ``tests/test_torch_multiseed.py``).
-
-Not under vmap yet, and refused: the exact GP, hidden GP layers, the LSTM
-backbone and informer (ROADMAP.md items 17-20).
+step noise (the isotropic mode's draws, the hidden GP layers' eps and
+informer's key samples) comes from its own ``torch.Generator``, drawn
+outside the vmapped call through the model's ``noise_draws`` (the helper
+the single-seed forward draws through) and passed in.  The exact GP's
+jitter is picked on the device from each seed's own probes.  The result
+equals N sequential ``Trainer`` runs with the same seeds (pinned by
+``tests/test_torch_multiseed.py`` and
+``tests/test_torch_multiseed_options.py``).
 """
 
 from __future__ import annotations
@@ -34,12 +36,6 @@ import torch
 from torch.utils import _pytree as pytree
 
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
-from fine_grained_gaussian_process_forcasting_torch.models.lstm import (
-    LSTMBackbone,
-)
-from fine_grained_gaussian_process_forcasting_torch.models.transformer import (
-    MultiHeadAttention,
-)
 from fine_grained_gaussian_process_forcasting_torch.train.schedule import (
     MAX_CONSECUTIVE_ERRORS,
     noam_schedule,
@@ -66,33 +62,6 @@ class MultiSeedState:
     step: int = 0
 
 
-def refuse_unported(model: torch.nn.Module) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose forward cannot
-    run under ``torch.func.vmap`` yet."""
-    gp = getattr(model, "deep_gp", None)
-    if getattr(model, "gp_kind", None) == "exact" and gp is not None:
-        raise NotImplementedError(
-            "multi-seed training of gp_kind='exact' is not ported yet: its "
-            "jitter probe reads the host (ROADMAP.md modules to port, item "
-            "17)")
-    if gp is not None and getattr(gp, "hidden_dims", ()):
-        raise NotImplementedError(
-            "multi-seed training with gp_hidden_dims is not ported yet: the "
-            "rbf kernel has no seed axis (ROADMAP.md modules to port, item "
-            "18)")
-    if isinstance(getattr(model, "forecasting_model", None), LSTMBackbone):
-        raise NotImplementedError(
-            "multi-seed training of the LSTM backbone is not ported yet: "
-            "torch.func.vmap has no batching rule for aten::lstm (ROADMAP.md "
-            "modules to port, item 19)")
-    if any(isinstance(m, MultiHeadAttention) and m.attn_type == "informer"
-           for m in model.modules()):
-        raise NotImplementedError(
-            "multi-seed training of informer is not ported yet: ProbSparse's "
-            "key sample is drawn inside the model (ROADMAP.md modules to "
-            "port, item 20)")
-
-
 class MultiSeedTrainer:
     """N-seed version of ``train.Trainer`` (the same model contract, the
     same optimizer, clipping and guards, applied to each seed)."""
@@ -110,7 +79,6 @@ class MultiSeedTrainer:
             raise ValueError(f"nonfinite_guard={nonfinite_guard!r}")
         if n_seeds < 1:
             raise ValueError(f"n_seeds={n_seeds}")
-        refuse_unported(model)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.n_seeds = n_seeds

@@ -458,7 +458,7 @@ def rbf_routes(lib, gen, report):
                     ptrs = [t.data_ptr() for t in (x, z, ls, os_, out_b)]
 
                     def run_b():
-                        if launch_b(*ptrs, r, m, d, h, stream):
+                        if launch_b(*ptrs, r, m, d, h, 1, stream):
                             raise RuntimeError("rbf launch failed")
 
                     def run_store():

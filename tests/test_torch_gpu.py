@@ -2071,3 +2071,150 @@ def test_fit_forecast_batch_matches_cpu_on_card(cuda):
     assert got.shape == (4, 24) and np.isfinite(got).all()
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= TOL_REST, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,batch,n,m,d", RBF_SHAPES)
+def test_rbf_seed_axis_matches_plain_and_single_launches(cuda, h, batch, n,
+                                                         m, d):
+    """The rbf kernel with the seed axis: 3 seeds' K in one launch, within
+    the JAX tolerances of the plain version's seed axis and bit-equal to 3
+    launches of one seed (a single GP taking a GP axis of 1); the same
+    through the vmap rule, which also takes the plain VJP per seed."""
+    per = [_rbf_inputs(h, batch, n, m, d, seed=n + m + s, device=cuda)
+           for s in range(3)]
+    args = [torch.stack(ts) for ts in zip(*per)]
+    if not h:  # the seeded call's GP axis
+        args = [args[0]] + [t.unsqueeze(1) for t in args[1:]]
+    before = (rbf.launches, rbf.seeds_launches)
+    got = rbf.rbf_cross_kernel(*args)
+    assert (rbf.launches, rbf.seeds_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.testing.assert_close(got, rbf.rbf_cross_kernel_plain(*args),
+                               rtol=TOL_RBF, atol=ATOL_RBF)
+    for i in range(3):
+        single = rbf.rbf_cross_kernel(*per[i])
+        assert torch.equal(got[i] if h else got[i, 0], single)
+    leaves = [torch.stack(ts).requires_grad_() for ts in zip(*per)]
+    before = rbf.launches
+    k = torch.func.vmap(rbf.rbf_cross_kernel)(*leaves)
+    assert rbf.launches == before + 1
+    cot = torch.randn(k.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(n))
+    k.backward(cot)
+    for i in range(3):
+        one = [t.detach().requires_grad_() for t in per[i]]
+        k1 = rbf.rbf_cross_kernel(*one)
+        k1.backward(cot[i])
+        assert torch.equal(k[i], k1)
+        for leaf, single in zip(leaves, one):
+            torch.testing.assert_close(leaf.grad[i], single.grad,
+                                       rtol=TOL_RBF_GRAD, atol=ATOL_RBF_GRAD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["cholesky", "small_head"])
+def test_cholesky_and_small_head_folds_bit_equal_to_single_seed_calls(
+        cuda, kernel):
+    """The Cholesky's and small-head attention's vmap rules fold the seeds
+    into the batch: one launch (each way, for small-head) for 3 seeds, each
+    seed's output and gradients equal to its own call's bit for bit (the
+    Cholesky's gradient is its plain pullback: within TOL_CHOL)."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    if kernel == "cholesky":
+        fn, module = cholesky.batched_cholesky, cholesky
+        ins = [torch.stack([_spd(4, 40, s, cuda) for s in range(3)])]
+    else:
+        fn, module = sha.small_head_attention, sha
+        ins = [torch.randn(3, 4, 8, 96, 4, device=cuda, generator=gen)
+               for _ in range(3)]
+    leaves = [t.detach().requires_grad_() for t in ins]
+    before = module.launches
+    out = torch.func.vmap(fn)(*leaves)
+    assert module.launches == before + 1
+    cot = torch.randn(out.shape, device=cuda, generator=gen)
+    out.backward(cot)
+    for i in range(3):
+        one = [t[i].detach().requires_grad_() for t in ins]
+        o = fn(*one)
+        o.backward(cot[i])
+        assert torch.equal(out[i], o)
+        for t, single in zip(leaves, one):
+            if kernel == "cholesky":
+                torch.testing.assert_close(t.grad[i], single.grad,
+                                           rtol=TOL_CHOL, atol=TOL_CHOL)
+            else:
+                assert torch.equal(t.grad[i], single.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", ["exact", "exact_pallas", "hidden_layers",
+                                    "lstm", "informer"])
+def test_multiseed_option_step_matches_single_seed_steps(cuda, option):
+    """One MultiSeedTrainer step for 3 seeds of the options lifted onto the
+    seed axis against 3 Trainer steps on the card: each seed's loss and
+    gradients within TOL_MODEL of each gradient's largest magnitude (each
+    seed's eps and key samples from its own generator; behind hidden
+    layers the output layer's q(u) within 1e-3); the rbf and Cholesky
+    kernels once a call for all seeds."""
+    from fine_grained_gaussian_process_forcasting_torch.train.multiseed import (
+        MultiSeedTrainer,
+    )
+
+    kw = {"exact": dict(gp_kind="exact", exact_noise_init=0.1),
+          "exact_pallas": dict(gp_kind="exact", exact_noise_init=0.1),
+          "hidden_layers": dict(gp_hidden_dims=(4,), use_pallas_gp=True),
+          "lstm": dict(backbone="lstm"),
+          "informer": dict(attn_type="informer")}[option]
+
+    def model(seed):
+        m = ForecastDenoising(
+            **{"src_input_size": 4, "tgt_input_size": 4, "d_model": 32,
+               "n_heads": 8, "d_k": 4, "stack_size": 1, "pred_len": 24,
+               "attn_type": "autoformer", "num_inducing": 64,
+               "gp_ls_init": -1.0, "device": cuda,
+               "generator": torch.Generator().manual_seed(seed), **kw})
+        if option == "exact_pallas":
+            m.deep_gp.use_pallas = True
+        return m
+
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                   ).to(cuda)
+                  for shape in ((16, 48, 4), (16, 24, 4), (16, 24, 1)))
+    seeds = (3, 4, 5)
+    trainer = MultiSeedTrainer(model(0), 32, 3, warmup_steps=100,
+                               device=cuda)
+    state = trainer.init_state(seeds, lambda s: model(s).state_dict())
+    n0 = (rbf.seeds_launches, cholesky.launches)
+    losses, grads = trainer.gradients(state, batch)
+    assert rbf.seeds_launches - n0[0] == (option == "hidden_layers")
+    # three factorizations, each a jitter probe and the factor
+    assert cholesky.launches - n0[1] == (6 if option == "exact_pallas"
+                                         else 0)
+    # behind hidden layers, the output layer's L^-1 (Kzz + 1e-4 I, its
+    # condition up to ~1e4) turns the rounding of the rest of the vmapped
+    # step's batched products into ~3e-4 of its q(u) gradients (its own
+    # factorization and products run a call a seed: seedwise.py); those are
+    # held to chip_smoke.py's vmapped-vs-single tolerance, 1e-3
+    tol = {f"deep_gp.output_layer.{n}": 1e-3 for n in (
+        "inducing_points", "raw_lengthscale", "raw_outputscale",
+        "variational_log_stddev")} if option == "hidden_layers" else {}
+    for i, s in enumerate(seeds):
+        single = Trainer(model(s), 32, warmup_steps=100, device=cuda)
+        single.init_state(seed=s)
+        params = {k: v.detach().clone()
+                  for k, v in single.model.state_dict().items()}
+        drawn = single.model.noise_draws(16, 48, 24, True, single.generator,
+                                         cuda)
+        out = single.model(*batch, training=True, **drawn)
+        out.loss.backward()
+        np.testing.assert_allclose(losses[i].item(), out.loss.item(),
+                                   rtol=TOL_MODEL)
+        over = {}
+        for name, p in single.model.named_parameters():
+            scale = max(p.grad.abs().max().item(), 1e-12)
+            err = (grads[name][i] - p.grad).abs().max().item()
+            if err > tol.get(name, TOL_MODEL) * scale:
+                over[name] = err / scale
+        assert not over, over

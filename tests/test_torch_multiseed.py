@@ -1,7 +1,8 @@
 """The port's multi-seed trainer: against sequential port ``Trainer`` runs,
 against the JAX package's ``MultiSeedTrainer``, its guards and clipping
-seed by seed, the fused GP's and flash attention's vmap rules on the CPU,
-and the configurations that still raise.
+seed by seed, and the fused GP's and flash attention's vmap rules on the
+CPU.  The exact GP, hidden GP layers, the LSTM backbone and informer are
+``tests/test_torch_multiseed_options.py``'s.
 
 All at a test's size: d_model 8, 2 heads, 8 inducing points, 3 batches of
 4 windows.  The port runs on the CPU, the hand kernels through their plain
@@ -383,15 +384,3 @@ def test_flash_fold_rule_on_the_cpu():
         torch.testing.assert_close(out[i], o)
         for t, s in zip((q, k, v), one):
             torch.testing.assert_close(t.grad[i], s.grad)
-
-
-@pytest.mark.parametrize("kw, item", [
-    (dict(attn_type="basic", gp_kind="exact", exact_noise_init=0.1), "17"),
-    (dict(attn_type="basic", gp_hidden_dims=(3,)), "18"),
-    (dict(attn_type="basic", backbone="lstm"), "19"),
-    (dict(attn_type="informer"), "20")],
-    ids=["exact", "hidden_layers", "lstm", "informer"])
-def test_unported_configurations_raise(kw, item):
-    model = tfd.ForecastDenoising(**TINY, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        MultiSeedTrainer(model, DM, 2, device="cpu")

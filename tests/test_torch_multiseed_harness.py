@@ -258,3 +258,44 @@ def test_plots_need_matplotlib(monkeypatch):
     with pytest.raises(ImportError, match="need matplotlib"):
         teval.plot_forecasts(result, "solar")
     assert teval.plot_forecasts({}, "solar") is None
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backbone", "lstm"],
+    ["--gp_kind", "exact", "--exact_noise_init", "0.1"]],
+    ids=["lstm", "exact"])
+def test_cli_multiseed_takes_the_lifted_options(tmp_path, flags):
+    """``--multiseed True`` with the LSTM backbone and with the exact GP:
+    the two seeds train as one group, end to end, each with its checkpoint
+    and CSV row and finite test errors."""
+    results = tcli.main(CLI_ARGS + flags + [
+        "--multiseed", "True", "--n_seeds", "2", "--out_dir",
+        str(tmp_path)], device="cpu")
+    assert len(results) == 2
+    assert all(np.isfinite(r["mse"]) and np.isfinite(r["mae"])
+               for r in results)
+    assert len(list((tmp_path / "models_solar_8").iterdir())) == 2
+    lines = (tmp_path / "reported_errors_solar.csv").read_text().splitlines()
+    assert len(lines) == 3
+
+
+def test_multiseed_harness_with_hidden_layers_matches_sequential(tmp_path):
+    """A lifted option through the harness: hidden GP layers on the rbf
+    route (each seed's eps from its own generator), the multi-seed harness
+    against sequential ``ExperimentHarness`` runs of the same seeds."""
+    frame = _frame()
+    kw = dict(gp_hidden_dims=(3,), use_pallas_gp=True, num_epochs=1)
+    ms = tharness.MultiSeedExperimentHarness(
+        frame, _args(tmp_path / "ms", **kw), seeds=SEEDS, device="cpu")
+    ms.run_study()
+    ms_results = ms.evaluate()
+    for i, seed in enumerate(SEEDS):
+        single = tharness.ExperimentHarness(
+            frame, _args(tmp_path / f"seq{seed}", seed=seed, **kw),
+            device="cpu")
+        single.run_study()
+        want = single.evaluate()
+        np.testing.assert_allclose(ms_results[i]["mse"], want["mse"],
+                                   rtol=RTOL_MS, atol=ATOL_MS)
+        np.testing.assert_allclose(ms.best_val_seed[i], single.best_val,
+                                   rtol=RTOL_MS, atol=ATOL_MS)
