@@ -186,7 +186,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    block), the card's AutoCorrelation delays, ProbSparse key samples and
    chosen queries and the VAE's draws replayed there; ARIMA's 200-step fit,
    chaotic on a few windows, held to float64 on the CPU by its median
-   window and its count of diverged windows.
+   window and its count of diverged windows.  Wavelets' step on the check
+   windows is taken twice and must be bit-equal.
+10. Parallelism, last, ``parallel``: the flagship and ``basic`` at the
+   flagship's widths, each with and without FSDP, on a 2 x 2 (data, model)
+   mesh of four ranks that share the card over gloo (spawned after every
+   kernel is built; gloo's collectives staged through host memory): step
+   1's loss and every gradient, gathered, within TOL_TRAIN of a
+   one-process card step from the same weights, autoformer's delays equal
+   to it, every rank's weights bit-equal after each of PAR_STEPS steps,
+   the fused GP (and in ``basic`` the head-folded kernels) launched in
+   every rank; ms a step, device busy and idle share, the staging copies'
+   share of the busy time, the gloo calls' share of the host step and
+   peak memory, by rank.  Then ``cli.main`` with ``--dp 1``, a mesh of one
+   rank over NCCL.  Four ranks on one card show that the collectives are
+   right, not how a step scales across cards.
 
 The CPU runs take the AutoCorrelation delays that the card chose, the deep
 GP's eps draws the card made and, in training, the card's side of every
@@ -4347,8 +4361,11 @@ def fedformer_phase(version: str, card: str):
     step's outputs, loss and gradients on the first MODEL_CHECK windows
     against the CPU (AutoCorrelation's delays recorded on the card and
     replayed), both from the seed's weights, a copy taken before the timed
-    steps: the atomics of the default backward kernels make the weights
-    after them differ from run to run.  No hand kernel runs."""
+    steps: after them the Wavelets model's fp32 gradients lie more than
+    twice as far from float64 as the CPU's on some seeds (ROADMAP.md
+    section 3).  Wavelets' step is taken twice there and must be bit-equal
+    (its circular convolutions' fixed-order backward,
+    ``models/embedding.py``).  No hand kernel runs."""
     import copy
 
     from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  # noqa: E501
@@ -4393,6 +4410,12 @@ def fedformer_phase(version: str, card: str):
         return {"forecast": out}, torch.mean((out - ts[4]) ** 2)
 
     got = _loss_and_grads(model, lambda: run(model, sub, tape))
+    if version == "Wavelets":
+        again = _loss_and_grads(model, lambda: run(model, sub, tape))
+        apart = [k for k in got if not np.array_equal(got[k], again[k])]
+        if apart:
+            raise AssertionError(f"{label}: two steps from the same weights "
+                                 f"differ at {apart}")
 
     def on_cpu(m, dtype):
         replay = (DelayTape([d.cpu() for d in tape.delays]) if tape
@@ -4648,6 +4671,338 @@ def models_rest_phases(card: str, record, cpu_checks):
         record(path, counts)
 
 
+# data, tensor and FSDP parallelism (parallel/): four ranks on the one card,
+# a 2 x 2 (data, model) mesh over gloo, each rank's tensors on cuda:0
+PAR_MESH, PAR_STEPS = (2, 2), 3
+PAR_CONFIGS = ("autoformer", "basic")
+PAR_TIMEOUT_S = 240
+PAR_CLI_ARGV = ["--exp_name", "solar", "--attn_type", "basic", "--model_name",
+                "mesh_nccl", "--synthetic", "--d_model_choices", str(D_MODEL),
+                "--stack_choices", str(LAYERS), "--n_trials", "1",
+                "--n_seeds", "1", "--num_epochs", "1", "--max_train_samples",
+                str(2 * B), "--max_valid_samples", str(B), "--dp", "1"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> None:
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+
+
+def _digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(state):
+        h.update(name.encode())
+        h.update(state[name].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _CollectiveClock:
+    """Host seconds inside torch.distributed's collectives (gloo: the
+    staged CPU buffers), while the context is open."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter_tensor",
+             "broadcast_object_list")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.seconds, self._plain = 0.0, {}
+        for name in self.NAMES:
+            fn = getattr(dist, name)
+            self._plain[name] = fn
+
+            def timed(*a, _fn=fn, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+
+            setattr(dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._plain.items():
+            setattr(dist, name, fn)
+
+
+def _rank_profile(fn):
+    """Device busy ms of ``fn()`` in this process, and the ms of its
+    host <-> device copies (the staged collectives' device share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    copies = sum(e.self_device_time_total for e in events
+                 if "Memcpy" in e.key) / 1e3
+    return busy, copies
+
+
+def _parallel_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of the parallel phase: every configuration with and
+    without FSDP; step 1's loss and gathered gradients and autoformer's
+    delays against the one-process card step, PAR_STEPS steps with every
+    rank's weights compared after each, the launches of this rank, a
+    profiled step; results to ``workdir/rank{r}.pt``.  Any failure raises,
+    and the parent sees this rank's nonzero exit."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from fine_grained_gaussian_process_forcasting_torch.data.window import (
+        BatchedSplit,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        transformer,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (  # noqa: E501
+        DelayTape,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.parallel import (
+        make_mesh,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(*PAR_MESH, device="cuda")
+    if dist.get_backend() != "gloo" or torch.cuda.current_device() != 0:
+        raise AssertionError(f"rank {rank}: backend {dist.get_backend()}, "
+                             f"device {torch.cuda.current_device()}")
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    by_name = {cfg.name: cfg for cfg in CONFIGS}
+    out = {}
+    for cfg_name in PAR_CONFIGS:
+        cfg, ref = by_name[cfg_name], inputs[cfg_name]
+        for fsdp in (False, True):
+            label = f"parallel {cfg_name}{' fsdp' if fsdp else ''}"
+            trainer = Trainer(cfg.model("cuda"), cfg.d_model,
+                              warmup_steps=WARMUP_STEPS, lr_mul=LR_MUL,
+                              device="cuda", mesh=mesh, fsdp=fsdp)
+            state = trainer.init_state()  # the weights of seed 0
+            data = trainer.device_put_split(BatchedSplit(*ref["data"]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            tape, plain = DelayTape(), transformer.auto_correlation
+            transformer.auto_correlation = tape
+            try:
+                loss, grads = trainer.gradients(state, tuple(
+                    t[0] for t in data))
+            finally:
+                transformer.auto_correlation = plain
+            dist_ = {k: _bl_distance(g.double().cpu().numpy(),
+                                     ref["grads"][k]) for k, g in
+                     grads.items()}
+            worst = max(dist_, key=dist_.get)
+            loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+            delays = [d.tolist() for d in tape.delays]
+            if (dist_[worst] > TOL_TRAIN or loss_rel > TOL_TRAIN
+                    or delays != ref["delays"]):
+                raise AssertionError(
+                    f"{label}, rank {rank}: step 1 vs one process: loss "
+                    f"{float(loss)} vs {ref['loss']}, worst gradient "
+                    f"{worst} {dist_[worst]:.3e}; delays {delays} vs "
+                    f"{ref['delays']}")
+            step_ms, digests, collective_s = [], [], 0.0
+            for i in range(PAR_STEPS):
+                with _CollectiveClock() as clock:
+                    t0 = time.perf_counter()
+                    state, loss_sum, _ = trainer.train_epoch(
+                        state, tuple(t[i: i + 1] for t in data))
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                collective_s += clock.seconds
+                digests.append(_digest(trainer.full_params(state)))
+            every = [None] * world
+            dist.all_gather_object(every, digests)
+            if any(d != every[0] for d in every):
+                raise AssertionError(f"{label}: the ranks' weights differ "
+                                     f"after a step: {every}")
+            counts = read_counts()
+            need = ["fused_gp", "fused_gp_bwd"] + (
+                ["head_folded_attention", "head_folded_attention_bwd"]
+                if cfg_name == "basic" else [])
+            if not all(counts[k] > 0 for k in need) or not math.isfinite(
+                    loss_sum):
+                raise AssertionError(f"{label}, rank {rank}: launches "
+                                     f"{counts}, loss {loss_sum}")
+            busy, copies = _rank_profile(lambda: trainer.train_epoch(
+                state, tuple(t[PAR_STEPS: PAR_STEPS + 1] for t in data)))
+            median = float(np.median(step_ms))
+            out[label] = dict(
+                loss=float(loss), worst_gradient=dist_[worst],
+                worst_leaf=worst, delays=delays, step_ms=median,
+                busy_ms=busy, idle_share=1.0 - busy / median,
+                copies_share_of_busy=copies / busy,
+                collectives_host_share=collective_s * 1e3 / sum(step_ms),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                launches=counts, stored=sum(
+                    t.numel() for t in trainer._opt_params()))
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _nccl_cli_rank(workdir: str, port: int) -> None:
+    """``cli.main`` with ``--dp 1``: a mesh of one rank over NCCL."""
+    _rank_env(0, 1, port)
+    import torch.distributed as dist
+
+    from fine_grained_gaussian_process_forcasting_torch.train import cli
+
+    results = cli.main(PAR_CLI_ARGV + ["--out_dir", workdir])
+    backend = dist.get_backend()
+    counts = read_counts()
+    dist.destroy_process_group()
+    if backend != "nccl" or not results or not math.isfinite(
+            results[0]["mse"]) or not counts["fused_gp"]:
+        raise AssertionError(f"cli --dp 1: backend {backend}, results "
+                             f"{results}, launches {counts}")
+    torch.save({"mse": results[0]["mse"], "launches": counts},
+               os.path.join(workdir, "nccl.pt"))
+
+
+def _spawn(target, args_of, n: int) -> None:
+    """``n`` processes of ``target(*args_of(rank))``; raises unless all
+    exit 0 in PAR_TIMEOUT_S, and stops every one it started."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.perf_counter() + PAR_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * n:
+        raise AssertionError(f"{target.__name__}: exit codes {codes}")
+
+
+def parallel_phase(card: str, record, cpu_checks) -> None:
+    """``parallel``: the flagship and ``basic`` at the flagship's widths
+    trained on a 2 x 2 (data, model) mesh of four ranks sharing the card
+    over gloo (NCCL refuses two ranks on one device; gloo's collectives
+    staged through host memory), with and without FSDP, each for
+    PAR_STEPS steps: step 1's loss and every gradient, gathered, within
+    TOL_TRAIN of a one-process card step from the same weights (autoformer
+    with the same delays), every rank's weights equal after each step, the
+    fused GP (and in ``basic`` the head-folded kernels) launched in every
+    rank.  Then ``cli.main`` with ``--dp 1`` over NCCL.  The kernels are
+    built before any rank starts.  Four ranks on one card show that the
+    collectives are right, not how a step scales across cards."""
+    import shutil
+
+    from fine_grained_gaussian_process_forcasting_torch.models import (
+        transformer,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (  # noqa: E501
+        DelayTape,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    world = PAR_MESH[0] * PAR_MESH[1]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        by_name = {cfg.name: cfg for cfg in CONFIGS}
+        inputs = {}
+        for cfg_name in PAR_CONFIGS:  # the one-process card step
+            cfg = by_name[cfg_name]
+            data = cfg.training_data(PAR_STEPS + 1, SEED + 3)
+            trainer = Trainer(cfg.model("cuda"), cfg.d_model,
+                              warmup_steps=WARMUP_STEPS, lr_mul=LR_MUL,
+                              device="cuda")
+            state = trainer.init_state()
+            tape, plain = DelayTape(), transformer.auto_correlation
+            transformer.auto_correlation = tape
+            try:
+                loss, grads = trainer.gradients(state, tuple(
+                    t[0] for t in data))
+            finally:
+                transformer.auto_correlation = plain
+            inputs[cfg_name] = {
+                "data": tuple(t.cpu().numpy() for t in data),
+                "loss": float(loss),
+                "grads": {k: g.double().cpu().numpy()
+                          for k, g in grads.items()},
+                "delays": [d.tolist() for d in tape.delays]}
+            del trainer, state, grads
+        torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+        port = _free_port()
+        _spawn(_parallel_rank, lambda r: (r, world, port, workdir), world)
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        for label in ranks[0]:
+            runs = [r[label] for r in ranks]
+            counts = {k: sum(r["launches"][k] for r in runs)
+                      for k in runs[0]["launches"]}
+            path = label.replace(" ", "_")
+            record(path, counts)
+            summary = dict(
+                ranks=world, mesh=list(PAR_MESH), card=card,
+                worst_gradient=max(r["worst_gradient"] for r in runs),
+                delays=runs[0]["delays"],
+                step_ms=[r["step_ms"] for r in runs],
+                busy_ms=[r["busy_ms"] for r in runs],
+                idle_share=[r["idle_share"] for r in runs],
+                copies_share_of_busy=[r["copies_share_of_busy"]
+                                      for r in runs],
+                collectives_host_share=[r["collectives_host_share"]
+                                        for r in runs],
+                peak_mib=[r["peak_mib"] for r in runs],
+                stored_elements=[r["stored"] for r in runs],
+                launches_by_rank=[r["launches"] for r in runs])
+            cpu_checks[path] = summary
+            log(f"{label} on {card}: 2 x 2 mesh, 4 ranks on cuda:0 over "
+                f"gloo; step 1 vs one process: worst gradient "
+                f"{summary['worst_gradient']:.3e} (tolerance {TOL_TRAIN}), "
+                f"delays {summary['delays']}; ms a step by rank "
+                f"{['%.3f' % v for v in summary['step_ms']]}, device busy "
+                f"{['%.4f' % v for v in summary['busy_ms']]} ms, idle share "
+                f"{['%.3f' % v for v in summary['idle_share']]}, staging "
+                f"copies' share of busy "
+                f"{['%.3f' % v for v in summary['copies_share_of_busy']]}, "
+                f"collectives' share of the host step "
+                f"{['%.3f' % v for v in summary['collectives_host_share']]}"
+                f", peak memory {['%.1f' % v for v in summary['peak_mib']]} "
+                f"MiB; parameters and shards stored "
+                f"{summary['stored_elements']}; launches by rank "
+                f"{[{k: v for k, v in c.items() if v} for c in summary['launches_by_rank']]}")
+        cli_dir = os.path.join(workdir, "cli")
+        _spawn(_nccl_cli_rank, lambda r: (cli_dir, _free_port()), 1)
+        nccl = torch.load(os.path.join(cli_dir, "nccl.pt"),
+                          weights_only=False)
+        record("parallel_cli_nccl", nccl["launches"])
+        cpu_checks["parallel_cli_nccl"] = {"mse": nccl["mse"]}
+        log(f"parallel cli --dp 1 on {card}: NCCL, world size 1, test MSE "
+            f"{nccl['mse']:.6f}; phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4778,6 +5133,7 @@ def main() -> int:
     counts, cpu_checks["baselines"] = baselines_phase(smi)
     record("baselines", counts)
     models_rest_phases(smi, record, cpu_checks)
+    parallel_phase(smi, record, cpu_checks)
 
     for k, entry in kernels.items():
         entry["launches"] = sum(by_path[k].values())

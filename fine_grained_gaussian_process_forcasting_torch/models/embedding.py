@@ -62,9 +62,39 @@ class CircularConv1d(nn.Module):
 
     def forward(self, x):
         p = self.pad
-        xp = torch.cat([x[:, -p:], x, x[:, :p]], dim=1)
-        return F.conv1d(xp.transpose(1, 2), self.weight,
-                        self.bias).transpose(1, 2)
+        xp = torch.cat([x[:, -p:], x, x[:, :p]], dim=1).transpose(1, 2)
+        conv = _FixedOrderConv1d.apply if xp.is_cuda else F.conv1d
+        return conv(xp, self.weight, self.bias).transpose(1, 2)
+
+
+class _FixedOrderConv1d(torch.autograd.Function):
+    """``F.conv1d(x, weight, bias)`` (no padding, stride 1) whose backward
+    is two GEMMs and a fixed-order sum over the taps, so that two backwards
+    of one step are bit-equal.  cuDNN's default backward algorithms add
+    with atomics and differ run to run; only this call site is changed, no
+    process-wide switch is set."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return F.conv1d(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors  # x (b, in, l), g (b, out, l - f + 1)
+        f, l_out = weight.shape[-1], g.shape[-1]
+        gx = gw = gb = None
+        if ctx.needs_input_grad[1]:
+            gw = torch.einsum("bol,bilt->oit", g, x.unfold(2, f, 1))
+        if ctx.needs_input_grad[0]:
+            taps = torch.einsum("bol,oit->tbil", g, weight)
+            gx = x.new_zeros(x.shape)
+            for t in range(f):
+                gx[..., t:t + l_out] += taps[t]
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g.sum(dim=(0, 2))
+        return gx, gw, gb
 
 
 class TokenEmbedding(nn.Module):

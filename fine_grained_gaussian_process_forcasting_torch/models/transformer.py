@@ -16,6 +16,19 @@ positional encoding are cast on entry; LayerNorm takes its statistics in
 fp32 and returns the compute dtype; both outputs are cast back to the input
 dtype.  fedformer's layers take no ``dtype=`` in the JAX package, so they
 compute in fp32 in a 16-bit model too, as the conv family's convolutions do.
+
+Tensor parallelism (``model_axis``, set by ``parallel.sharding``; None on
+one device) is Megatron's split, the placement of JAX's
+``parallel/sharding.py``: a rank holds h / tp heads of each attention layer
+and d_ff / tp hidden units of each feed-forward block.  The column-parallel
+projections take their replicated input through ``copy_to`` and the
+row-parallel outputs are summed by ``reduce_from``.  ``basic``, informer and
+autoformer run on the rank's heads (autoformer sums its head-partial
+correlation over the axis); the conv family's convolutions mix every
+channel, so ATA, ACAT and conv_attn gather the heads, run replicated and
+keep the rank's heads of the context; fedformer's own projections and
+Fourier block are replicated leaves and run replicated, its ``fc``
+row-parallel on the rank's slice of their output.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from torch import nn
 
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
 from fine_grained_gaussian_process_forcasting_torch.ops.attention import (
+    matmul16,
     scaled_dot_attention,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops.autocorrelation import (
@@ -51,6 +65,12 @@ from fine_grained_gaussian_process_forcasting_torch.ops.probsparse import (
     prob_sparse_attention,
     sample_keys,
     sample_sizes,
+)
+from fine_grained_gaussian_process_forcasting_torch.parallel.mesh import (
+    copy_to,
+    gather,
+    reduce_from,
+    split,
 )
 from fine_grained_gaussian_process_forcasting_torch.params import dense
 
@@ -108,8 +128,17 @@ class FeedForward(nn.Module):
         self.w1 = dense(d_model, d_ff, **kw)
         self.w2 = dense(d_ff, d_model, **kw)
 
+    model_axis = None  # parallel.mesh.Axis: the rank's hidden units
+
     def forward(self, x):
-        return self.w2(F.relu(self.w1(x)))
+        ax = self.model_axis
+        if ax is None:
+            return self.w2(F.relu(self.w1(x)))
+        hidden = F.relu(self.w1(copy_to(x, ax)))
+        w2, dtype = self.w2, self.w2.compute_dtype
+        out = (F.linear(hidden, w2.weight) if dtype is None
+               else matmul16(hidden.to(dtype), w2.weight.to(dtype).T))
+        return reduce_from(out, ax) + w2.bias.to(out.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -170,38 +199,49 @@ class MultiHeadAttention(nn.Module):
             self.wv = dense(d_model, d_v * h, **kw)
         self.fc = dense(h * d_v, d_model, **kw)
 
+    # parallel.mesh.Axis (set by parallel.sharding): the rank's heads, and
+    # the batch that autoformer's training delays average over
+    model_axis = None
+    data_axis = None
+
     def forward(self, q_in, k_in, v_in, training: bool = False,
                 generator: Optional[torch.Generator] = None):
         b = q_in.shape[0]
-        h, d_k, d_v = self.n_heads, self.d_k, self.d_v
+        ax = self.model_axis
+        h = self.n_heads // (1 if ax is None else ax.size)  # this rank's
+        d_k, d_v = self.d_k, self.d_v
         if self.attn_type == "fedformer":  # fp32, as Flax promotes
             length = q_in.shape[1]
             qs = self.fed_q(q_in.to(self.fed_q.weight.dtype)).reshape(
-                b, length, h, -1)
+                b, length, self.n_heads, -1)
             out, _ = self.fourier_block(qs)
-            return self.fc(self.fed_out(out.reshape(b, length, -1)))
+            out = split(self.fed_out(out.reshape(b, length, -1)), ax, -1)
+            return reduce_from(self.fc(out), ax)
         is_self = q_in is k_in and k_in is v_in
         if is_self:
-            qkv = self.wqkv(q_in)
+            qkv = self.wqkv(copy_to(q_in, ax))
             q = qkv[..., : d_k * h]
             k = qkv[..., d_k * h: 2 * d_k * h]
             v = qkv[..., 2 * d_k * h:]
         else:
-            q, k, v = self.wq(q_in), self.wk(k_in), self.wv(v_in)
+            q, k, v = (self.wq(copy_to(q_in, ax)), self.wk(copy_to(k_in, ax)),
+                       self.wv(copy_to(v_in, ax)))
 
-        def split(x, d):
+        def heads(x, d):
             return x.reshape(b, -1, h, d).transpose(1, 2)
 
-        q, k, v = split(q, d_k), split(k, d_k), split(v, d_v)
-        if self.attn_type == "ATA":
-            context = self.ata(q, k, v)
-        elif self.attn_type == "ACAT":
-            context = self.acat(q, k, v)
-        elif self.attn_type == "conv_attn":
-            context = self.conv_attn(q, k, v)
+        q, k, v = heads(q, d_k), heads(k, d_k), heads(v, d_v)
+        if self.attn_type in ("ATA", "ACAT", "conv_attn"):
+            # the convolutions mix every head: replicated on all of them
+            op = getattr(self, self.attn_type.lower())
+            context = split(op(*(gather(t, ax, 1) for t in (q, k, v))), ax,
+                            1)
         elif self.attn_type == "autoformer":
-            # batch-shared delays in training, per-sample in eval
-            context, _ = auto_correlation(q, k, v, training=training)
+            # batch-shared delays in training, per-sample in eval; the
+            # axes only on a mesh
+            axes = ({} if ax is None and self.data_axis is None else
+                    dict(model_axis=ax, data_axis=self.data_axis))
+            context, _ = auto_correlation(q, k, v, training=training, **axes)
         elif self.attn_type == "informer":
             context, _ = prob_sparse_attention(q, k, v, generator=generator)
         else:
@@ -218,7 +258,7 @@ class MultiHeadAttention(nn.Module):
             else:
                 context, _ = scaled_dot_attention(q, k, v)
         context = context.transpose(1, 2).reshape(b, -1, h * d_v)
-        return self.fc(context)
+        return reduce_from(self.fc(context), ax)
 
 
 def _layer_norm(x, dtype=None):

@@ -20,6 +20,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from fine_grained_gaussian_process_forcasting_torch.parallel.mesh import (
+    all_reduce,
+    sum_over,
+)
+
 
 def _delay_aggregate(values: torch.Tensor, delays: torch.Tensor,
                      weights: torch.Tensor) -> torch.Tensor:
@@ -41,9 +46,20 @@ def _delay_aggregate(values: torch.Tensor, delays: torch.Tensor,
     return out
 
 
+def _batch_mean(mean_value: torch.Tensor, data_axis) -> torch.Tensor:
+    """The correlation's mean over the batch, (L,): over the global batch
+    when its rows are split over ``data_axis``."""
+    if data_axis is None:
+        return mean_value.mean(dim=0)
+    b = mean_value.shape[0]
+    return all_reduce(mean_value.detach().sum(dim=0), data_axis) / (
+        b * data_axis.size)
+
+
 def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      factor: int = 1, training: bool = True,
-                     delays: Optional[torch.Tensor] = None
+                     delays: Optional[torch.Tensor] = None,
+                     model_axis=None, data_axis=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """AutoCorrelation attention over (b, h, l, d) operands.
 
@@ -55,6 +71,12 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     top-k choice, the weights still coming from this call's correlation:
     it replays another run's delays, so that two devices that break a
     near-tie differently still compute the same function.
+
+    On a mesh (``parallel.mesh.Axis``; None for an axis of width 1) the
+    operands hold the rank's heads and rows: the correlation's mean over
+    heads is summed over ``model_axis``, and in training the batch mean that
+    picks the delays is summed over ``data_axis``, so every rank takes the
+    single device's delays.
 
     Returns (context (b, h, L, d) in ``v``'s dtype, mean correlation over
     heads/channels (b, L) in fp32).
@@ -80,13 +102,19 @@ def auto_correlation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # mean commutes with the inverse transform: average the spectra first
     qf = torch.fft.rfft(qt, dim=-1)
     kf = torch.fft.rfft(kt, dim=-1)
-    spec = (qf * torch.conj(kf)).mean(dim=(1, 2))  # (b, F)
-    mean_value = torch.fft.irfft(spec, n=L, dim=-1)  # (b, L)
+    if model_axis is None:
+        spec = (qf * torch.conj(kf)).mean(dim=(1, 2))  # (b, F)
+        mean_value = torch.fft.irfft(spec, n=L, dim=-1)  # (b, L)
+    else:  # this rank's heads' share of the mean, summed over the axis
+        spec = (qf * torch.conj(kf)).sum(dim=(1, 2)) / (h * model_axis.size
+                                                         * d)
+        mean_value = sum_over(torch.fft.irfft(spec, n=L, dim=-1),
+                              model_axis)
 
     top_k = int(factor * math.log(L))
     if training:
-        index = (torch.topk(mean_value.mean(dim=0), top_k).indices  # (k,)
-                 if delays is None else delays)
+        index = (torch.topk(_batch_mean(mean_value, data_axis), top_k).indices
+                 if delays is None else delays)  # (k,)
         weights = mean_value[:, index]
         agg = _delay_aggregate(vt, index, torch.softmax(weights, dim=-1))
     else:
@@ -111,7 +139,8 @@ class DelayTape:
         self.delays = [] if delays is None else list(delays)
         self._next = 0
 
-    def __call__(self, q, k, v, factor: int = 1, training: bool = True):
+    def __call__(self, q, k, v, factor: int = 1, training: bool = True,
+                 model_axis=None, data_axis=None):
         forced = None
         if self.replaying:
             if self._next >= len(self.delays):
@@ -120,10 +149,13 @@ class DelayTape:
             forced = self.delays[self._next].to(q.device)
             self._next += 1
         ctx, mean_value = auto_correlation(q, k, v, factor, training,
-                                           delays=forced)
+                                           delays=forced,
+                                           model_axis=model_axis,
+                                           data_axis=data_axis)
         if not self.replaying:
             top_k = int(factor * math.log(q.shape[2]))
             self.delays.append(
-                torch.topk(mean_value.mean(dim=0), top_k).indices
+                torch.topk(_batch_mean(mean_value, data_axis),
+                           top_k).indices
                 if training else torch.topk(mean_value, top_k, dim=-1).indices)
         return ctx, mean_value

@@ -40,6 +40,9 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda.head_folded_attenti
     MAX_HEAD_DIM,
     head_folded_attention,
 )
+from fine_grained_gaussian_process_forcasting_torch.parallel.mesh import (
+    sum_over,
+)
 from fine_grained_gaussian_process_forcasting_torch.params import (
     lecun_normal_,
 )
@@ -55,9 +58,21 @@ class BatchStatsNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
+    # parallel.mesh.Axis (set by parallel.sharding): the batch is split
+    # over it, and the statistics are the global batch's, as in
+    # SyncBatchNorm
+    data_axis = None
+
     def forward(self, x):
-        mean = x.mean(dim=(0, 1), keepdim=True)
-        var = x.var(dim=(0, 1), unbiased=False, keepdim=True)
+        ax = self.data_axis
+        if ax is None:
+            mean = x.mean(dim=(0, 1), keepdim=True)
+            var = x.var(dim=(0, 1), unbiased=False, keepdim=True)
+        else:
+            n = x.shape[0] * x.shape[1] * ax.size
+            mean = sum_over(x.sum(dim=(0, 1), keepdim=True), ax) / n
+            var = sum_over(((x - mean) ** 2).sum(dim=(0, 1), keepdim=True),
+                           ax) / n
         return (x - mean) * torch.rsqrt(var + self.epsilon) * self.scale \
             + self.bias
 

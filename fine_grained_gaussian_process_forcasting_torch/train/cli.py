@@ -15,10 +15,15 @@ default) is read, its ``date`` column kept as text.
 
 Runs on the card; ``main(argv, device="cpu")`` runs the plain versions on
 the CPU.  Every ``--attn_type``, ``--backbone`` and ``--gp_kind`` of the
-JAX CLI runs, alone or with ``--multiseed True``.  Not ported yet, and
-refused rather than ignored: ``--dp``,
-``--tp`` and ``--fsdp`` (ROADMAP.md item 13).  The
-JAX CLI first enables JAX's persistent compilation cache; PyTorch runs
+JAX CLI runs, alone or with ``--multiseed True``.  ``--dp N --tp M``
+(``--fsdp True``) trains on an N x M (data, model) mesh of N M ranks, one
+process each, started by ``torchrun`` (``parallel.make_mesh``):
+
+    torchrun --standalone --nproc-per-node 4 \
+        -m fine_grained_gaussian_process_forcasting_torch.train.cli \
+        --exp_name solar --attn_type autoformer --synthetic --dp 2 --tp 2
+
+The JAX CLI first enables JAX's persistent compilation cache; PyTorch runs
 eagerly and the CUDA kernels are built once per source hash
 (``ops/cuda/_build.py``), so there is nothing to enable here.
 """
@@ -31,6 +36,10 @@ import random
 from fine_grained_gaussian_process_forcasting_torch.data import table
 from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
     make_synthetic_frame,
+)
+from fine_grained_gaussian_process_forcasting_torch.parallel.mesh import (
+    axis_sizes,
+    make_mesh,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.harness import (
     ExperimentHarness,
@@ -139,13 +148,16 @@ def build_parser() -> argparse.ArgumentParser:
                         default=[1, 3],
                         help="HPO grid for stack_size (reference {1,3})")
     parser.add_argument("--dp", type=int, default=0,
-                        help="data-parallel device count (not ported yet: "
-                             "a value above 0 raises)")
+                        help="data-parallel rank count: split the batch "
+                             "over a 'data' mesh axis (0 = no mesh, one "
+                             "device)")
     parser.add_argument("--fsdp", type=_str2bool, default="False",
-                        help="ZeRO/FSDP sharding (not ported yet: raises)")
+                        help="ZeRO/FSDP: shard parameter and Adam-moment "
+                             "storage over the 'data' mesh axis (needs "
+                             "--dp >= 2 to matter)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel device count (not ported yet: "
-                             "a value above 1 raises)")
+                        help="tensor-parallel rank count: Megatron's "
+                             "head and FFN split over a 'model' mesh axis")
     return parser
 
 
@@ -154,14 +166,21 @@ def main(argv=None, device="cuda"):
     ``device`` is where the models run (a keyword for callers and tests,
     not a flag)."""
     args = build_parser().parse_args(argv)
-    if args.dp > 0 or args.tp > 1 or args.fsdp:
+    mesh = None
+    if args.fsdp and not (args.dp > 0 or args.tp > 1):
+        raise SystemExit(
+            "--fsdp True needs a mesh: pass --dp N (>= 2 for it to shard "
+            "anything); without one the flag would be silently ignored")
+    if args.dp > 0 or args.tp > 1:
         if args.multiseed:
             raise SystemExit(
                 "--multiseed and --dp/--tp are mutually exclusive: the "
-                "multiseed trainer fills the card with the seed axis")
-        raise NotImplementedError(
-            "--dp, --tp and --fsdp are not ported yet (ROADMAP.md modules to "
-            "port, item 13: parallel/mesh.py and parallel/sharding.py)")
+                "multiseed trainer fills the card with the seed axis; use "
+                "mesh parallelism for per-seed studies instead")
+        mesh = make_mesh(n_data=max(args.dp, 1), n_model=args.tp,
+                         device=device)
+        if mesh.get_rank() == 0:
+            print(f"mesh: {axis_sizes(mesh)}")
 
     if args.synthetic:
         raw_data = make_synthetic_frame(args.exp_name, num_entities=8,
@@ -214,12 +233,14 @@ def main(argv=None, device="cuda"):
                 stack_choices=tuple(args.stack_choices),
                 clip_grad_norm=args.clip_grad_norm,
                 nonfinite_guard=args.nonfinite_guard,
+                fsdp=args.fsdp,
             )
             if args.multiseed:
                 harness = MultiSeedExperimentHarness(
                     raw_data, hargs, seeds=seed_group, device=device)
             else:
-                harness = ExperimentHarness(raw_data, hargs, device=device)
+                harness = ExperimentHarness(raw_data, hargs, device=device,
+                                            mesh=mesh)
             with profile_trace(args.profile_dir):
                 harness.run_study()
             res = harness.evaluate()

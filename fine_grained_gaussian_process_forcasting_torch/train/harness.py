@@ -18,6 +18,12 @@ The same behaviour as the JAX harness (and the reference's ``Train``):
   (``train/multiseed.py``), with a best checkpoint, loss curves and an
   evaluation per seed.
 
+On a mesh (``mesh=``, one process a rank) every rank runs the study: the
+trainer splits each batch and the parameters (``train/trainer.py``), the
+validation and test errors are the global batch's, the same on every rank,
+so every rank makes the same choices (the trial's configuration is checked
+to agree), and rank 0 alone writes the files and the log.
+
 The data is windowed on the host (numpy), copied to the device once per
 trial, and the model runs on ``device`` (``cuda`` unless the caller asks for
 the CPU).
@@ -43,6 +49,9 @@ from fine_grained_gaussian_process_forcasting_torch.data.window import (
 from fine_grained_gaussian_process_forcasting_torch.device import resolve_device
 from fine_grained_gaussian_process_forcasting_torch.models.forecast_denoising import (
     ForecastDenoising,
+)
+from fine_grained_gaussian_process_forcasting_torch.parallel.mesh import (
+    broadcast_object,
 )
 from fine_grained_gaussian_process_forcasting_torch.train import hpo
 from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
@@ -95,13 +104,17 @@ class HarnessArgs:
     max_valid_samples: Optional[int] = None
     clip_grad_norm: float = 0.0
     nonfinite_guard: str = "off"
+    fsdp: bool = False  # shard parameters and Adam moments over 'data'
 
 
 class ExperimentHarness:
     def __init__(self, raw_data: table.Frame, args: HarnessArgs, *,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.args = args
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # on a mesh rank 0 alone writes files and logs
+        self.writes = mesh is None or torch.distributed.get_rank() == 0
         self.input_corrupt = args.input_corrupt_training
         self.denoising = args.denoising if not self.input_corrupt else False
         self.gp = args.gp
@@ -163,6 +176,8 @@ class ExperimentHarness:
                                 if self.best_config else None)}
 
     def _save_study_state(self) -> None:
+        if not self.writes:
+            return
         os.makedirs(os.path.dirname(self._study_state_path), exist_ok=True)
         tmp = self._study_state_path + ".tmp"
         with open(tmp, "w") as f:
@@ -241,10 +256,15 @@ class ExperimentHarness:
                                                list(args.stack_choices))
 
         trial_key = f"d{d_model}_w{w_steps}_s{stack_size}"
+        if self.mesh is not None:  # every rank must take the same trial
+            chosen = broadcast_object(trial_key)
+            if chosen != trial_key:
+                raise RuntimeError(f"trial {trial.number}: rank 0 takes "
+                                   f"{chosen}, this rank {trial_key}")
         if trial_key in self._completed_trials:
             val = self._completed_trials[trial_key]
-            print(f"trial {trial_key}: resumed from study state "
-                  f"(val {val:.4f})")
+            self._say(f"trial {trial_key}: resumed from study state "
+                      f"(val {val:.4f})")
             return val
 
         seed = self.seed + trial.number
@@ -252,14 +272,16 @@ class ExperimentHarness:
         trainer = Trainer(model, d_model=d_model, warmup_steps=w_steps,
                           clip_grad_norm=args.clip_grad_norm,
                           nonfinite_guard=args.nonfinite_guard,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh,
+                          fsdp=args.fsdp)
         train_dev = trainer.device_put_split(self.train_data)
         valid_dev = trainer.device_put_split(self.valid_data)
         state = trainer.init_state(seed=seed)
 
         losses_dir = os.path.join(args.out_dir, "losses_lists")
-        metrics = MetricsLogger(os.path.join(
+        metrics = (MetricsLogger(os.path.join(
             losses_dir, f"{self.model_name}_metrics.jsonl"))
+            if self.writes else None)
         timer = StepTimer()
         val_loss = 1e10
         curves_train, curves_valid = [], []
@@ -270,30 +292,35 @@ class ExperimentHarness:
             epoch_s = timer.tick()
             curves_train.append(total_mse)
             curves_valid.append(v_mse)
-            metrics.log(epoch, train_loss=total_loss, train_mse=total_mse,
-                        valid_loss=v_loss, valid_mse=v_mse,
-                        epoch_seconds=epoch_s)
+            if metrics is not None:
+                metrics.log(epoch, train_loss=total_loss,
+                            train_mse=total_mse, valid_loss=v_loss,
+                            valid_mse=v_mse, epoch_seconds=epoch_s)
             if epoch % 5 == 0:
-                print(f"Train epoch: {epoch}, loss: {total_loss:.4f}")
-                print(f"val loss: {v_loss:.4f}")
+                self._say(f"Train epoch: {epoch}, loss: {total_loss:.4f}")
+                self._say(f"val loss: {v_loss:.4f}")
             if v_loss < val_loss:
                 val_loss = v_loss
                 if val_loss < self.best_val:
                     self.best_val = val_loss
-                    # the live state advances in place: keep a copy
-                    self.best_params = {k: v.detach().clone()
-                                        for k, v in state.params.items()}
+                    # the live state advances in place: keep a copy (on a
+                    # mesh gathered whole, every rank taking part)
+                    self.best_params = {
+                        k: v.detach().clone()
+                        for k, v in trainer.full_params(state).items()}
                     self.best_config = (d_model, stack_size)
-                    save_checkpoint(self.model_path, self.model_name,
-                                    self.best_params)
+                    if self.writes:
+                        save_checkpoint(self.model_path, self.model_name,
+                                        self.best_params)
 
-        os.makedirs(losses_dir, exist_ok=True)
-        np.save(os.path.join(
-            losses_dir, f"{self.model_name}_mse_losses_train.npy"),
-            np.asarray(curves_train))
-        np.save(os.path.join(
-            losses_dir, f"{self.model_name}_mse_losses_valid.npy"),
-            np.asarray(curves_valid))
+        if self.writes:
+            os.makedirs(losses_dir, exist_ok=True)
+            np.save(os.path.join(
+                losses_dir, f"{self.model_name}_mse_losses_train.npy"),
+                np.asarray(curves_train))
+            np.save(os.path.join(
+                losses_dir, f"{self.model_name}_mse_losses_valid.npy"),
+                np.asarray(curves_valid))
         self._completed_trials[trial_key] = val_loss
         self._save_study_state()
         return val_loss
@@ -303,12 +330,16 @@ class ExperimentHarness:
                                  sampler="grid", seed=self.seed)
         study.optimize(self.objective, n_trials=self.args.n_trials)
         best = study.best_trial
-        print("Best trial:")
-        print("  Value: ", best.value)
-        print("  Params: ")
+        self._say("Best trial:")
+        self._say("  Value: ", best.value)
+        self._say("  Params: ")
         for key, value in best.params.items():
-            print(f"    {key}: {value}")
+            self._say(f"    {key}: {value}")
         return study
+
+    def _say(self, *args) -> None:
+        if self.writes:
+            print(*args)
 
     # ------------------------------------------------------------------ #
 
@@ -320,7 +351,8 @@ class ExperimentHarness:
         assert self.best_params is not None, "run_study first"
         d_model, stack_size = self.best_config
         model = self._make_model(d_model, stack_size)
-        trainer = Trainer(model, d_model=d_model, device=self.device)
+        trainer = Trainer(model, d_model=d_model, device=self.device,
+                          mesh=self.mesh, fsdp=self.args.fsdp)
         test_dev = trainer.device_put_split(self.test_data)
         state = trainer.init_state(self.best_params, seed=0)
         _, _, preds = trainer.eval_epoch(state, test_dev)
@@ -333,16 +365,17 @@ class ExperimentHarness:
             "MSE": f"{mse_all.mean():.3f} {mse_all.std():.4f}",
             "MAE": f"{mae_all.mean(): .3f} {mae_all.std():.4f}",
         }
-        print({self.model_name: errors})
+        self._say({self.model_name: errors})
 
-        tensor_dir = os.path.join(self.args.out_dir, self.args.exp_name)
-        os.makedirs(tensor_dir, exist_ok=True)
-        np.savez(os.path.join(tensor_dir, f"{self.model_name}.npz"),
-                 predictions=preds, test_y=test_y)
-        table.append_errors_csv(
-            os.path.join(self.args.out_dir,
-                         f"reported_errors_{self.args.exp_name}.csv"),
-            self.model_name, errors)
+        if self.writes:
+            tensor_dir = os.path.join(self.args.out_dir, self.args.exp_name)
+            os.makedirs(tensor_dir, exist_ok=True)
+            np.savez(os.path.join(tensor_dir, f"{self.model_name}.npz"),
+                     predictions=preds, test_y=test_y)
+            table.append_errors_csv(
+                os.path.join(self.args.out_dir,
+                             f"reported_errors_{self.args.exp_name}.csv"),
+                self.model_name, errors)
         return {"mse": float(mse_all.mean()), "mae": float(mae_all.mean()),
                 "errors": errors}
 

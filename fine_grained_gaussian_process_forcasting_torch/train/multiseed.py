@@ -125,6 +125,7 @@ class MultiSeedTrainer:
         return MultiSeedState(params=stacked, opt_state=opt_state,
                               rngs=[g.get_state() for g in self.generators])
 
+    mesh = None  # one device: the seed axis fills it (cli: not with --dp)
     device_put_split = Trainer.device_put_split
 
     # ------------------------------------------------------------------ #

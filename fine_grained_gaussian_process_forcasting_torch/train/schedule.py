@@ -10,7 +10,7 @@ the first update.  ``clip_by_global_norm`` and ``all_finite`` follow
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -63,21 +63,36 @@ def noam_adam(params: Iterable[torch.Tensor], d_model: int,
     return NoamAdam(params, noam_schedule(d_model, warmup_steps, lr_mul))
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> None:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        weights: Optional[Sequence[float]] = None,
+                        reduce: Optional[Callable] = None) -> None:
     """In place, as ``optax.clip_by_global_norm``: each g becomes
     g / |g| * max_norm when the global norm |g| >= max_norm, and stays as
     it is otherwise (no epsilon, unlike ``clip_grad_norm_``).  No host
-    synchronisation."""
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(list(grads))))
+    synchronisation.
+
+    On a mesh ``reduce`` sums a 0-d tensor over every rank and ``weights``
+    gives each leaf's share (1 / the ranks that hold the same elements), so
+    that |g| is the norm of the whole gradient, the same on every rank."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    if reduce is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        share = torch.as_tensor(weights, dtype=norms.dtype,
+                                device=norms.device)
+        norm = torch.sqrt(reduce((norms * norms * share).sum()))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def all_finite(tensors: Sequence[torch.Tensor],
+               reduce: Optional[Callable] = None) -> torch.Tensor:
     """0-d bool tensor on the tensors' device: every element is finite.
-    (x * 0 is 0 for finite x and NaN for inf or NaN.)"""
+    (x * 0 is 0 for finite x and NaN for inf or NaN.)  On a mesh
+    ``reduce`` sums over every rank, so every rank decides alike."""
     zeros = torch._foreach_mul(list(tensors), 0.0)
-    return torch.stack(torch._foreach_norm(zeros)).eq(0).all()
+    ok = torch.stack(torch._foreach_norm(zeros)).eq(0).all()
+    if reduce is None:
+        return ok
+    return reduce((~ok).to(torch.float32)).eq(0)

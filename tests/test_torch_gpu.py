@@ -8,6 +8,8 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import copy
+
 import _torch_small_head_cases as small_head_cases
 import numpy as np
 import pytest
@@ -2218,3 +2220,113 @@ def test_multiseed_option_step_matches_single_seed_steps(cuda, option):
             if err > tol.get(name, TOL_MODEL) * scale:
                 over[name] = err / scale
         assert not over, over
+
+
+# Wavelets' step reproducible (ROADMAP.md section 3): the circular
+# convolutions' backward (models/embedding.py) is two GEMMs and a sum over
+# the taps in a fixed order, where cuDNN's default weight gradient adds
+# with atomics; at run.py's defaults (the smoke's FEDformer phase) two
+# steps from the same weights are bit-equal
+FED_RUN_PY = dict(enc_in=7, dec_in=7, c_out=7, seq_len=96, label_len=48,
+                  pred_len=96, d_model=512, n_heads=8, d_ff=2048,
+                  e_layers=2, d_layers=1, moving_avg=(24,), modes=64, L=3)
+
+
+@pytest.mark.gpu
+def test_wavelets_step_is_bit_equal_on_card(cuda):
+    from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  # noqa: E501
+        FEDformer,
+        FEDformerConfig,
+    )
+
+    cfg = FEDformerConfig(**FED_RUN_PY, version="Wavelets")
+    model = FEDformer(cfg, device=cuda,
+                      generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    *inputs, y = (torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(cuda) for s in (
+        (32, 96, 7), (32, 96, 4), (32, 144, 7), (32, 144, 4), (32, 96, 7)))
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        torch.mean((model(*inputs) - y) ** 2).backward()
+        runs.append({n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None})
+    assert [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])
+            ] == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,bias", [(1, False), (2, True)])
+def test_circular_conv_backward_matches_cpu_on_card(cuda, pad, bias):
+    """The fixed-order backward against the CPU's convolution (the JAX
+    package's CPU-test tolerance for the embeddings, 1e-5), reruns bit-equal,
+    at the token convolution's shapes."""
+    from fine_grained_gaussian_process_forcasting_torch.models.embedding import (  # noqa: E501
+        CircularConv1d,
+    )
+
+    conv = CircularConv1d(7, 512, pad, bias, device=cuda,
+                          generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(32, 96, 7)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(32, 96 + 2 * pad - 2, 512)).astype(np.float32))
+    runs = []
+    for module, device in ((conv, cuda), (conv, cuda),
+                           (copy.deepcopy(conv).cpu(), "cpu")):
+        xi = x.to(device).requires_grad_()
+        module.zero_grad(set_to_none=True)
+        module(xi).backward(g.to(device))
+        runs.append([t.detach().cpu() for t in (
+            xi.grad, module.weight.grad,
+            *([module.bias.grad] if bias else []))])
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max() / c.abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_matches_one_process_on_card(cuda, tmp_path):
+    """Two ranks of an n_data 2 mesh on cuda:0 over gloo: the step's loss
+    and gathered gradients equal the one-process card step (1e-4 of each
+    gradient's largest magnitude: the batch's sums split in two), and the
+    fused GP and head-folded kernels launch in each rank, forward and
+    backward."""
+    import socket
+
+    import _torch_parallel_worker as worker
+    from fine_grained_gaussian_process_forcasting_torch.data.window import (
+        BatchedSplit,
+    )
+
+    trainer = Trainer(worker.option_model("basic").to(cuda),
+                      d_model=worker.CFG["d_model"], warmup_steps=10,
+                      device="cuda")
+    state = trainer.init_state(seed=0)
+    data = trainer.device_put_split(BatchedSplit(*worker.batches()))
+    want_loss, want = trainer.gradients(state, tuple(t[0] for t in data))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker.card_rank,
+                         args=(r, 2, port, str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+        if p.is_alive():
+            p.terminate()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"card{r}.pt", weights_only=False)
+        assert got["backend"] == "gloo"
+        assert abs(got["loss"] - float(want_loss)) <= 1e-5 * abs(
+            float(want_loss))
+        for name, g in want.items():
+            err = float((got["grads"][name] - g.cpu()).abs().max())
+            assert err <= 1e-4 * max(float(g.abs().max()), 1e-30), name
+        assert got["launches"]["fused_gp"][0] > 0
+        assert got["launches"]["fused_gp"][1] > 0
+        assert got["launches"]["head_folded_attention"] == (6, 6)

@@ -212,7 +212,12 @@ def test_cli_runs_end_to_end_on_the_cpu(tmp_path):
                                    ["--fsdp", "True"]],
                          ids=["dp", "tp", "fsdp"])
 def test_cli_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """--dp/--tp train on a mesh of torchrun's ranks
+    (tests/test_torch_parallel.py); outside torchrun they refuse and say
+    how to launch, and --fsdp without a mesh refuses as in JAX."""
+    error, match = ((SystemExit, "needs a mesh") if flags[0] == "--fsdp"
+                    else (RuntimeError, "torchrun"))
+    with pytest.raises(error, match=match):
         tcli.main(CLI_ARGS + ["--out_dir", str(tmp_path)] + flags,
                   device="cpu")
 

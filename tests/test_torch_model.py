@@ -488,7 +488,8 @@ def test_port_imports_nothing_of_jax():
                    "utils/config.py", "utils/normalizers.py",
                    "data/univariate.py", "models/dlinear.py",
                    "models/nbeats.py", "models/deepar.py", "models/cmgp.py",
-                   "train/baselines_harness.py"):
+                   "train/baselines_harness.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/sharding.py"):
         assert port / module in files, module
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -364,7 +364,11 @@ def test_live_state_is_not_copied_and_survives_a_switch():
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"fsdp": True}])
 def test_trainer_parallel_options_raise(kwargs):
+    """mesh= takes a DeviceMesh (parallel.make_mesh; the sharded steps are
+    tests/test_torch_parallel.py's) and fsdp= needs one."""
     model = tfd.ForecastDenoising(**{**SMALL, "attn_type": "basic"},
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    error, match = ((TypeError, "DeviceMesh") if "mesh" in kwargs
+                    else (ValueError, "needs a mesh"))
+    with pytest.raises(error, match=match):
         Trainer(model, d_model=DM, device="cpu", **kwargs)
