@@ -188,7 +188,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    chaotic on a few windows, held to float64 on the CPU by its median
    window and its count of diverged windows.  Wavelets' step on the check
    windows is taken twice and must be bit-equal.
-10. Parallelism, last, ``parallel``: the flagship and ``basic`` at the
+10. The offline data tooling, ``data_tooling`` (no hand kernel of its own):
+   ``write_etl_replicas`` writes the LSTNet ``exchange_rate.txt.gz``
+   (7,588 x 8) and ETTm2's csv (69,680 rows at 15 minutes) from the seed;
+   ``process_exchange`` and ``download_ett`` read them through ``file://``
+   URLs (seconds and rows/s; the formatter's columns, the rows, dates
+   increasing, numbers finite); ``manifest.verify_csv`` captures the
+   exchange CSV's pin in a store of the phase's own, ``download.main
+   --from_local_csv`` installs it and the copy is verified against the
+   pin; then ``train.cli.main --data_csv`` trains the flagship on it (cut
+   as ``cli_ata``: 2560 / 512 windows, 2 epochs, 1 trial, 1 seed; exchange
+   trains in batches of 8), its windows gathered by the native engine,
+   which must have built: finite losses, the fused GP once a step each
+   way and once an evaluated batch, the checkpoint, the error CSV's row,
+   steps/s, device busy and idle share.
+11. Parallelism, last, ``parallel``: the flagship and ``basic`` at the
    flagship's widths, each with and without FSDP, on a 2 x 2 (data, model)
    mesh of four ranks that share the card over gloo (spawned after every
    kernel is built; gloo's collectives staged through host memory): step
@@ -3586,9 +3600,12 @@ class _EpochWatch:
     run: times each epoch (its losses are read back, so the call ends
     synchronised), keeps the last epoch's first batch for the CPU check,
     and profiles the epoch ``profile_epoch`` (None: none) against the wall
-    time of the one before it."""
+    time of the one before it; with ``profile_steps``, only that epoch's
+    last ``profile_steps`` steps, against the wall time a step of its
+    others (``steady_ms``), which run first, unprofiled."""
 
-    def __init__(self, label: str, profile_epoch: int, cls=None):
+    def __init__(self, label: str, profile_epoch: int, cls=None,
+                 profile_steps: int = 0):
         from fine_grained_gaussian_process_forcasting_torch.train import (
             trainer,
         )
@@ -3597,6 +3614,7 @@ class _EpochWatch:
         self.cls, self.original = cls, cls.train_epoch
         self.label, self.profile_epoch = label, profile_epoch
         self.epoch_ms, self.steps, self.batch, self.profile = [], [], None, None
+        self.profile_steps, self.steady_ms = profile_steps, None
 
     def __enter__(self):
         def train_epoch(trainer_self, state, data):
@@ -3608,7 +3626,10 @@ class _EpochWatch:
                 result["out"] = self.original(trainer_self, state, data)
 
             t0 = time.perf_counter()
-            if len(self.epoch_ms) == self.profile_epoch:
+            if len(self.epoch_ms) == self.profile_epoch and \
+                    self.profile_steps:
+                self._profile_tail(trainer_self, state, data, result)
+            elif len(self.epoch_ms) == self.profile_epoch:
                 self.profile = profile_device(
                     run, f"{self.label}, epoch {self.profile_epoch} "
                     f"({self.steps[-1]} steps)", self.epoch_ms[-1])
@@ -3619,6 +3640,25 @@ class _EpochWatch:
 
         self.cls.train_epoch = train_epoch
         return self
+
+    def _profile_tail(self, trainer_self, state, data, result):
+        k = self.profile_steps
+        n = int(data[0].shape[0]) - k
+        t0 = time.perf_counter()
+        state, loss, mse = self.original(trainer_self, state,
+                                         tuple(t[:n] for t in data))
+        self.steady_ms = (time.perf_counter() - t0) * 1e3 / n
+        tail = {}
+
+        def run():
+            tail["out"] = self.original(trainer_self, state,
+                                        tuple(t[n:] for t in data))
+
+        self.profile = profile_device(
+            run, f"{self.label}, epoch {self.profile_epoch}'s last {k} "
+            f"steps", self.steady_ms * k)
+        state, tail_loss, tail_mse = tail["out"]
+        result["out"] = (state, loss + tail_loss, mse + tail_mse)
 
     def __exit__(self, *exc):
         self.cls.train_epoch = self.original
@@ -4671,6 +4711,221 @@ def models_rest_phases(card: str, record, cpu_checks):
         record(path, counts)
 
 
+# the offline data tooling (data/download.py, data/manifest.py, native/):
+# the public raw files' replicas at their published shapes, from SEED
+DT_EXCHANGE = (7588, 8)  # LSTNet exchange_rate.txt: 7,588 days x 8 series
+DT_ETT_ROWS = 69680  # ETTm2.csv: 69,680 rows at 15 minutes
+DT_ETT_COLUMNS = ("HUFL", "HULL", "MUFL", "MULL", "LUFL", "LULL", "OT")
+DT_EPOCHS = 2
+DT_PROFILE_STEPS = 5  # of epoch 1's 320 (exchange's batch is 8)
+DT_ARGV = ["--exp_name", "exchange", "--attn_type", "autoformer",
+           "--model_name", "autoformer", "--denoising", "True", "--gp",
+           "True", "--d_model_choices", str(D_MODEL), "--stack_choices",
+           str(LAYERS), "--n_trials", "1", "--n_seeds", "1", "--num_epochs",
+           str(DT_EPOCHS), "--max_train_samples", str(CLI_TRAIN),
+           "--max_valid_samples", str(CLI_VALID)]
+
+
+def write_etl_replicas(src: str, seed: int = SEED) -> dict:
+    """The public raw files that ``process_exchange`` and ``download_ett``
+    read, at their published shapes, with values drawn from ``seed``: the
+    LSTNet ``exchange_rate.txt.gz`` (7,588 headerless rows of 8 rates, 6
+    decimals) and ETTm2's csv (69,680 rows from 2016-07-01 at 15 minutes,
+    a ``date`` column and 7 loads, 3 decimals; no load is 0, so no step is
+    dropped).  Returns their paths."""
+    from fine_grained_gaussian_process_forcasting_torch.data import table
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(src, exist_ok=True)
+    rates = rng.uniform(0.5, 2.0, DT_EXCHANGE).round(6)
+    exchange = os.path.join(src, "exchange_rate.txt.gz")
+    import gzip
+
+    with gzip.open(exchange, "wt") as f:
+        f.writelines(",".join(repr(float(v)) for v in row) + "\n"
+                     for row in rates)
+    loads = {c: np.abs(rng.normal(10.0, 4.0, DT_ETT_ROWS)).round(3) + 0.001
+             for c in DT_ETT_COLUMNS}
+    ett = os.path.join(src, "ETTm2.csv")
+    table.write_csv(ett, loads, table.date_range("2016-07-01", DT_ETT_ROWS,
+                                                 15 * 60), "date")
+    return {"exchange": exchange, "ETTm2": ett}
+
+
+def _check_etl_output(label, path, experiment, rows):
+    """The handler's CSV: the formatter's columns, ``rows`` rows, dates
+    increasing, every number finite."""
+    from fine_grained_gaussian_process_forcasting_torch.data import (
+        manifest,
+        table,
+    )
+
+    frame = table.read_csv(path)
+    first = next(iter(frame))
+    stamps = table.to_datetime(frame.pop(first))
+    missing = [c for c in manifest.expected_columns(experiment)
+               if c not in frame]
+    numbers = [c for c, v in frame.items() if v.dtype.kind in "if"]
+    if (missing or len(stamps) != rows or not np.all(np.diff(stamps) > 0)
+            or not all(np.isfinite(frame[c]).all() for c in numbers)):
+        raise AssertionError(f"{label}: {path} missing {missing}, "
+                             f"{len(stamps)} rows (want {rows}), dates "
+                             f"increasing {np.all(np.diff(stamps) > 0)}")
+    return {"rows": len(stamps), "columns": [first] + list(frame)}
+
+
+def data_tooling_phase(card: str):
+    """The path from the public raw files to a trained model, on the card:
+    ``process_exchange`` and ``download_ett`` on the replicas at their
+    published shapes through ``file://`` URLs (seconds and rows/s each);
+    ``manifest.verify_csv`` of the exchange CSV into a pin store of the
+    phase's own (the pin captured), ``download.main --from_local_csv``
+    installing it and the installed copy verified against that pin; then
+    ``train.cli.main --data_csv`` on it, the flagship (autoformer + GP +
+    denoise, d_model 32, 8 heads, 1 layer, M 512, enc 192, pred 96) cut as
+    ``cli_ata`` is (2560 / 512 windows, 2 epochs, 1 trial, 1 seed), the
+    windows gathered by the native engine, which must be built here.
+    Exchange's formatter trains in batches of 8 (its published
+    ``minibatch_size``): 320 steps an epoch.  Checks finite losses, the
+    fused GP's launches (once a step each way, once an evaluated batch),
+    the checkpoint and the ``reported_errors_exchange.csv`` row; steps/s
+    over epoch 1's first 300 steps, device busy and idle share of its
+    last DT_PROFILE_STEPS under the profiler."""
+    import glob
+    import shutil
+
+    from fine_grained_gaussian_process_forcasting_torch import native
+    from fine_grained_gaussian_process_forcasting_torch.data import (
+        download,
+        manifest,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.data.experiment import (  # noqa: E501
+        ExperimentConfig,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train import cli
+
+    label = "data_tooling"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    urls = dict(download._URLS)
+    pins_env = os.environ.get("FGP_MANIFEST_PINS")
+    try:
+        t0 = time.perf_counter()
+        src = write_etl_replicas(os.path.join(tmp, "src"))
+        replicas_s = time.perf_counter() - t0
+        etl = {}
+        for name, handler, rows, kw in (
+                ("exchange", download.process_exchange, DT_EXCHANGE[0],
+                 {"source_csv": os.path.join(tmp, "no_such.csv")}),
+                ("ETTm2", download.download_ett, DT_ETT_ROWS, {})):
+            download._URLS[name] = "file://" + src[name]
+            config = ExperimentConfig(PRED, name,
+                                      root_folder=os.path.join(tmp, "etl"))
+            t0 = time.perf_counter()
+            handler(config, **kw)
+            seconds = time.perf_counter() - t0
+            etl[name] = dict(_check_etl_output(label, config.data_csv_path,
+                                               name, rows),
+                             seconds=seconds, rows_per_s=rows / seconds,
+                             path=config.data_csv_path)
+            log(f"{label}: {handler.__name__} wrote {rows} rows in "
+                f"{seconds:.3f} s ({rows / seconds:.0f} rows/s)")
+
+        pins = os.path.join(tmp, "pins.json")
+        os.environ["FGP_MANIFEST_PINS"] = pins
+        exchange_csv = etl["exchange"]["path"]
+        first = manifest.verify_csv("exchange", exchange_csv)
+        installed = download.main(["--expt_name", "exchange",
+                                   "--from_local_csv", exchange_csv,
+                                   "--output_folder",
+                                   os.path.join(tmp, "installed")])
+        again = manifest.verify_csv("exchange", installed)
+        if (first["pin_origin"], again["pin_origin"]) != (
+                "captured_now", "first_use_store") or \
+                again["sha256"] != first["sha256"]:
+            raise AssertionError(f"{label}: verify {first}, then {again}")
+        log(f"{label}: verified {exchange_csv} (pin captured, sha256 "
+            f"{first['sha256']}), installed {installed}, verified again "
+            f"against the pin")
+
+        if not native.available():
+            raise AssertionError(f"{label}: the native engine did not build "
+                                 f"({native._lib_path()})")
+        out_dir = os.path.join(tmp, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with _EpochWatch(label, profile_epoch=DT_EPOCHS - 1,
+                         profile_steps=DT_PROFILE_STEPS) as watch:
+            results = cli.main(DT_ARGV + ["--data_csv", installed,
+                                          "--out_dir", out_dir])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = sum(watch.steps)
+        batch = int(watch.batch[0].shape[0])
+        n_valid = CLI_VALID // batch
+        evals = DT_EPOCHS * n_valid + n_valid  # validation, then the test
+        if counts["fused_gp"] != steps + evals or \
+                counts["fused_gp_bwd"] != steps or \
+                watch.steps != [CLI_TRAIN // batch] * DT_EPOCHS:
+            raise AssertionError(f"{label}: steps {watch.steps} of {batch} "
+                                 f"windows, launches {counts}")
+        metrics = glob.glob(f"{out_dir}/losses_lists/*_metrics.jsonl")
+        with open(metrics[0]) as f:
+            epochs = [json.loads(line) for line in f]
+        losses = [m[k] for m in epochs for k in ("train_loss", "valid_loss")]
+        if len(epochs) != DT_EPOCHS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: epoch metrics {epochs}")
+        with open(f"{out_dir}/reported_errors_exchange.csv") as f:
+            rows = f.read().splitlines()
+        checkpoints = glob.glob(f"{out_dir}/models_exchange_{PRED}/*")
+        name = os.path.basename(metrics[0])[:-len("_metrics.jsonl")]
+        if rows[0] != ",MSE,MAE" or len(rows) != 2 \
+                or not rows[1].startswith(name + ",") or len(checkpoints) != 1:
+            raise AssertionError(f"{label}: reported errors {rows}, "
+                                 f"checkpoints {checkpoints}")
+        params = torch.load(checkpoints[0], weights_only=True)["params"]
+        if not results or not math.isfinite(results[0]["mse"]) or not all(
+                bool(torch.isfinite(v).all()) for v in params.values()):
+            raise AssertionError(f"{label}: evaluation {results}")
+        step_ms = watch.steady_ms
+        busy = watch.profile
+        log(f"{label} on {card}: cli.main on the installed CSV in "
+            f"{wall:.2f} s; epochs of {watch.steps[0]} steps of {batch} "
+            f"windows: {', '.join(f'{t:.2f}' for t in watch.epoch_ms)} ms "
+            f"(epoch 1's last {DT_PROFILE_STEPS} steps under the profiler); "
+            f"per step {step_ms:.3f} ms over epoch 1's first "
+            f"{watch.steps[-1] - DT_PROFILE_STEPS} ({1e3 / step_ms:.2f} "
+            f"steps/s); device busy "
+            f"{busy['busy_ms'] / DT_PROFILE_STEPS:.4f} ms per step, idle "
+            f"share {busy['idle_share']:.3f}; peak "
+            f"memory {peak / 2**20:.1f} MiB; native engine "
+            f"{native._lib_path()}; test {results[0]['errors']}; launches "
+            f"{counts}")
+        return counts, {
+            "replicas_s": replicas_s,
+            "etl": {k: {kk: vv for kk, vv in v.items() if kk != "path"}
+                    for k, v in etl.items()},
+            "pin": {"first": first["pin_origin"],
+                    "installed": again["pin_origin"]},
+            "native": True, "cli_s": wall, "epoch_ms": watch.epoch_ms,
+            "batch": batch, "steps": watch.steps,
+            "steps_per_s": 1e3 / step_ms,
+            "busy_ms_a_step": busy["busy_ms"] / DT_PROFILE_STEPS,
+            "launches_a_step": busy["launches"] / DT_PROFILE_STEPS,
+            "idle_share": busy["idle_share"], "peak_mib": peak / 2**20,
+            "test_errors": results[0]["errors"]}
+    finally:
+        download._URLS.clear()
+        download._URLS.update(urls)
+        if pins_env is None:
+            os.environ.pop("FGP_MANIFEST_PINS", None)
+        else:
+            os.environ["FGP_MANIFEST_PINS"] = pins_env
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # data, tensor and FSDP parallelism (parallel/): four ranks on the one card,
 # a 2 x 2 (data, model) mesh over gloo, each rank's tensors on cuda:0
 PAR_MESH, PAR_STEPS = (2, 2), 3
@@ -5133,6 +5388,8 @@ def main() -> int:
     counts, cpu_checks["baselines"] = baselines_phase(smi)
     record("baselines", counts)
     models_rest_phases(smi, record, cpu_checks)
+    counts, cpu_checks["data_tooling"] = data_tooling_phase(smi)
+    record("data_tooling", counts)
     parallel_phase(smi, record, cpu_checks)
 
     for k, entry in kernels.items():

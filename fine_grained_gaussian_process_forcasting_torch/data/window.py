@@ -17,9 +17,10 @@ Semantics are the reference's, as the JAX package keeps them:
   rows up to ``-pred_len``, target = the last ``pred_len`` rows;
 - batches drop the last incomplete one.
 
-The JAX package gathers the windows through its C++ helper with a numpy
-fallback; here one numpy fancy-index gather per matrix does it (host code,
-no kernel).
+The windows are gathered as the JAX package gathers them: one call per
+matrix to the native engine (``native.gather_windows``, a memcpy a window,
+multithreaded C++), whose numpy fancy-index version runs where it is not
+built (host code, no kernel).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from fine_grained_gaussian_process_forcasting_torch import native
 from fine_grained_gaussian_process_forcasting_torch.data import table
 from fine_grained_gaussian_process_forcasting_torch.data.base import (
     InputTypes,
@@ -129,10 +131,11 @@ def sample_windows(df: table.Frame, max_samples: int, time_steps: int,
     identifiers = np.full((n_out,), None, dtype=object)
     if n_real:
         identifiers[:n_real] = df[id_col][starts]
-        rows = starts[:, None] + np.arange(time_steps)
-        inputs[:n_real] = table.matrix(df, input_cols, np.float32)[rows]
-        outputs[:n_real] = table.matrix(df, [target_col],
-                                        np.float32)[rows[:, -pred_len:]]
+        inputs[:n_real] = native.gather_windows(
+            table.matrix(df, input_cols, np.float32), starts, time_steps)
+        outputs[:n_real] = native.gather_windows(
+            table.matrix(df, [target_col], np.float32), starts,
+            time_steps)[:, -pred_len:]
 
     dec_len = time_steps - num_encoder_steps - pred_len
     return WindowedSplit(

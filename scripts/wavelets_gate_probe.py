@@ -36,6 +36,23 @@ and ``Lk`` accumulated in float64; ``cross_f64``, the weightless mode-space
 cross attention (``FourierCrossAttentionW``: its transforms and complex
 products) in float64; ``both``.  Each point records, for every leaf over
 the tolerance, the card's and the fp32 CPU's distances from float64.
+The per-op variants run one op upstream of the cross block in float64 on
+the card, by casting its inputs (and its weights) in and its outputs out,
+patched inside the probe only: ``decomp_f64``, the moving average of
+every decomposition (``ops/decomposition.py`` ``moving_avg``: an fp32
+cumulative sum and the difference of its ends); ``wavelet_f64``, the
+even/odd decomposition and reconstruction products
+(``_wavelet_transform``, ``_even_odd``, in every block);
+``sparse_ft_f64``, every ``SparseKernelFT`` (rfft, complex einsum,
+irfft); ``dec_self_f64``, the decoder's self block
+(``MultiWaveletTransform``) whole; ``self_f64``, every self block, the
+encoder's too; ``embed_conv_f64``, the circular convolutions
+(``CircularConv1d``, forward and backward); ``layernorm_f64``, both
+``MyLayerNorm``; ``upstream_f64``, all of these at once.  ``--control``
+adds, at each point, the CPU's fp32 step with the check windows in
+another order (reversed): the same arithmetic summed in another order,
+its summed distance from float64 over the leaves the card's step has over
+the tolerance, beside the CPU's own.
 ``--points adam`` skips the initial points, ``--no-determinism`` the
 determinism section.
 
@@ -46,6 +63,7 @@ and prints the card's name and power limit.
 import argparse
 import contextlib
 import copy
+import itertools
 import json
 import os
 import sys
@@ -67,6 +85,7 @@ from fine_grained_gaussian_process_forcasting_torch.models.fedformer import (  #
     FEDformerConfig,
 )
 from fine_grained_gaussian_process_forcasting_torch.ops import (  # noqa: E402
+    decomposition,
     wavelet,
 )
 
@@ -120,10 +139,99 @@ def _cross_f64(self, q, k, v, mask=None):
 _CROSS = wavelet.FourierCrossAttentionW.forward
 
 
+def _to64(x):
+    return (x.double() if torch.is_tensor(x) and x.is_floating_point()
+            else x)
+
+
+def _to32(x):
+    if isinstance(x, tuple):
+        return tuple(_to32(t) for t in x)
+    return x.float() if torch.is_tensor(x) and x.dtype == torch.float64 else x
+
+
+def _f64_function(fn):
+    """``fn`` with its floating inputs cast to float64 and its outputs
+    back to float32."""
+    def run(*args):
+        return _to32(fn(*(_to64(a) for a in args)))
+
+    return run
+
+
+def _f64_module(m):
+    """Makes ``m``'s forward run in float64: its parameters and buffers
+    (through ``functional_call``, so that their gradients reach the fp32
+    leaves) and its floating inputs cast, its outputs cast back."""
+    inner = type(m).forward
+    inside = []
+
+    def forward(*args, **kw):
+        if inside:
+            return inner(m, *args, **kw)
+        inside.append(True)
+        try:
+            tensors = {n: t.double() for n, t in itertools.chain(
+                m.named_parameters(), m.named_buffers())}
+            out = torch.func.functional_call(
+                m, tensors, tuple(_to64(a) for a in args),
+                {k: _to64(v) for k, v in kw.items()})
+        finally:
+            inside.pop()
+        return _to32(out)
+
+    m.forward = forward
+    return m
+
+
+_OP_VARIANTS = ("decomp_f64", "wavelet_f64", "sparse_ft_f64",
+                "dec_self_f64", "self_f64", "embed_conv_f64",
+                "layernorm_f64", "upstream_f64")
+_UPSTREAM = ("decomp_f64", "self_f64", "embed_conv_f64", "layernorm_f64")
+
+
+def _op_modules(model, name):
+    """The modules whose forward the op variant ``name`` runs in float64."""
+    from fine_grained_gaussian_process_forcasting_torch.models.embedding import (  # noqa: E501
+        CircularConv1d,
+    )
+
+    if name == "sparse_ft_f64":
+        return [m for m in model.modules()
+                if isinstance(m, wavelet.SparseKernelFT)]
+    if name == "self_f64":
+        return [m for m in model.modules()
+                if isinstance(m, wavelet.MultiWaveletTransform)]
+    if name == "dec_self_f64":
+        return [m for n, m in model.named_modules()
+                if n.startswith("dec_layer")
+                and isinstance(m, wavelet.MultiWaveletTransform)]
+    if name == "embed_conv_f64":
+        return [m for m in model.modules() if isinstance(m, CircularConv1d)]
+    if name == "layernorm_f64":
+        return [m for m in model.modules()
+                if isinstance(m, decomposition.MyLayerNorm)]
+    return []
+
+
 @contextlib.contextmanager
 def variant(model, name):
-    """The card's step through the variant ``name`` of the cross blocks."""
+    """The card's step through the variant ``name`` of the cross blocks,
+    or with one op upstream of them in float64."""
     layers = []
+    ops = _UPSTREAM if name == "upstream_f64" else (name,)
+    functions = {"decomp_f64": (decomposition, ("moving_avg",)),
+                 "wavelet_f64": (wavelet, ("_wavelet_transform",
+                                           "_even_odd"))}
+    saved = []
+    for op in ops:
+        for m in _op_modules(model, op):
+            layers.append(_f64_module(m))
+        if op in functions:
+            module, names = functions[op]
+            for fn in names:
+                saved.append((module, fn, getattr(module, fn)))
+                setattr(module, fn, _f64_function(getattr(module, fn)))
     if name in ("leaves_f64", "both"):
         for m in model.modules():
             if isinstance(m, wavelet.MultiWaveletCross):
@@ -137,6 +245,8 @@ def variant(model, name):
         yield
     finally:
         wavelet.FourierCrossAttentionW.forward = _CROSS
+        for module, fn, original in saved:
+            setattr(module, fn, original)
         for lin in layers:
             del lin.forward
 
@@ -207,13 +317,48 @@ def determinism(model, start, inputs, y):
     return out
 
 
+def reversed_step(cpu, sub):
+    """The CPU's fp32 step on the check windows in reverse order (the loss
+    is their mean, so the same function, its sums in another order)."""
+    rev = [t.cpu()[torch.arange(t.shape[0] - 1, -1, -1)] for t in sub]
+
+    def run():
+        out = cpu(*rev[:4])
+        return {"forecast": out}, torch.mean((out - rev[4]) ** 2)
+
+    return cs._loss_and_grads(cpu, run)
+
+
+def control(perm, want, ref, card_gate):
+    """Over the leaves the card's step has over the tolerance, the summed
+    distances from float64 of the reversed CPU step ``perm`` and of the
+    CPU's own step, and the largest distance between the two CPU steps'
+    leaves (the gate's measure: each leaf's over the larger of its largest
+    magnitude and the floor)."""
+    leaves = [k for k in card_gate["over"] if not k.startswith("output:")]
+    grads = [k for k in want if k != "loss" and not k.startswith("output:")]
+    out = {"cpu_reversed_vs_cpu": gate({k: perm[k] for k in grads},
+                                       {k: want[k] for k in grads},
+                                       ref)["worst"]}
+    if leaves:
+        mine = sum(cs._bl_distance(want[k], ref[k]) for k in leaves)
+        rev_sum = sum(cs._bl_distance(perm[k], ref[k]) for k in leaves)
+        out.update(leaves=len(leaves), cpu=mine, cpu_reversed=rev_sum,
+                   ratio=rev_sum / mine,
+                   card_ratio_against_reversed=card_gate["cuda"] / rev_sum)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--out", default="build/probe")
     ap.add_argument("--variants", nargs="*", default=[],
-                    choices=["leaves_f64", "cross_f64", "both"])
+                    choices=["leaves_f64", "cross_f64", "both",
+                             *_OP_VARIANTS])
+    ap.add_argument("--control", action="store_true",
+                    help="the CPU's fp32 step with the windows reversed")
     ap.add_argument("--points", choices=["all", "adam"], default="all")
     ap.add_argument("--no-determinism", dest="determinism",
                     action="store_false")
@@ -261,12 +406,17 @@ def main() -> int:
             cards = [check(model, sub) for _ in range(2)]
             cpu = copy.deepcopy(model).cpu()
             want = check(cpu, [t.cpu() for t in sub])
+            perm = reversed_step(cpu, sub) if args.control else None
             ref = check(cpu.double(), [t.cpu().double() for t in sub])
             row = {"seed": seed, "point": point,
                    "card_steps_apart": max(
                        cs._bl_distance(cards[0][k], cards[1][k])
                        for k in cards[0]),
                    "gates": [gate(c, want, ref) for c in cards]}
+            if args.control:
+                row["control"] = control(perm, want, ref, row["gates"][0])
+                cs.log(f"wavelets gate, seed {seed}, {point}, cpu control "
+                       f"(windows reversed): {row['control']}")
             for name in args.variants:
                 with variant(model, name):
                     row[name] = gate(check(model, sub), want, ref)

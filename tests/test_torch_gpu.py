@@ -2330,3 +2330,47 @@ def test_data_parallel_step_matches_one_process_on_card(cuda, tmp_path):
         assert got["launches"]["fused_gp"][0] > 0
         assert got["launches"]["fused_gp"][1] > 0
         assert got["launches"]["head_folded_attention"] == (6, 6)
+
+
+@pytest.mark.gpu
+def test_data_tooling_trains_on_card(cuda, tmp_path, monkeypatch):
+    """The offline data tooling on the card's machine: the native engine
+    builds there; an exchange replica goes through ``process_exchange``
+    (a ``file://`` URL), ``download.main --from_local_csv`` (a pin store in
+    ``tmp_path``) and one training step of ``cli.main --data_csv`` on the
+    card (exchange trains in batches of 8: 8 windows, one step), the fused
+    GP launched each way."""
+    import gzip
+    import json
+
+    from fine_grained_gaussian_process_forcasting_torch import native
+    from fine_grained_gaussian_process_forcasting_torch.data import download
+    from fine_grained_gaussian_process_forcasting_torch.data.experiment import (
+        ExperimentConfig,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train import cli
+
+    assert native.available()
+    rates = np.random.default_rng(0).uniform(0.5, 2.0, (1200, 8)).round(6)
+    gz = tmp_path / "exchange_rate.txt.gz"
+    with gzip.open(gz, "wt") as f:
+        f.writelines(",".join(repr(float(v)) for v in row) + "\n"
+                     for row in rates)
+    monkeypatch.setitem(download._URLS, "exchange", "file://" + str(gz))
+    monkeypatch.setenv("FGP_MANIFEST_PINS", str(tmp_path / "pins.json"))
+    config = ExperimentConfig(96, "exchange", root_folder=str(tmp_path / "etl"))
+    download.process_exchange(config, source_csv=str(tmp_path / "none.csv"))
+    installed = download.main(["--expt_name", "exchange", "--from_local_csv",
+                               config.data_csv_path, "--output_folder",
+                               str(tmp_path / "installed")])
+    with open(tmp_path / "pins.json") as f:
+        assert list(json.load(f)) == ["exchange"]
+    fused_gp.launches = fused_gp.bwd_launches = 0
+    results = cli.main([
+        "--exp_name", "exchange", "--attn_type", "autoformer", "--model_name",
+        "autoformer", "--data_csv", installed, "--d_model_choices", "32",
+        "--stack_choices", "1", "--n_trials", "1", "--n_seeds", "1",
+        "--num_epochs", "1", "--max_train_samples", "8",
+        "--max_valid_samples", "8", "--out_dir", str(tmp_path / "run")])
+    assert np.isfinite(results[0]["mse"])
+    assert fused_gp.bwd_launches == 1 and fused_gp.launches > 1
