@@ -202,7 +202,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    which must have built: finite losses, the fused GP once a step each
    way and once an evaluated batch, the checkpoint, the error CSV's row,
    steps/s, device busy and idle share.
-11. Parallelism, last, ``parallel``: the flagship and ``basic`` at the
+11. The JAX package's checkpoints, ``jax_checkpoint``: the flagship after
+   JAX_CKPT_STEPS steps, its state in the JAX layout (``params.to_flax``,
+   ``opt_state_to_optax``) through ``payload_from_jax`` and
+   ``save_checkpoint``; ``InferenceSession.from_checkpoint`` serves
+   JAX_CKPT_BATCHES batches bit-equal to a session on the state before,
+   ``Trainer.restore_state`` takes JAX_CKPT_STEPS steps bit-equal to the
+   uninterrupted trainer's, Adam's state carried bit for bit; the fused
+   GP's forward launched while serving and its backward while resuming;
+   the conversion's seconds, the served ms a batch and its device busy
+   time.
+12. Parallelism, last, ``parallel``: the flagship and ``basic`` at the
    flagship's widths, each with and without FSDP, on a 2 x 2 (data, model)
    mesh of four ranks that share the card over gloo (spawned after every
    kernel is built; gloo's collectives staged through host memory): step
@@ -2698,13 +2708,16 @@ class _EpsRecorder:
 
 class _ScaleMaxRecorder:
     """Wraps ATA's top-1 over scales (``conv_attention.relu_scale_max``) and
-    keeps, per call, which scale won each (position, channel) and whether
-    the winner was positive.  Given ``replay`` (another run's ``choices``),
-    each call takes the replayed scale, on the replayed side of zero (a value
-    within rounding of it is moved there, keeping its gradient), so that both
-    runs differentiate the same piece: a near-tie between two scales, or a
-    winner within rounding of 0, can fall the other way on another device.
-    ``flips`` counts where this run's own choice differed."""
+    keeps, per call, which scale won each (position, channel), whether the
+    winner was positive and which scales equal it.  Given ``replay``
+    (another run's ``choices``), each call takes the replayed scale, on the
+    replayed side of zero (a value within rounding of it is moved there,
+    keeping its gradient), its gradient shared evenly among the replayed
+    run's tied scales as ``amax`` shares an exact tie's, so that both runs
+    differentiate the same piece: a near-tie between two scales (or an
+    exact one on one device only), or a winner within rounding of 0, can
+    fall the other way on another device.  ``flips`` counts where this
+    run's own choice differed."""
 
     def __init__(self, replay=None):
         from fine_grained_gaussian_process_forcasting_torch.ops import (
@@ -2720,15 +2733,19 @@ class _ScaleMaxRecorder:
         def recording(pre):
             top, idx = pre.max(dim=-1)
             positive = top > 0
-            self.choices.append((idx.cpu(), positive.cpu()))
+            tied = pre == top[..., None]
+            self.choices.append((idx.cpu(), positive.cpu(), tied.cpu()))
             if self.replay is None:
                 return self.original(pre)
-            want_idx, want_pos = (t.to(pre.device)
-                                  for t in self.replay[len(self.choices) - 1])
+            want_idx, want_pos, want_tied = (
+                t.to(pre.device) for t in self.replay[len(self.choices) - 1])
             self.flips += int(((want_idx != idx) & want_pos
                                | (want_pos != positive)).sum())
             sel = pre.gather(-1, want_idx[..., None])[..., 0]
-            grad = torch.where(want_pos, sel - sel.detach(),
+            share = want_tied.to(pre.dtype)
+            share = share / share.sum(-1, keepdim=True)
+            grad = torch.where(want_pos,
+                               ((pre - pre.detach()) * share).sum(-1),
                                torch.zeros_like(sel))
             return torch.where(want_pos, sel.detach().clamp_min(1e-30),
                                torch.zeros_like(sel)) + grad
@@ -4938,6 +4955,163 @@ PAR_CLI_ARGV = ["--exp_name", "solar", "--attn_type", "basic", "--model_name",
                 str(2 * B), "--max_valid_samples", str(B), "--dp", "1"]
 
 
+# the JAX package's checkpoints carried into the port: a flagship state in
+# the JAX layout after JAX_CKPT_STEPS steps, written, served in
+# JAX_CKPT_BATCHES batches and resumed for JAX_CKPT_STEPS more steps; a
+# served batch is timed JAX_CKPT_TIMED times (the median) and profiled once
+JAX_CKPT_STEPS, JAX_CKPT_BATCHES, JAX_CKPT_TIMED = 3, 2, 21
+JAX_CKPT_NAME = "autoformer_solar_96_0_denoise_gp"  # a harness's name
+
+
+def _counts_moved(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def jax_checkpoint_round_trip(cfg: Config, device: str, data, enc, dec,
+                              model_path: str, read=dict) -> dict:
+    """``cfg``'s model trained JAX_CKPT_STEPS steps on the first batches
+    of ``data`` = (enc, dec, y) (n_batches, batch, ...); its state in the
+    JAX package's layout (``params.to_flax``, ``opt_state_to_optax``: the
+    numpy tree ``scripts/convert_jax_checkpoints.py`` restores from an
+    orbax checkpoint) through ``payload_from_jax`` and ``save_checkpoint``
+    into ``model_path``; then ``InferenceSession.from_checkpoint`` on the
+    windows ``enc``, ``dec`` beside a session on the state before the round
+    trip, and ``Trainer.restore_state`` (the uninterrupted trainer's draws
+    continue: the JAX ``rng`` is not carried) for JAX_CKPT_STEPS steps
+    beside as many more of the uninterrupted trainer.  ``read()`` gives the
+    launch counts, taken around the served and the resumed part."""
+    from fine_grained_gaussian_process_forcasting_torch.params import to_flax
+    from fine_grained_gaussian_process_forcasting_torch.train import Trainer
+    from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (  # noqa: E501
+        opt_state_to_optax,
+        payload_from_jax,
+        save_checkpoint,
+    )
+    from fine_grained_gaussian_process_forcasting_torch.train.predict import (  # noqa: E501
+        InferenceSession,
+    )
+
+    def trainer():
+        return Trainer(cfg.model(device), cfg.d_model,
+                       warmup_steps=WARMUP_STEPS, lr_mul=LR_MUL,
+                       device=device)
+
+    def batch(i):
+        return tuple(t[i: i + 1] for t in data)
+
+    first = trainer()
+    state = first.init_state()
+    for i in range(JAX_CKPT_STEPS):
+        state, _, _ = first.train_epoch(state, batch(i))
+    before = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    t0 = time.perf_counter()
+    tree = {"params": to_flax(state.params),
+            "opt_state": opt_state_to_optax(
+                state.opt_state, dict(first.model.named_parameters()))}
+    payload = payload_from_jax(tree, first.model)
+    save_checkpoint(model_path, JAX_CKPT_NAME, payload["params"],
+                    payload["opt_state"])
+    seconds = time.perf_counter() - t0
+
+    start = read()
+    session = InferenceSession.from_checkpoint(
+        cfg.model(device), model_path, JAX_CKPT_NAME, template_params=before,
+        batch_size=cfg.batch, device=device)
+    served = session.predict(enc, dec)
+    served_launches = _counts_moved(read(), start)
+    want = InferenceSession(cfg.model(device), before, batch_size=cfg.batch,
+                            device=device).predict(enc, dec)
+
+    resumer = trainer()
+    resumed = resumer.restore_state(model_path, JAX_CKPT_NAME, state)
+    moments_apart = [
+        (i, key) for i, entry in state.opt_state["state"].items()
+        for key, value in entry.items()
+        if not torch.equal(resumed.opt_state["state"][i][key].to(
+            value.device), value)]
+    start = read()
+    losses = []
+    for i in range(JAX_CKPT_STEPS, 2 * JAX_CKPT_STEPS):
+        resumed, loss, _ = resumer.train_epoch(resumed, batch(i))
+        losses.append(loss)
+    resumed_launches = _counts_moved(read(), start)
+    uninterrupted = []
+    for i in range(JAX_CKPT_STEPS, 2 * JAX_CKPT_STEPS):
+        state, loss, _ = first.train_epoch(state, batch(i))
+        uninterrupted.append(loss)
+    return {"seconds": seconds, "session": session, "served": served,
+            "want": want, "losses": losses, "uninterrupted": uninterrupted,
+            "moments_apart": moments_apart,
+            "served_launches": served_launches,
+            "resumed_launches": resumed_launches}
+
+
+def jax_checkpoint_phase(card: str):
+    """The flagship (``bench.py``'s widths) through
+    ``jax_checkpoint_round_trip`` on the card: the served predictions and
+    the resumed losses bit-equal to the uninterrupted state's, Adam's state
+    carried bit for bit, the fused GP's forward launched while serving and
+    its backward while resuming; the conversion's seconds, the served ms a
+    batch on the host clock and one served batch's device busy time (the
+    flagship serves host-bound, so the first moves with the host and the
+    second does not)."""
+    cfg = {c.name: c for c in CONFIGS}["autoformer"]
+    data = cfg.training_data(2 * JAX_CKPT_STEPS, SEED + 2)
+    enc, dec = cfg.windows(JAX_CKPT_BATCHES * cfg.batch, SEED + 3)
+    b = cfg.batch
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = jax_checkpoint_round_trip(cfg, "cuda", data, enc, dec, tmp,
+                                      read_counts)
+        label = "jax_checkpoint"
+
+        def serve():
+            r["session"].predict(enc[:b], dec[:b])
+
+        batch_ms = _median_ms(serve, JAX_CKPT_TIMED)
+        busy = profile_device(serve, f"{label} serving a batch", batch_ms)
+    counts = read_counts()
+    served, want = r["served"], r["want"]
+    if served.shape != (JAX_CKPT_BATCHES * b, cfg.pred, 1) or not np.all(
+            np.isfinite(served)):
+        raise AssertionError(f"{label}: served {served.shape}, finite "
+                             f"{bool(np.all(np.isfinite(served)))}")
+    if not np.array_equal(served, want):
+        raise AssertionError(f"{label}: the converted checkpoint serves "
+                             f"{float(np.abs(served - want).max())} away "
+                             f"from the state before the round trip")
+    if r["moments_apart"]:
+        raise AssertionError(f"{label}: Adam's state differs after the "
+                             f"round trip at {r['moments_apart']}")
+    if r["losses"] != r["uninterrupted"]:
+        raise AssertionError(f"{label}: resumed losses {r['losses']}, "
+                             f"uninterrupted {r['uninterrupted']}")
+    expect_fwd = JAX_CKPT_BATCHES * cfg.per_batch["fused_gp"]
+    expect_bwd = JAX_CKPT_STEPS * cfg.per_step["fused_gp_bwd"]
+    if r["served_launches"]["fused_gp"] != expect_fwd or \
+            r["resumed_launches"]["fused_gp_bwd"] != expect_bwd:
+        raise AssertionError(f"{label}: fused GP launches while serving "
+                             f"{r['served_launches']}, while resuming "
+                             f"{r['resumed_launches']}; expected forward "
+                             f"{expect_fwd}, backward {expect_bwd}")
+    log(f"{label} on {card}: conversion and write {r['seconds']:.3f} s; "
+        f"served {JAX_CKPT_BATCHES} batches of {b} from the converted file, "
+        f"bit-equal to the state before it, {batch_ms:.3f} ms a batch "
+        f"(median of {JAX_CKPT_TIMED}), device busy {busy['busy_ms']:.4f} "
+        f"ms of it, idle share {busy['idle_share']:.3f}; resumed {JAX_CKPT_STEPS} steps, losses "
+        f"{r['losses']} bit-equal to the uninterrupted trainer's; fused GP "
+        f"launches serving {r['served_launches']['fused_gp']}, resuming "
+        f"{r['resumed_launches']['fused_gp']} forward and "
+        f"{r['resumed_launches']['fused_gp_bwd']} backward")
+    return counts, {"conversion_s": r["seconds"], "served_ms": batch_ms,
+                    "served_busy_ms": busy["busy_ms"],
+                    "served_idle_share": busy["idle_share"],
+                    "losses": r["losses"],
+                    "served_launches": r["served_launches"]["fused_gp"],
+                    "resumed_bwd_launches":
+                        r["resumed_launches"]["fused_gp_bwd"]}
+
+
 def _free_port() -> int:
     import socket
 
@@ -5390,6 +5564,8 @@ def main() -> int:
     models_rest_phases(smi, record, cpu_checks)
     counts, cpu_checks["data_tooling"] = data_tooling_phase(smi)
     record("data_tooling", counts)
+    counts, cpu_checks["jax_checkpoint"] = jax_checkpoint_phase(smi)
+    record("jax_checkpoint", counts)
     parallel_phase(smi, record, cpu_checks)
 
     for k, entry in kernels.items():

@@ -49,6 +49,7 @@ from fine_grained_gaussian_process_forcasting_torch.models.dlinear import (
 from fine_grained_gaussian_process_forcasting_torch.models.nbeats import NBeats
 from fine_grained_gaussian_process_forcasting_torch.train import hpo
 from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
+    load_checkpoint,
     save_checkpoint,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.schedule import (
@@ -235,6 +236,21 @@ class BaselinesHarness:
                                  seed=self.seed)
         study.optimize(self.objective, n_trials=self.args.n_trials)
         return study
+
+    def load_best(self, d_model: int, stack_size: int) -> None:
+        """The best parameters from this harness's checkpoint
+        (``model_name`` in ``model_path``, e.g. one converted from the JAX
+        package's by ``scripts/convert_jax_checkpoints.py``), in the model
+        of the study's (d_model, stack_size), for ``evaluate``; a
+        checkpoint of another model raises, naming its leaves."""
+        model = self._make_model(d_model, stack_size)
+        params = load_checkpoint(self.model_path, self.model_name,
+                                 map_location="cpu")["params"]
+        model.load_state_dict(params)
+        self.best_params = {k: t.detach().clone()
+                            for k, t in model.state_dict().items()}
+        self.best_model = model
+        self.best_config = (d_model, stack_size)
 
     def evaluate(self) -> dict:
         """Test MSE and MAE of the best parameters, a row appended to

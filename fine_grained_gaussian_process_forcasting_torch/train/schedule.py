@@ -17,6 +17,11 @@ import torch
 #: consecutive non-finite steps the ``skip`` guard drops before it lets an
 #: update through again (``optax.apply_if_finite``'s max_consecutive_errors)
 MAX_CONSECUTIVE_ERRORS = 10
+#: the ``skip`` guard's counters at the start of a run, kept in the first
+#: param group as ``optax.ApplyIfFiniteState`` keeps them: the run of
+#: non-finite steps, whether the last step was finite, all non-finite steps
+GUARD_START = {"notfinite_count": 0, "last_finite": True,
+               "total_notfinite": 0}
 
 
 def noam_schedule(d_model: int, warmup_steps: int,

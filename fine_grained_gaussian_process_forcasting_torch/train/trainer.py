@@ -53,6 +53,7 @@ from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
     save_checkpoint,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.schedule import (
+    GUARD_START,
     MAX_CONSECUTIVE_ERRORS,
     all_finite,
     clip_by_global_norm,
@@ -120,7 +121,7 @@ class Trainer:
     def _new_optimizer(self):
         opt = noam_adam(self._opt_params(), self.d_model,
                         self.warmup_steps, self.lr_mul)
-        opt.param_groups[0]["notfinite_count"] = 0
+        opt.param_groups[0].update(GUARD_START)
         return opt
 
     def _state_dict(self) -> dict:
@@ -263,8 +264,11 @@ class Trainer:
             self.optimizer.step()
         else:
             group = self.optimizer.param_groups[0]
-            bad = 0 if bool(grads_ok) else group["notfinite_count"] + 1
-            group["notfinite_count"] = bad
+            finite = bool(grads_ok)
+            bad = 0 if finite else group["notfinite_count"] + 1
+            group.update(notfinite_count=bad, last_finite=finite,
+                         total_notfinite=group.get("total_notfinite", 0)
+                         + (not finite))
             if bad == 0 or bad > MAX_CONSECUTIVE_ERRORS:
                 self.optimizer.step()
         ok = (grads_ok & torch.isfinite(out.loss)

@@ -29,7 +29,12 @@ from fine_grained_gaussian_process_forcasting_torch.ops.cuda import (
     rbf,
     small_head_attention as sha,
 )
+from fine_grained_gaussian_process_forcasting_torch.params import to_flax
 from fine_grained_gaussian_process_forcasting_torch.train import Trainer
+from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
+    payload_from_jax,
+    save_checkpoint,
+)
 from fine_grained_gaussian_process_forcasting_torch.train.predict import (
     InferenceSession,
 )
@@ -954,6 +959,39 @@ def test_session_on_card_runs_the_kernels_and_matches_cpu(cuda, attn_type,
     assert {"fused_gp": fused_gp.launches,
             "head_folded_attention": hfa.launches} == expect
     np.testing.assert_allclose(got, want, rtol=TOL_MODEL, atol=TOL_MODEL)
+
+
+# a served model on the card against the CPU, fp32: the serving gate
+# (PERF.md section 2)
+TOL_SERVING = 1e-3
+
+
+@pytest.mark.gpu
+def test_converted_jax_checkpoint_serves_on_card(cuda, tmp_path):
+    """A checkpoint in the JAX package's layout (``to_flax`` of a model's
+    state dict: the tree ``scripts/convert_jax_checkpoints.py`` restores
+    from orbax) through ``payload_from_jax`` into ``save_checkpoint``,
+    served by ``from_checkpoint`` on the card through the fused GP: the CPU
+    session's predictions on the same file, within the serving gate."""
+    kw = dict(SMALL, attn_type="autoformer")
+    model = ForecastDenoising(**kw, device="cpu")
+    payload = payload_from_jax({"params": to_flax(model.state_dict())},
+                               model)
+    save_checkpoint(str(tmp_path), "m", payload["params"])
+    rng = np.random.default_rng(3)
+    enc = rng.normal(size=(N, ENC, F)).astype(np.float32)
+    dec = rng.normal(size=(N, DEC, F)).astype(np.float32)
+    want = InferenceSession.from_checkpoint(
+        ForecastDenoising(**kw, device="cpu"), str(tmp_path), "m",
+        batch_size=BATCH, device="cpu").predict(enc, dec)
+    session = InferenceSession.from_checkpoint(
+        ForecastDenoising(**kw, device=cuda), str(tmp_path), "m",
+        template_params=model.state_dict(), batch_size=BATCH, device=cuda)
+    fused_gp.launches = 0
+    got = session.predict(enc, dec)
+    assert fused_gp.launches == -(-N // BATCH)
+    np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
+                               atol=TOL_SERVING)
 
 
 @pytest.mark.gpu

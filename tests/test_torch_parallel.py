@@ -33,6 +33,9 @@ from fine_grained_gaussian_process_forcasting_tpu.parallel import (
     mesh as jmesh,
     sharding as jsharding,
 )
+from fine_grained_gaussian_process_forcasting_tpu.train import (
+    schedule as jschedule,
+)
 from fine_grained_gaussian_process_forcasting_torch import parallel
 from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
     make_synthetic_frame,
@@ -40,6 +43,9 @@ from fine_grained_gaussian_process_forcasting_torch.data.synthetic import (
 from fine_grained_gaussian_process_forcasting_torch.params import (
     from_flax,
     to_flax,
+)
+from fine_grained_gaussian_process_forcasting_torch.train.checkpoint import (
+    opt_state_from_optax,
 )
 from fine_grained_gaussian_process_forcasting_torch.train.harness import (
     ExperimentHarness,
@@ -223,13 +229,23 @@ def test_opt_state_shardings_match_jax(jax_models, fsdp):
     opt = torch.optim.Adam(model.parameters())
     got = parallel.opt_state_shardings({"data": 4, "model": 2},
                                        opt.state_dict(), named, fsdp=fsdp)
-    names = _names(params)
+    # which JAX moment becomes the port's state i: the converter's own map
+    # (opt_state_from_optax) on moments that hold their leaf's index
+    flat, tree = jax.tree_util.tree_flatten_with_path(params)
+    paths = ["/".join(k.key for k in path) for path, _ in flat]
+    tags = jax.tree_util.tree_unflatten(tree, [
+        np.full(np.shape(leaf), j, np.float32)
+        for j, (_, leaf) in enumerate(flat)])
+    adam, schedule = jschedule.noam_adam(8).init(tags)
+    port = opt_state_from_optax((adam._replace(mu=tags, nu=tags), schedule),
+                                list(named))
     mu, nu = (_jax_specs(jax.tree_util.tree_map(
         lambda s: s.spec, getattr(want[0], k),
         is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding)))
         for k in ("mu", "nu"))
     for i, name in enumerate(named):
-        path, ndim = names[name], named[name].ndim
+        path = paths[int(port["state"][i]["exp_avg"].flatten()[0])]
+        ndim = named[name].ndim
         assert got["state"][i]["exp_avg"] == _turned(mu[path], ndim, path)
         assert got["state"][i]["exp_avg_sq"] == _turned(nu[path], ndim, path)
         assert got["state"][i]["step"] == ()

@@ -38,3 +38,50 @@ def test_smoke_refuses_to_run_without_a_card(monkeypatch, capsys):
                         lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+def test_jax_checkpoint_round_trip_on_cpu(tmp_path):
+    """The smoke's ``jax_checkpoint`` phase at a test's size on the CPU:
+    the flagship state through the JAX layout and back serves and resumes
+    bit-equal to the state before it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    flagship = {c.name: c for c in chip_smoke.CONFIGS}["autoformer"]
+    cfg = dataclasses.replace(flagship, batch=2, enc_len=12, dec_len=8,
+                              pred=8, d_model=16)
+    rng = np.random.default_rng(0)
+    n = 2 * chip_smoke.JAX_CKPT_STEPS
+    enc = rng.normal(size=(n, 2, 12, cfg.features)).astype(np.float32)
+    dec = rng.normal(size=(n, 2, 8, cfg.features)).astype(np.float32)
+    data = tuple(torch.from_numpy(a) for a in (
+        enc, dec, (0.5 * dec[..., -8:, :1]).astype(np.float32)))
+    r = chip_smoke.jax_checkpoint_round_trip(cfg, "cpu", data, enc[0], dec[0],
+                                             str(tmp_path))
+    assert r["served"].shape == (2, 8, 1)
+    np.testing.assert_array_equal(r["served"], r["want"])
+    assert r["moments_apart"] == []
+    assert len(r["losses"]) == chip_smoke.JAX_CKPT_STEPS
+    assert r["losses"] == r["uninterrupted"]
+    assert (tmp_path / chip_smoke.JAX_CKPT_NAME).exists()
+
+
+def test_scale_max_replay_shares_an_exact_tie():
+    """ATA's top-1 replayed from a run with an exact tie between two scales
+    (``amax`` shares its gradient evenly) on a run where the tie is broken
+    by a rounding: the same gradient as the tied run's, where the own top-1
+    would put it all on one scale."""
+    import torch
+
+    tied = torch.tensor([[[[0.5, 0.25, 0.5, -1.0]]]], requires_grad=True)
+    with chip_smoke._ScaleMaxRecorder() as card:
+        card.module.relu_scale_max(tied).sum().backward()
+    broken = torch.tensor([[[[0.5, 0.25, 0.5 - 2 ** -24, -1.0]]]],
+                          requires_grad=True)
+    with chip_smoke._ScaleMaxRecorder(replay=card.choices) as cpu:
+        cpu.module.relu_scale_max(broken).sum().backward()
+    assert tied.grad.tolist() == [[[[0.5, 0.0, 0.5, 0.0]]]]
+    assert broken.grad.tolist() == tied.grad.tolist()
+    assert cpu.flips == 0
